@@ -1,0 +1,89 @@
+"""Architecture registry of the port: the two dense decoders of its main
+path (gemma2-2b, qwen3-4b) plus ``reduce_for_smoke``.
+
+``base.py`` and the two config modules are verbatim copies of the JAX
+package's (imports renamed); ``tests/test_torch_planner.py`` holds them
+against the originals so the two cannot drift.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs import gemma2_2b, qwen3_4b
+from repro_torch.configs.base import ArchConfig, LayerSpec, MLAConfig, MoEConfig
+
+_REGISTRY: Dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (gemma2_2b, qwen3_4b)
+}
+
+ARCH_NAMES = tuple(_REGISTRY)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def reduce_for_smoke(cfg: ArchConfig, n_layers: int = 2) -> ArchConfig:
+    """Shrink a config to smoke-test size: <=2 layers (one pattern period if
+    longer), d_model<=512, <=4 experts, tiny vocab — same family and block
+    types, runnable on CPU in one forward/train step."""
+    n_layers = max(n_layers, min(len(cfg.layer_pattern), 3))
+    d_model = 256
+    n_heads = min(cfg.n_heads, 4)
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    while n_heads % n_kv:
+        n_kv -= 1
+    head_dim = 32
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(
+            cfg.moe,
+            n_experts=4,
+            experts_per_token=min(cfg.moe.experts_per_token, 2),
+            n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+            d_expert=128,
+            first_k_dense=min(cfg.moe.first_k_dense, 1),
+        )
+    mla = None
+    if cfg.mla is not None:
+        mla = MLAConfig(
+            kv_lora_rank=64,
+            q_lora_rank=96,
+            qk_nope_head_dim=32,
+            qk_rope_head_dim=16,
+            v_head_dim=32,
+        )
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=512,
+        vocab_size=512,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        moe=moe,
+        mla=mla,
+        lru_width=d_model if cfg.lru_width else 0,
+        n_encoder_layers=2 if cfg.is_encoder_decoder else 0,
+        n_modal_tokens=16 if cfg.n_modal_tokens else 0,
+        embedding_multiplier=(
+            float(int(d_model**0.5)) if cfg.embedding_multiplier != 1.0 else 1.0
+        ),
+    )
+
+
+__all__ = [
+    "ArchConfig",
+    "LayerSpec",
+    "MLAConfig",
+    "MoEConfig",
+    "ARCH_NAMES",
+    "get_config",
+    "reduce_for_smoke",
+]

@@ -1,0 +1,23 @@
+"""Hand-written Hopper (sm_90a) kernels of the port, each beside its plain
+PyTorch version and a launch counter.
+
+Every TPU kernel of the JAX package (each function that reaches
+``pl.pallas_call``) and where it stands in the port:
+
+| Pallas entry (src/repro/kernels/...)                      | Computes                                   | Port |
+|-----------------------------------------------------------|--------------------------------------------|------|
+| flash_attention/kernel.py::flash_attention_pallas (:103)  | online-softmax attention forward, GQA,     | flash_attention/csrc/flash_fwd.cu (CUDA) |
+|                                                           | causal/window skip, softcap                |      |
+| bucket_update/kernel.py::bucket_update_pallas (:129)      | fused AdamW / SGD over one flat bucket     | bucket_update/csrc/bucket_update.cu (CUDA) |
+| quantize/kernel.py::stochastic_round_bf16_pallas (:69)    | seeded stochastic rounding f32 -> bf16     | still to be ported |
+| quantize/kernel.py::quantize_int8_pallas (:112)           | per-128-lane-row absmax int8 quantization  | still to be ported |
+| quantize/kernel.py::dequantize_int8_pallas (:149)         | int8 * row scale                           | still to be ported |
+| rglru/kernel.py::rglru_scan_pallas (:49)                  | linear recurrence h_t = a_t h_{t-1} + b_t  | still to be ported |
+| rwkv6/kernel.py::rwkv6_pallas (:85)                       | chunked RWKV-6 WKV with a [D, D] state     | still to be ported |
+
+The flash-attention backward is plain PyTorch (a port of the JAX
+package's ``flash.py`` recompute backward; the TPU kernel has none).
+
+Kernels are compiled by ``build.py`` at first use on a CUDA tensor,
+never at import.
+"""

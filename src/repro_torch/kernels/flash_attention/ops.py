@@ -1,0 +1,220 @@
+"""Attention entry point of the port: CUDA forward kernel + recompute
+backward, as one ``torch.autograd.Function``.
+
+Layout (the JAX package's, kept at the public function): q [B, Sq, H, D],
+k/v [B, Sk, KV, D]; GQA maps head h to kv head h // (H // KV).
+
+* Forward on a CUDA tensor: ``flash_fwd_cuda`` launches the hand-written
+  Hopper kernel (csrc/flash_fwd.cu, replacing the Pallas
+  ``flash_attention_pallas``) and returns (out, lse).  On a CPU tensor
+  the plain version ``flash_fwd_plain`` runs instead; on a CUDA tensor
+  the plain version runs only when the caller asks for it by name
+  (``impl="plain"``, used to hold the kernel against it).
+* Backward: ``flash_bwd_plain`` — the PyTorch counterpart of the JAX
+  package's ``flash.py::_global_bwd`` / ``_local_bwd`` (the TPU kernel
+  has no backward; JAX differentiates that plain-jnp code).  It
+  recomputes the scores from lse block by block, with
+  ``delta = rowsum(dO * O)`` and the ``1 - t^2`` softcap factor, in
+  O(S * block) memory.
+
+Both plain functions walk query blocks over the visible kv span
+[max(0, q0 - window + 1), min(Sk, q1)) — the structural skip the kernel
+makes with its loop bounds.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_BLOCK_Q = 512
+_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _span(q0: int, q1: int, sk: int, causal: bool, window: int) -> Tuple[int, int]:
+    lo = max(0, q0 - window + 1) if window else 0
+    hi = min(sk, q1) if causal else sk
+    return lo, hi
+
+
+def _mask(q0, q1, lo, hi, causal, window, device):
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(lo, hi, device=device)[None, :]
+    m = torch.ones((q1 - q0, hi - lo), dtype=torch.bool, device=device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window:
+        m = m & (kpos > qpos - window)
+    return m  # [bq, span]
+
+
+def _fold(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[B, S, H, D] -> [B, S, KVH, G, D]."""
+    b, s, h, d = x.shape
+    return x.reshape(b, s, kvh, h // kvh, d)
+
+
+def _inv_sqrt(d: int, device) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
+                                         device=device))
+
+
+def flash_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, block_q: int = _BLOCK_Q):
+    """Plain PyTorch forward: (out [B,Sq,H,D], lse [B,H,Sq] f32)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    q5 = _fold(q, kvh).float() / torch.sqrt(
+        torch.tensor(float(d), dtype=torch.float32, device=q.device))
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, sq, kvh, g, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    lse = torch.empty((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        lo, hi = _span(q0, q1, sk, causal, window)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q5[:, q0:q1], kf[:, lo:hi])
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _mask(q0, q1, lo, hi, causal, window, q.device)
+        s = torch.where(mask, s, NEG_INF)
+        m = torch.amax(s, dim=-1)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        l_safe = torch.clamp(torch.sum(p, dim=-1), min=1e-30)
+        acc = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, lo:hi])
+        out[:, q0:q1] = acc / l_safe.permute(0, 3, 1, 2)[..., None]
+        lse[..., q0:q1] = m + torch.log(l_safe)
+    return (out.reshape(b, sq, h, -1).to(q.dtype),
+            lse.reshape(b, h, sq))
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0,
+                    block_q: int = _BLOCK_Q):
+    """Recompute backward from lse: (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = _inv_sqrt(d, q.device)
+    q5 = _fold(q, kvh).float() * scale
+    g5 = _fold(dout, kvh).float()
+    o5 = _fold(out, kvh).float()
+    lse5 = lse.reshape(b, kvh, g, sq)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", g5, o5)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(q5)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        lo, hi = _span(q0, q1, sk, causal, window)
+        qb, gb = q5[:, q0:q1], g5[:, q0:q1]
+        kb, vb = kf[:, lo:hi], vf[:, lo:hi]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb)
+        t = None
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = _mask(q0, q1, lo, hi, causal, window, q.device)
+        p = torch.where(mask, torch.exp(s - lse5[..., q0:q1, None]), 0.0)
+        dv[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, gb)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", gb, vb)
+        ds = p * (dp - delta[..., q0:q1, None])
+        if softcap:
+            ds = ds * (1.0 - t * t)
+        dq[:, q0:q1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kb) * scale
+        dk[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _row_aligned(x: torch.Tensor) -> bool:
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 4 == 0 for s in x.stride()[:-1]))
+
+
+def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                   softcap: float = 0.0):
+    """Launch the Hopper forward kernel: (out [B,Sq,H,D], lse [B,H,Sq])."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_fwd_cuda needs CUDA tensors")
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise TypeError(f"flash_fwd_cuda takes f32, got {q.dtype}")
+    b, sq, h, d = q.shape
+    _, sk, kvh, dk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or dk != d or k.shape[0] != b:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if d not in _HEAD_DIMS or h % kvh:
+        raise ValueError(f"unsupported head_dim={d} or heads {h}/{kvh}")
+    q, k, v = (x if _row_aligned(x) else x.contiguous() for x in (q, k, v))
+    out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if b == 0 or sq == 0:
+        return out, lse
+    lib = build.library("flash_fwd")
+    fn = lib.flash_fwd_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), b, h, kvh, sq, sk, d,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *out.stride()[:3], int(causal), int(window), float(softcap),
+             1.0 / math.sqrt(d), q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_fwd_f32")
+    flash_fwd_cuda.launches += 1
+    return out, lse
+
+
+flash_fwd_cuda.launches = 0
+
+
+def _resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+    if impl is None:
+        return "cuda" if x.is_cuda else "plain"
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    if impl not in ("cuda", "plain"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return impl
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, impl):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        if impl == "cuda":
+            out, lse = flash_fwd_cuda(q, k, v, **kw)
+        else:
+            out, lse = flash_fwd_plain(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_plain(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, impl: Optional[str] = None):
+    """Differentiable attention, [B,Sq,H,D] x [B,Sk,KV,D] -> [B,Sq,H,D].
+
+    ``impl`` None picks the CUDA kernel for CUDA tensors and the plain
+    version for CPU tensors; ``"plain"`` forces the plain version (on
+    either device) — the comparison runs use it."""
+    impl = _resolve_impl(impl, q)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(softcap), impl)

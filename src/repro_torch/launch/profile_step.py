@@ -1,0 +1,116 @@
+"""Where a DeFT training step's device time goes, from ``torch.profiler``.
+
+Builds the same run as ``launch.train.train`` (one rank), steps through
+``--warm`` steps, then profiles one whole schedule period and prints one
+JSON object: wall time, summed kernel time, the device's idle share, and
+kernel time by category (this port's two kernels, matrix products,
+everything else) with the top kernels by name.
+
+    python -m repro_torch.launch.profile_step --layers 8 --seq 8192 \
+        --loss-chunk 1024 --out chiprun_out/profile_step.json
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.data.pipeline import make_batch
+from repro_torch.launch.train import build_schedule, init_distributed
+from repro_torch.models.model import init_params
+from repro_torch.optim.optimizers import adamw
+from repro_torch.train.bucketing import build_bucket_layout
+from repro_torch.train.runtime import DeftRuntime
+
+_CATEGORIES = (
+    ("flash_fwd (this port)", ("flash_fwd_kernel",)),
+    ("bucket_update (this port)", ("bucket_update_kernel",)),
+    ("matrix products", ("gemm", "Gemm", "cutlass", "cublas", "xmma", "sm90")),
+    ("collectives", ("nccl",)),
+)
+
+
+def _category(name: str) -> str:
+    for cat, keys in _CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "other (elementwise, reductions, copies)"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="gemma2-2b")
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=8192)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--coverage-rate", type=float, default=1.8)
+    ap.add_argument("--partition-elems", type=int, default=200_000)
+    ap.add_argument("--loss-chunk", type=int, default=1024)
+    ap.add_argument("--warm", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    init_distributed(dev)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
+    meta = init_params(cfg, device="meta")
+    bucket_of, nb, _, plan = build_schedule(
+        meta, cfg, dp=1, seq_len=args.seq, per_device_batch=args.batch,
+        partition_elems=args.partition_elems, coverage_rate=args.coverage_rate)
+    rt = DeftRuntime(cfg, adamw(1e-3), plan.schedule,
+                     build_bucket_layout(meta, bucket_of, nb), device=dev,
+                     loss_chunk=args.loss_chunk)
+    state = rt.init_state(0)
+    batches = [make_batch(cfg, 0, i, args.batch, args.seq, device=dev)
+               for i in range(args.warm + rt.period)]
+    for i in range(args.warm):
+        state, m = rt.step(i, state, batches[i])
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.warm, args.warm + rt.period):
+            state, m = rt.step(i, state, batches[i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    kernels = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3   # ms
+    busy = sum(kernels.values())
+    cats = defaultdict(float)
+    for name, ms in kernels.items():
+        cats[_category(name)] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:args.top]
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "config": dict(arch=args.arch, layers=args.layers, seq=args.seq,
+                       batch=args.batch, loss_chunk=args.loss_chunk),
+        "period": rt.period,
+        "wall_ms_per_step": wall * 1e3 / rt.period,
+        "kernel_ms_per_step": busy / rt.period,
+        "idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+        "by_category_ms_per_step": {k: v / rt.period for k, v in
+                                    sorted(cats.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": [(n[:120], v / rt.period) for n, v in top],
+    }
+    text = json.dumps(out, indent=1)
+    print(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
+
+
+if __name__ == "__main__":
+    main()

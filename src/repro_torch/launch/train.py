@@ -1,0 +1,195 @@
+"""Training driver of the port: DDP baseline or the DeFT pipeline
+(profile -> knapsack solver -> Preserver -> replicated flat engine).
+
+Port of ``repro/launch/train.py`` for the flags of the first slice.  Runs
+on the card unless ``--device cpu``.  Under ``torchrun`` the process
+group comes from its environment; run alone it is a one-rank group
+(NCCL on the card, gloo on the CPU), so every gradient sum still goes
+through a real collective.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+        --smoke --scheduler deft --steps 8 --batch 4 --seq 64
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import socket
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import ARCH_NAMES, get_config, reduce_for_smoke
+from repro_torch.core.bucket import BucketTimes
+from repro_torch.core.deft import Planner, PlanRequest
+from repro_torch.core.preserver import WalkParams
+from repro_torch.core.profiler import HardwareModel
+from repro_torch.data.pipeline import make_batch
+from repro_torch.models.model import init_params
+from repro_torch.optim.optimizers import adamw
+from repro_torch.train.bucketing import (
+    assign_buckets,
+    build_bucket_layout,
+    coverage_rescale,
+    leaf_bucket_times,
+)
+from repro_torch.train.runtime import DeftRuntime, init_ddp_state, make_ddp_step
+
+
+def init_distributed(device: torch.device) -> None:
+    """Process group from torchrun's environment, else a one-rank group
+    on a free localhost port.  No-op when one exists."""
+    if dist.is_initialized():
+        return
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+        return
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+
+
+def build_schedule(params, cfg, *, dp: int, seq_len: int,
+                   per_device_batch: int, partition_elems: int,
+                   coverage_rate: float = 0.0, heterogeneous: bool = True,
+                   mu: float = 1.65, eps: float = 0.01, max_retries: int = 10):
+    """Leaf-bucket profile -> Solver -> Preserver; ``coverage_rate > 0``
+    rescales the analytic comm times to that coverage rate."""
+    bucket_of, nb = assign_buckets(params, cfg, partition_elems)
+    hw = HardwareModel(dp_degree=dp)
+    times = leaf_bucket_times(params, cfg, bucket_of, nb, hw, seq_len,
+                              per_device_batch)
+    if coverage_rate > 0:
+        scale = coverage_rescale(times, coverage_rate)
+        times = BucketTimes(times.fwd, times.bwd,
+                            tuple(c * scale for c in times.comm))
+    walk = WalkParams(s0=4.0, eta=0.01, mu=1.0, sigma=40.0, batch=256)
+    res = Planner().plan(PlanRequest(
+        times=times, walk=walk, heterogeneous=heterogeneous, mu=mu, eps=eps,
+        max_retries=max_retries, wire_precision="f32", master_dtype="f32",
+    ))
+    return bucket_of, nb, times, res
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
+          seq: int = 64, coverage_rate: float = 1.8,
+          partition_elems: int = 200_000, seed: int = 0, device="cuda",
+          lr: float = 1e-3, loss_chunk: int = 0,
+          attn_impl: Optional[str] = None, update_impl: Optional[str] = None,
+          on_step: Optional[Callable] = None,
+          log: Callable = print) -> Dict[str, Any]:
+    """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
+    the ranks of the process group (initialised here if missing).
+
+    ``on_step(step, runtime, state, metrics)`` runs after every step;
+    ``attn_impl``/``update_impl`` = "plain" force the kernels' plain
+    versions (a comparison knob).  Returns the losses, per-step wall
+    times (each step synchronised), the schedule, the runtime and the
+    final state."""
+    device = torch.device(device)
+    init_distributed(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if batch % world:
+        raise ValueError(f"global batch {batch} does not split over {world} ranks")
+    per = batch // world
+    opt = adamw(lr)
+    out: Dict[str, Any] = {"losses": [], "step_s": [], "collectives": []}
+    runtime = None
+    if scheduler == "ddp":
+        state = init_ddp_state(cfg, opt, seed=seed, device=device)
+        step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
+                                attn_impl=attn_impl)
+    elif scheduler == "deft":
+        params_abs = init_params(cfg, device="meta")
+        bucket_of, nb, times, plan = build_schedule(
+            params_abs, cfg, dp=world, seq_len=seq, per_device_batch=per,
+            partition_elems=partition_elems, coverage_rate=coverage_rate)
+        schedule = plan.schedule
+        log(f"deft: {nb} buckets, CR={times.coverage_rate:.2f}, "
+            f"period={schedule.period}, "
+            f"updates/period={schedule.updates_per_period}, "
+            f"batch-size seq={schedule.batch_size_sequence}, "
+            f"preserver ratio={plan.verdict.ratio:.4f}")
+        layout = build_bucket_layout(params_abs, bucket_of, nb)
+        runtime = DeftRuntime(cfg, opt, schedule, layout, device=device,
+                              loss_chunk=loss_chunk, attn_impl=attn_impl,
+                              update_impl=update_impl)
+        state = runtime.init_state(seed)
+        out.update(schedule=schedule, layout=layout, times=times)
+    else:
+        raise ValueError(f"unknown scheduler {scheduler!r}")
+
+    for step in range(steps):
+        full = make_batch(cfg, seed, step, batch, seq, device=device)
+        local = {k: v[rank * per:(rank + 1) * per] for k, v in full.items()}
+        _sync(device)
+        t0 = time.perf_counter()
+        if runtime is None:
+            state, m = step_fn(state, local)
+        else:
+            state, m = runtime.step(step, state, local)
+            out["collectives"].append(runtime.last_collectives)
+        loss = float(m["loss"])          # waits for the step
+        _sync(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        if on_step is not None:
+            on_step(step, runtime, state, m)
+        if step % max(steps // 10, 1) == 0 or step == steps - 1:
+            log(f"step {step:4d} loss={loss:.4f} updated={bool(m['updated'])} "
+                f"({out['step_s'][-1]:.3f}s)")
+    out.update(runtime=runtime, state=state)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="gemma2-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-friendly)")
+    ap.add_argument("--scheduler", choices=["ddp", "deft"], default="deft")
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--batch", type=int, default=8, help="global batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--coverage-rate", type=float, default=1.8,
+                    help="synthetic CR for the DeFT schedule (0 = analytic)")
+    ap.add_argument("--partition-elems", type=int, default=200_000)
+    ap.add_argument("--loss-chunk", type=int, default=0,
+                    help="sequence chunk of the LM-head loss (0 = whole "
+                         "sequence); long sequences at a large vocab need it")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    print(f"arch={cfg.name} params={cfg.total_params():,} device={args.device}")
+    t0 = time.time()
+    res = train(cfg, scheduler=args.scheduler, steps=args.steps,
+                batch=args.batch, seq=args.seq,
+                coverage_rate=args.coverage_rate,
+                partition_elems=args.partition_elems, seed=args.seed,
+                device=args.device, loss_chunk=args.loss_chunk)
+    dt = time.time() - t0
+    print(f"{args.steps} steps in {dt:.1f}s "
+          f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

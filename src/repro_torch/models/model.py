@@ -1,0 +1,188 @@
+"""Full model of the port: init / forward / loss over a dense ArchConfig.
+
+Port of ``repro/models/model.py`` (train path).  The parameter tree is the
+JAX package's: ``embed``, ``final_norm``, optional ``head``, and the
+``prefix`` / ``stack`` / ``tail`` block tuples, with each ``stack`` entry
+holding one pattern position's weights stacked over the periods.  Where
+JAX scans the period body, the port loops over the periods (a stacked
+leaf is unbound once per forward, so its gradient comes back stacked);
+``jax.checkpoint`` remat becomes ``torch.utils.checkpoint``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.models.blocks import apply_block, init_block
+from repro_torch.models.common import (
+    apply_norm,
+    cross_entropy_loss,
+    dense_init,
+    embed_init,
+    init_norm,
+    softcap,
+)
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    prefix_specs: Tuple[LayerSpec, ...]
+    period: int
+    n_periods: int
+    tail_specs: Tuple[LayerSpec, ...]
+
+    @property
+    def n_layers(self) -> int:
+        return (len(self.prefix_specs) + self.period * self.n_periods
+                + len(self.tail_specs))
+
+
+def stack_layout(cfg: ArchConfig) -> StackLayout:
+    specs = cfg.layer_specs()
+    n = len(specs)
+    prefix = cfg.moe.first_k_dense if cfg.moe else 0
+    p = cfg.pattern_period
+    n_periods = (n - prefix) // p
+    tail = n - prefix - n_periods * p
+    return StackLayout(
+        prefix_specs=specs[:prefix],
+        period=p,
+        n_periods=n_periods,
+        tail_specs=specs[n - tail:] if tail else (),
+    )
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
+                dtype=torch.float32) -> Dict:
+    """Random params from a ``torch.Generator`` seeded with ``seed``
+    (``device="meta"`` gives a shapes-only tree and draws nothing)."""
+    device = torch.device(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    kw = dict(device=device, dtype=dtype)
+    lay = stack_layout(cfg)
+    params: Dict[str, Any] = {
+        "embed": {"table": embed_init(gen, cfg.vocab_size, cfg.d_model, **kw)},
+        "final_norm": init_norm(cfg.norm, cfg.d_model, **kw),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab_size, **kw)}
+    params["prefix"] = tuple(
+        init_block(gen, cfg, dataclasses.replace(spec, ffn="dense"), **kw)
+        for spec in lay.prefix_specs
+    )
+    params["stack"] = tuple(
+        init_block(gen, cfg, cfg.layer_pattern[j], lead=(lay.n_periods,), **kw)
+        if lay.n_periods else {}
+        for j in range(lay.period)
+    )
+    params["tail"] = tuple(init_block(gen, cfg, spec, **kw)
+                           for spec in lay.tail_specs)
+    return params
+
+
+def _period_views(stacked, n_periods: int):
+    """Per-period trees of views into one stacked pattern position."""
+    leaves = tree_leaves(stacked)
+    unbound = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(stacked, [u[i] for u in unbound])
+            for i in range(n_periods)]
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            remat: bool = True, head: bool = True,
+            attn_impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B,S,V], aux); with ``head=False`` the final-norm
+    hidden states [B,S,d] replace the logits."""
+    lay = stack_layout(cfg)
+    x = params["embed"]["table"][tokens]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(p, x, spec):
+        fn = lambda p_, x_: apply_block(p_, x_, cfg=cfg, spec=spec,
+                                        attn_impl=attn_impl)
+        if remat:
+            return checkpoint(fn, p, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(p, x)
+
+    for i, spec in enumerate(lay.prefix_specs):
+        x = run(params["prefix"][i], x, dataclasses.replace(spec, ffn="dense"))
+    if lay.n_periods:
+        views = [_period_views(params["stack"][j], lay.n_periods)
+                 for j in range(lay.period)]
+        for i in range(lay.n_periods):
+            for j in range(lay.period):
+                x = run(views[j][i], x, cfg.layer_pattern[j])
+    for i, spec in enumerate(lay.tail_specs):
+        x = run(params["tail"][i], x, spec)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    if not head:
+        return x, aux
+    return head_logits(params, cfg, x), aux
+
+
+def head_logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final-norm hidden states -> vocab logits (+ final softcap)."""
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T
+    else:
+        logits = x @ params["head"]["w"]
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return logits
+
+
+def chunked_ce(params, cfg: ArchConfig, x: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor], chunk: int) -> torch.Tensor:
+    """Sequence-chunked LM head + cross entropy: each chunk's logits are
+    recomputed in the backward (checkpoint), so the live logits buffer is
+    [B, chunk, V] in both passes."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+
+    def body(xc, yc, mc):
+        logits = head_logits(params, cfg, xc).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        return torch.sum((logz - gold) * mc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(body, x[:, sl], targets[:, sl], mask[:, sl],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True, loss_chunk: int = 0,
+            attn_impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy; ``loss_chunk > 0`` takes the chunked
+    LM-head path.  Returns (loss, {"ce", "aux"})."""
+    if loss_chunk:
+        x, aux = forward(params, cfg, batch["tokens"], remat=remat,
+                         head=False, attn_impl=attn_impl)
+        mask = batch.get("mask")
+        loss = chunked_ce(params, cfg, x[:, :-1], batch["labels"][:, 1:],
+                          mask[:, 1:] if mask is not None else None,
+                          loss_chunk)
+    else:
+        logits, aux = forward(params, cfg, batch["tokens"], remat=remat,
+                              attn_impl=attn_impl)
+        loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                  batch.get("mask"))
+    return loss + aux, {"ce": loss, "aux": aux}

@@ -1,0 +1,220 @@
+"""Gradient bucketing over parameter-tree leaves and the static flat-buffer
+layout of the replicated engine.
+
+Port of ``repro/train/bucketing.py`` (replicated, all-f32 layouts only):
+buckets over the real tree leaves in model input->output order, filled
+greedily to ``partition_elems``; ``BucketLayout`` maps every leaf to a
+span of one flat f32 buffer per bucket, padded to ``PAD_MULTIPLE``.  Leaf
+order is ``jax.tree_util.tree_flatten`` order (``repro_torch.tree``), so
+a layout built here equals the JAX package's layout of the same tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.bucket import BucketTimes
+from repro_torch.core.profiler import HardwareModel
+from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+_GROUP_ORDER = {
+    "embed": 0,
+    "encoder": 1,
+    "prefix": 2,
+    "stack": 3,
+    "tail": 4,
+    "final_norm": 5,
+    "head": 6,
+}
+
+# One f32 lane row of the bucket-update kernels (buffers pad to it).
+PAD_MULTIPLE = 128
+
+
+def _numel(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64)) if shape else 1
+
+
+def ordered_leaf_indices(params) -> List[int]:
+    """Indices into tree_flatten(params) leaf order, re-ordered to model
+    input->output traversal."""
+    keyed = []
+    for i, (keys, _) in enumerate(tree_flatten_with_path(params)):
+        group = _GROUP_ORDER.get(keys[0], 9)
+        sub = 0
+        if keys[0] in ("prefix", "stack", "tail") and len(keys) > 1:
+            try:
+                sub = int(keys[1])
+            except ValueError:
+                sub = 0
+        keyed.append((group, sub, i))
+    keyed.sort(key=lambda t: (t[0], t[1]))
+    return [i for (_, _, i) in keyed]
+
+
+def leaf_active_fraction(cfg: ArchConfig, keys: Tuple[str, ...]) -> float:
+    """Fraction of a leaf's elements doing matmul work per token (MoE
+    routed experts: top-k of E)."""
+    if cfg.moe and "experts" in keys and keys[-1] in ("gate", "up", "down"):
+        return cfg.moe.experts_per_token / cfg.moe.n_experts
+    return 1.0
+
+
+def greedy_fill_partition(order: Sequence[int], elems: Sequence[int],
+                          partition_elems: int) -> Tuple[Tuple[int, ...], int]:
+    """Walk ``order``; open a new bucket whenever the running element
+    count reaches ``partition_elems``."""
+    bucket_of = [0] * len(elems)
+    b, acc = 0, 0
+    for idx in order:
+        bucket_of[idx] = b
+        acc += elems[idx]
+        if acc >= partition_elems:
+            b += 1
+            acc = 0
+    n_buckets = max(set(bucket_of)) + 1
+    return tuple(bucket_of), n_buckets
+
+
+def assign_buckets(params, cfg: ArchConfig, partition_elems: int = 50_000_000
+                   ) -> Tuple[Tuple[int, ...], int]:
+    """Greedy fill in model order: (bucket_of_leaf in tree_flatten leaf
+    order, n_buckets); bucket 0 is input-most."""
+    leaves = tree_leaves(params)
+    return greedy_fill_partition(
+        ordered_leaf_indices(params), [_numel(l.shape) for l in leaves],
+        partition_elems,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketLayout:
+    """Static mapping between parameter-tree leaves and per-bucket flat
+    f32 buffers.
+
+    bucket_of_leaf: leaf index (tree_flatten order) -> bucket id.
+    n_buckets:      number of buckets (== number of flat buffers).
+    leaves:         per bucket, the leaf indices it holds (ascending).
+    offsets:        per bucket, the start offset of each leaf's span.
+    sizes:          per bucket, element count of its valid span.
+    shapes:         per leaf (tree_flatten order), the original shape.
+    padded_sizes:   per bucket, the allocated length (``sizes`` rounded up
+                    to a lane multiple; the tail is always zero).
+    """
+
+    bucket_of_leaf: Tuple[int, ...]
+    n_buckets: int
+    leaves: Tuple[Tuple[int, ...], ...]
+    offsets: Tuple[Tuple[int, ...], ...]
+    sizes: Tuple[int, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    padded_sizes: Tuple[int, ...]
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.bucket_of_leaf)
+
+    @property
+    def total_elems(self) -> int:
+        return sum(self.sizes)
+
+    @property
+    def buf_sizes(self) -> Tuple[int, ...]:
+        return self.padded_sizes
+
+
+def build_bucket_layout(params, bucket_of_leaf: Sequence[int], n_buckets: int,
+                        *, pad_multiple: int = PAD_MULTIPLE) -> BucketLayout:
+    """Precompute the per-bucket flat-buffer layout of a parameter tree
+    (only leaf shapes are read; meta tensors work)."""
+    if pad_multiple <= 0 or pad_multiple % PAD_MULTIPLE:
+        raise ValueError(
+            f"pad_multiple={pad_multiple} must be a positive multiple of "
+            f"{PAD_MULTIPLE} (the bucket-update kernel's lane width)"
+        )
+    flat = tree_leaves(params)
+    if len(flat) != len(bucket_of_leaf):
+        raise ValueError(f"{len(bucket_of_leaf)} bucket ids for "
+                         f"{len(flat)} leaves")
+    shapes = tuple(tuple(l.shape) for l in flat)
+    leaves: List[List[int]] = [[] for _ in range(n_buckets)]
+    for i, b in enumerate(bucket_of_leaf):
+        leaves[b].append(i)
+    offsets, sizes, padded = [], [], []
+    for b in range(n_buckets):
+        offs, acc = [], 0
+        for i in leaves[b]:
+            offs.append(acc)
+            acc += _numel(shapes[i])
+        offsets.append(tuple(offs))
+        sizes.append(acc)
+        padded.append(-(-acc // pad_multiple) * pad_multiple)
+    return BucketLayout(
+        bucket_of_leaf=tuple(bucket_of_leaf),
+        n_buckets=n_buckets,
+        leaves=tuple(tuple(g) for g in leaves),
+        offsets=tuple(offsets),
+        sizes=tuple(sizes),
+        shapes=shapes,
+        padded_sizes=tuple(padded),
+    )
+
+
+def flatten_buckets(layout: BucketLayout, leaf_vals) -> List[torch.Tensor]:
+    """Pack leaf values (tree_flatten order) into per-bucket flat f32
+    buffers, zero-padded to the allocated length (new tensors)."""
+    out = []
+    for b in range(layout.n_buckets):
+        ref = leaf_vals[layout.leaves[b][0]] if layout.leaves[b] else None
+        dev = ref.device if ref is not None else "cpu"
+        buf = torch.zeros((layout.buf_sizes[b],), dtype=torch.float32,
+                          device=dev)
+        for i, off in zip(layout.leaves[b], layout.offsets[b]):
+            n = _numel(layout.shapes[i])
+            buf[off:off + n] = leaf_vals[i].reshape(-1)
+        out.append(buf)
+    return out
+
+
+def unflatten_buckets(layout: BucketLayout, flats) -> List[torch.Tensor]:
+    """Inverse of :func:`flatten_buckets`: per-leaf *views* into the flat
+    buffers (tree_flatten order) — writing a view writes the buffer."""
+    leaf_vals: List[torch.Tensor] = [None] * layout.n_leaves  # type: ignore
+    for b in range(layout.n_buckets):
+        for i, off in zip(layout.leaves[b], layout.offsets[b]):
+            shape = layout.shapes[i]
+            leaf_vals[i] = flats[b][off:off + _numel(shape)].view(shape)
+    return leaf_vals
+
+
+def leaf_bucket_times(params, cfg: ArchConfig, bucket_of_leaf: Sequence[int],
+                      n_buckets: int, hw: HardwareModel, seq_len: int,
+                      per_device_batch: int) -> BucketTimes:
+    """Analytical fwd/bwd/comm seconds per leaf-bucket (same arithmetic, in
+    the same order, as the JAX package's per-leaf time model)."""
+    tokens = per_device_batch * seq_len
+    fwd = [0.0] * n_buckets
+    comm_elems = [0] * n_buckets
+    for (keys, leaf), b in zip(tree_flatten_with_path(params), bucket_of_leaf):
+        n = _numel(tuple(leaf.shape))
+        active = leaf_active_fraction(cfg, keys)
+        flops = 2.0 * n * active * tokens if len(leaf.shape) >= 2 else 0.0
+        fwd[b] += hw.compute_time(flops)
+        comm_elems[b] += n
+    bwd = [2.0 * f for f in fwd]
+    comm = [hw.allreduce_time(e) for e in comm_elems]
+    return BucketTimes(tuple(fwd), tuple(bwd), tuple(comm))
+
+
+def coverage_rescale(times: BucketTimes, coverage_rate: float) -> float:
+    """The uniform comm multiplier that pins ``times`` to a target
+    coverage rate."""
+    return (
+        coverage_rate
+        * (times.fwd_total + times.bwd_total)
+        / max(times.comm_total, 1e-12)
+    )
