@@ -10,12 +10,19 @@
    flash attention at head dims 128 and 256 with GQA, causal, window,
    softcap and a ragged length (out, lse and autograd gradients within
    1e-4), then at the main path's shapes; the bucket update bitwise for
-   AdamW and SGD, uniform and per-element, masked tail, fused zeroing.
-   Times each kernel, its plain version and a PyTorch library call that
-   computes the same function and that the port never calls (compiled
-   ``flex_attention`` with the softcap as ``score_mod`` and the causal /
-   window mask as a block mask; ``torch._fused_adamw_``), beside the least
-   time the card could take.
+   AdamW and SGD, uniform and per-element, masked tail, fused zeroing;
+   the int8 quantize, dequantize and bf16 stochastic-rounding kernels
+   bitwise, at 128, 1280 and 4096 elements with ragged NaN/inf tails, an
+   all-zero row and two seeds, and on the main path's largest bucket
+   (589,824,000 elements); flash attention again on bf16 inputs (out
+   within one bf16 rounding step, lse 1e-4, gradients 1.6e-2 relative
+   with max|g| / 128 absolute).  Times each kernel, its plain version and
+   a PyTorch library call that computes the same function and that the
+   port never calls (compiled ``flex_attention`` with the softcap as
+   ``score_mod`` and the causal / window mask as a block mask, on f32 and
+   on bf16 inputs; ``torch._fused_adamw_``; ``torch.mul`` of the int8
+   rows by their scales for dequantize; none for quantize and stochastic
+   rounding), beside the least time the card could take.
 3. Drives the DeFT main path through ``repro_torch.launch.train.train``:
    gemma2-2b at full width with its depth cut to 8 of 26 layers, batch 1,
    sequence 8192 (the 4096 window really masks), coverage rate 1.8.  The
@@ -24,7 +31,18 @@
    (every bucket's params within 1e-4, at most 1000 elements beyond
    1e-5), launch both kernels, issue exactly ``phase_collectives`` per phase,
    and keep the loss finite.
-4. Prints the kernels line, the card's name and power limit, and last the
+4. Drives DeFT's precision path the same way, with int8 gradient wires on
+   every bucket and a bf16sr resident master (forward and backward in
+   bf16): its first steps once with every plain version forced, then the
+   run with the counters zeroed, which must launch all five kernels
+   (quantize = dequantize = synced buckets, stochastic rounding = buckets
+   x (init + updates), flash on bf16 inputs), keep every master buffer
+   bf16 and the loss finite, and agree with the plain run within the
+   limits PERF.md gives with their readings.  At coverage rate 1.8 the
+   int8 wire leaves a one-step period; a second run at 4 x 1.8, whose
+   schedule merges and delays updates and rotates generations, is held
+   to the same checks over its first period.
+5. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -34,6 +52,7 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -46,12 +65,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 FLASH_TOL = 1e-4              # f32, another summation order than cuBLAS
+BF16_OUT_RTOL = 2 ** -7       # bf16 out: one rounding step of bf16
+BF16_GRAD_RTOL = 1.6e-2       # bf16 grads, with atol max|g| / 128
 PARAM_TOL = 1e-5              # per-element agreement after an update
 PARAM_MAX_DIFF = 1e-4         # no param may differ more than this ...
 PARAM_MAX_OVER = 1000         # ... and at most this many beyond PARAM_TOL
 ARCH, N_LAYERS, SEQ, BATCH = "gemma2-2b", 8, 8192, 1
 COVERAGE_RATE, PARTITION_ELEMS, LOSS_CHUNK, LR = 1.8, 200_000, 1024, 1e-3
+# the precision path: int8 wires, bf16sr master, its steps and the window
+# compared with the plain run.  At coverage rate 1.8 the int8 wire makes the
+# planner drop to period 1; at 4 x 1.8 its schedule again merges and delays
+# updates (period 3, update_k 2), so a second run drives the quantize and
+# rounding kernels through those edges too.
+WIRE, MASTER, PREC_STEPS, PREC_REF_STEPS = "int8", "bf16sr", 6, 3
+DELAYED_COVERAGE_RATE = 4 * COVERAGE_RATE
+# limits against the plain run, from two runs on two cards that read loss
+# rel 1.6e-4 and 3,353,277 params (0.28%) beyond 1e-4 + |p| / 128 (one
+# bf16 ulp at the value) both times, and params max |diff| 2.69e-3 (PERF.md)
+PREC_LOSS_RTOL = 2e-3
+PREC_PARAM_MAX_DIFF = 1e-2    # in every bucket
+PREC_PARAM_MAX_OVER = 1e-2    # share of all params beyond one bf16 ulp ...
+PREC_BUCKET_MAX_OVER = 0.1    # ... and of any one bucket's
 
 
 def check(cond: bool, msg: str) -> None:
@@ -339,6 +375,252 @@ def bucket_phase(torch, layout, report):
 
 
 # ---------------------------------------------------------------------------
+# wire-precision kernels: int8 quantize / dequantize, bf16 stochastic rounding
+# ---------------------------------------------------------------------------
+LIB_NOTE = {
+    "quantize_int8": "no single PyTorch call computes this blockwise int8 "
+                     "grid (per-128-lane-row absmax scale, round half to "
+                     "even, zeroed tail)",
+    "dequantize_int8": "torch.mul(q.view(-1, 128), scale[:, None]), the "
+                       "main path's call (no ragged tail)",
+    "stochastic_round_bf16": "no PyTorch call does this hashed stochastic "
+                             "rounding",
+}
+
+
+def quantize_phase(torch, layout, report):
+    from repro_torch.kernels.quantize import (
+        dequantize_int8_cuda,
+        dequantize_int8_plain,
+        quantize_int8_cuda,
+        quantize_int8_plain,
+        stochastic_round_bf16_cuda,
+        stochastic_round_bf16_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    tail = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30],
+                        device="cuda")
+
+    def hostile(n, n_valid):
+        x = torch.randn(n, device="cuda", generator=gen) * 3
+        if n >= 256 and n_valid >= 256:
+            x[128:256] = 0.0                      # an all-zero row
+        x[n_valid:] = tail.repeat((n - n_valid + 3) // 4)[:n - n_valid]
+        return x
+
+    def compare(x, n_valid, seeds):
+        """Every kernel against its plain version, bitwise."""
+        q, s = quantize_int8_cuda(x, n_valid)
+        q2, s2 = quantize_int8_plain(x, n_valid)
+        torch.cuda.synchronize()
+        check(torch.equal(q, q2) and torch.equal(s, s2),
+              f"quantize_int8 not bitwise at {x.numel()}/{n_valid}")
+        del q2, s2
+        y = dequantize_int8_cuda(q, s, n_valid)
+        y2 = dequantize_int8_plain(q, s, n_valid)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y2),
+              f"dequantize_int8 not bitwise at {x.numel()}/{n_valid}")
+        del y, y2, q, s
+        for seed in seeds:
+            a = stochastic_round_bf16_cuda(x, seed, n_valid)
+            b = stochastic_round_bf16_plain(x, seed, n_valid)
+            torch.cuda.synchronize()
+            check(torch.equal(a.view(torch.int16), b.view(torch.int16)),
+                  f"stochastic_round_bf16 not bitwise at {x.numel()}/"
+                  f"{n_valid}, seed {seed}")
+            del a, b
+
+    n_cases = 0
+    for n, n_valid in ((128, 128), (1280, 1000), (4096, 4096), (4096, 1)):
+        compare(hostile(n, n_valid), n_valid, (7, 2**32 - 1))
+        n_cases += 1
+    print(f"quantize kernels: {n_cases} small cases (ragged tails of "
+          f"NaN/inf, an all-zero row, seeds 7 and 2**32-1) bitwise equal to "
+          f"the plain versions")
+
+    # the main path's largest bucket (the tied embedding): a gradient-like
+    # buffer, its valid length as the layout has it
+    big = max(range(layout.n_buckets), key=lambda b: layout.buf_sizes[b])
+    n, n_valid = layout.buf_sizes[big], layout.sizes[big]
+    x = torch.randn(n, device="cuda", generator=gen) * 1e-3
+    x[n_valid:] = 0.0
+    compare(x, n_valid, (12345,))
+    print(f"quantize kernels: the {n:,}-element bucket bitwise equal to the "
+          f"plain versions")
+    torch.cuda.empty_cache()
+
+    rows = n // 128
+    q, s = quantize_int8_cuda(x, n_valid)
+    out32 = torch.empty_like(x)
+    out16 = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    seed = torch.tensor(12345, dtype=torch.int64, device="cuda")
+    nbytes = {"quantize_int8": 4.0 * n + n + 4.0 * rows,
+              "dequantize_int8": 1.0 * n + 4.0 * rows + 4.0 * n,
+              "stochastic_round_bf16": 4.0 * n + 2.0 * n}
+    # the main path dequantizes whole buffers (n_valid None); q's tail is
+    # zero, so the library's product is the kernel's output bit for bit
+    deq_lib = lambda: torch.mul(q.view(-1, 128), s[:, None])
+    check(torch.equal(deq_lib().view(-1),
+                      dequantize_int8_cuda(q, s, None, out=out32)),
+          "torch.mul is not the dequantize kernel's function")
+    runs = {
+        "quantize_int8": (lambda: quantize_int8_cuda(x, n_valid),
+                          lambda: quantize_int8_plain(x, n_valid), None),
+        "dequantize_int8": (
+            lambda: dequantize_int8_cuda(q, s, None, out=out32),
+            lambda: dequantize_int8_plain(q, s, None), deq_lib),
+        "stochastic_round_bf16": (
+            lambda: stochastic_round_bf16_cuda(x, seed, n_valid, out=out16),
+            lambda: stochastic_round_bf16_plain(x, seed, n_valid), None),
+    }
+    entries = []
+    src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
+    line = {"quantize_int8": 112, "dequantize_int8": 149,
+            "stochastic_round_bf16": 69}
+    report["quantize"] = {"cases": n_cases, "elements": n, "n_valid": n_valid}
+    for name, (kern, plain, lib) in runs.items():
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 3)
+        library_ms = time_ms(torch, lib, 10) if lib is not None else None
+        torch.cuda.empty_cache()
+        bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        lib_txt = (f"{library_ms:.3f} ms" if library_ms is not None
+                   else "none")
+        print(f"{name} ({n:,} elements): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library {lib_txt}, bound {bound:.3f} ms "
+              f"(bytes), {nbytes[name] / ms / 1e6:.0f} GB/s achieved")
+        report["quantize"][name] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=library_ms,
+                                        bound_ms=bound, bytes=nbytes[name])
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"src/repro/kernels/quantize/kernel.py:{line[name]}",
+            "launches": None, "max_abs_err": 0.0,      # bitwise, checked
+            "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms, "library_note": LIB_NOTE[name],
+            "shape": f"one flat bucket of {n} elements (the main path's "
+                     f"largest, the tied embedding)",
+        })
+    del x, q, s, out32, out16
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# flash attention on bf16 inputs
+# ---------------------------------------------------------------------------
+def flash_bf16_phase(torch, report, entry):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_fwd_cuda,
+        flash_fwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def qkv(b, s, h, kvh, d):
+        mk = lambda n: torch.randn((b, s, n, d), device="cuda",
+                                   generator=gen).bfloat16()
+        return mk(h), mk(kvh), mk(kvh)
+
+    worst = dict(out=0.0, lse=0.0, grad_rel=0.0)
+    cases = [
+        (2, 333, 8, 4, 256, True, 100, 50.0),   # ragged S, window, softcap
+        (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
+        (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
+        (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
+    ]
+    for b, s, h, kvh, d, causal, window, cap in cases:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q, k, v = qkv(b, s, h, kvh, d)
+        out, lse = flash_fwd_cuda(q, k, v, **kw)
+        ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and lse.dtype == torch.float32,
+              f"flash bf16 dtypes {out.dtype} {lse.dtype}")
+        o_err = (out.float() - ref.float()).abs().max().item()
+        l_err = (lse - ref_lse).abs().max().item()
+        check(torch.allclose(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
+                             atol=1e-5)
+              and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
+              f"flash bf16 kernel disagrees with plain at "
+              f"{b, s, h, kvh, d, kw}: out {o_err:.3g}, lse {l_err:.3g}")
+        w = torch.randn(q.shape, device="cuda", generator=gen)
+        grads = []
+        for impl in ("cuda", "plain"):
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            torch.sum(flash_attention(*xs, impl=impl, **kw).float()
+                      * w).backward()
+            grads.append([x.grad for x in xs])
+        g_rel = 0.0
+        for a, g in zip(*grads):
+            scale = g.float().abs().max().item()
+            d_max = (a.float() - g.float()).abs().max().item()
+            g_rel = max(g_rel, d_max / scale)
+            check(a.dtype == torch.bfloat16 and torch.allclose(
+                a.float(), g.float(), rtol=BF16_GRAD_RTOL, atol=scale / 128),
+                f"flash bf16 gradients disagree at {b, s, h, kvh, d, kw}: "
+                f"max |diff| {d_max:.3g} of max |g| {scale:.3g}")
+        worst = dict(out=max(worst["out"], o_err), lse=max(worst["lse"], l_err),
+                     grad_rel=max(worst["grad_rel"], g_rel))
+        print(f"flash bf16 D={d} S={s} H={h}/{kvh} {kw}: ok (out {o_err:.3g}, "
+              f"lse {l_err:.3g}, grads {g_rel:.3g} of max |g|)")
+
+    b, s, h, kvh, d = BATCH, SEQ, 8, 4, 256
+    q, k, v = qkv(b, s, h, kvh, d)
+    shapes = {}
+    for layer, window in (("global", 0), ("local", 4096)):
+        kw = dict(causal=True, window=window, softcap=50.0)
+        out, _ = flash_fwd_cuda(q, k, v, **kw)
+        ref, _ = flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.allclose(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
+                             atol=1e-5),
+              f"flash bf16 kernel disagrees with plain at the {layer} "
+              f"main-path shape: max err {err:.3g}")
+        worst["out"] = max(worst["out"], err)
+        del out, ref
+        ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 5)
+        plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
+        lib = flex_call(torch, q, k, v, window, 50.0)
+        lib_err = (lib().float()
+                   - flash_fwd_cuda(q, k, v, **kw)[0].float()).abs().max().item()
+        library_ms = time_ms(torch, lib, 3)
+        del lib
+        flops = 4.0 * d * visible_pairs(s, True, window) * h * b
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
+        bound_ops = flops / BF16_FLOPS_PER_S * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes[layer] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(bound_ops, bound_bytes),
+            bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+            max_abs_err=err, library_max_abs_err=lib_err)
+        print(f"flash bf16 main-path {layer}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, flex_attention {library_ms:.3f} ms (max "
+              f"diff to the kernel {lib_err:.3g}), bound "
+              f"{shapes[layer]['bound_ms']:.3f} ms "
+              f"({shapes[layer]['bound_by']}, bf16 tensor-core peak)")
+    report["flash_bf16"] = dict(cases=len(cases), **worst, **shapes)
+    torch.cuda.empty_cache()
+    entry.update(bf16_ms=shapes["global"]["ms"],
+                 bf16_plain_ms=shapes["global"]["plain_ms"],
+                 bf16_bound_ms=shapes["global"]["bound_ms"],
+                 bf16_library_ms=shapes["global"]["library_ms"],
+                 bf16_local_ms=shapes["local"]["ms"],
+                 bf16_local_plain_ms=shapes["local"]["plain_ms"],
+                 bf16_local_library_ms=shapes["local"]["library_ms"],
+                 bf16_max_abs_err=worst["out"],
+                 bf16_grad_err_of_max=worst["grad_rel"])
+
+
+# ---------------------------------------------------------------------------
 # the DeFT main path
 # ---------------------------------------------------------------------------
 def main_path(torch, cfg, schedule, report):
@@ -428,6 +710,162 @@ def main_path(torch, cfg, schedule, report):
     return launches
 
 
+def precision_path(torch, cfg, report, key, coverage_rate, delayed):
+    """DeFT's precision path at the main path's cut: int8 gradient wires
+    on every bucket and a bf16sr resident master (so the forward and
+    backward run in bf16 on the bf16 params).  ``delayed`` requires a
+    schedule that merges (update_k > 1) and rotates generations."""
+    from repro_torch.kernels.bucket_update import bucket_update_cuda
+    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    from repro_torch.kernels.quantize import (
+        dequantize_int8_cuda,
+        quantize_int8_cuda,
+        stochastic_round_bf16_cuda,
+    )
+    from repro_torch.launch.train import train
+    from repro_torch.train.runtime import phase_collectives
+
+    gc.collect()                 # the f32 path's state is gone first
+    torch.cuda.empty_cache()
+    kw = dict(scheduler="deft", batch=BATCH, seq=SEQ,
+              coverage_rate=coverage_rate, partition_elems=PARTITION_ELEMS,
+              seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK,
+              wire_precision=WIRE, master_dtype=MASTER)
+    window = PREC_REF_STEPS
+
+    # reference: the first steps with every kernel's plain version forced
+    ref = train(cfg, steps=window, attn_impl="plain", update_impl="plain",
+                quantize_impl="plain", log=lambda s: print("  plain: " + s),
+                **kw)
+    ref_losses = ref["losses"]
+    ref_params = [b.cpu() for b in ref["state"]["pbuf"]]
+    del ref
+    torch.cuda.empty_cache()
+
+    agree = {}
+
+    def on_step(step, runtime, state, metrics):
+        if step != window - 1:
+            return
+        per_bucket = []
+        for buf, want in zip(state["pbuf"], ref_params):
+            w = want.cuda().float()
+            d = (buf.float() - w).abs()
+            per_bucket.append((d.max().item(),
+                               int((d > 1e-4 + w.abs() / 128).sum().item()),
+                               int((d > 0).sum().item())))
+        agree.update(
+            max_param_diff=max(m for m, _, _ in per_bucket),
+            n_params_over_ulp=sum(n for _, n, _ in per_bucket),
+            n_params_differing=sum(n for _, _, n in per_bucket),
+            n_params=sum(b.numel() for b in ref_params),
+            bucket_max_diff=[m for m, _, _ in per_bucket],
+            bucket_share_over_ulp=[n / b.numel() for (_, n, _), b
+                                   in zip(per_bucket, ref_params)])
+
+    steps = PREC_STEPS
+    counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
+                dequantize_int8_cuda, stochastic_round_bf16_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    flash_fwd_cuda.launches_bf16 = 0
+    res = train(cfg, steps=steps, on_step=on_step,
+                log=lambda s: print("  " + s), **kw)
+    launches = {c.__name__.replace("_cuda", ""): c.launches for c in counters}
+    launches_bf16 = flash_fwd_cuda.launches_bf16
+    peak = torch.cuda.max_memory_allocated()
+
+    rt, state, schedule = res["runtime"], res["state"], res["schedule"]
+    layout = res["layout"]
+    period, nb = schedule.period, layout.n_buckets
+    losses = res["losses"]
+    check(layout.precision is not None
+          and set(layout.precision.wire) == {WIRE}
+          and layout.precision.master == MASTER,
+          f"the precision path did not take the {WIRE}/{MASTER} policy")
+    check(all(p.dtype == torch.bfloat16 for p in state["pbuf"]),
+          "a bf16sr master buffer is not bf16")
+    check(not delayed or (any(ph.update_k > 1 for ph in schedule.phases)
+                          and any(ph.rotate for ph in schedule.phases)),
+          f"the {key} schedule neither merges updates nor rotates")
+    check(window <= steps and (not delayed or window == period),
+          f"the {key} comparison window {window} vs period {period}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    for i, got in enumerate(res["collectives"]):
+        want = phase_collectives(schedule.phases[i % period])
+        check(got == want, f"step {i}: issued {got}, schedule says {want}")
+    synced = sum(c["primary"] + c["secondary"] for c in res["collectives"])
+    updates = sum(schedule.phases[i % period].do_update for i in range(steps))
+    check(launches["quantize_int8"] == launches["dequantize_int8"] == synced,
+          f"int8 wire launches {launches} != {synced} synced buckets")
+    check(launches["stochastic_round_bf16"] == nb * (1 + updates),
+          f"stochastic rounding launches {launches['stochastic_round_bf16']} "
+          f"!= {nb} buckets x (init + {updates} updates)")
+    check(launches["bucket_update"] == nb * updates,
+          f"bucket update launches {launches['bucket_update']} != {nb} x "
+          f"{updates}")
+    check(launches["flash_fwd"] > 0 and launches_bf16 == launches["flash_fwd"],
+          f"flash launches {launches['flash_fwd']}, on bf16 {launches_bf16}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    print(f"{key} vs the plain run over {window} steps: losses "
+          f"{losses[:window]} vs {ref_losses} (rel {rel:.3g}); params max "
+          f"|diff| {agree['max_param_diff']:.3g} (buckets "
+          f"{[round(m, 6) for m in agree['bucket_max_diff']]}; shares "
+          f"beyond one ulp "
+          f"{[round(f, 5) for f in agree['bucket_share_over_ulp']]}), "
+          f"{agree['n_params_over_ulp']} beyond 1e-4 + |p|/128, "
+          f"{agree['n_params_differing']} differing, of {agree['n_params']}")
+    check(rel <= PREC_LOSS_RTOL,
+          f"{key} losses vs the plain run: rel diff {rel:.3g}")
+    # a bucket whose update went wrong or did not happen moves nearly all
+    # its elements by ~lr per update, far beyond one bf16 ulp of most
+    bad = [b for b, (m, f) in enumerate(zip(agree["bucket_max_diff"],
+                                            agree["bucket_share_over_ulp"]))
+           if m > PREC_PARAM_MAX_DIFF or f > PREC_BUCKET_MAX_OVER]
+    check(not bad and agree["n_params_over_ulp"]
+          <= PREC_PARAM_MAX_OVER * agree["n_params"],
+          f"{key} params vs the plain run: buckets {bad} beyond "
+          f"{PREC_PARAM_MAX_DIFF} or {PREC_BUCKET_MAX_OVER:.0%} of their "
+          f"elements beyond one bf16 ulp, "
+          f"{agree['n_params_over_ulp']} elements beyond one bf16 ulp")
+    step_s = statistics.median(res["step_s"][1:])
+    gscratch = 2 * sum(layout.buf_sizes)
+    out = dict(
+        wire=WIRE, master=MASTER, coverage_rate=coverage_rate,
+        n_buckets=nb, period=period,
+        updates_per_period=schedule.updates_per_period,
+        batch_size_sequence=list(schedule.batch_size_sequence),
+        steps=steps, updates=updates, synced_buckets=synced,
+        losses=losses, ref_losses=ref_losses, ref_steps=window,
+        loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
+        tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
+        bf16_grad_scratch_bytes=gscratch, launches=launches,
+        flash_launches_bf16=launches_bf16, collectives=res["collectives"],
+        stats={k: v for k, v in rt.stats().items() if k != "phases"},
+        **agree)
+    report[key] = out
+    f32 = report["main_path"]
+    print(f"{key} ({WIRE} wires, {MASTER} master, coverage rate "
+          f"{coverage_rate}): {steps} steps, period {period}, "
+          f"updates/period {schedule.updates_per_period}, batch-size seq "
+          f"{tuple(schedule.batch_size_sequence)}, median step {step_s:.3f} s, "
+          f"{BATCH * SEQ / step_s:.0f} tok/s, peak memory "
+          f"{peak / 2**30:.2f} GiB (bf16 gradient scratch "
+          f"{gscratch / 2**30:.2f} GiB), launches {launches}, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; vs plain over {window} "
+          f"steps: loss rel {rel:.2g}, params max diff "
+          f"{agree['max_param_diff']:.3g}, {agree['n_params_over_ulp']} "
+          f"beyond one bf16 ulp, {agree['n_params_differing']} differing "
+          f"of {agree['n_params']}")
+    print(f"  beside the f32 path: median step {f32['median_step_s']:.3f} s, "
+          f"{f32['tokens_per_s']:.0f} tok/s, peak "
+          f"{f32['peak_bytes'] / 2**30:.2f} GiB")
+    del res, rt, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run() -> int:
     # torch.compile (the flex_attention yardstick) caches inside the
     # checkout and compiles in this process, starting no worker pool
@@ -488,9 +926,19 @@ def run() -> int:
           "degenerate schedule (no merged update, no rotation)")
 
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
+    entries += quantize_phase(torch, layout, report)
+    flash_bf16_phase(torch, report, entries[0])
     launches = main_path(torch, cfg, schedule, report)
+    prec = precision_path(torch, cfg, report, "precision_path",
+                          COVERAGE_RATE, delayed=False)
+    prec_delayed = precision_path(torch, cfg, report, "precision_path_delayed",
+                                  DELAYED_COVERAGE_RATE, delayed=True)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        by_path = {"f32": launches.get(e["name"], 0),
+                   f"{WIRE}+{MASTER}": prec[e["name"]],
+                   f"{WIRE}+{MASTER} delayed": prec_delayed[e["name"]]}
+        e["launches"] = by_path["f32"] or by_path[f"{WIRE}+{MASTER}"]
+        e["launches_by_path"] = by_path
     report["kernels"] = entries
     report["wall_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

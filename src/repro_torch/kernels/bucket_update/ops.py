@@ -15,6 +15,10 @@ whole-state optimizer step of the flat engine.
   bucket: global-norm clip (plain torch ops, as JAX keeps it outside
   Pallas), then one update per bucket, step counter advanced once.
   Replicated engine only (one whole buffer per bucket on every rank).
+  With ``master_dtype="bf16sr"`` the param buffers are bf16 residents:
+  each bucket upcasts to f32 for the fused update and the result is
+  rounded back into the same bf16 buffer by the seeded stochastic-rounding
+  kernel (``kernels/quantize``), seed ``wire_seed(step, bucket)``.
 
 Scalars ride one f32 (1, 128) device row [grad_scale, clip, lr, bc1,
 bc2] (``pack_scalars``), so the clip factor computed on the device never
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.bucket_update.segments import BucketSegments
+from repro_torch.kernels.quantize import stochastic_round_bf16, wire_seed
 from repro_torch.optim.optimizers import OptimizerSpec, clip_factor
 
 SCALARS_GRAD_SCALE = 0
@@ -196,17 +201,25 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
                          pbuf: Sequence[torch.Tensor],
                          gbuf: Sequence[torch.Tensor], opt: Dict[str, Any], *,
                          grad_scale=1.0, lr_scale=1.0, zero_grads: bool = False,
-                         impl: Optional[str] = None
+                         impl: Optional[str] = None,
+                         master_dtype: Optional[str] = None,
+                         quantize_impl: Optional[str] = None
                          ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Any],
                                     Optional[Tuple[torch.Tensor, ...]]]:
     """One (delayed) optimizer update across all bucket buffers, in place.
 
     Mirrors ``apply_updates`` on the flat representation: scale by
     ``grad_scale``, clip by the global norm over every bucket's valid
-    span, then one fused update per bucket.  Returns (pbuf, opt,
-    zeroed gbuf | None) — the same tensors, updated."""
+    span, then one fused update per bucket.  A bf16sr master (bf16
+    ``pbuf``) is updated through a transient f32 copy of one bucket at a
+    time and rounded back into its buffer; the moments stay f32.
+    ``quantize_impl`` picks the rounding's implementation.  Returns
+    (pbuf, opt, zeroed gbuf | None) — the same tensors, updated."""
     layout = segments.layout
     adam = spec.name == "adamw"
+    if master_dtype not in (None, "f32", "bf16sr"):
+        raise ValueError(f"master_dtype={master_dtype!r}")
+    bf16sr = master_dtype == "bf16sr"
     dev = pbuf[0].device
     if spec.grad_clip:
         sq = [torch.sum(torch.square(g[: layout.sizes[b]] * grad_scale))
@@ -220,9 +233,15 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
     for b in range(layout.n_buckets):
         uniform = segments.uniform(b)
         elem = None if uniform is not None else segments.device_hparams(b, dev)
-        bucket_update(spec, pbuf[b], opt["m"][b],
+        p = pbuf[b].float() if bf16sr else pbuf[b]
+        bucket_update(spec, p, opt["m"][b],
                       opt["v"][b] if adam else None, gbuf[b], scalars,
                       n_valid=layout.sizes[b], uniform=uniform,
                       elem_hparams=elem, zero_grads=zero_grads, impl=impl)
+        if not bf16sr:
+            continue
+        stochastic_round_bf16(p, wire_seed(step_new, b), impl=quantize_impl,
+                              out=pbuf[b])
+        del p   # free this bucket's f32 copy before the next one's
     opt["step"] = step_new
     return tuple(pbuf), opt, (tuple(gbuf) if zero_grads else None)

@@ -30,6 +30,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "flash_fwd": ("flash_attention/csrc/flash_fwd.cu", ()),
     "bucket_update": ("bucket_update/csrc/bucket_update.cu", ("--fmad=false",)),
+    "quantize": ("quantize/csrc/quantize.cu", ("--fmad=false",)),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,5 @@
-// Blockwise online-softmax attention forward for Hopper (sm_90a), f32.
+// Blockwise online-softmax attention forward for Hopper (sm_90a), f32 or
+// bf16 inputs.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _attn_kernel).  Same function: GQA through
@@ -9,6 +10,14 @@
 // the recompute backward (ops.py, a port of flash.py::_global_bwd /
 // _local_bwd) reads, and it masks ragged Sq/Sk instead of asserting that
 // they tile.
+//
+// Input types: like the Pallas kernel, which loads any dtype to f32,
+// accumulates in f32 and writes q's dtype (kernel.py:63-65, :150), the
+// kernel is a template on the input type.  bf16 q/k/v are widened to f32
+// as they are staged (a bf16 -> f32 widening is exact: the bits shift up
+// by 16), so shared memory holds f32 tiles in both cases and the layout,
+// the shared-memory size and the arithmetic are the same; the output is
+// rounded to nearest-even bf16 as it is stored, and lse stays f32.
 //
 // Scale: q is multiplied by sm_scale = 1/sqrt(D) while it is staged, as
 // the Pallas kernel does (kernel.py:63); the JAX blockwise path divides by
@@ -41,6 +50,7 @@
 // A tensor-core (wgmma + TMA) version is later work; this one is simple
 // and correct first.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -55,6 +65,29 @@ constexpr int SPAD = 1;   // float pad per score-tile row
 constexpr float NEG = -1e30f;
 
 static_assert(NT == 4 * BQ, "softmax phase maps four threads to a row");
+
+// four consecutive elements of a row, widened to f32 / stored from f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xFFFF0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xFFFF0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 y) {
+  *reinterpret_cast<float4*>(p) = y;
+}
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 y) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16_bits(y.x) | (bf16_bits(y.y) << 16),
+                 bf16_bits(y.z) | (bf16_bits(y.w) << 16));
+}
 
 template <int D>
 struct Tile {
@@ -72,17 +105,17 @@ struct Tile {
   static constexpr size_t bytes = floats * sizeof(float);
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, int H, int KVH, int Sq, int Sk, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
     int64_t osh, int causal, int window, float softcap, float sm_scale) {
-  using T = Tile<D>;
-  constexpr int QS = T::QS, SS = T::SS, D4 = T::D4;
-  constexpr int TPR = T::TPR, CJ = T::CJ, RG = T::RG, RI = T::RI;
+  using TL = Tile<D>;
+  constexpr int QS = TL::QS, SS = TL::SS, D4 = TL::D4;
+  constexpr int TPR = TL::TPR, CJ = TL::CJ, RG = TL::RG, RI = TL::RI;
   constexpr int TX = BK / 4;       // score micro-tile: 4x4 per thread
   constexpr int TY = NT / TX;
   constexpr int RS = BQ / TY;
@@ -100,16 +133,16 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + kvh * ksh;
-  const float* vb = v + b * vsb + kvh * vsh;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + kvh * ksh;
+  const T* vb = v + b * vsb + kvh * vsh;
 
   // stage Q, pre-scaled; rows past Sq are zero and never stored
   for (int i = tid; i < BQ * D4; i += NT) {
     const int r = i / D4, c = i % D4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < Sq) {
-      x = *reinterpret_cast<const float4*>(qb + (int64_t)(q0 + r) * qss + 4 * c);
+      x = load4(qb + (int64_t)(q0 + r) * qss + 4 * c);
       x.x *= sm_scale; x.y *= sm_scale; x.z *= sm_scale; x.w *= sm_scale;
     }
     *reinterpret_cast<float4*>(Qs + r * QS + 4 * c) = x;
@@ -141,8 +174,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(
       const int r = i / D4, c = i % D4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < Sk) {
-        kx = *reinterpret_cast<const float4*>(kb + (int64_t)(k0 + r) * kss + 4 * c);
-        vx = *reinterpret_cast<const float4*>(vb + (int64_t)(k0 + r) * vss + 4 * c);
+        kx = load4(kb + (int64_t)(k0 + r) * kss + 4 * c);
+        vx = load4(vb + (int64_t)(k0 + r) * vss + 4 * c);
       }
       *reinterpret_cast<float4*>(Ks + r * QS + 4 * c) = kx;
       *reinterpret_cast<float4*>(Vs + r * D + 4 * c) = vx;
@@ -257,18 +290,18 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(
     const int r = rg + RG * i;
     if (q0 + r >= Sq) continue;
     const float l = l_s[r];
-    float* orow = o + b * osb + (int64_t)(q0 + r) * oss + h * osh;
+    T* orow = o + b * osb + (int64_t)(q0 + r) * oss + h * osh;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       float4 y = acc[i][j];
       y.x = y.x / l; y.y = y.y / l; y.z = y.z / l; y.w = y.w / l;
-      *reinterpret_cast<float4*>(orow + 4 * (lc + TPR * j)) = y;
+      store4(orow + 4 * (lc + TPR * j), y);
     }
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
+template <int D, typename T>
+int launch(const T* q, const T* k, const T* v, T* o,
            float* lse, int B, int H, int KVH, int Sq, int Sk, int64_t qsb,
            int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
            int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
@@ -276,30 +309,24 @@ int launch(const float* q, const float* k, const float* v, float* o,
            float sm_scale, cudaStream_t stream) {
   const int smem = (int)Tile<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<D, T><<<grid, NT, smem, stream>>>(
       q, k, v, o, lse, H, KVH, Sq, Sk, qsb, qss, qsh, ksb, kss, ksh, vsb,
       vss, vsh, osb, oss, osh, causal, window, softcap, sm_scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Strides are in elements; the
-// last (head-dim) stride must be 1 and every row 16-byte aligned (the
-// Python wrapper checks both); `stream` is a stream of `device`.  Returns
-// a cudaError_t, or -1 for an unsupported head dim.
-extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
-                             float* o, float* lse, int B, int H, int KVH,
-                             int Sq, int Sk, int D, long long qsb,
-                             long long qss, long long qsh, long long ksb,
-                             long long kss, long long ksh, long long vsb,
-                             long long vss, long long vsh, long long osb,
-                             long long oss, long long osh, int causal,
-                             int window, float softcap, float sm_scale,
-                             int device, void* stream) {
+template <typename T>
+int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B,
+             int H, int KVH, int Sq, int Sk, int D, long long qsb,
+             long long qss, long long qsh, long long ksb, long long kss,
+             long long ksh, long long vsb, long long vss, long long vsh,
+             long long osb, long long oss, long long osh, int causal,
+             int window, float softcap, float sm_scale, int device,
+             void* stream) {
   // this library carries its own (static) CUDA runtime: select the
   // tensors' device before touching the function attribute or launching
   cudaError_t e = cudaSetDevice(device);
@@ -307,9 +334,9 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
 #define FLASH_CASE(DD)                                                       \
   case DD:                                                                   \
-    return launch<DD>(q, k, v, o, lse, B, H, KVH, Sq, Sk, qsb, qss, qsh,     \
-                      ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, causal,   \
-                      window, softcap, sm_scale, st);
+    return launch<DD, T>(q, k, v, o, lse, B, H, KVH, Sq, Sk, qsb, qss, qsh,  \
+                         ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,        \
+                         causal, window, softcap, sm_scale, st);
   switch (D) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -320,3 +347,29 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
   }
 #undef FLASH_CASE
 }
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes), one per input type.  Strides
+// are in elements; the last (head-dim) stride must be 1 and every row
+// aligned to four elements (the Python wrapper checks both); `stream` is
+// a stream of `device`.  Returns a cudaError_t, or -1 for an unsupported
+// head dim.
+#define FLASH_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
+                      float* lse, int B, int H, int KVH, int Sq, int Sk,     \
+                      int D, long long qsb, long long qss, long long qsh,    \
+                      long long ksb, long long kss, long long ksh,           \
+                      long long vsb, long long vss, long long vsh,           \
+                      long long osb, long long oss, long long osh,           \
+                      int causal, int window, float softcap, float sm_scale, \
+                      int device, void* stream) {                            \
+    return dispatch<T>(static_cast<const T*>(q), static_cast<const T*>(k),   \
+                       static_cast<const T*>(v), static_cast<T*>(o), lse, B, \
+                       H, KVH, Sq, Sk, D, qsb, qss, qsh, ksb, kss, ksh, vsb, \
+                       vss, vsh, osb, oss, osh, causal, window, softcap,     \
+                       sm_scale, device, stream);                            \
+  }
+FLASH_ENTRY(flash_fwd_f32, float)
+FLASH_ENTRY(flash_fwd_bf16, __nv_bfloat16)
+#undef FLASH_ENTRY

@@ -9,13 +9,16 @@ k/v [B, Sk, KV, D]; GQA maps head h to kv head h // (H // KV).
   ``flash_attention_pallas``) and returns (out, lse).  On a CPU tensor
   the plain version ``flash_fwd_plain`` runs instead; on a CUDA tensor
   the plain version runs only when the caller asks for it by name
-  (``impl="plain"``, used to hold the kernel against it).
+  (``impl="plain"``, used to hold the kernel against it).  q/k/v are f32
+  or bf16 (all three alike): both versions compute in f32 and write the
+  output in q's dtype, with lse in f32, as the Pallas kernel does.
 * Backward: ``flash_bwd_plain`` — the PyTorch counterpart of the JAX
   package's ``flash.py::_global_bwd`` / ``_local_bwd`` (the TPU kernel
   has no backward; JAX differentiates that plain-jnp code).  It
   recomputes the scores from lse block by block, with
   ``delta = rowsum(dO * O)`` and the ``1 - t^2`` softcap factor, in
-  O(S * block) memory.
+  O(S * block) memory.  Its gradients come back in the inputs' dtypes,
+  as ``jax.grad`` of ``flash.py`` gives them.
 
 Both plain functions walk query blocks over the visible kv span
 [max(0, q0 - window + 1), min(Sk, q1)) — the structural skip the kernel
@@ -135,8 +138,12 @@ def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
 
 
 def _row_aligned(x: torch.Tensor) -> bool:
-    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+    """Rows of four-element chunks the kernel can load whole."""
+    return (x.stride(-1) == 1 and x.data_ptr() % (4 * x.element_size()) == 0
             and all(s % 4 == 0 for s in x.stride()[:-1]))
+
+
+_ENTRY = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
@@ -144,8 +151,9 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     """Launch the Hopper forward kernel: (out [B,Sq,H,D], lse [B,H,Sq])."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_fwd_cuda needs CUDA tensors")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError(f"flash_fwd_cuda takes f32, got {q.dtype}")
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in _ENTRY):
+        raise TypeError(f"flash_fwd_cuda takes f32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     b, sq, h, d = q.shape
     _, sk, kvh, dk = k.shape
     if tuple(v.shape) != tuple(k.shape) or dk != d or k.shape[0] != b:
@@ -154,12 +162,13 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if d not in _HEAD_DIMS or h % kvh:
         raise ValueError(f"unsupported head_dim={d} or heads {h}/{kvh}")
     q, k, v = (x if _row_aligned(x) else x.contiguous() for x in (q, k, v))
-    out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
         return out, lse
     lib = build.library("flash_fwd")
-    fn = lib.flash_fwd_f32
+    name = _ENTRY[q.dtype]
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
@@ -171,12 +180,14 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
              *out.stride()[:3], int(causal), int(window), float(softcap),
              1.0 / math.sqrt(d), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_fwd_f32")
+    build.check(err, name)
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.launches_bf16 += int(q.dtype == torch.bfloat16)
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches_bf16 = 0     # of those, launches on bf16 inputs
 
 
 def _resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:

@@ -3,11 +3,14 @@
 Builds the same run as ``launch.train.train`` (one rank), steps through
 ``--warm`` steps, then profiles one whole schedule period and prints one
 JSON object: wall time, summed kernel time, the device's idle share, and
-kernel time by category (this port's two kernels, matrix products,
-everything else) with the top kernels by name.
+kernel time by category (this port's kernels, matrix products,
+everything else) with the top kernels by name.  ``--wire-precision`` and
+``--master-dtype`` are ``launch.train``'s.
 
     python -m repro_torch.launch.profile_step --layers 8 --seq 8192 \
         --loss-chunk 1024 --out chiprun_out/profile_step.json
+    python -m repro_torch.launch.profile_step --wire-precision int8 \
+        --master-dtype bf16sr --out chiprun_out/profile_precision.json
 """
 from __future__ import annotations
 
@@ -32,7 +35,10 @@ from repro_torch.train.runtime import DeftRuntime
 _CATEGORIES = (
     ("flash_fwd (this port)", ("flash_fwd_kernel",)),
     ("bucket_update (this port)", ("bucket_update_kernel",)),
-    ("matrix products", ("gemm", "Gemm", "cutlass", "cublas", "xmma", "sm90")),
+    ("int8 quantize / dequantize (this port)", ("quant_int8_kernel",)),
+    ("stochastic rounding (this port)", ("sr_bf16_kernel",)),
+    ("matrix products", ("gemm", "Gemm", "cutlass", "cublas", "xmma", "sm90",
+                         "nvjet")),
     ("collectives", ("nccl",)),
 )
 
@@ -53,7 +59,12 @@ def main() -> None:
     ap.add_argument("--coverage-rate", type=float, default=1.8)
     ap.add_argument("--partition-elems", type=int, default=200_000)
     ap.add_argument("--loss-chunk", type=int, default=1024)
+    ap.add_argument("--wire-precision", choices=["auto", "f32", "bf16", "int8"],
+                    default="f32")
+    ap.add_argument("--master-dtype", choices=["f32", "bf16sr"], default="f32")
     ap.add_argument("--warm", type=int, default=2)
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="steps profiled (0 = one schedule period)")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -66,20 +77,24 @@ def main() -> None:
     meta = init_params(cfg, device="meta")
     bucket_of, nb, _, plan = build_schedule(
         meta, cfg, dp=1, seq_len=args.seq, per_device_batch=args.batch,
-        partition_elems=args.partition_elems, coverage_rate=args.coverage_rate)
-    rt = DeftRuntime(cfg, adamw(1e-3), plan.schedule,
-                     build_bucket_layout(meta, bucket_of, nb), device=dev,
-                     loss_chunk=args.loss_chunk)
+        partition_elems=args.partition_elems, coverage_rate=args.coverage_rate,
+        wire_precision=args.wire_precision, master_dtype=args.master_dtype)
+    layout = build_bucket_layout(meta, bucket_of, nb)
+    if plan.precision is not None:
+        layout = layout.with_precision(plan.precision)
+    rt = DeftRuntime(cfg, adamw(1e-3), plan.schedule, layout, device=dev,
+                     loss_chunk=args.loss_chunk, master_dtype=args.master_dtype)
     state = rt.init_state(0)
+    n_prof = args.profile_steps or rt.period
     batches = [make_batch(cfg, 0, i, args.batch, args.seq, device=dev)
-               for i in range(args.warm + rt.period)]
+               for i in range(args.warm + n_prof)]
     for i in range(args.warm):
         state, m = rt.step(i, state, batches[i])
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(args.warm, args.warm + rt.period):
+        for i in range(args.warm, args.warm + n_prof):
             state, m = rt.step(i, state, batches[i])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -96,14 +111,18 @@ def main() -> None:
     out = {
         "device": torch.cuda.get_device_name(0),
         "config": dict(arch=args.arch, layers=args.layers, seq=args.seq,
-                       batch=args.batch, loss_chunk=args.loss_chunk),
+                       batch=args.batch, loss_chunk=args.loss_chunk,
+                       wire_precision=rt.stats()["wire_precision"],
+                       master_dtype=rt.master_dtype),
         "period": rt.period,
-        "wall_ms_per_step": wall * 1e3 / rt.period,
-        "kernel_ms_per_step": busy / rt.period,
+        "steps_profiled": n_prof,
+        "wall_ms_per_step": wall * 1e3 / n_prof,
+        "kernel_ms_per_step": busy / n_prof,
         "idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
-        "by_category_ms_per_step": {k: v / rt.period for k, v in
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "by_category_ms_per_step": {k: v / n_prof for k, v in
                                     sorted(cats.items(), key=lambda kv: -kv[1])},
-        "top_kernels_ms_per_step": [(n[:120], v / rt.period) for n, v in top],
+        "top_kernels_ms_per_step": [(n[:120], v / n_prof) for n, v in top],
     }
     text = json.dumps(out, indent=1)
     print(text)

@@ -1,14 +1,17 @@
 """Training driver of the port: DDP baseline or the DeFT pipeline
 (profile -> knapsack solver -> Preserver -> replicated flat engine).
 
-Port of ``repro/launch/train.py`` for the flags of the first slice.  Runs
-on the card unless ``--device cpu``.  Under ``torchrun`` the process
+Port of ``repro/launch/train.py`` for the replicated engine's flags,
+the precision ones (``--wire-precision``, ``--master-dtype``,
+``--compute-dtype``, DESIGN.md §13) included.  Runs on the card unless
+``--device cpu``.  Under ``torchrun`` the process
 group comes from its environment; run alone it is a one-rank group
 (NCCL on the card, gloo on the CPU), so every gradient sum still goes
 through a real collective.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
-        --smoke --scheduler deft --steps 8 --batch 4 --seq 64
+        --smoke --scheduler deft --steps 8 --batch 4 --seq 64 \
+        --wire-precision int8 --master-dtype bf16sr
 """
 from __future__ import annotations
 
@@ -59,9 +62,13 @@ def init_distributed(device: torch.device) -> None:
 def build_schedule(params, cfg, *, dp: int, seq_len: int,
                    per_device_batch: int, partition_elems: int,
                    coverage_rate: float = 0.0, heterogeneous: bool = True,
-                   mu: float = 1.65, eps: float = 0.01, max_retries: int = 10):
+                   mu: float = 1.65, eps: float = 0.01, max_retries: int = 10,
+                   wire_precision: str = "f32", master_dtype: str = "f32"):
     """Leaf-bucket profile -> Solver -> Preserver; ``coverage_rate > 0``
-    rescales the analytic comm times to that coverage rate."""
+    rescales the analytic comm times to that coverage rate.
+    ``wire_precision`` engages the per-bucket precision ladder ("auto") or
+    forces a uniform wire dtype; the returned plan carries the adopted
+    policy (``plan.precision``)."""
     bucket_of, nb = assign_buckets(params, cfg, partition_elems)
     hw = HardwareModel(dp_degree=dp)
     times = leaf_bucket_times(params, cfg, bucket_of, nb, hw, seq_len,
@@ -73,9 +80,13 @@ def build_schedule(params, cfg, *, dp: int, seq_len: int,
     walk = WalkParams(s0=4.0, eta=0.01, mu=1.0, sigma=40.0, batch=256)
     res = Planner().plan(PlanRequest(
         times=times, walk=walk, heterogeneous=heterogeneous, mu=mu, eps=eps,
-        max_retries=max_retries, wire_precision="f32", master_dtype="f32",
+        max_retries=max_retries, wire_precision=wire_precision,
+        master_dtype=master_dtype,
     ))
     return bucket_of, nb, times, res
+
+
+COMPUTE_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 
 def _sync(device: torch.device) -> None:
@@ -88,14 +99,19 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           partition_elems: int = 200_000, seed: int = 0, device="cuda",
           lr: float = 1e-3, loss_chunk: int = 0,
           attn_impl: Optional[str] = None, update_impl: Optional[str] = None,
+          quantize_impl: Optional[str] = None, wire_precision: str = "f32",
+          master_dtype: str = "f32", compute_dtype: str = "f32",
           on_step: Optional[Callable] = None,
           log: Callable = print) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
     the ranks of the process group (initialised here if missing).
 
     ``on_step(step, runtime, state, metrics)`` runs after every step;
-    ``attn_impl``/``update_impl`` = "plain" force the kernels' plain
-    versions (a comparison knob).  Returns the losses, per-step wall
+    ``attn_impl``/``update_impl``/``quantize_impl`` = "plain" force the
+    kernels' plain versions (a comparison knob).  ``wire_precision``
+    ("auto", "f32", "bf16", "int8"), ``master_dtype`` ("f32", "bf16sr")
+    and ``compute_dtype`` ("f32", "bf16") are the DeFT engine's precision
+    (the DDP baseline takes none).  Returns the losses, per-step wall
     times (each step synchronised), the schedule, the runtime and the
     final state."""
     device = torch.device(device)
@@ -115,18 +131,27 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         params_abs = init_params(cfg, device="meta")
         bucket_of, nb, times, plan = build_schedule(
             params_abs, cfg, dp=world, seq_len=seq, per_device_batch=per,
-            partition_elems=partition_elems, coverage_rate=coverage_rate)
+            partition_elems=partition_elems, coverage_rate=coverage_rate,
+            wire_precision=wire_precision, master_dtype=master_dtype)
         schedule = plan.schedule
         log(f"deft: {nb} buckets, CR={times.coverage_rate:.2f}, "
             f"period={schedule.period}, "
             f"updates/period={schedule.updates_per_period}, "
             f"batch-size seq={schedule.batch_size_sequence}, "
             f"preserver ratio={plan.verdict.ratio:.4f}")
+        if plan.precision is not None:
+            log(f"precision: wire={plan.precision.describe()} "
+                f"master={plan.precision.master}")
         layout = build_bucket_layout(params_abs, bucket_of, nb)
-        runtime = DeftRuntime(cfg, opt, schedule, layout, device=device,
-                              loss_chunk=loss_chunk, attn_impl=attn_impl,
-                              update_impl=update_impl)
-        state = runtime.init_state(seed)
+        if plan.precision is not None:
+            layout = layout.with_precision(plan.precision)
+        cdt = COMPUTE_DTYPES[compute_dtype]
+        runtime = DeftRuntime(
+            cfg, opt, schedule, layout, device=device, loss_chunk=loss_chunk,
+            attn_impl=attn_impl, update_impl=update_impl,
+            quantize_impl=quantize_impl, compute_dtype=cdt,
+            master_dtype=master_dtype)
+        state = runtime.init_state(seed, dtype=cdt or torch.float32)
         out.update(schedule=schedule, layout=layout, times=times)
     else:
         raise ValueError(f"unknown scheduler {scheduler!r}")
@@ -169,6 +194,19 @@ def main() -> None:
     ap.add_argument("--loss-chunk", type=int, default=0,
                     help="sequence chunk of the LM-head loss (0 = whole "
                          "sequence); long sequences at a large vocab need it")
+    ap.add_argument("--compute-dtype", choices=["f32", "bf16"], default="f32",
+                    help="forward/backward precision of the flat engine (the "
+                         "master copy stays as --master-dtype says)")
+    ap.add_argument("--wire-precision", choices=["auto", "f32", "bf16", "int8"],
+                    default="f32",
+                    help="gradient wire precision (DESIGN.md §13): 'auto' "
+                         "lets the planner pick a per-bucket policy under the "
+                         "precision-aware Preserver; a dtype forces that "
+                         "uniform wire")
+    ap.add_argument("--master-dtype", choices=["f32", "bf16sr"], default="f32",
+                    help="resident master-param dtype: 'bf16sr' keeps params "
+                         "at bf16 with seeded stochastic-rounded updates "
+                         "(moments stay f32)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -184,7 +222,10 @@ def main() -> None:
                 batch=args.batch, seq=args.seq,
                 coverage_rate=args.coverage_rate,
                 partition_elems=args.partition_elems, seed=args.seed,
-                device=args.device, loss_chunk=args.loss_chunk)
+                device=args.device, loss_chunk=args.loss_chunk,
+                wire_precision=args.wire_precision,
+                master_dtype=args.master_dtype,
+                compute_dtype=args.compute_dtype)
     dt = time.time() - t0
     print(f"{args.steps} steps in {dt:.1f}s "
           f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")

@@ -1,23 +1,24 @@
 """Gradient bucketing over parameter-tree leaves and the static flat-buffer
 layout of the replicated engine.
 
-Port of ``repro/train/bucketing.py`` (replicated, all-f32 layouts only):
-buckets over the real tree leaves in model input->output order, filled
+Port of ``repro/train/bucketing.py`` (replicated layouts): buckets over the real tree leaves in model input->output order, filled
 greedily to ``partition_elems``; ``BucketLayout`` maps every leaf to a
-span of one flat f32 buffer per bucket, padded to ``PAD_MULTIPLE``.  Leaf
+span of one flat buffer per bucket, padded to ``PAD_MULTIPLE``, and
+carries the per-bucket wire precision policy (DESIGN.md §13).  Leaf
 order is ``jax.tree_util.tree_flatten`` order (``repro_torch.tree``), so
 a layout built here equals the JAX package's layout of the same tree.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bucket import BucketTimes
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.profiler import HardwareModel
 from repro_torch.tree import tree_flatten_with_path, tree_leaves
 
@@ -103,7 +104,10 @@ class BucketLayout:
     sizes:          per bucket, element count of its valid span.
     shapes:         per leaf (tree_flatten order), the original shape.
     padded_sizes:   per bucket, the allocated length (``sizes`` rounded up
-                    to a lane multiple; the tail is always zero).
+                    to a multiple of the 128-lane width every kernel tiles
+                    by; the tail is always zero).
+    precision:      per-bucket wire precision policy; ``None`` means
+                    all-f32 wires and an f32 master.
     """
 
     bucket_of_leaf: Tuple[int, ...]
@@ -113,10 +117,31 @@ class BucketLayout:
     sizes: Tuple[int, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     padded_sizes: Tuple[int, ...]
+    precision: Optional[PrecisionPolicy] = None
+
+    def __post_init__(self):
+        if any(n % PAD_MULTIPLE for n in self.padded_sizes):
+            raise ValueError(f"bucket buffers {self.padded_sizes} are not all "
+                             f"{PAD_MULTIPLE}-lane multiples")
+        if self.precision is not None:
+            self.precision.validate(self.n_buckets)
 
     @property
     def n_leaves(self) -> int:
         return len(self.bucket_of_leaf)
+
+    def wire(self, b: int) -> str:
+        """Wire dtype name of bucket ``b`` ("f32" without a policy)."""
+        return "f32" if self.precision is None else self.precision.wire[b]
+
+    @property
+    def master_dtype(self) -> str:
+        return "f32" if self.precision is None else self.precision.master
+
+    def with_precision(self, precision: Optional[PrecisionPolicy]
+                       ) -> "BucketLayout":
+        """Same partition, another precision policy."""
+        return dataclasses.replace(self, precision=precision)
 
     @property
     def total_elems(self) -> int:
@@ -166,7 +191,8 @@ def build_bucket_layout(params, bucket_of_leaf: Sequence[int], n_buckets: int,
 
 def flatten_buckets(layout: BucketLayout, leaf_vals) -> List[torch.Tensor]:
     """Pack leaf values (tree_flatten order) into per-bucket flat f32
-    buffers, zero-padded to the allocated length (new tensors)."""
+    buffers, zero-padded to the allocated length (new tensors; a
+    low-precision leaf is promoted exactly)."""
     out = []
     for b in range(layout.n_buckets):
         ref = leaf_vals[layout.leaves[b][0]] if layout.leaves[b] else None

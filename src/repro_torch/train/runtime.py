@@ -16,7 +16,18 @@ Port of ``repro/train/runtime.py`` (``_route_and_sync``,
   buffer does not tile over the ranks, as JAX falls back to ``psum``),
   and one ``all_reduce`` of the stacked metrics;
 * update phases run one fused bucket-update kernel per bucket, with the
-  accumulator zeroing fused into the same launch where JAX fuses it.
+  accumulator zeroing fused into the same launch where JAX fuses it;
+* precision (DESIGN.md §13): every bucket sync runs at the bucket's wire
+  dtype from ``layout.precision`` (``_wire_sync``: an int8 wire projects
+  the buffer onto the blockwise int8 grid in place before an f32 sum, a
+  bf16 wire sums a bf16 copy and promotes it back); a ``bf16sr`` master
+  keeps the param buffers in bf16, rounded after every update by the
+  seeded stochastic-rounding kernel; ``compute_dtype`` casts the param
+  buffers once per step for the forward.  Gradients are taken with
+  respect to the cast params, as JAX differentiates after
+  ``_cast_compute``: a low-precision gradient lands in a per-bucket
+  scratch buffer of its dtype and is promoted exactly into the f32
+  gradient buffer.
 
 JAX's arrays are immutable and its executables donate the state; the
 port updates the buffers in place instead (the same memory footprint:
@@ -40,6 +51,11 @@ from repro_torch.kernels.bucket_update import (
     apply_bucket_updates,
     build_segments,
     init_flat_opt_state,
+)
+from repro_torch.kernels.quantize import (
+    cast_compute,
+    quantize_dequantize_int8,
+    stochastic_round_bf16,
 )
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim.optimizers import OptimizerSpec, apply_updates, init_opt_state
@@ -152,6 +168,26 @@ def phase_collectives(phase: PhaseSpec) -> Dict[str, int]:
     return {"primary": primary, "secondary": secondary, "metrics": 1}
 
 
+def _wire_sync(x: torch.Tensor, wire: str, collective,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """Run a gradient-sum ``collective`` at a bucket's wire precision, the
+    result landing in ``x`` (the buffer identity the generation
+    bookkeeping relies on).
+
+    * ``bf16`` sums a bf16 copy (half the wire bytes) and promotes the
+      result back into the f32 buffer.
+    * ``int8`` projects the local contribution onto the blockwise int8
+      grid in place and sums in f32: an int8 ring sum would overflow at
+      the first hop, so this is the JAX package's value-exact emulation of
+      the quantized wire (DESIGN.md §13).
+    """
+    if wire == "bf16":
+        return x.copy_(collective(x.to(torch.bfloat16)))
+    if wire == "int8":
+        quantize_dequantize_int8(x, impl=impl, out=x)
+    return collective(x)
+
+
 @dataclasses.dataclass
 class PhaseStats:
     """Per-unique-phase dispatch statistics (host clock, enqueue time on
@@ -177,12 +213,20 @@ class DeftRuntime:
     """Runs one DeFT schedule on the replicated flat-resident engine.
 
     ``step(i, state, batch)`` runs cycle phase ``i % period`` and returns
-    (state, metrics); the state's buffers are updated in place."""
+    (state, metrics); the state's buffers are updated in place.
+
+    ``compute_dtype`` (None or ``torch.bfloat16``) is the forward/backward
+    dtype; ``master_dtype`` ("f32" or "bf16sr", None to take the layout's)
+    the resident param dtype; ``attn_impl`` / ``update_impl`` /
+    ``quantize_impl`` = "plain" force the kernels' plain versions."""
 
     def __init__(self, cfg: ArchConfig, opt_spec: OptimizerSpec,
                  schedule: DeftSchedule, layout: BucketLayout, *,
                  device="cuda", group=None, loss_chunk: int = 0, attn_impl: Optional[str] = None,
-                 update_impl: Optional[str] = None):
+                 update_impl: Optional[str] = None,
+                 quantize_impl: Optional[str] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 master_dtype: Optional[str] = None):
         self.cfg = cfg
         self.opt_spec = opt_spec
         self.schedule = schedule
@@ -192,6 +236,24 @@ class DeftRuntime:
         self.loss_chunk = loss_chunk
         self.attn_impl = attn_impl
         self.update_impl = update_impl
+        self.quantize_impl = quantize_impl
+        if compute_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype={compute_dtype!r}")
+        self.compute_dtype = compute_dtype
+        # the resident-master dtype must agree with the layout's policy
+        lp_master = (layout.precision.master
+                     if layout.precision is not None else None)
+        if (master_dtype is not None and lp_master is not None
+                and master_dtype != lp_master):
+            raise ValueError(
+                f"master dtype disagreement: master_dtype={master_dtype!r} "
+                f"but the layout's precision policy says {lp_master!r}")
+        self.master_dtype = master_dtype or lp_master or "f32"
+        if self.master_dtype not in ("f32", "bf16sr"):
+            raise ValueError(f"master_dtype={self.master_dtype!r}")
+        # the forward reads (and autograd differentiates) this dtype
+        self._leaf_dtype = compute_dtype or (
+            torch.bfloat16 if self.master_dtype == "bf16sr" else torch.float32)
         self._structure = init_params(cfg, device="meta")
         shapes = tuple(tuple(l.shape) for l in tree_leaves(self._structure))
         if shapes != layout.shapes:
@@ -214,9 +276,15 @@ class DeftRuntime:
 
     # ---- state -----------------------------------------------------------
     def state_from_params(self, params) -> TrainState:
-        """Train state whose param buffers hold ``params`` (a tree)."""
+        """Train state whose param buffers hold ``params`` (a tree),
+        promoted into the f32 master; a bf16sr master is then rounded
+        down bucket by bucket by the stochastic-rounding kernel, with seed
+        b + 1 as JAX's ``_round_master``."""
         pbuf = tuple(flatten_buckets(
             self.layout, [p.to(self.device) for p in tree_leaves(params)]))
+        if self.master_dtype == "bf16sr":
+            pbuf = tuple(stochastic_round_bf16(p, b + 1, impl=self.quantize_impl)
+                         for b, p in enumerate(pbuf))
         acc = init_fused_accumulators(self.layout, self.device)
         return {
             "pbuf": pbuf,
@@ -224,12 +292,23 @@ class DeftRuntime:
                                        self.device),
             "cur": acc["cur"],
             "fut": acc["fut"],
-            "gbuf": tuple(torch.zeros_like(p) for p in pbuf),
+            "gbuf": tuple(torch.zeros((n,), dtype=torch.float32,
+                                      device=self.device)
+                          for n in self.layout.buf_sizes),
         }
 
-    def init_state(self, seed: int = 0) -> TrainState:
+    def init_state(self, seed: int = 0,
+                   dtype: torch.dtype = torch.float32) -> TrainState:
+        """Fresh state from params drawn at ``dtype`` (the compute dtype
+        of a mixed-precision run: the init rounding), promoted into the
+        master."""
+        if dtype != torch.float32 and dtype != self.compute_dtype:
+            raise ValueError(
+                f"the master is promoted from params drawn at {dtype}; that "
+                f"needs the runtime built with compute_dtype={dtype} (got "
+                f"{self.compute_dtype})")
         return self.state_from_params(
-            init_params(self.cfg, seed=seed, device=self.device))
+            init_params(self.cfg, seed=seed, device=self.device, dtype=dtype))
 
     def params_tree(self, state: TrainState):
         """Parameter tree of views into the param buffers."""
@@ -246,16 +325,32 @@ class DeftRuntime:
         n_dp = self.dp.size
         self.dp.reset()
 
-        leaves = _grad_leaves(layout, state["pbuf"], state["gbuf"])
+        # differentiate w.r.t. the params at the leaf dtype: f32 gradients
+        # accumulate straight into gbuf, others into a scratch buffer of
+        # their dtype that is promoted into gbuf after the backward.  The
+        # scratch is freed before the syncs and the update: held across
+        # steps it would raise the peak by its size and save no pass, as
+        # it has to be zeroed for the next backward either way.
+        src = [cast_compute(p, self._leaf_dtype) for p in state["pbuf"]]
+        if self._leaf_dtype == torch.float32:
+            gdst = state["gbuf"]
+        else:
+            gdst = [torch.zeros((n,), dtype=self._leaf_dtype,
+                                device=self.device) for n in layout.buf_sizes]
+        leaves = _grad_leaves(layout, src, gdst)
         loss, parts = loss_fn(
             tree_unflatten(self._structure, leaves), self.cfg, batch,
             loss_chunk=self.loss_chunk, attn_impl=self.attn_impl)
         loss.backward()
-        del leaves
+        del leaves, src
+        if gdst is not state["gbuf"]:
+            for g, lo in zip(state["gbuf"], gdst):
+                g.copy_(lo)
+        del gdst
 
         def sync(x: torch.Tensor, b: int) -> torch.Tensor:
-            return (self.dp.secondary(x) if phase.secondary[b]
-                    else self.dp.primary(x))
+            coll = self.dp.secondary if phase.secondary[b] else self.dp.primary
+            return _wire_sync(x, layout.wire(b), coll, self.quantize_impl)
 
         g_flat = list(state["gbuf"])
         cur_synced_in = list(state["cur"])
@@ -269,7 +364,9 @@ class DeftRuntime:
             apply_bucket_updates(
                 self.opt_spec, self.segments, state["pbuf"], src,
                 state["opt"], grad_scale=1.0 / (n_dp * phase.update_k),
-                zero_grads=zero_grads, impl=self.update_impl)
+                zero_grads=zero_grads, impl=self.update_impl,
+                master_dtype=self.master_dtype,
+                quantize_impl=self.quantize_impl)
             if phase.update_source == "cur" and gen is not None:
                 new_cur, dead = gen, cur_synced
             elif phase.update_source == "cur":       # src zeroed in place
@@ -313,6 +410,12 @@ class DeftRuntime:
             "n_buckets": self.layout.n_buckets,
             "n_leaves": self.layout.n_leaves,
             "dp": self.dp.size,
+            "compute_dtype": str(self.compute_dtype or torch.float32
+                                 ).replace("torch.", ""),
+            "wire_precision": (self.layout.precision.describe()
+                               if self.layout.precision is not None
+                               else "f32"),
+            "master_dtype": self.master_dtype,
             "steps_dispatched": n,
             "dispatch_s_total": total,
             "collectives_per_phase": coll,

@@ -8,9 +8,12 @@ with only PyTorch and the CUDA toolkit:
 
 Tolerances: flash attention 1e-4 absolute and relative on out, lse and
 the autograd gradients (f32 with another summation order than cuBLAS's
-matmuls in the plain version); the bucket update bitwise (its kernel
-rounds every operation separately, as the plain version's elementwise
-kernels do).
+matmuls in the plain version); on bf16 inputs lse keeps 1e-4, out (bf16)
+rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
+atol max|g| / 128 (the plain backward reads the kernel's rounded output);
+the bucket update and the three quantize kernels bitwise (each rounds
+every operation separately, as the plain version's elementwise kernels
+do, and the hash is integer arithmetic).
 """
 import numpy as np
 import pytest
@@ -26,9 +29,19 @@ from repro_torch.kernels.flash_attention import (
     flash_fwd_cuda,
     flash_fwd_plain,
 )
+from repro_torch.kernels.quantize import (
+    dequantize_int8_cuda,
+    dequantize_int8_plain,
+    quantize_int8_cuda,
+    quantize_int8_plain,
+    stochastic_round_bf16_cuda,
+    stochastic_round_bf16_plain,
+)
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 
 TOL = 1e-4
+BF16_OUT_RTOL = 2 ** -7
+BF16_GRAD_RTOL = 1.6e-2
 
 
 def _need_card():
@@ -98,3 +111,63 @@ def test_bucket_kernel_bitwise(spec, elem):
     assert torch.equal(p, want[0]) and torch.equal(m, want[1])
     assert (not adam) or torch.equal(v, want[2])
     assert not g.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,h,kvh,s,causal,window,cap", [
+    (128, 8, 2, 200, True, 0, 0.0),
+    (256, 8, 4, 333, True, 100, 50.0),
+])
+def test_flash_kernel_bf16_matches_plain(d, h, kvh, s, causal, window, cap):
+    _need_card()
+    q, k, v = (x.bfloat16() for x in _qkv(6, 2, s, h, kvh, d))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = flash_fwd_cuda(q, k, v, **kw)
+    ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    w = torch.randn(q.shape, device="cuda")
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.sum(flash_attention(*xs, impl=impl, **kw).float() * w).backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=BF16_GRAD_RTOL,
+            atol=b.float().abs().max().item() / 128)
+    with pytest.raises(TypeError):
+        flash_fwd_cuda(q, k.float(), v)
+
+
+def _hostile(n, n_valid, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * 3).astype(np.float32)
+    if n >= 256 and n_valid >= 256:
+        x[128:256] = 0.0                       # an all-zero row
+    x[n_valid:] = np.resize(np.array([np.nan, np.inf, -np.inf, 1e30],
+                                     np.float32), n - n_valid)
+    return torch.from_numpy(x).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padded,n_valid", [(128, 128), (1280, 1000),
+                                            (4096, 4096), (4096, 1)])
+def test_quantize_kernels_bitwise(padded, n_valid):
+    _need_card()
+    x = _hostile(padded, n_valid, padded + n_valid)
+    q, s = quantize_int8_cuda(x, n_valid)
+    q2, s2 = quantize_int8_plain(x, n_valid)
+    y = dequantize_int8_cuda(q, s, n_valid)
+    y2 = dequantize_int8_plain(q, s, n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(y, y2)
+    for seed in (0, 12345, 2**32 - 1):
+        a = stochastic_round_bf16_cuda(x, seed, n_valid)
+        b = stochastic_round_bf16_plain(x, seed, n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))

@@ -11,7 +11,9 @@
   step's move), rtol 0.
 * The collectives each phase issues equal ``phase_collectives``.
 * The DDP baseline step matches the JAX one.
-* Two spawned gloo ranks equal one rank over the concatenated batch.
+* Two spawned gloo ranks equal one rank over the concatenated batch; with
+  a mixed int8 / bf16 / f32 wire policy the two replicas stay bitwise
+  identical and stay within the wires' rounding of the one-rank run.
 """
 import multiprocessing as mp
 import os
@@ -34,6 +36,7 @@ from repro.train.steps import init_train_state as jax_init_train_state
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduce_for_smoke as t_reduce
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.data.pipeline import make_batch as t_make_batch
 from repro_torch.launch.train import build_schedule, init_distributed
 from repro_torch.models.model import init_params
@@ -168,31 +171,34 @@ def test_ddp_step_matches_jax(group, single_mesh):
         np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0)
 
 
-def _rank_main(rank, world, port, n_steps, out_dir):
+def _rank_main(rank, world, port, n_steps, out_dir, mixed=False):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     try:
-        res = _run_port(world, rank, n_steps)
-        if rank == 0:
-            np.savez(os.path.join(out_dir, "rank0.npz"), *res)
+        res = _run_port(world, rank, n_steps, mixed)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), *res)
     finally:
         dist.destroy_process_group()
 
 
-def _run_port(world, rank, n_steps):
+def _run_port(world, rank, n_steps, mixed=False):
     """The port's runtime on the smoke config, planned for two ranks,
     over a global batch of 4 of which this rank takes its slice; returns
-    the final params then the losses."""
+    the final params then the losses.  ``mixed`` puts int8, bf16 and f32
+    wires on the buckets in turn."""
     cfg = t_reduce(t_get_config(ARCH))
     meta = init_params(cfg, device="meta")
     bucket_of, nb, _, plan = build_schedule(
         meta, cfg, dp=2, seq_len=48, per_device_batch=2,
         partition_elems=PART, coverage_rate=1.8)
-    rt = DeftRuntime(cfg, adamw(1e-3), plan.schedule,
-                     build_bucket_layout(meta, bucket_of, nb), device="cpu")
+    layout = build_bucket_layout(meta, bucket_of, nb)
+    if mixed:
+        layout = layout.with_precision(PrecisionPolicy(
+            tuple(("int8", "bf16", "f32")[b % 3] for b in range(nb))))
+    rt = DeftRuntime(cfg, adamw(1e-3), plan.schedule, layout, device="cpu")
     state = rt.init_state(seed=0)
     per = 4 // world
     losses = []
@@ -207,27 +213,52 @@ def _run_port(world, rank, n_steps):
     return params + [np.array(losses)]
 
 
-def test_two_gloo_ranks_equal_one_rank(group, tmp_path):
-    """Each rank takes half the global batch; the DeFT syncs (all-reduce
-    and reduce-scatter + all-gather) must recover the one-rank run over
-    the whole batch, within f32 reduction-order noise."""
-    n_steps = 6
+def _two_ranks_and_one(tmp_path, n_steps, mixed=False):
+    """(rank 0's result, rank 1's, the one-rank run's) of ``_run_port``."""
     ctx = mp.get_context("spawn")
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = [ctx.Process(target=_rank_main, args=(r, 2, port, n_steps,
-                                                  str(tmp_path)))
+                                                  str(tmp_path), mixed))
              for r in range(2)]
     for p in procs:
         p.start()
-    one = _run_port(1, 0, n_steps)
+    one = _run_port(1, 0, n_steps, mixed)
     for p in procs:
         p.join(timeout=240)
         assert not p.is_alive() and p.exitcode == 0
-    two = np.load(tmp_path / "rank0.npz")
-    two = [two[f"arr_{i}"] for i in range(len(two.files))]
-    assert len(two) == len(one)
+    ranks = []
+    for r in range(2):
+        f = np.load(tmp_path / f"rank{r}.npz")
+        ranks.append([f[f"arr_{i}"] for i in range(len(f.files))])
+        assert len(ranks[-1]) == len(one)
+    return ranks[0], ranks[1], one
+
+
+def test_two_gloo_ranks_equal_one_rank(group, tmp_path):
+    """Each rank takes half the global batch; the DeFT syncs (all-reduce
+    and reduce-scatter + all-gather) must recover the one-rank run over
+    the whole batch, within f32 reduction-order noise."""
+    two, _, one = _two_ranks_and_one(tmp_path, 6)
     np.testing.assert_allclose(two[-1], one[-1], rtol=1e-5)   # losses
     for a, b in zip(two[:-1], one[:-1]):
         np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
+
+
+def test_two_gloo_ranks_mixed_wire(group, tmp_path):
+    """int8, bf16 and f32 wires on the buckets in turn, on two gloo ranks
+    (bf16 all-reduce and reduce-scatter + all-gather included): the two
+    replicas end bitwise identical, and the run stays within the wires'
+    rounding of the one-rank run, where each rank's half-batch gradient
+    was rounded instead of the whole batch's.  AdamW divides each step by
+    the element's own gradient magnitude, so where a gradient is near zero
+    the wires' rounding moves a param by up to lr either way.  Limits from
+    the readings (losses rel 7.4e-5, params max |diff| 2.8e-3 after 6
+    steps): losses rtol 1e-3, params atol 1e-2 (ten steps of lr 1e-3)."""
+    r0, r1, one = _two_ranks_and_one(tmp_path, 6, mixed=True)
+    for a, b in zip(r0, r1):
+        assert np.array_equal(a, b)
+    np.testing.assert_allclose(r0[-1], one[-1], rtol=1e-3)     # losses
+    for a, b in zip(r0[:-1], one[:-1]):
+        np.testing.assert_allclose(a, b, atol=1e-2, rtol=0)
