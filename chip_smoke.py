@@ -7,30 +7,37 @@
    source, all started together) and prints the compiler's register and
    spill counts.
 2. Holds each kernel against its plain PyTorch version on the card:
-   flash attention at head dims 128 and 256 with GQA, causal, window,
-   softcap and a ragged length (out, lse and autograd gradients within
-   1e-4), then at the main path's shapes; the bucket update bitwise for
-   AdamW and SGD, uniform and per-element, masked tail, fused zeroing;
-   the int8 quantize, dequantize and bf16 stochastic-rounding kernels
-   bitwise, at 128, 1280 and 4096 elements with ragged NaN/inf tails, an
-   all-zero row and two seeds, and on the main path's largest bucket
-   (589,824,000 elements); flash attention again on bf16 inputs (out
+   flash attention at head dims 128 and 256 with GQA (MQA 16:1 too),
+   causal, window, softcap and a ragged length (out, lse and autograd
+   gradients within 1e-4), then at the paths' shapes (gemma2-2b's global
+   and local layers, recurrentgemma-9b's MQA local layer); the bucket
+   update bitwise for AdamW and SGD, uniform and per-element, masked
+   tail, fused zeroing; the int8 quantize, dequantize and bf16
+   stochastic-rounding kernels bitwise, at 128, 1280 and 4096 elements
+   with ragged NaN/inf tails, an all-zero row and two seeds, and on the
+   main path's largest bucket (589,824,000 elements); flash attention again on bf16 inputs (out
    within one bf16 rounding step, lse 1e-4, gradients 1.6e-2 relative
-   with max|g| / 128 absolute).  Times each kernel, its plain version and
-   a PyTorch library call that computes the same function and that the
-   port never calls (compiled ``flex_attention`` with the softcap as
-   ``score_mod`` and the causal / window mask as a block mask, on f32 and
-   on bf16 inputs; ``torch._fused_adamw_``; ``torch.mul`` of the int8
-   rows by their scales for dequantize; none for quantize and stochastic
-   rounding), beside the least time the card could take.
+   with max|g| / 128 absolute); the RG-LRU scan's forward and reverse-scan
+   backward kernels bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256),
+   (3, 33, 100) and (1, 1, 4096) with and without h0 and an h_final
+   cotangent, and at the recurrent path's [1, 8192, 4096].  Times each
+   kernel, its plain version and a PyTorch library call that computes the
+   same function and that the port never calls (compiled
+   ``flex_attention`` with the softcap as ``score_mod`` and the causal /
+   window mask as a block mask, on f32 and on bf16 inputs;
+   ``torch._fused_adamw_``; ``torch.mul`` of the int8 rows by their scales
+   for dequantize; none for quantize, stochastic rounding and the scan),
+   beside the least time the card could take.
 3. Drives the DeFT main path through ``repro_torch.launch.train.train``:
    gemma2-2b at full width with its depth cut to 8 of 26 layers, batch 1,
    sequence 8192 (the 4096 window really masks), coverage rate 1.8.  The
    first schedule period runs once with the plain versions forced; the
    main run (launch counters zeroed just before it) must agree with it
    (every bucket's params within 1e-4, at most 1000 elements beyond
-   1e-5), launch both kernels, issue exactly ``phase_collectives`` per phase,
-   and keep the loss finite.
+   1e-5), launch each kernel exactly as often as its layers and updates
+   say (flash twice per attention layer per step: forward and remat
+   recompute; the bucket update once per bucket per update), issue
+   exactly ``phase_collectives`` per phase, and keep the loss finite.
 4. Drives DeFT's precision path the same way, with int8 gradient wires on
    every bucket and a bf16sr resident master (forward and backward in
    bf16): its first steps once with every plain version forced, then the
@@ -42,7 +49,14 @@
    int8 wire leaves a one-step period; a second run at 4 x 1.8, whose
    schedule merges and delays updates and rotates generations, is held
    to the same checks over its first period.
-5. Prints the kernels line, the card's name and power limit, and last the
+5. Drives recurrentgemma-9b (Griffin) the same way as 3: full width
+   (d_model and lru_width 4096, MQA 16 heads over 1, head_dim 256, d_ff
+   12288, window 2048), depth cut to 6 of 38 layers (two periods of
+   rglru, rglru, local attention), 8 steps, held to the same limits
+   against its plain run; per step it must launch the scan forward 8
+   times (4 RG-LRU layers, forward and recompute), its backward 4 times
+   and flash 4 times.
+6. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -81,6 +95,12 @@ COVERAGE_RATE, PARTITION_ELEMS, LOSS_CHUNK, LR = 1.8, 200_000, 1024, 1e-3
 # rounding kernels through those edges too.
 WIRE, MASTER, PREC_STEPS, PREC_REF_STEPS = "int8", "bf16sr", 6, 3
 DELAYED_COVERAGE_RATE = 4 * COVERAGE_RATE
+# the recurrent path: recurrentgemma-9b (Griffin) at full width, depth cut to
+# two periods of (rglru, rglru, local_attn), 8 steps (two DeFT schedule
+# periods at coverage rate 1.8); its local-attention window
+RG_ARCH, RG_LAYERS, RG_OF_LAYERS, RG_STEPS = "recurrentgemma-9b", 6, 38, 8
+RG_WINDOW = 2048
+RG_WIDTH = 4096                 # lru_width: the scan's W
 # limits against the plain run, from two runs on two cards that read loss
 # rel 1.6e-4 and 3,353,277 params (0.28%) beyond 1e-4 + |p| / 128 (one
 # bf16 ulp at the value) both times, and params max |diff| 2.69e-3 (PERF.md)
@@ -136,10 +156,13 @@ def flex_call(torch, q, k, v, window: int, cap: float):
 
     s = q.shape[1]
     mask = create_block_mask(mask_mod, None, None, s, s, device=q.device)
+    # a fresh compile for each yardstick: a recompile for another cap would
+    # otherwise turn the captured float dynamic, which flex cannot lower
+    torch._dynamo.reset()
     fn = torch.compile(flex_attention)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
-                      enable_gqa=True).transpose(1, 2)
+    return lambda: fn(qt, kt, vt, score_mod=score_mod if cap else None,
+                      block_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
 def visible_pairs(s: int, causal: bool, window: int) -> int:
@@ -175,6 +198,7 @@ def flash_phase(torch, report):
         (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
         (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
         (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
+        (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
     ]
     for b, s, h, kvh, d, causal, window, cap in cases:
         kw = dict(causal=causal, window=window, softcap=cap)
@@ -203,12 +227,17 @@ def flash_phase(torch, report):
         max_err = max(max_err, err)
         print(f"flash D={d} S={s} H={h}/{kvh} {kw}: ok (max err {err:.3g})")
 
-    # the main path's shapes: gemma2-2b, B=1, S=8192, 8 heads over 4, D=256
-    b, s, h, kvh, d = BATCH, SEQ, 8, 4, 256
-    q, k, v = qkv(b, s, h, kvh, d)
+    # the paths' shapes, B=1, S=8192, D=256: gemma2-2b's global and local
+    # layers (8 heads over 4, softcap 50) and recurrentgemma-9b's local
+    # attention layer (MQA, 16 heads over 1, window 2048, no softcap)
     shapes = {}
-    for layer, window in (("global", 0), ("local", 4096)):
-        kw = dict(causal=True, window=window, softcap=50.0)
+    for layer, h, kvh, window, cap in (("global", 8, 4, 0, 50.0),
+                                       ("local", 8, 4, 4096, 50.0),
+                                       ("recurrentgemma", 16, 1, RG_WINDOW,
+                                        0.0)):
+        b, s, d = BATCH, SEQ, 256
+        q, k, v = qkv(b, s, h, kvh, d)
+        kw = dict(causal=True, window=window, softcap=cap)
         out, lse = flash_fwd_cuda(q, k, v, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -216,13 +245,13 @@ def flash_phase(torch, report):
                   (lse - ref_lse).abs().max().item())
         check(torch.allclose(out, ref, rtol=FLASH_TOL, atol=FLASH_TOL)
               and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
-              f"flash kernel disagrees with plain at the {layer} main-path "
+              f"flash kernel disagrees with plain at the {layer} layer's "
               f"shape: max err {err:.3g}")
         max_err = max(max_err, err)
         del out, lse, ref, ref_lse
         ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 5)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
-        lib = flex_call(torch, q, k, v, window, 50.0)
+        lib = flex_call(torch, q, k, v, window, cap)
         lib_err = (lib() - flash_fwd_cuda(q, k, v, **kw)[0]).abs().max().item()
         library_ms = time_ms(torch, lib, 3)
         del lib
@@ -236,11 +265,12 @@ def flash_phase(torch, report):
             bound_by="operations" if bound_ops >= bound_bytes else "bytes",
             flops=flops, bytes=nbytes, max_abs_err=err,
             library_max_abs_err=lib_err)
-        print(f"flash main-path {layer} (B={b} S={s} H={h}/{kvh} D={d} "
-              f"window={window}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"flex_attention {library_ms:.3f} ms (max diff to the kernel "
-              f"{lib_err:.3g}), bound {shapes[layer]['bound_ms']:.3f} "
-              f"ms ({shapes[layer]['bound_by']}), "
+        print(f"flash {layer} layer (B={b} S={s} H={h}/{kvh} D={d} "
+              f"window={window} softcap={cap}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, flex_attention {library_ms:.3f} ms (max "
+              f"diff to the kernel {lib_err:.3g}), bound "
+              f"{shapes[layer]['bound_ms']:.3f} ms "
+              f"({shapes[layer]['bound_by']}), "
               f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
     report["flash"] = dict(cases=len(cases), max_abs_err=max_err, **shapes)
     torch.cuda.empty_cache()
@@ -256,6 +286,12 @@ def flash_phase(torch, report):
         "local_ms": shapes["local"]["ms"],
         "local_plain_ms": shapes["local"]["plain_ms"],
         "local_bound_ms": shapes["local"]["bound_ms"],
+        "rg_ms": shapes["recurrentgemma"]["ms"],
+        "rg_plain_ms": shapes["recurrentgemma"]["plain_ms"],
+        "rg_bound_ms": shapes["recurrentgemma"]["bound_ms"],
+        "rg_library_ms": shapes["recurrentgemma"]["library_ms"],
+        "rg_shape": f"B=1 S=8192 H=16 KV=1 D=256 causal window={RG_WINDOW} "
+                    f"(recurrentgemma-9b local layer)",
         "library_note": "compiled flex_attention, softcap score_mod",
     }
 
@@ -621,22 +657,150 @@ def flash_bf16_phase(torch, report, entry):
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU scan: forward and reverse-scan backward
+# ---------------------------------------------------------------------------
+def rglru_phase(torch, report):
+    from repro_torch.kernels.rglru import (
+        rglru_bwd_cuda,
+        rglru_fwd_cuda,
+        rglru_scan_bwd_plain,
+        rglru_scan_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+
+    def inputs(b, s, w):
+        mk = lambda *shape: torch.randn(shape, device="cuda", generator=gen)
+        a = torch.rand((b, s, w), device="cuda", generator=gen) * 0.85 + 0.1
+        return mk(b, s, w), a, mk(b, w), mk(b, s, w), mk(b, w)
+
+    def compare(b, a, h0, dh, dh_final, what):
+        """Both kernels against their plain versions, bitwise."""
+        h, hfin = rglru_fwd_cuda(b, a, h0)
+        ref, ref_fin = rglru_scan_plain(b, a, h0)
+        torch.cuda.synchronize()
+        check(torch.equal(h, ref) and torch.equal(hfin, ref_fin),
+              f"rglru forward not bitwise at {what}")
+        got = rglru_bwd_cuda(a, h, h0, dh, dh_final)
+        want = rglru_scan_bwd_plain(a, ref, h0, dh, dh_final)
+        torch.cuda.synchronize()
+        check(all((x is None and y is None) or torch.equal(x, y)
+                  for x, y in zip(got, want)),
+              f"rglru backward not bitwise at {what}")
+
+    n_cases = 0
+    for shape in ((2, 64, 128), (1, 128, 256), (3, 33, 100), (1, 1, 4096)):
+        b, a, h0, dh, dh_final = inputs(*shape)
+        for use_h0 in (False, True):
+            for use_dhf in (False, True):
+                compare(b, a, h0 if use_h0 else None, dh,
+                        dh_final if use_dhf else None,
+                        f"{shape} h0={use_h0} dh_final={use_dhf}")
+                n_cases += 1
+    print(f"rglru kernels: {n_cases} small cases bitwise equal to the plain "
+          f"versions")
+
+    # the recurrent path's shape: one RG-LRU layer's scan, B=1, S=8192,
+    # W=4096; the path passes no h0 and no h_final cotangent
+    shape = (BATCH, SEQ, RG_WIDTH)
+    b, a, _, dh, _ = inputs(*shape)
+    compare(b, a, None, dh, None, f"the path's shape {shape}")
+    print(f"rglru kernels: the path's shape {shape} bitwise equal to the "
+          f"plain versions")
+    h, _ = rglru_fwd_cuda(b, a)
+    n = b.numel()
+    runs = {
+        # bytes: read b and a, write h (+ h_final); 2 flops an element
+        "rglru_fwd": (lambda: rglru_fwd_cuda(b, a),
+                      lambda: rglru_scan_plain(b, a),
+                      12.0 * n + 4.0 * n // SEQ, 2.0 * n),
+        # bytes: read dh, a and h, write db and da; 3 flops an element
+        "rglru_bwd": (lambda: rglru_bwd_cuda(a, h, None, dh),
+                      lambda: rglru_scan_bwd_plain(a, h, None, dh),
+                      20.0 * n, 3.0 * n),
+    }
+    note = {"rglru_fwd": "the forward scan of rglru_scan_pallas",
+            "rglru_bwd": "the scan's reverse-scan backward: the TPU kernel "
+                         "has none (JAX differentiates its plain scan, "
+                         "rglru/ops.py:20), so this kernel is the port's own"}
+    entries = []
+    report["rglru"] = {"cases": n_cases, "shape": list(shape)}
+    for name, (kern, plain, nbytes, flops) in runs.items():
+        ms = time_ms(torch, kern, 20)
+        plain_ms = time_ms(torch, plain, 2)
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = flops / F32_FLOPS_PER_S * 1e3
+        bound = max(bound_b, bound_o)
+        print(f"{name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"library none, bound {bound:.3f} ms (bytes), "
+              f"{nbytes / ms / 1e6:.0f} GB/s achieved")
+        report["rglru"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bytes=nbytes, flops=flops)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru/kernel.py:49",
+            "replaces_note": note[name],
+            "launches": None, "max_abs_err": 0.0,      # bitwise, checked
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bound_b >= bound_o else "operations",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this linear "
+                            "recurrence",
+            "shape": f"b, a [B, S, W] = {list(shape)} f32, no h0 (one RG-LRU "
+                     f"layer of the recurrent path)",
+        })
+    del b, a, dh, h
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # the DeFT main path
 # ---------------------------------------------------------------------------
-def main_path(torch, cfg, schedule, report):
+def expected_launches(cfg, schedule, layout, steps):
+    """Launches of each f32-path kernel in ``steps`` steps: every layer runs
+    its forward twice (once more in the remat recompute) and its backward
+    once; every update launches the bucket update once per bucket."""
+    kinds = [spec.kind for spec in cfg.layer_specs()]
+    attn = sum(k in ("attn", "local_attn") for k in kinds)
+    rec = kinds.count("rglru")
+    updates = sum(schedule.phases[i % schedule.period].do_update
+                  for i in range(steps))
+    return {"flash_fwd": 2 * attn * steps, "rglru_fwd": 2 * rec * steps,
+            "rglru_bwd": rec * steps,
+            "bucket_update": layout.n_buckets * updates,
+            "quantize_int8": 0, "dequantize_int8": 0,
+            "stochastic_round_bf16": 0}
+
+
+def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps):
+    """One f32 DeFT path: the first schedule period once with every plain
+    version forced, then ``steps`` steps with every launch counter set to 0
+    just before and read just after, held to the plain run."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    from repro_torch.kernels.quantize import (
+        dequantize_int8_cuda,
+        quantize_int8_cuda,
+        stochastic_round_bf16_cuda,
+    )
+    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
+    gc.collect()                 # an earlier path's state is gone first
+    torch.cuda.empty_cache()
     period = schedule.period
     kw = dict(scheduler="deft", batch=BATCH, seq=SEQ,
               coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK)
 
     # reference: the first period with the plain versions forced
-    ref = train(cfg, steps=period, attn_impl="plain", update_impl="plain",
-                log=lambda s: print("  plain: " + s), **kw)
+    ref = train(cfg, steps=period, attn_impl="plain", scan_impl="plain",
+                update_impl="plain", log=lambda s: print("  plain: " + s),
+                **kw)
     ref_losses = ref["losses"]
     ref_params = [b.cpu() for b in ref["state"]["pbuf"]]
     del ref
@@ -658,37 +822,38 @@ def main_path(torch, cfg, schedule, report):
             n_params=sum(b.numel() for b in ref_params),
             bucket_max_diff=[m for m, _ in per_bucket])
 
-    steps = 2 * period + 2
+    counters = (flash_fwd_cuda, rglru_fwd_cuda, rglru_bwd_cuda,
+                bucket_update_cuda, quantize_int8_cuda, dequantize_int8_cuda,
+                stochastic_round_bf16_cuda)
     torch.cuda.reset_peak_memory_stats()
-    flash_fwd_cuda.launches = 0
-    bucket_update_cuda.launches = 0
+    for c in counters:
+        c.launches = 0
     res = train(cfg, steps=steps, on_step=on_step,
                 log=lambda s: print("  " + s), **kw)
-    launches = {"flash_fwd": flash_fwd_cuda.launches,
-                "bucket_update": bucket_update_cuda.launches}
+    launches = {c.__name__.replace("_cuda", ""): c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
 
     losses = res["losses"]
+    want = expected_launches(cfg, schedule, res["layout"], steps)
+    check(launches == want, f"{key} launches {launches}, expected {want}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path never launched: {launches}")
     for i, got in enumerate(res["collectives"]):
         want = phase_collectives(schedule.phases[i % period])
         check(got == want, f"step {i}: issued {got}, schedule says {want}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-    check(rel <= 1e-4, f"losses vs the plain run: rel diff {rel:.3g} "
+    check(rel <= 1e-4, f"{key} losses vs the plain run: rel diff {rel:.3g} "
                        f"({losses[:period]} vs {ref_losses})")
     # a bucket whose update went wrong or did not happen moves by ~LR, ten
     # times PARAM_MAX_DIFF; the two runs differ only by rounding
     bad = [b for b, m in enumerate(agree["bucket_max_diff"])
            if m > PARAM_MAX_DIFF]
     check(not bad and agree["n_params_over_tol"] <= PARAM_MAX_OVER,
-          f"params after the first period vs the plain run: buckets {bad} "
-          f"beyond {PARAM_MAX_DIFF}, {agree['n_params_over_tol']} elements "
-          f"beyond {PARAM_TOL}")
+          f"{key} params after the first period vs the plain run: buckets "
+          f"{bad} beyond {PARAM_MAX_DIFF}, {agree['n_params_over_tol']} "
+          f"elements beyond {PARAM_TOL}")
     step_s = statistics.median(res["step_s"][1:])
     out = dict(
-        config=dict(arch=ARCH, n_layers=N_LAYERS, of_layers=26,
+        config=dict(arch=arch, n_layers=cfg.n_layers, of_layers=of_layers,
                     params=cfg.total_params(), batch=BATCH, seq=SEQ,
                     coverage_rate=COVERAGE_RATE,
                     partition_elems=PARTITION_ELEMS, loss_chunk=LOSS_CHUNK),
@@ -699,14 +864,17 @@ def main_path(torch, cfg, schedule, report):
         loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
         tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
         launches=launches, collectives=res["collectives"], **agree)
-    report["main_path"] = out
-    print(f"main path: {steps} steps, median step {step_s:.3f} s, "
+    report[key] = out
+    print(f"{key} ({arch}, {cfg.n_layers} of {of_layers} layers): {steps} "
+          f"steps, median step {step_s:.3f} s, "
           f"{BATCH * SEQ / step_s:.0f} tok/s, peak memory "
           f"{peak / 2**30:.2f} GiB, launches {launches}, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}, vs plain: loss rel "
           f"{rel:.2g}, params max diff {agree['max_param_diff']:.3g} "
           f"({agree['n_params_over_tol']} of {agree['n_params']} over "
           f"{PARAM_TOL})")
+    del res
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -722,6 +890,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
         quantize_int8_cuda,
         stochastic_round_bf16_cuda,
     )
+    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
@@ -765,7 +934,8 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
 
     steps = PREC_STEPS
     counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
-                dequantize_int8_cuda, stochastic_round_bf16_cuda)
+                dequantize_int8_cuda, stochastic_round_bf16_cuda,
+                rglru_fwd_cuda, rglru_bwd_cuda)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -807,6 +977,8 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
           f"{updates}")
     check(launches["flash_fwd"] > 0 and launches_bf16 == launches["flash_fwd"],
           f"flash launches {launches['flash_fwd']}, on bf16 {launches_bf16}")
+    check(launches["rglru_fwd"] == launches["rglru_bwd"] == 0,
+          f"rglru launches {launches} on a model without RG-LRU layers")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     print(f"{key} vs the plain run over {window} steps: losses "
           f"{losses[:window]} vs {ref_losses} (rel {rel:.3g}); params max "
@@ -925,19 +1097,47 @@ def run() -> int:
     check(any(ph.update_k > 1 or ph.rotate for ph in schedule.phases),
           "degenerate schedule (no merged update, no rotation)")
 
+    rg_cfg = dataclasses.replace(get_config(RG_ARCH), n_layers=RG_LAYERS)
+    check(rg_cfg.sliding_window == RG_WINDOW
+          and rg_cfg.resolved_lru_width == RG_WIDTH,
+          f"{RG_ARCH}: window {rg_cfg.sliding_window}, lru width "
+          f"{rg_cfg.resolved_lru_width}")
+    print(f"config: {RG_ARCH} at full width (d_model {rg_cfg.d_model}, "
+          f"lru_width {RG_WIDTH}, {rg_cfg.n_heads}H/{rg_cfg.n_kv_heads}KV, "
+          f"head_dim {rg_cfg.head_dim}, d_ff {rg_cfg.d_ff}, vocab "
+          f"{rg_cfg.vocab_size}, window {RG_WINDOW}), depth cut to "
+          f"{RG_LAYERS} of {RG_OF_LAYERS} layers: "
+          f"{rg_cfg.total_params():,} params")
+    rg_meta = init_params(rg_cfg, device="meta")
+    rg_schedule = build_schedule(
+        rg_meta, rg_cfg, dp=1, seq_len=SEQ, per_device_batch=BATCH,
+        partition_elems=PARTITION_ELEMS,
+        coverage_rate=COVERAGE_RATE)[3].schedule
+    del rg_meta
+    check(RG_STEPS >= rg_schedule.period,
+          f"{RG_ARCH}: {RG_STEPS} steps do not cover a period "
+          f"({rg_schedule.period})")
+
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
     entries += quantize_phase(torch, layout, report)
     flash_bf16_phase(torch, report, entries[0])
-    launches = main_path(torch, cfg, schedule, report)
-    prec = precision_path(torch, cfg, report, "precision_path",
-                          COVERAGE_RATE, delayed=False)
-    prec_delayed = precision_path(torch, cfg, report, "precision_path_delayed",
-                                  DELAYED_COVERAGE_RATE, delayed=True)
+    entries += rglru_phase(torch, report)
+    launches = {
+        "f32": main_path(torch, cfg, schedule, report, "main_path", ARCH, 26,
+                         2 * schedule.period + 2),
+        f"{WIRE}+{MASTER}": precision_path(
+            torch, cfg, report, "precision_path", COVERAGE_RATE,
+            delayed=False),
+        f"{WIRE}+{MASTER} delayed": precision_path(
+            torch, cfg, report, "precision_path_delayed",
+            DELAYED_COVERAGE_RATE, delayed=True),
+        f"{RG_ARCH} f32": main_path(torch, rg_cfg, rg_schedule, report,
+                                    "recurrent_path", RG_ARCH, RG_OF_LAYERS,
+                                    RG_STEPS),
+    }
     for e in entries:
-        by_path = {"f32": launches.get(e["name"], 0),
-                   f"{WIRE}+{MASTER}": prec[e["name"]],
-                   f"{WIRE}+{MASTER} delayed": prec_delayed[e["name"]]}
-        e["launches"] = by_path["f32"] or by_path[f"{WIRE}+{MASTER}"]
+        by_path = {path: n[e["name"]] for path, n in launches.items()}
+        e["launches"] = next((n for n in by_path.values() if n), 0)
         e["launches_by_path"] = by_path
     report["kernels"] = entries
     report["wall_s"] = time.perf_counter() - t_start

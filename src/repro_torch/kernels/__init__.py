@@ -13,11 +13,14 @@ Every TPU kernel of the JAX package (each function that reaches
 | quantize/kernel.py::stochastic_round_bf16_pallas (:69)    | seeded stochastic rounding f32 -> bf16     | quantize/csrc/quantize.cu (CUDA) |
 | quantize/kernel.py::quantize_int8_pallas (:112)           | per-128-lane-row absmax int8 quantization  | quantize/csrc/quantize.cu (CUDA) |
 | quantize/kernel.py::dequantize_int8_pallas (:149)         | int8 * row scale                           | quantize/csrc/quantize.cu (CUDA) |
-| rglru/kernel.py::rglru_scan_pallas (:49)                  | linear recurrence h_t = a_t h_{t-1} + b_t  | still to be ported |
+| rglru/kernel.py::rglru_scan_pallas (:49)                  | linear recurrence h_t = a_t h_{t-1} + b_t  | rglru/csrc/rglru_scan.cu (CUDA), |
+|                                                           |                                            | forward and reverse-scan backward |
 | rwkv6/kernel.py::rwkv6_pallas (:85)                       | chunked RWKV-6 WKV with a [D, D] state     | still to be ported |
 
 The flash-attention backward is plain PyTorch (a port of the JAX
-package's ``flash.py`` recompute backward; the TPU kernel has none).
+package's ``flash.py`` recompute backward; the TPU kernel has none).  The
+RG-LRU scan's backward is a kernel of the port's own (the TPU kernel has
+none either): the same recurrence run in reverse.
 
 Kernels are compiled by ``build.py`` at first use on a CUDA tensor,
 never at import.

@@ -31,6 +31,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "flash_fwd": ("flash_attention/csrc/flash_fwd.cu", ()),
     "bucket_update": ("bucket_update/csrc/bucket_update.cu", ("--fmad=false",)),
     "quantize": ("quantize/csrc/quantize.cu", ("--fmad=false",)),
+    "rglru_scan": ("rglru/csrc/rglru_scan.cu", ("--fmad=false",)),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

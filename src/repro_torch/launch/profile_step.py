@@ -11,6 +11,8 @@ everything else) with the top kernels by name.  ``--wire-precision`` and
         --loss-chunk 1024 --out chiprun_out/profile_step.json
     python -m repro_torch.launch.profile_step --wire-precision int8 \
         --master-dtype bf16sr --out chiprun_out/profile_precision.json
+    python -m repro_torch.launch.profile_step --arch recurrentgemma-9b \
+        --layers 6 --out chiprun_out/profile_recurrent.json
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ _CATEGORIES = (
     ("bucket_update (this port)", ("bucket_update_kernel",)),
     ("int8 quantize / dequantize (this port)", ("quant_int8_kernel",)),
     ("stochastic rounding (this port)", ("sr_bf16_kernel",)),
+    ("RG-LRU scan forward (this port)", ("rglru_fwd_kernel",)),
+    ("RG-LRU scan backward (this port)", ("rglru_bwd_kernel",)),
     ("matrix products", ("gemm", "Gemm", "cutlass", "cublas", "xmma", "sm90",
                          "nvjet")),
     ("collectives", ("nccl",)),

@@ -98,7 +98,8 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           seq: int = 64, coverage_rate: float = 1.8,
           partition_elems: int = 200_000, seed: int = 0, device="cuda",
           lr: float = 1e-3, loss_chunk: int = 0,
-          attn_impl: Optional[str] = None, update_impl: Optional[str] = None,
+          attn_impl: Optional[str] = None, scan_impl: Optional[str] = None,
+          update_impl: Optional[str] = None,
           quantize_impl: Optional[str] = None, wire_precision: str = "f32",
           master_dtype: str = "f32", compute_dtype: str = "f32",
           on_step: Optional[Callable] = None,
@@ -107,11 +108,11 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     the ranks of the process group (initialised here if missing).
 
     ``on_step(step, runtime, state, metrics)`` runs after every step;
-    ``attn_impl``/``update_impl``/``quantize_impl`` = "plain" force the
-    kernels' plain versions (a comparison knob).  ``wire_precision``
-    ("auto", "f32", "bf16", "int8"), ``master_dtype`` ("f32", "bf16sr")
-    and ``compute_dtype`` ("f32", "bf16") are the DeFT engine's precision
-    (the DDP baseline takes none).  Returns the losses, per-step wall
+    ``attn_impl``/``scan_impl``/``update_impl``/``quantize_impl`` =
+    "plain" force the kernels' plain versions (a comparison knob).
+    ``wire_precision`` ("auto", "f32", "bf16", "int8"), ``master_dtype``
+    ("f32", "bf16sr") and ``compute_dtype`` ("f32", "bf16") are the DeFT
+    engine's precision (the DDP baseline takes none).  Returns the losses, per-step wall
     times (each step synchronised), the schedule, the runtime and the
     final state."""
     device = torch.device(device)
@@ -126,7 +127,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     if scheduler == "ddp":
         state = init_ddp_state(cfg, opt, seed=seed, device=device)
         step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, scan_impl=scan_impl)
     elif scheduler == "deft":
         params_abs = init_params(cfg, device="meta")
         bucket_of, nb, times, plan = build_schedule(
@@ -148,7 +149,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         cdt = COMPUTE_DTYPES[compute_dtype]
         runtime = DeftRuntime(
             cfg, opt, schedule, layout, device=device, loss_chunk=loss_chunk,
-            attn_impl=attn_impl, update_impl=update_impl,
+            attn_impl=attn_impl, scan_impl=scan_impl, update_impl=update_impl,
             quantize_impl=quantize_impl, compute_dtype=cdt,
             master_dtype=master_dtype)
         state = runtime.init_state(seed, dtype=cdt or torch.float32)

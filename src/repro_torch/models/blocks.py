@@ -2,9 +2,10 @@
 (norm -> FFN -> residual), with gemma2-style post-norms when
 ``cfg.post_block_norm``.
 
-Port of ``repro/models/blocks.py`` for the dense attention kinds
-(``attn``, ``local_attn``) with a dense FFN; the other mixers (MLA,
-cross-attention, RG-LRU, RWKV-6, MoE) are later slices and raise here.
+Port of ``repro/models/blocks.py`` for the attention kinds (``attn``,
+``local_attn``) and the RG-LRU recurrent block (``rglru``), each with a
+dense FFN; the other mixers (MLA, cross-attention, RWKV-6) and MoE are
+later slices and raise here.
 """
 from __future__ import annotations
 
@@ -15,15 +16,16 @@ import torch
 from repro_torch.configs.base import LayerSpec
 from repro_torch.models.attention import apply_self_attention, init_attention
 from repro_torch.models.common import apply_ffn, apply_norm, init_ffn, init_norm
+from repro_torch.models.recurrent import apply_rglru, init_rglru_block
 
-_KINDS = ("attn", "local_attn")
+_KINDS = ("attn", "local_attn", "rglru")
 
 
 def _check_spec(spec: LayerSpec) -> None:
     if spec.kind not in _KINDS or spec.ffn != "dense":
         raise NotImplementedError(
             f"layer {spec.kind}/{spec.ffn} is not ported yet (dense "
-            f"attn/local_attn blocks only; see ROADMAP.md)"
+            f"attn/local_attn/rglru blocks only; see ROADMAP.md)"
         )
 
 
@@ -35,24 +37,31 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
     if cfg.post_block_norm:
         p["post_mixer_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
         p["post_ffn_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
-    p["mixer"] = init_attention(generator, cfg, **kw)
+    if spec.kind == "rglru":
+        p["mixer"] = init_rglru_block(generator, cfg, **kw)
+    else:
+        p["mixer"] = init_attention(generator, cfg, **kw)
     p["ffn_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
     p["ffn"] = init_ffn(generator, cfg, **kw)
     return p
 
 
 def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
-                causal: bool = True,
-                attn_impl: Optional[str] = None) -> torch.Tensor:
+                causal: bool = True, attn_impl: Optional[str] = None,
+                scan_impl: Optional[str] = None) -> torch.Tensor:
     _check_spec(spec)
 
     def norm(name, h):
         return apply_norm(p[name], h, cfg.norm)
 
-    window = cfg.sliding_window if spec.kind == "local_attn" else 0
-    out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                               window=window, causal=causal,
-                               attn_impl=attn_impl)
+    if spec.kind == "rglru":
+        out = apply_rglru(p["mixer"], norm("pre_norm", x), cfg=cfg,
+                          scan_impl=scan_impl)
+    else:
+        window = cfg.sliding_window if spec.kind == "local_attn" else 0
+        out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
+                                   window=window, causal=causal,
+                                   attn_impl=attn_impl)
     if cfg.post_block_norm:
         out = norm("post_mixer_norm", out)
     x = x + out

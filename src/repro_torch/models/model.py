@@ -1,4 +1,5 @@
-"""Full model of the port: init / forward / loss over a dense ArchConfig.
+"""Full model of the port: init / forward / loss over an ArchConfig whose
+blocks are ported (dense attention and RG-LRU kinds).
 
 Port of ``repro/models/model.py`` (train path).  The parameter tree is the
 JAX package's: ``embed``, ``final_norm``, optional ``head``, and the
@@ -98,7 +99,8 @@ def _period_views(stacked, n_periods: int):
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             remat: bool = True, head: bool = True,
-            attn_impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            attn_impl: Optional[str] = None,
+            scan_impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux); with ``head=False`` the final-norm
     hidden states [B,S,d] replace the logits."""
     lay = stack_layout(cfg)
@@ -109,7 +111,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     def run(p, x, spec):
         fn = lambda p_, x_: apply_block(p_, x_, cfg=cfg, spec=spec,
-                                        attn_impl=attn_impl)
+                                        attn_impl=attn_impl,
+                                        scan_impl=scan_impl)
         if remat:
             return checkpoint(fn, p, x, use_reentrant=False,
                               preserve_rng_state=False)
@@ -169,20 +172,21 @@ def chunked_ce(params, cfg: ArchConfig, x: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True, loss_chunk: int = 0,
-            attn_impl: Optional[str] = None
+            attn_impl: Optional[str] = None, scan_impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy; ``loss_chunk > 0`` takes the chunked
     LM-head path.  Returns (loss, {"ce", "aux"})."""
     if loss_chunk:
         x, aux = forward(params, cfg, batch["tokens"], remat=remat,
-                         head=False, attn_impl=attn_impl)
+                         head=False, attn_impl=attn_impl,
+                         scan_impl=scan_impl)
         mask = batch.get("mask")
         loss = chunked_ce(params, cfg, x[:, :-1], batch["labels"][:, 1:],
                           mask[:, 1:] if mask is not None else None,
                           loss_chunk)
     else:
         logits, aux = forward(params, cfg, batch["tokens"], remat=remat,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, scan_impl=scan_impl)
         loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
                                   batch.get("mask"))
     return loss + aux, {"ce": loss, "aux": aux}

@@ -217,12 +217,15 @@ class DeftRuntime:
 
     ``compute_dtype`` (None or ``torch.bfloat16``) is the forward/backward
     dtype; ``master_dtype`` ("f32" or "bf16sr", None to take the layout's)
-    the resident param dtype; ``attn_impl`` / ``update_impl`` /
-    ``quantize_impl`` = "plain" force the kernels' plain versions."""
+    the resident param dtype; ``attn_impl`` / ``scan_impl`` /
+    ``update_impl`` / ``quantize_impl`` = "plain" force the kernels' plain
+    versions."""
 
     def __init__(self, cfg: ArchConfig, opt_spec: OptimizerSpec,
                  schedule: DeftSchedule, layout: BucketLayout, *,
-                 device="cuda", group=None, loss_chunk: int = 0, attn_impl: Optional[str] = None,
+                 device="cuda", group=None, loss_chunk: int = 0,
+                 attn_impl: Optional[str] = None,
+                 scan_impl: Optional[str] = None,
                  update_impl: Optional[str] = None,
                  quantize_impl: Optional[str] = None,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -235,6 +238,7 @@ class DeftRuntime:
         self.dp = DataParallel(group)
         self.loss_chunk = loss_chunk
         self.attn_impl = attn_impl
+        self.scan_impl = scan_impl
         self.update_impl = update_impl
         self.quantize_impl = quantize_impl
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
@@ -340,7 +344,8 @@ class DeftRuntime:
         leaves = _grad_leaves(layout, src, gdst)
         loss, parts = loss_fn(
             tree_unflatten(self._structure, leaves), self.cfg, batch,
-            loss_chunk=self.loss_chunk, attn_impl=self.attn_impl)
+            loss_chunk=self.loss_chunk, attn_impl=self.attn_impl,
+            scan_impl=self.scan_impl)
         loss.backward()
         del leaves, src
         if gdst is not state["gbuf"]:
@@ -436,8 +441,8 @@ def init_ddp_state(cfg: ArchConfig, opt_spec: OptimizerSpec, *, seed: int = 0,
 
 
 def make_ddp_step(cfg: ArchConfig, opt_spec: OptimizerSpec, *, group=None,
-                  loss_chunk: int = 0,
-                  attn_impl: Optional[str] = None) -> Callable:
+                  loss_chunk: int = 0, attn_impl: Optional[str] = None,
+                  scan_impl: Optional[str] = None) -> Callable:
     """DDP baseline step ``(state, batch) -> (state, metrics)``: one
     all-reduce per gradient leaf, the per-leaf optimizer every step."""
     dp = DataParallel(group)
@@ -447,7 +452,7 @@ def make_ddp_step(cfg: ArchConfig, opt_spec: OptimizerSpec, *, group=None,
                           state["params"])
         leaves = tree_leaves(params)
         loss, parts = loss_fn(params, cfg, batch, loss_chunk=loss_chunk,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, scan_impl=scan_impl)
         grads = torch.autograd.grad(loss, leaves)
         for g in grads:
             dp.primary(g)

@@ -11,9 +11,9 @@ the autograd gradients (f32 with another summation order than cuBLAS's
 matmuls in the plain version); on bf16 inputs lse keeps 1e-4, out (bf16)
 rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
 atol max|g| / 128 (the plain backward reads the kernel's rounded output);
-the bucket update and the three quantize kernels bitwise (each rounds
-every operation separately, as the plain version's elementwise kernels
-do, and the hash is integer arithmetic).
+the bucket update, the three quantize kernels and the two RG-LRU scan
+kernels bitwise (each rounds every operation separately, as the plain
+version's elementwise kernels do, and the hash is integer arithmetic).
 """
 import numpy as np
 import pytest
@@ -36,6 +36,13 @@ from repro_torch.kernels.quantize import (
     quantize_int8_plain,
     stochastic_round_bf16_cuda,
     stochastic_round_bf16_plain,
+)
+from repro_torch.kernels.rglru import (
+    rglru_bwd_cuda,
+    rglru_fwd_cuda,
+    rglru_scan,
+    rglru_scan_bwd_plain,
+    rglru_scan_plain,
 )
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 
@@ -62,6 +69,7 @@ def _qkv(seed, b, s, h, kvh, d):
     (128, 8, 2, 200, True, 0, 0.0),
     (256, 8, 4, 333, True, 100, 50.0),
     (256, 2, 1, 64, False, 0, 0.0),
+    (256, 16, 1, 300, True, 64, 0.0),       # recurrentgemma: MQA 16:1
 ])
 def test_flash_kernel_matches_plain(d, h, kvh, s, causal, window, cap):
     _need_card()
@@ -171,3 +179,40 @@ def test_quantize_kernels_bitwise(padded, n_valid):
         b = stochastic_round_bf16_plain(x, seed, n_valid)
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero-h0", "h0"])
+@pytest.mark.parametrize("bsz,s,w", [(2, 64, 128), (1, 128, 256),
+                                     (3, 33, 100), (1, 1, 4096)])
+def test_rglru_kernels_bitwise(bsz, s, w, with_h0):
+    _need_card()
+    rng = np.random.default_rng(bsz * 1000 + s + w)
+    mk = lambda *shape, lo=None: torch.from_numpy(
+        (rng.uniform(lo, 0.95, shape) if lo is not None
+         else rng.standard_normal(shape)).astype(np.float32)).cuda()
+    b, a, dh = mk(bsz, s, w), mk(bsz, s, w, lo=0.1), mk(bsz, s, w)
+    h0 = mk(bsz, w) if with_h0 else None
+    h, hfin = rglru_fwd_cuda(b, a, h0)
+    ref, ref_fin = rglru_scan_plain(b, a, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h, ref) and torch.equal(hfin, ref_fin)
+    for dh_final in (None, mk(bsz, w)):
+        got = rglru_bwd_cuda(a, h, h0, dh, dh_final)
+        want = rglru_scan_bwd_plain(a, ref, h0, dh, dh_final)
+        torch.cuda.synchronize()
+        assert (got[2] is None) == (want[2] is None) == (not with_h0)
+        for x, y in zip(got, want):
+            assert x is None or torch.equal(x, y)
+    # the autograd Function launches both kernels and matches the plain one
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (b, a)]
+        rglru_fwd_cuda.launches = rglru_bwd_cuda.launches = 0
+        out, _ = rglru_scan(*xs, h0, impl=impl)
+        torch.sum(out * dh).backward()
+        assert rglru_fwd_cuda.launches == rglru_bwd_cuda.launches == \
+            (impl == "cuda")
+        grads.append([x.grad for x in xs])
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)

@@ -25,8 +25,8 @@ from repro_torch.tree import tree_flatten_with_path, tree_leaves
 RTOL, ATOL = 1e-4, 1e-5
 
 
-def _jax_case(arch, batch, seq, loss_chunk):
-    cfg = reduce_for_smoke(get_config(arch))
+def _jax_case(arch, batch, seq, loss_chunk, n_layers=2):
+    cfg = reduce_for_smoke(get_config(arch), n_layers)
     params = jax_init_params(jax.random.PRNGKey(0), cfg)
     data = make_batch(cfg, 0, 0, batch, seq)
     (loss, _), grads = jax.jit(jax.value_and_grad(
@@ -38,14 +38,21 @@ def _jax_case(arch, batch, seq, loss_chunk):
 
 # gemma2 smoke: window 64 < seq 96, so the sliding window really masks;
 # softcaps 50/30, GQA 4H/2KV, head_dim 32.  qwen3 smoke: qk-norm, silu.
-@pytest.mark.parametrize("arch,seq,loss_chunk", [
-    ("gemma2-2b", 96, 0),
-    ("gemma2-2b", 96, 40),
-    ("qwen3-4b", 48, 0),
+# recurrentgemma smoke: (rglru, rglru, local_attn) with MQA 4H/1KV, window
+# 64 < seq 80, lru_width 256; 3 layers are one stacked period, 5 layers a
+# period plus a 2-layer tail (rglru, rglru) outside the stack.
+@pytest.mark.parametrize("arch,seq,loss_chunk,n_layers", [
+    pytest.param("gemma2-2b", 96, 0, 2, id="gemma2-2b-96-0"),
+    pytest.param("gemma2-2b", 96, 40, 2, id="gemma2-2b-96-40"),
+    pytest.param("qwen3-4b", 48, 0, 2, id="qwen3-4b-48-0"),
+    pytest.param("recurrentgemma-9b", 80, 0, 3, id="recurrentgemma-9b-80-0"),
+    pytest.param("recurrentgemma-9b", 80, 32, 5,
+                 id="recurrentgemma-9b-80-32-5layers"),
 ])
-def test_loss_and_grads_match_jax(arch, seq, loss_chunk):
-    params_np, data, jloss, jgrads = _jax_case(arch, 2, seq, loss_chunk)
-    cfg = t_reduce(t_get_config(arch))
+def test_loss_and_grads_match_jax(arch, seq, loss_chunk, n_layers):
+    params_np, data, jloss, jgrads = _jax_case(arch, 2, seq, loss_chunk,
+                                               n_layers)
+    cfg = t_reduce(t_get_config(arch), n_layers)
     params = params_from_numpy(params_np, device="cpu")
     for p in tree_leaves(params):
         p.requires_grad_(True)
@@ -62,12 +69,16 @@ def test_loss_and_grads_match_jax(arch, seq, loss_chunk):
                                    err_msg="/".join(path))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
-def test_param_tree_matches_jax_structure(arch):
+@pytest.mark.parametrize("arch,n_layers", [
+    pytest.param("gemma2-2b", 2, id="gemma2-2b"),
+    pytest.param("qwen3-4b", 2, id="qwen3-4b"),
+    pytest.param("recurrentgemma-9b", 3, id="recurrentgemma-9b"),
+    pytest.param("recurrentgemma-9b", 5, id="recurrentgemma-9b-5layers")])
+def test_param_tree_matches_jax_structure(arch, n_layers):
     """init_params builds the JAX package's tree: same paths, same
     stacked shapes, same leaf order; convert round-trips bitwise."""
-    cfg = t_reduce(t_get_config(arch))
-    jcfg = reduce_for_smoke(get_config(arch))
+    cfg = t_reduce(t_get_config(arch), n_layers)
+    jcfg = reduce_for_smoke(get_config(arch), n_layers)
     jp = jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0), jcfg))
     jpaths = [tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
               for path, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]

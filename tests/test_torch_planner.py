@@ -2,7 +2,7 @@
 stay the JAX package's planner and configs.
 
 The port imports nothing of ``repro``, so it carries copies of
-``repro/core`` and the two configs it runs.  Each copied file must equal
+``repro/core`` and the configs it runs.  Each copied file must equal
 its original with only the package name in imports changed, and the
 copied planner must return the same schedule and bucket times.
 """
@@ -27,7 +27,8 @@ from repro_torch.models.model import init_params
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = sorted(
     [f"core/{p.name}" for p in (SRC / "repro" / "core").glob("*.py")]
-    + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py"]
+    + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py",
+       "configs/recurrentgemma_9b.py"]
 )
 
 
@@ -38,12 +39,22 @@ def test_copied_module_is_verbatim(rel):
     assert (SRC / "repro_torch" / rel).read_text() == want
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b"])
 def test_configs_match(arch):
     assert dataclasses.asdict(t_get_config(arch)) == \
         dataclasses.asdict(get_config(arch))
     assert dataclasses.asdict(t_reduce(t_get_config(arch))) == \
         dataclasses.asdict(reduce_for_smoke(get_config(arch)))
+
+
+def test_recurrentgemma_smoke_cut():
+    """One Griffin period (rglru, rglru, local_attn) at smoke widths."""
+    cfg = t_reduce(t_get_config("recurrentgemma-9b"))
+    assert [s.kind for s in cfg.layer_specs()] == ["rglru", "rglru",
+                                                   "local_attn"]
+    assert (cfg.n_layers, cfg.lru_width, cfg.n_heads, cfg.n_kv_heads,
+            cfg.sliding_window, cfg.embedding_multiplier) == \
+        (3, 256, 4, 1, 64, 16.0)
 
 
 def _phases(schedule):

@@ -4,7 +4,7 @@
   buffers.
 * ``DeftRuntime``: params after two schedule periods equal the JAX
   ``DeftRuntime`` (one CPU device, same schedule, same params and
-  batches) — f32 on both sides with different reduction orders.  AdamW
+  batches; gemma2-2b and recurrentgemma-9b smoke) — f32 on both sides with different reduction orders.  AdamW
   divides each element's step by that element's own gradient magnitude,
   so where a gradient is near zero the reduction-order noise moves the
   param by a visible fraction of lr = 1e-3: atol 1e-4 (a tenth of one
@@ -104,8 +104,19 @@ def test_layout_and_flatten_match_jax():
 
 
 def test_runtime_matches_jax_runtime_over_two_periods(group, single_mesh):
-    cfg = reduce_for_smoke(get_config(ARCH))
-    tcfg = t_reduce(t_get_config(ARCH))
+    _runtime_parity(ARCH, single_mesh)
+
+
+def test_recurrentgemma_runtime_matches_jax_runtime_over_two_periods(
+        group, single_mesh):
+    """The Griffin hybrid (RG-LRU scan, MQA local attention) on the same
+    engine: 13 buckets, period 3, merged batch sizes (2, 1)."""
+    _runtime_parity("recurrentgemma-9b", single_mesh)
+
+
+def _runtime_parity(arch, single_mesh):
+    cfg = reduce_for_smoke(get_config(arch))
+    tcfg = t_reduce(t_get_config(arch))
     jparams, jb, jnb, jsched, tsched = _plan(cfg, tcfg)
     assert tsched.phases == tuple(
         type(tsched.phases[0])(**p.__dict__) for p in jsched.phases)
