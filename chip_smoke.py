@@ -20,14 +20,18 @@
    with max|g| / 128 absolute); the RG-LRU scan's forward and reverse-scan
    backward kernels bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256),
    (3, 33, 100) and (1, 1, 4096) with and without h0 and an h_final
-   cotangent, and at the recurrent path's [1, 8192, 4096].  Times each
-   kernel, its plain version and a PyTorch library call that computes the
-   same function and that the port never calls (compiled
+   cotangent, and at the recurrent path's [1, 8192, 4096]; the RWKV-6 WKV
+   forward and backward kernels within max |diff| / max |plain| <= 1e-4 on
+   o, S_final and every gradient, at (B, S, H, D) (2, 64, 2, 32), (1, 96,
+   4, 64), (3, 40, 2, 64) and (1, 32, 1, 64) with and without s0 and a
+   dS_final cotangent, and at the RWKV path's [1, 8192, 32, 64].  Times
+   each kernel, its plain version and a PyTorch library call that
+   computes the same function and that the port never calls (compiled
    ``flex_attention`` with the softcap as ``score_mod`` and the causal /
    window mask as a block mask, on f32 and on bf16 inputs;
    ``torch._fused_adamw_``; ``torch.mul`` of the int8 rows by their scales
-   for dequantize; none for quantize, stochastic rounding and the scan),
-   beside the least time the card could take.
+   for dequantize; none for quantize, stochastic rounding, the scan and
+   the WKV), beside the least time the card could take.
 3. Drives the DeFT main path through ``repro_torch.launch.train.train``:
    gemma2-2b at full width with its depth cut to 8 of 26 layers, batch 1,
    sequence 8192 (the 4096 window really masks), coverage rate 1.8.  The
@@ -56,7 +60,19 @@
    against its plain run; per step it must launch the scan forward 8
    times (4 RG-LRU layers, forward and recompute), its backward 4 times
    and flash 4 times.
-6. Prints the kernels line, the card's name and power limit, and last the
+6. Drives rwkv6-1.6b the same way at full width and full depth (d_model
+   2048, 32 time-mix heads of 64, d_ff 7168, vocab 65536, 24 of 24
+   layers), 8 steps (two periods), held to the same limits against its
+   plain run with a limit of its own: first one step's per-leaf gradients
+   through the kernels, the plain pair and a float64 WKV, the kernels'
+   no farther from the float64 ones than twice the plain pair's; then
+   every param within 1e-2 and at most 1% of any bucket beyond 1e-4
+   after the first period (see RWKV_PARAM_MAX_DIFF).  Per step it must
+   launch the WKV forward 48 times (forward and recompute), its backward
+   24 times and flash never.  Each path
+   prints its parameter count as the sum of its leaves beside
+   ``cfg.total_params()``'s formula (which undercounts rwkv6).
+7. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -101,6 +117,25 @@ DELAYED_COVERAGE_RATE = 4 * COVERAGE_RATE
 RG_ARCH, RG_LAYERS, RG_OF_LAYERS, RG_STEPS = "recurrentgemma-9b", 6, 38, 8
 RG_WINDOW = 2048
 RG_WIDTH = 4096                 # lru_width: the scan's W
+# the RWKV-6 path: rwkv6-1.6b at full width and full depth (24 of 24 layers),
+# 8 steps (two DeFT schedule periods at coverage rate 1.8); its time-mix has
+# 32 heads of size 64.  The WKV kernels against the plain pair: both f32,
+# with another summation order inside the small products, so max |diff| /
+# max |plain| <= 1e-4 for o, S_final and every gradient.
+RWKV_ARCH, RWKV_LAYERS, RWKV_STEPS = "rwkv6-1.6b", 24, 8
+RWKV_HEADS, RWKV_HEAD_SIZE = 32, 64
+RWKV_TOL = 1e-4
+# rwkv6-1.6b's params against its plain run.  At this init the model's
+# backward amplifies the WKV's f32 rounding ~1e5-fold: one step's per-leaf
+# gradients differ kernel vs plain by up to 1.5e-2 of max |g|, and the plain
+# run itself differs from a float64 WKV by 2.6e-2 (PERF.md).  AdamW then
+# steps the elements whose gradient sits inside that noise by up to ~lr
+# apart: after one period the readings were max |diff| 2.75e-3 and at most
+# 0.025% of a bucket beyond 1e-4.  A bucket whose update went wrong moves
+# nearly all its elements by ~lr.  So: every param within 1e-2, and at most
+# 1% of any bucket's elements beyond 1e-4.
+RWKV_PARAM_MAX_DIFF = 1e-2
+RWKV_BUCKET_SHARE = 1e-2
 # limits against the plain run, from two runs on two cards that read loss
 # rel 1.6e-4 and 3,353,277 params (0.28%) beyond 1e-4 + |p| / 128 (one
 # bf16 ulp at the value) both times, and params max |diff| 2.69e-3 (PERF.md)
@@ -757,6 +792,206 @@ def rglru_phase(torch, report):
 
 
 # ---------------------------------------------------------------------------
+# RWKV-6 WKV: chunked forward and backward
+# ---------------------------------------------------------------------------
+def rwkv6_phase(torch, report):
+    from repro_torch.kernels.rwkv6 import (
+        rwkv6_bwd_cuda,
+        rwkv6_bwd_plain,
+        rwkv6_fwd_cuda,
+    )
+    from repro_torch.kernels.rwkv6.ops import CHUNK, _chunked_forward
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def inputs(b, s, h, d):
+        """r, k, v, do, u, s0, dS_final; w by the JAX package's decay law
+        sigmoid(N) * 0.9 + 0.05."""
+        mk = lambda *shape: torch.randn(shape, device="cuda", generator=gen)
+        w = torch.sigmoid(mk(b, s, h, d)) * 0.9 + 0.05
+        return (mk(b, s, h, d), mk(b, s, h, d), mk(b, s, h, d), w,
+                mk(h, d), mk(b, h, d, d), mk(b, s, h, d), mk(b, h, d, d))
+
+    names = ("o", "S_final", "dr", "dk", "dv", "dw", "du", "ds0")
+
+    def compare(r, k, v, w, u, s0, do, dsf, what):
+        """Both kernels against the chunked plain pair: the largest
+        max |diff| / max |plain| over o, S_final and every gradient."""
+        o, sf, states = rwkv6_fwd_cuda(r, k, v, w, u, s0, save_states=True)
+        ro, rsf, rstates = _chunked_forward(r, k, v, w, u, s0)
+        got = [o, sf] + list(rwkv6_bwd_cuda(r, k, v, w, u, states, do, dsf,
+                                            need_ds0=s0 is not None))
+        want = [ro, rsf] + list(rwkv6_bwd_plain(r, k, v, w, u, s0, do, dsf,
+                                                states=rstates))
+        torch.cuda.synchronize()
+        errs, abs_err = {}, {}
+        for name, x, y in zip(names, got, want):
+            check((x is None) == (y is None), f"rwkv6 {name} at {what}")
+            if x is not None:
+                check(x.shape == y.shape and bool(torch.isfinite(x).all()),
+                      f"rwkv6 {name}: shape or non-finite values at {what}")
+                abs_err[name] = (x - y).abs().max().item()
+                errs[name] = abs_err[name] / max(y.abs().max().item(), 1e-30)
+        worst = max(errs.values())
+        check(worst <= RWKV_TOL, f"rwkv6 kernels disagree with the plain "
+                                 f"pair at {what}: {errs}")
+        return worst, errs, abs_err
+
+    n_cases, max_err = 0, 0.0
+    for shape in ((2, 64, 2, 32), (1, 96, 4, 64), (3, 40, 2, 64),
+                  (1, 32, 1, 64)):
+        r, k, v, w, u, s0, do, dsf = inputs(*shape)
+        for use_s0 in (False, True):
+            for use_dsf in (False, True):
+                err, _, _ = compare(r, k, v, w, u, s0 if use_s0 else None,
+                                    do, dsf if use_dsf else None,
+                                    f"{shape} s0={use_s0} "
+                                    f"dS_final={use_dsf}")
+                max_err = max(max_err, err)
+                n_cases += 1
+    print(f"rwkv6 kernels: {n_cases} small cases within {RWKV_TOL} of the "
+          f"plain pair (max |diff| / max |plain| {max_err:.3g})")
+
+    # the path's shape: one time-mix layer of rwkv6-1.6b at batch 1,
+    # sequence 8192; the path passes no s0 and no dS_final
+    shape = (BATCH, SEQ, RWKV_HEADS, RWKV_HEAD_SIZE)
+    r, k, v, w, u, _, do, _ = inputs(*shape)
+    path_err, errs, path_abs = compare(r, k, v, w, u, None, do, None,
+                                       f"the path's shape {shape}")
+    print(f"rwkv6 kernels: the path's shape {shape} within {RWKV_TOL} of the "
+          f"plain pair: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    max_err = max(max_err, path_err)
+    _, _, states = rwkv6_fwd_cuda(r, k, v, w, u, save_states=True)
+    b, s, h, d = shape
+    n = b * s * h * d
+    nc = -(-s // CHUNK)
+    state_bytes = 4.0 * b * h * nc * d * d
+    # flops a (b, h, chunk): forward A, A v, rd S, ke^T v; backward rd^T do,
+    # A again, A^T do, ke dS, do v^T, dA kd, do S^T, dA^T rd, v dS^T
+    tt, dd = 2.0 * CHUNK * CHUNK * d, 2.0 * CHUNK * d * d
+    runs = {
+        # read r, k, v, w; write o, the chunk-start states and S_final
+        "rwkv6_fwd": (
+            lambda: rwkv6_fwd_cuda(r, k, v, w, u, save_states=True),
+            lambda: _chunked_forward(r, k, v, w, u),
+            20.0 * n + state_bytes + 4.0 * b * h * d * d,
+            (2 * tt + 2 * dd) * b * h * nc),
+        # read r, k, v, w, do and the states; write dr, dk, dv, dw, du
+        "rwkv6_bwd": (
+            lambda: rwkv6_bwd_cuda(r, k, v, w, u, states, do),
+            lambda: rwkv6_bwd_plain(r, k, v, w, u, None, do, states=states),
+            36.0 * n + state_bytes + 4.0 * h * d,
+            (5 * tt + 4 * dd) * b * h * nc),
+    }
+    note = {"rwkv6_fwd": "the chunked WKV forward of rwkv6_pallas",
+            "rwkv6_bwd": "the WKV backward: the TPU kernel has none (JAX "
+                         "differentiates rwkv6/ops.py::_chunked_jnp), so "
+                         "this kernel is the port's own"}
+    fwd_outs = ("o", "S_final")
+    abs_by = {"rwkv6_fwd": max(path_abs[n] for n in fwd_outs),
+              "rwkv6_bwd": max(v for n, v in path_abs.items()
+                               if n not in fwd_outs)}
+    entries = []
+    report["rwkv6"] = {"cases": n_cases, "shape": list(shape),
+                       "max_rel_err": max_err, "path_rel_err": errs,
+                       "path_max_abs_err": path_abs, "tolerance": RWKV_TOL}
+    for name, (kern, plain, nbytes, flops) in runs.items():
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 2)
+        torch.cuda.empty_cache()
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = flops / F32_FLOPS_PER_S * 1e3
+        bound = max(bound_b, bound_o)
+        by = "bytes" if bound_b >= bound_o else "operations"
+        print(f"{name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"library none, bound {bound:.3f} ms ({by}; bytes "
+              f"{bound_b:.3f}, operations {bound_o:.3f}), "
+              f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s")
+        report["rwkv6"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bound_bytes_ms=bound_b,
+                                     bound_ops_ms=bound_o, bytes=nbytes,
+                                     flops=flops)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:85",
+            "replaces_note": note[name],
+            "launches": None, "max_abs_err": abs_by[name],
+            "max_rel_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "library_note": "no single PyTorch call computes this chunked "
+                            "recurrence",
+            "shape": f"r, k, v, w [B, S, H, D] = {list(shape)} f32, no s0 "
+                     f"(one time-mix layer of rwkv6-1.6b)",
+        })
+    del r, k, v, w, u, do, states
+    torch.cuda.empty_cache()
+    return entries
+
+
+def rwkv_grad_phase(torch, cfg, report):
+    """One step's per-leaf gradients of the rwkv path (its params at seed 0,
+    its first batch) three ways: through the WKV kernels, through the plain
+    pair, and through the plain pair in float64 (inputs widened, outputs
+    rounded back to f32; everything else the same f32 code).  The third is
+    the yardstick: the kernels' gradients must lie no farther from it than
+    twice the plain pair's, leaf by leaf (max |diff| / max |g|)."""
+    import repro_torch.models.recurrent as rec
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.rwkv6.ops import _RWKV6
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    def mix_f64(r, k, v, w, u, s0=None, *, impl=None):
+        o, sf = _RWKV6.apply(*(t.double() for t in (r, k, v, w, u)), None,
+                             "chunked")
+        return o.float(), sf.float()
+
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = make_batch(cfg, 0, 0, BATCH, SEQ, device="cuda")
+    grads, losses = {}, {}
+    kernel_mix = rec.rwkv6_mix
+    try:
+        for tag in ("kernels", "plain", "f64"):
+            for p in tree_leaves(params):
+                p.grad = None
+                p.requires_grad_(True)
+            rec.rwkv6_mix = mix_f64 if tag == "f64" else kernel_mix
+            loss, _ = loss_fn(params, cfg, batch, loss_chunk=LOSS_CHUNK,
+                              scan_impl=None if tag == "kernels" else "plain")
+            loss.backward()
+            losses[tag] = loss.item()
+            grads[tag] = [p.grad for p in tree_leaves(params)]
+    finally:
+        rec.rwkv6_mix = kernel_mix
+    rows = {}
+    for i, (path, _) in enumerate(tree_flatten_with_path(params)):
+        ref = grads["f64"][i]
+        scale = max(ref.abs().max().item(), 1e-30)
+        rel = lambda a, b: (a - b).abs().max().item() / scale
+        rows["/".join(path)] = dict(
+            kernels_vs_plain=rel(grads["kernels"][i], grads["plain"][i]),
+            kernels_vs_f64=rel(grads["kernels"][i], ref),
+            plain_vs_f64=rel(grads["plain"][i], ref))
+    del grads, params
+    torch.cuda.empty_cache()
+    worst = {k: max(r[k] for r in rows.values())
+             for k in ("kernels_vs_plain", "kernels_vs_f64", "plain_vs_f64")}
+    report["rwkv_grads"] = dict(losses=losses, worst=worst, leaves=rows)
+    print(f"rwkv grads, one step, max |diff| / max |g| over the leaves: "
+          f"kernels vs plain {worst['kernels_vs_plain']:.3g}, kernels vs "
+          f"float64 WKV {worst['kernels_vs_f64']:.3g}, plain vs float64 WKV "
+          f"{worst['plain_vs_f64']:.3g} (losses {losses})")
+    bad = [p for p, r in rows.items()
+           if r["kernels_vs_f64"] > 2 * r["plain_vs_f64"] + 1e-5]
+    check(not bad, f"rwkv grads: the kernels' gradients of {bad} lie more "
+                   f"than twice as far from the float64 WKV as the plain "
+                   f"pair's: {[rows[p] for p in bad]}")
+
+
+# ---------------------------------------------------------------------------
 # the DeFT main path
 # ---------------------------------------------------------------------------
 def expected_launches(cfg, schedule, layout, steps):
@@ -766,19 +1001,35 @@ def expected_launches(cfg, schedule, layout, steps):
     kinds = [spec.kind for spec in cfg.layer_specs()]
     attn = sum(k in ("attn", "local_attn") for k in kinds)
     rec = kinds.count("rglru")
+    rwkv = kinds.count("rwkv")
     updates = sum(schedule.phases[i % schedule.period].do_update
                   for i in range(steps))
     return {"flash_fwd": 2 * attn * steps, "rglru_fwd": 2 * rec * steps,
-            "rglru_bwd": rec * steps,
+            "rglru_bwd": rec * steps, "rwkv6_fwd": 2 * rwkv * steps,
+            "rwkv6_bwd": rwkv * steps,
             "bucket_update": layout.n_buckets * updates,
             "quantize_int8": 0, "dequantize_int8": 0,
             "stochastic_round_bf16": 0}
 
 
-def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps):
+def leaf_params(cfg) -> int:
+    """The parameter count as the sum of the model's leaves (what the
+    planner buckets), beside ``cfg.total_params()``'s formula."""
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+
+    return sum(x.numel() for x in tree_leaves(init_params(cfg, device="meta")))
+
+
+def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
+              bucket_share=None):
     """One f32 DeFT path: the first schedule period once with every plain
     version forced, then ``steps`` steps with every launch counter set to 0
-    just before and read just after, held to the plain run."""
+    just before and read just after, held to the plain run.
+
+    ``bucket_share`` replaces the element-count limit on the params by a
+    share of each bucket's elements beyond 10 * PARAM_TOL, with every
+    param within RWKV_PARAM_MAX_DIFF (the rwkv path: see its limits)."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     from repro_torch.kernels.quantize import (
@@ -787,6 +1038,7 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps):
         stochastic_round_bf16_cuda,
     )
     from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
@@ -815,15 +1067,22 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps):
         for buf, want in zip(state["pbuf"], ref_params):
             d = (buf - want.cuda()).abs()
             per_bucket.append((d.max().item(),
-                               int((d > PARAM_TOL).sum().item())))
+                               int((d > PARAM_TOL).sum().item()),
+                               int((d > 10 * PARAM_TOL).sum().item()),
+                               int((d > LR).sum().item())))
         agree.update(
-            max_param_diff=max(m for m, _ in per_bucket),
-            n_params_over_tol=sum(n for _, n in per_bucket),
+            max_param_diff=max(x[0] for x in per_bucket),
+            n_params_over_tol=sum(x[1] for x in per_bucket),
             n_params=sum(b.numel() for b in ref_params),
-            bucket_max_diff=[m for m, _ in per_bucket])
+            bucket_max_diff=[x[0] for x in per_bucket],
+            bucket_over_tol=[x[1] for x in per_bucket],
+            bucket_over_1e4=[x[2] for x in per_bucket],
+            bucket_over_lr=[x[3] for x in per_bucket],
+            bucket_sizes=[b.numel() for b in ref_params])
 
     counters = (flash_fwd_cuda, rglru_fwd_cuda, rglru_bwd_cuda,
-                bucket_update_cuda, quantize_int8_cuda, dequantize_int8_cuda,
+                rwkv6_fwd_cuda, rwkv6_bwd_cuda, bucket_update_cuda,
+                quantize_int8_cuda, dequantize_int8_cuda,
                 stochastic_round_bf16_cuda)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -844,17 +1103,30 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps):
     check(rel <= 1e-4, f"{key} losses vs the plain run: rel diff {rel:.3g} "
                        f"({losses[:period]} vs {ref_losses})")
     # a bucket whose update went wrong or did not happen moves by ~LR, ten
-    # times PARAM_MAX_DIFF; the two runs differ only by rounding
-    bad = [b for b, m in enumerate(agree["bucket_max_diff"])
-           if m > PARAM_MAX_DIFF]
-    check(not bad and agree["n_params_over_tol"] <= PARAM_MAX_OVER,
-          f"{key} params after the first period vs the plain run: buckets "
-          f"{bad} beyond {PARAM_MAX_DIFF}, {agree['n_params_over_tol']} "
-          f"elements beyond {PARAM_TOL}")
+    # times PARAM_MAX_DIFF, nearly every element of it; the two runs differ
+    # only by rounding
+    agree["bucket_share_over_1e4"] = [
+        n / size for n, size in zip(agree["bucket_over_1e4"],
+                                    agree["bucket_sizes"])]
+    if bucket_share is None:
+        bad = [b for b, m in enumerate(agree["bucket_max_diff"])
+               if m > PARAM_MAX_DIFF]
+        ok = not bad and agree["n_params_over_tol"] <= PARAM_MAX_OVER
+    else:
+        bad = [b for b, (m, f) in enumerate(zip(
+            agree["bucket_max_diff"], agree["bucket_share_over_1e4"]))
+            if m > RWKV_PARAM_MAX_DIFF or f > bucket_share]
+        ok = not bad
+    check(ok, f"{key} params after the first period vs the plain run: "
+              f"buckets {bad} beyond their limits (max |diff| "
+              f"{agree['bucket_max_diff']}, shares beyond {10 * PARAM_TOL} "
+              f"{agree['bucket_share_over_1e4']}), "
+              f"{agree['n_params_over_tol']} elements beyond {PARAM_TOL}")
     step_s = statistics.median(res["step_s"][1:])
     out = dict(
         config=dict(arch=arch, n_layers=cfg.n_layers, of_layers=of_layers,
-                    params=cfg.total_params(), batch=BATCH, seq=SEQ,
+                    params=leaf_params(cfg),
+                    params_formula=cfg.total_params(), batch=BATCH, seq=SEQ,
                     coverage_rate=COVERAGE_RATE,
                     partition_elems=PARTITION_ELEMS, loss_chunk=LOSS_CHUNK),
         n_buckets=res["layout"].n_buckets, period=period,
@@ -891,6 +1163,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
         stochastic_round_bf16_cuda,
     )
     from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
@@ -935,7 +1208,8 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
     steps = PREC_STEPS
     counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
                 dequantize_int8_cuda, stochastic_round_bf16_cuda,
-                rglru_fwd_cuda, rglru_bwd_cuda)
+                rglru_fwd_cuda, rglru_bwd_cuda, rwkv6_fwd_cuda,
+                rwkv6_bwd_cuda)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -977,8 +1251,10 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
           f"{updates}")
     check(launches["flash_fwd"] > 0 and launches_bf16 == launches["flash_fwd"],
           f"flash launches {launches['flash_fwd']}, on bf16 {launches_bf16}")
-    check(launches["rglru_fwd"] == launches["rglru_bwd"] == 0,
-          f"rglru launches {launches} on a model without RG-LRU layers")
+    check(launches["rglru_fwd"] == launches["rglru_bwd"] == 0
+          and launches["rwkv6_fwd"] == launches["rwkv6_bwd"] == 0,
+          f"recurrent-kernel launches {launches} on a model without "
+          f"recurrent layers")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     print(f"{key} vs the plain run over {window} steps: losses "
           f"{losses[:window]} vs {ref_losses} (rel {rel:.3g}); params max "
@@ -1087,7 +1363,8 @@ def run() -> int:
     print(f"config: {ARCH} at full width (d_model {cfg.d_model}, "
           f"{cfg.n_heads}H/{cfg.n_kv_heads}KV, head_dim {cfg.head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut to "
-          f"{N_LAYERS} of 26 layers: {cfg.total_params():,} params")
+          f"{N_LAYERS} of 26 layers: {leaf_params(cfg):,} params as leaves "
+          f"(formula {cfg.total_params():,})")
     meta = init_params(cfg, device="meta")
     bucket_of, nb, _, plan = build_schedule(
         meta, cfg, dp=1, seq_len=SEQ, per_device_batch=BATCH,
@@ -1107,7 +1384,8 @@ def run() -> int:
           f"head_dim {rg_cfg.head_dim}, d_ff {rg_cfg.d_ff}, vocab "
           f"{rg_cfg.vocab_size}, window {RG_WINDOW}), depth cut to "
           f"{RG_LAYERS} of {RG_OF_LAYERS} layers: "
-          f"{rg_cfg.total_params():,} params")
+          f"{leaf_params(rg_cfg):,} params as leaves (formula "
+          f"{rg_cfg.total_params():,})")
     rg_meta = init_params(rg_cfg, device="meta")
     rg_schedule = build_schedule(
         rg_meta, rg_cfg, dp=1, seq_len=SEQ, per_device_batch=BATCH,
@@ -1118,10 +1396,32 @@ def run() -> int:
           f"{RG_ARCH}: {RG_STEPS} steps do not cover a period "
           f"({rg_schedule.period})")
 
+    rw_cfg = get_config(RWKV_ARCH)
+    check(rw_cfg.n_layers == RWKV_LAYERS
+          and rw_cfg.d_model // rw_cfg.n_heads == RWKV_HEAD_SIZE
+          and rw_cfg.n_heads == RWKV_HEADS,
+          f"{RWKV_ARCH}: {rw_cfg.n_layers} layers, {rw_cfg.n_heads} heads "
+          f"of {rw_cfg.d_model // rw_cfg.n_heads}")
+    print(f"config: {RWKV_ARCH} at full width and full depth (d_model "
+          f"{rw_cfg.d_model}, {rw_cfg.n_heads} time-mix heads of "
+          f"{RWKV_HEAD_SIZE}, d_ff {rw_cfg.d_ff}, vocab {rw_cfg.vocab_size}, "
+          f"{RWKV_LAYERS} of {RWKV_LAYERS} layers): {leaf_params(rw_cfg):,} "
+          f"params as leaves (formula {rw_cfg.total_params():,})")
+    rw_schedule = build_schedule(
+        init_params(rw_cfg, device="meta"), rw_cfg, dp=1, seq_len=SEQ,
+        per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+        coverage_rate=COVERAGE_RATE)[3].schedule
+    check(any(ph.update_k > 1 or ph.rotate for ph in rw_schedule.phases)
+          and RWKV_STEPS >= 2 * rw_schedule.period,
+          f"{RWKV_ARCH}: degenerate schedule or {RWKV_STEPS} steps short of "
+          f"two periods ({rw_schedule.period})")
+
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
     entries += quantize_phase(torch, layout, report)
     flash_bf16_phase(torch, report, entries[0])
     entries += rglru_phase(torch, report)
+    entries += rwkv6_phase(torch, report)
+    rwkv_grad_phase(torch, rw_cfg, report)
     launches = {
         "f32": main_path(torch, cfg, schedule, report, "main_path", ARCH, 26,
                          2 * schedule.period + 2),
@@ -1134,6 +1434,10 @@ def run() -> int:
         f"{RG_ARCH} f32": main_path(torch, rg_cfg, rg_schedule, report,
                                     "recurrent_path", RG_ARCH, RG_OF_LAYERS,
                                     RG_STEPS),
+        f"{RWKV_ARCH} f32": main_path(torch, rw_cfg, rw_schedule, report,
+                                      "rwkv_path", RWKV_ARCH, RWKV_LAYERS,
+                                      RWKV_STEPS,
+                                      bucket_share=RWKV_BUCKET_SHARE),
     }
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

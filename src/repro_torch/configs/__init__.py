@@ -1,8 +1,8 @@
 """Architecture registry of the port: the two dense decoders of its main
-path (gemma2-2b, qwen3-4b), the Griffin hybrid recurrentgemma-9b, plus
-``reduce_for_smoke``.
+path (gemma2-2b, qwen3-4b), the Griffin hybrid recurrentgemma-9b, the
+RWKV-6 (Finch) model rwkv6-1.6b, plus ``reduce_for_smoke``.
 
-``base.py`` and the three config modules are verbatim copies of the JAX
+``base.py`` and the four config modules are verbatim copies of the JAX
 package's (imports renamed); ``tests/test_torch_planner.py`` holds them
 against the originals so the two cannot drift.
 """
@@ -11,11 +11,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import gemma2_2b, qwen3_4b, recurrentgemma_9b
+from repro_torch.configs import (
+    gemma2_2b,
+    qwen3_4b,
+    recurrentgemma_9b,
+    rwkv6_1_6b,
+)
 from repro_torch.configs.base import ArchConfig, LayerSpec, MLAConfig, MoEConfig
 
 _REGISTRY: Dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (gemma2_2b, qwen3_4b, recurrentgemma_9b)
+    m.CONFIG.name: m.CONFIG for m in (gemma2_2b, qwen3_4b, recurrentgemma_9b,
+                              rwkv6_1_6b)
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

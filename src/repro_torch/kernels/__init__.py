@@ -15,12 +15,21 @@ Every TPU kernel of the JAX package (each function that reaches
 | quantize/kernel.py::dequantize_int8_pallas (:149)         | int8 * row scale                           | quantize/csrc/quantize.cu (CUDA) |
 | rglru/kernel.py::rglru_scan_pallas (:49)                  | linear recurrence h_t = a_t h_{t-1} + b_t  | rglru/csrc/rglru_scan.cu (CUDA), |
 |                                                           |                                            | forward and reverse-scan backward |
-| rwkv6/kernel.py::rwkv6_pallas (:85)                       | chunked RWKV-6 WKV with a [D, D] state     | still to be ported |
+| rwkv6/kernel.py::rwkv6_pallas (:85)                       | chunked (T = 32) RWKV-6 WKV with a [D, D]  | rwkv6/csrc/rwkv6.cu (CUDA), |
+|                                                           | state per head, D 32 or 64                 | forward and chunked backward |
 
 The flash-attention backward is plain PyTorch (a port of the JAX
 package's ``flash.py`` recompute backward; the TPU kernel has none).  The
-RG-LRU scan's backward is a kernel of the port's own (the TPU kernel has
-none either): the same recurrence run in reverse.
+RG-LRU scan's and the RWKV-6 WKV's backwards are kernels of the port's own
+(the TPU kernels have none either): the scan run in reverse, and the WKV's
+reverse state-cotangent scan followed by one pass per chunk.
+
+On the CPU each wrapper runs its plain version (``PYTHONPATH=src python -m
+pytest -q tests/test_torch_rwkv6.py`` holds the WKV's against the JAX
+package); on the card ``python3 chip_smoke.py`` and ``python -m pytest
+--noconftest -m gpu tests/test_torch_gpu.py`` hold every kernel against
+its plain version, and ``python -m repro_torch.launch.train --arch
+rwkv6-1.6b --batch 1 --seq 8192 --loss-chunk 1024`` trains through them.
 
 Kernels are compiled by ``build.py`` at first use on a CUDA tensor,
 never at import.

@@ -32,6 +32,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "bucket_update": ("bucket_update/csrc/bucket_update.cu", ("--fmad=false",)),
     "quantize": ("quantize/csrc/quantize.cu", ("--fmad=false",)),
     "rglru_scan": ("rglru/csrc/rglru_scan.cu", ("--fmad=false",)),
+    "rwkv6": ("rwkv6/csrc/rwkv6.cu", ("--fmad=false",)),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -13,6 +13,8 @@ everything else) with the top kernels by name.  ``--wire-precision`` and
         --master-dtype bf16sr --out chiprun_out/profile_precision.json
     python -m repro_torch.launch.profile_step --arch recurrentgemma-9b \
         --layers 6 --out chiprun_out/profile_recurrent.json
+    python -m repro_torch.launch.profile_step --arch rwkv6-1.6b \
+        --layers 24 --out chiprun_out/profile_rwkv6.json
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ _CATEGORIES = (
     ("stochastic rounding (this port)", ("sr_bf16_kernel",)),
     ("RG-LRU scan forward (this port)", ("rglru_fwd_kernel",)),
     ("RG-LRU scan backward (this port)", ("rglru_bwd_kernel",)),
+    ("RWKV-6 WKV forward (this port)", ("rwkv6_fwd_kernel",)),
+    ("RWKV-6 WKV backward (this port)", ("rwkv6_bwd_scan_kernel",
+                                         "rwkv6_bwd_chunk_kernel",
+                                         "rwkv6_du_kernel")),
     ("matrix products", ("gemm", "Gemm", "cutlass", "cublas", "xmma", "sm90",
                          "nvjet")),
     ("collectives", ("nccl",)),

@@ -1,10 +1,12 @@
-"""Decoder block of the port: (norm -> attention -> residual) ->
+"""Decoder block of the port: (norm -> sequence mixer -> residual) ->
 (norm -> FFN -> residual), with gemma2-style post-norms when
 ``cfg.post_block_norm``.
 
 Port of ``repro/models/blocks.py`` for the attention kinds (``attn``,
 ``local_attn``) and the RG-LRU recurrent block (``rglru``), each with a
-dense FFN; the other mixers (MLA, cross-attention, RWKV-6) and MoE are
+dense FFN, and the RWKV-6 block (``rwkv``), whose mixer is the time-mix
+and whose FFN sublayer is the RWKV channel-mix (token-shifted
+squared-relu MLP).  The other mixers (MLA, cross-attention) and MoE are
 later slices and raise here.
 """
 from __future__ import annotations
@@ -16,16 +18,23 @@ import torch
 from repro_torch.configs.base import LayerSpec
 from repro_torch.models.attention import apply_self_attention, init_attention
 from repro_torch.models.common import apply_ffn, apply_norm, init_ffn, init_norm
-from repro_torch.models.recurrent import apply_rglru, init_rglru_block
+from repro_torch.models.recurrent import (
+    apply_rglru,
+    apply_rwkv_channelmix,
+    apply_rwkv_timemix,
+    init_rglru_block,
+    init_rwkv_channelmix,
+    init_rwkv_timemix,
+)
 
-_KINDS = ("attn", "local_attn", "rglru")
+_KINDS = ("attn", "local_attn", "rglru", "rwkv")
 
 
 def _check_spec(spec: LayerSpec) -> None:
     if spec.kind not in _KINDS or spec.ffn != "dense":
         raise NotImplementedError(
             f"layer {spec.kind}/{spec.ffn} is not ported yet (dense "
-            f"attn/local_attn/rglru blocks only; see ROADMAP.md)"
+            f"attn/local_attn/rglru/rwkv blocks only; see ROADMAP.md)"
         )
 
 
@@ -39,10 +48,15 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
         p["post_ffn_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
     if spec.kind == "rglru":
         p["mixer"] = init_rglru_block(generator, cfg, **kw)
+    elif spec.kind == "rwkv":
+        p["mixer"] = init_rwkv_timemix(generator, cfg, **kw)
     else:
         p["mixer"] = init_attention(generator, cfg, **kw)
     p["ffn_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
-    p["ffn"] = init_ffn(generator, cfg, **kw)
+    if spec.kind == "rwkv":
+        p["ffn"] = init_rwkv_channelmix(generator, cfg, **kw)
+    else:
+        p["ffn"] = init_ffn(generator, cfg, **kw)
     return p
 
 
@@ -57,6 +71,9 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     if spec.kind == "rglru":
         out = apply_rglru(p["mixer"], norm("pre_norm", x), cfg=cfg,
                           scan_impl=scan_impl)
+    elif spec.kind == "rwkv":
+        out = apply_rwkv_timemix(p["mixer"], norm("pre_norm", x), cfg=cfg,
+                                 scan_impl=scan_impl)
     else:
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
@@ -65,7 +82,10 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     if cfg.post_block_norm:
         out = norm("post_mixer_norm", out)
     x = x + out
-    out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg)
+    if spec.kind == "rwkv":
+        out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x))
+    else:
+        out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg)
     if cfg.post_block_norm:
         out = norm("post_ffn_norm", out)
     return x + out

@@ -1,5 +1,6 @@
 """Full model of the port: init / forward / loss over an ArchConfig whose
-blocks are ported (dense attention and RG-LRU kinds).
+blocks are ported (dense attention, RG-LRU and RWKV-6 kinds; tied or
+untied LM head, RMS or layer norm).
 
 Port of ``repro/models/model.py`` (train path).  The parameter tree is the
 JAX package's: ``embed``, ``final_norm``, optional ``head``, and the

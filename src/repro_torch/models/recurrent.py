@@ -1,13 +1,24 @@
-"""RG-LRU recurrent block of the port (Griffin / RecurrentGemma), train path.
+"""Recurrent sequence mixers of the port, train path: the RG-LRU block
+(Griffin / RecurrentGemma) and the RWKV-6 (Finch) time-mix and channel-mix.
 
-Port of the RG-LRU half of ``repro/models/recurrent.py`` without the decode
-state (the conv ring and the carried h come with serving): input and gate
-projections, a per-channel causal conv1d over zero history, block-diagonal
-recurrence and input gates, the decay ``a = exp(-c softplus(L) r)`` with
-its ``sqrt(1 - a^2)`` normaliser, then the scan ``h_t = a_t h_{t-1} + b_t``
-through ``kernels/rglru`` and the gated output projection.  The parameter
-names and shapes are the JAX package's; ``lead`` prepends the stacked
-per-period axis.
+Port of ``repro/models/recurrent.py`` without the decode state (the conv
+ring, the carried h, the RWKV state and token-shift buffers come with
+serving).
+
+* RG-LRU: input and gate projections, a per-channel causal conv1d over zero
+  history, block-diagonal recurrence and input gates, the decay
+  ``a = exp(-c softplus(L) r)`` with its ``sqrt(1 - a^2)`` normaliser, then
+  the scan ``h_t = a_t h_{t-1} + b_t`` through ``kernels/rglru`` and the
+  gated output projection.
+* RWKV-6 time-mix: token shift, the data-dependent lerp (ddlerp) of the
+  five inputs, r/k/v/g projections, the decay ``w = exp(-exp(w0 + tanh(xw
+  A) B))``, the WKV recurrence through ``kernels/rwkv6``, a per-head group
+  norm and the gated output projection.  Channel-mix: token shift, then
+  ``relu(xk wk)^2 wv``.  The head size is ``d_model // n_heads``, not
+  ``cfg.head_dim``.
+
+The parameter names and shapes are the JAX package's; ``lead`` prepends
+the stacked per-period axis.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.kernels.rwkv6 import rwkv6_mix
 from repro_torch.models.common import dense_init
 
 _C_RGLRU = 8.0  # the paper's fixed scalar c
@@ -31,6 +43,16 @@ def _drawn(shape, device, fill) -> torch.Tensor:
     return t
 
 
+def _uniform(generator, shape, device, lo=0.0, hi=1.0) -> torch.Tensor:
+    return _drawn(shape, device,
+                  lambda t: t.uniform_(lo, hi, generator=generator))
+
+
+def _normal(generator, shape, device, std) -> torch.Tensor:
+    return _drawn(shape, device,
+                  lambda t: t.normal_(0.0, std, generator=generator))
+
+
 def init_rglru_block(generator, cfg, *, lead: Sequence[int] = (),
                      device="cuda", dtype=torch.float32) -> Dict:
     d = cfg.d_model
@@ -39,11 +61,9 @@ def init_rglru_block(generator, cfg, *, lead: Sequence[int] = (),
     bh = w // heads
     kw = dict(lead=lead, device=device, dtype=dtype)
     # Lambda init so that a = exp(-c*softplus(L)*r) starts near 0.9..0.999
-    lam = _drawn((*lead, w), device,
-                 lambda t: t.uniform_(0.9, 0.999, generator=generator))
+    lam = _uniform(generator, (*lead, w), device, 0.9, 0.999)
     a_param = torch.log(torch.exp(-torch.log(lam) / _C_RGLRU) - 1.0)
-    normal = lambda shape, std: _drawn(
-        shape, device, lambda t: t.normal_(0.0, std, generator=generator))
+    normal = lambda shape, std: _normal(generator, shape, device, std)
     return {
         "wx": dense_init(generator, d, w, **kw),
         "wgate": dense_init(generator, d, w, **kw),
@@ -96,3 +116,98 @@ def apply_rglru(p: Dict, x: torch.Tensor, *, cfg,
     bt = norm * (i * y.float())
     h, _ = rglru_scan(bt, a, impl=scan_impl)
     return (h * gate).to(x.dtype) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch)
+# ---------------------------------------------------------------------------
+_DDLERP_RANK = 32
+
+
+def init_rwkv_timemix(generator, cfg, *, lead: Sequence[int] = (),
+                      device="cuda", dtype=torch.float32) -> Dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    uniform = lambda shape: _uniform(generator, shape, device)
+    normal = lambda shape, std: _normal(generator, shape, device, std)
+    return {
+        # token-shift base mixes (mu_x for the shared ddlerp + per-proj mus)
+        "mu_base": (uniform((*lead, 5, d)) * 0.5).to(dtype),
+        # ddlerp low-rank adapters: A [d, 5*rank], B [5, rank, d]
+        "ddlerp_a": dense_init(generator, d, 5 * _DDLERP_RANK, **kw),
+        "ddlerp_b": normal((*lead, 5, _DDLERP_RANK, d), 0.01).to(dtype),
+        "wr": dense_init(generator, d, d, **kw),
+        "wk": dense_init(generator, d, d, **kw),
+        "wv": dense_init(generator, d, d, **kw),
+        "wg": dense_init(generator, d, d, **kw),
+        # decay: w = exp(-exp(w0 + lora)); w0 init for half-life spread
+        "w0": torch.linspace(-6.0, -0.5, d, device=device).to(dtype)
+        .expand((*lead, d)).clone(),
+        "w_lora_a": dense_init(generator, d, 64, **kw),
+        "w_lora_b": normal((*lead, 64, d), 0.01).to(dtype),
+        "u": normal((*lead, h, hd), 0.1).to(dtype),            # bonus
+        "wo": dense_init(generator, d, d, **kw),
+        # per-head groupnorm scale and bias
+        "ln_scale": torch.ones((*lead, d), dtype=dtype, device=device),
+        "ln_bias": torch.zeros((*lead, d), dtype=dtype, device=device),
+    }
+
+
+def _token_shift(x: torch.Tensor) -> torch.Tensor:
+    """The previous token's features, zeros at position 0: [B,S,d]."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _ddlerp(p: Dict, x: torch.Tensor, prev: torch.Tensor):
+    """Data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g)."""
+    dx = prev - x
+    base = x[:, :, None, :] + dx[:, :, None, :] * p["mu_base"][None, None]
+    # low-rank data-dependent adjustment
+    lora = torch.tanh(x @ p["ddlerp_a"])                   # [B,S,5*rank]
+    b, s, _ = lora.shape
+    lora = lora.reshape(b, s, 5, _DDLERP_RANK)
+    adj = torch.einsum("bsfr,frd->bsfd", lora, p["ddlerp_b"])
+    mixed = base + dx[:, :, None, :] * adj                 # [B,S,5,d]
+    return [mixed[:, :, j] for j in range(5)]
+
+
+def apply_rwkv_timemix(p: Dict, x: torch.Tensor, *, cfg,
+                       scan_impl: Optional[str] = None) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    hd = d // h
+    xr, xk, xv, xw, xg = _ddlerp(p, x, _token_shift(x))
+    r = (xr @ p["wr"]).reshape(b, s, h, hd)
+    k = (xk @ p["wk"]).reshape(b, s, h, hd)
+    v = (xv @ p["wv"]).reshape(b, s, h, hd)
+    g = F.silu(xg @ p["wg"])
+    w_log = p["w0"].float() + (
+        torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
+    w = torch.exp(-torch.exp(w_log)).reshape(b, s, h, hd)
+    o, _ = rwkv6_mix(r, k, v, w, p["u"].float(), impl=scan_impl)
+    # per-head group norm (population variance, eps 64e-5)
+    mean = torch.mean(o, dim=-1, keepdim=True)
+    var = torch.var(o, dim=-1, keepdim=True, unbiased=False)
+    o = (o - mean) * torch.rsqrt(var + 64e-5)
+    o = o.reshape(b, s, d) * p["ln_scale"].float() + p["ln_bias"].float()
+    return (o.to(x.dtype) * g) @ p["wo"]
+
+
+def init_rwkv_channelmix(generator, cfg, *, lead: Sequence[int] = (),
+                         device="cuda", dtype=torch.float32) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    return {
+        "mu_k": (_uniform(generator, (*lead, d), device) * 0.5).to(dtype),
+        "wk": dense_init(generator, d, f, **kw),
+        "wv": dense_init(generator, f, d, **kw),
+    }
+
+
+def apply_rwkv_channelmix(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Token-shifted squared-relu MLP: x [B, S, d] -> [B, S, d]."""
+    xk = x + (_token_shift(x) - x) * p["mu_k"][None, None]
+    return torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]

@@ -13,7 +13,10 @@ rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
 atol max|g| / 128 (the plain backward reads the kernel's rounded output);
 the bucket update, the three quantize kernels and the two RG-LRU scan
 kernels bitwise (each rounds every operation separately, as the plain
-version's elementwise kernels do, and the hash is integer arithmetic).
+version's elementwise kernels do, and the hash is integer arithmetic); the
+RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o,
+S_final and every gradient (f32 on both sides, another summation order
+inside the small products).
 """
 import numpy as np
 import pytest
@@ -44,6 +47,13 @@ from repro_torch.kernels.rglru import (
     rglru_scan_bwd_plain,
     rglru_scan_plain,
 )
+from repro_torch.kernels.rwkv6 import (
+    rwkv6_bwd_cuda,
+    rwkv6_bwd_plain,
+    rwkv6_fwd_cuda,
+    rwkv6_mix,
+)
+from repro_torch.kernels.rwkv6.ops import _chunked_forward
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 
 TOL = 1e-4
@@ -216,3 +226,48 @@ def test_rglru_kernels_bitwise(bsz, s, w, with_h0):
         grads.append([x.grad for x in xs])
     for x, y in zip(*grads):
         assert torch.equal(x, y)
+
+
+def _rel(x, y):
+    return ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_s0,with_dsf", [(False, False), (True, False),
+                                              (False, True), (True, True)])
+@pytest.mark.parametrize("b,s,h,d", [(2, 64, 2, 32), (1, 96, 4, 64),
+                                     (3, 40, 2, 64), (1, 32, 1, 64)])
+def test_rwkv6_kernels_match_plain(b, s, h, d, with_s0, with_dsf):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(b * 1000 + s + h + d)
+    mk = lambda *shape: torch.randn(shape, device="cuda", generator=g)
+    r, k, v, do = (mk(b, s, h, d) for _ in range(4))
+    w = torch.sigmoid(mk(b, s, h, d)) * 0.9 + 0.05
+    u = mk(h, d)
+    s0 = mk(b, h, d, d) if with_s0 else None
+    dsf = mk(b, h, d, d) if with_dsf else None
+    o, sf, states = rwkv6_fwd_cuda(r, k, v, w, u, s0, save_states=True)
+    ro, rsf, rstates = _chunked_forward(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    for x, y in ((o, ro), (sf, rsf), (states, rstates)):
+        assert _rel(x, y) <= TOL
+    got = rwkv6_bwd_cuda(r, k, v, w, u, states, do, dsf, need_ds0=with_s0)
+    want = rwkv6_bwd_plain(r, k, v, w, u, s0, do, dsf, states=rstates)
+    torch.cuda.synchronize()
+    assert (got[5] is None) == (want[5] is None) == (not with_s0)
+    for x, y in zip(got, want):
+        assert x is None or _rel(x, y) <= TOL
+    # the autograd Function launches both kernels and matches the plain one
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (r, k, v, w, u)]
+        rwkv6_fwd_cuda.launches = rwkv6_bwd_cuda.launches = 0
+        out, _ = rwkv6_mix(*xs, s0, impl=impl)
+        torch.sum(out * do).backward()
+        assert rwkv6_fwd_cuda.launches == rwkv6_bwd_cuda.launches == \
+            (impl == "cuda")
+        grads.append([x.grad for x in xs])
+    for x, y in zip(*grads):
+        assert _rel(x, y) <= TOL
+    with pytest.raises(ValueError):          # head sizes 32 and 64 only
+        rwkv6_fwd_cuda(*(x[..., :16].contiguous() for x in (r, k, v, w, u)))

@@ -41,6 +41,9 @@ def _jax_case(arch, batch, seq, loss_chunk, n_layers=2):
 # recurrentgemma smoke: (rglru, rglru, local_attn) with MQA 4H/1KV, window
 # 64 < seq 80, lru_width 256; 3 layers are one stacked period, 5 layers a
 # period plus a 2-layer tail (rglru, rglru) outside the stack.
+# rwkv6 smoke: period-1 stack of rwkv blocks (time-mix with 4 heads of size
+# 64, channel-mix), layernorm, untied head; seq 80 takes the WKV token loop
+# in both packages, seq 176 the chunked pair (ragged against T = 32).
 @pytest.mark.parametrize("arch,seq,loss_chunk,n_layers", [
     pytest.param("gemma2-2b", 96, 0, 2, id="gemma2-2b-96-0"),
     pytest.param("gemma2-2b", 96, 40, 2, id="gemma2-2b-96-40"),
@@ -48,6 +51,9 @@ def _jax_case(arch, batch, seq, loss_chunk, n_layers=2):
     pytest.param("recurrentgemma-9b", 80, 0, 3, id="recurrentgemma-9b-80-0"),
     pytest.param("recurrentgemma-9b", 80, 32, 5,
                  id="recurrentgemma-9b-80-32-5layers"),
+    pytest.param("rwkv6-1.6b", 80, 0, 2, id="rwkv6-1.6b-80-0"),
+    pytest.param("rwkv6-1.6b", 176, 0, 2, id="rwkv6-1.6b-176-0"),
+    pytest.param("rwkv6-1.6b", 80, 32, 3, id="rwkv6-1.6b-80-32-3layers"),
 ])
 def test_loss_and_grads_match_jax(arch, seq, loss_chunk, n_layers):
     params_np, data, jloss, jgrads = _jax_case(arch, 2, seq, loss_chunk,
@@ -73,7 +79,9 @@ def test_loss_and_grads_match_jax(arch, seq, loss_chunk, n_layers):
     pytest.param("gemma2-2b", 2, id="gemma2-2b"),
     pytest.param("qwen3-4b", 2, id="qwen3-4b"),
     pytest.param("recurrentgemma-9b", 3, id="recurrentgemma-9b"),
-    pytest.param("recurrentgemma-9b", 5, id="recurrentgemma-9b-5layers")])
+    pytest.param("recurrentgemma-9b", 5, id="recurrentgemma-9b-5layers"),
+    pytest.param("rwkv6-1.6b", 2, id="rwkv6-1.6b"),
+    pytest.param("rwkv6-1.6b", 3, id="rwkv6-1.6b-3layers")])
 def test_param_tree_matches_jax_structure(arch, n_layers):
     """init_params builds the JAX package's tree: same paths, same
     stacked shapes, same leaf order; convert round-trips bitwise."""

@@ -23,12 +23,13 @@ from repro_torch.configs import reduce_for_smoke as t_reduce
 from repro_torch.core.deft import Planner, PlanRequest
 from repro_torch.launch.train import build_schedule
 from repro_torch.models.model import init_params
+from repro_torch.tree import tree_leaves
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = sorted(
     [f"core/{p.name}" for p in (SRC / "repro" / "core").glob("*.py")]
     + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py",
-       "configs/recurrentgemma_9b.py"]
+       "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py"]
 )
 
 
@@ -39,7 +40,8 @@ def test_copied_module_is_verbatim(rel):
     assert (SRC / "repro_torch" / rel).read_text() == want
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b",
+                                  "rwkv6-1.6b"])
 def test_configs_match(arch):
     assert dataclasses.asdict(t_get_config(arch)) == \
         dataclasses.asdict(get_config(arch))
@@ -55,6 +57,47 @@ def test_recurrentgemma_smoke_cut():
     assert (cfg.n_layers, cfg.lru_width, cfg.n_heads, cfg.n_kv_heads,
             cfg.sliding_window, cfg.embedding_multiplier) == \
         (3, 256, 4, 1, 64, 16.0)
+
+
+def test_rwkv6_smoke_cut():
+    """A period-1 stack of rwkv blocks at smoke widths: the time-mix head
+    size stays d_model // n_heads = 64 although head_dim is cut to 32."""
+    cfg = t_reduce(t_get_config("rwkv6-1.6b"))
+    assert [s.kind for s in cfg.layer_specs()] == ["rwkv", "rwkv"]
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim,
+            cfg.d_ff, cfg.norm, cfg.tie_embeddings) == \
+        (2, 256, 4, 32, 512, "layernorm", False)
+    assert cfg.d_model // cfg.n_heads == 64
+
+
+def test_rwkv6_leaves_outnumber_the_formula():
+    """The planner buckets real leaves: rwkv6-1.6b has 1,499,107,328
+    parameters as leaves, 19,171,328 more than ``total_params()``, whose
+    time-mix formula leaves out the ddlerp and decay adapters."""
+    cfg = t_get_config("rwkv6-1.6b")
+    n = sum(x.numel() for x in tree_leaves(init_params(cfg, device="meta")))
+    assert n == 1_499_107_328
+    assert n - cfg.total_params() == 19_171_328
+
+
+def test_rwkv6_full_schedule_matches_jax():
+    """The rwkv6-1.6b cell's plan (batch 1, sequence 8192, partition
+    200,000, coverage rate 1.8) over the real leaves: 14 buckets, period 4,
+    3 updates a period, merged batch sizes (1, 2, 1), rotation on — the
+    same from both planners."""
+    kw = dict(dp=1, seq_len=8192, per_device_batch=1,
+              partition_elems=200_000, coverage_rate=1.8)
+    cfg, tcfg = get_config("rwkv6-1.6b"), t_get_config("rwkv6-1.6b")
+    jp = jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0), cfg))
+    jb, jnb, _, jplan = jax_build_schedule(jp, cfg, **kw)
+    tb, tnb, _, tplan = build_schedule(init_params(tcfg, device="meta"),
+                                       tcfg, **kw)
+    assert (tb, tnb) == (jb, jnb)
+    ts = tplan.schedule
+    assert _phases(ts) == _phases(jplan.schedule)
+    assert (tnb, ts.period, ts.updates_per_period,
+            tuple(ts.batch_size_sequence)) == (14, 4, 3, (1, 2, 1))
+    assert any(ph.rotate for ph in ts.phases)
 
 
 def _phases(schedule):

@@ -4,7 +4,8 @@
   buffers.
 * ``DeftRuntime``: params after two schedule periods equal the JAX
   ``DeftRuntime`` (one CPU device, same schedule, same params and
-  batches; gemma2-2b and recurrentgemma-9b smoke) — f32 on both sides with different reduction orders.  AdamW
+  batches; gemma2-2b, recurrentgemma-9b and rwkv6-1.6b smoke) — f32 on
+  both sides with different reduction orders.  AdamW
   divides each element's step by that element's own gradient magnitude,
   so where a gradient is near zero the reduction-order noise moves the
   param by a visible fraction of lr = 1e-3: atol 1e-4 (a tenth of one
@@ -114,7 +115,25 @@ def test_recurrentgemma_runtime_matches_jax_runtime_over_two_periods(
     _runtime_parity("recurrentgemma-9b", single_mesh)
 
 
-def _runtime_parity(arch, single_mesh):
+def test_rwkv6_runtime_matches_jax_runtime_over_two_periods(
+        group, single_mesh):
+    """RWKV-6 (time-mix through the WKV token loop at S = 80, channel-mix,
+    untied head) on the same engine: 10 buckets, period 6, merged batch
+    sizes (1, 1, 2, 1, 1), so two periods are 12 steps and 10 updates.
+
+    Over those, AdamW's near-zero-gradient amplification shows: an embedding
+    row seen once (token 292, at step 6) has one element whose synced
+    gradient is -8.8e-7 in the port and -2.6e-6 in JAX, on a row whose
+    largest is 0.215 and whose elements differ by up to 5.3e-6 — reduction
+    noise on a value ~1e-5 of its row.  With sqrt(v) near AdamW's eps (1e-8)
+    the two steps differ by ~17%, and the element drifts by ~6e-5 an update
+    to 2.6e-4 after 4 updates (the one element of 1.4M beyond 1e-4).  So
+    this case allows a handful of elements beyond ATOL, none beyond one
+    step of lr (1e-3); every other element is held to ATOL."""
+    _runtime_parity("rwkv6-1.6b", single_mesh, max_over=5, max_diff=1e-3)
+
+
+def _runtime_parity(arch, single_mesh, max_over=0, max_diff=ATOL):
     cfg = reduce_for_smoke(get_config(arch))
     tcfg = t_reduce(t_get_config(arch))
     jparams, jb, jnb, jsched, tsched = _plan(cfg, tcfg)
@@ -152,8 +171,11 @@ def _runtime_parity(arch, single_mesh):
         assert m["updated"] == phase.do_update
         np.testing.assert_allclose(float(m["loss"]), jlosses[i], rtol=1e-4)
     assert int(state["opt"]["step"]) == 2 * tsched.updates_per_period
+    n_over = 0
     for a, b in zip(tree_leaves(rt.params_tree(state)), jax.tree.leaves(jfinal)):
-        np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(a.numpy(), b, atol=max_diff, rtol=0)
+        n_over += int(np.sum(np.abs(a.numpy() - b) > ATOL))
+    assert n_over <= max_over, f"{n_over} params beyond {ATOL}"
     st = rt.stats()
     assert st["steps_dispatched"] == n_steps
     assert st["unique_phases"] == len(set(tsched.phases))
