@@ -5,23 +5,29 @@
 
 1. Builds every CUDA kernel from this checkout's sources (one ``nvcc`` per
    source, all started together) and prints the compiler's register and
-   spill counts.
+   spill counts (and any ptxas performance warning).
 2. Holds each kernel against its plain PyTorch version on the card:
-   flash attention at head dims 128 and 256 with GQA (MQA 16:1 too),
-   causal, window, softcap and a ragged length (out, lse and autograd
+   flash attention on f32 at head dims 128 and 256 with GQA (MQA 16:1
+   too), causal, window, softcap and a ragged length (out, lse and autograd
    gradients within 1e-4), then at the paths' shapes (gemma2-2b's global
    and local layers, recurrentgemma-9b's MQA local layer); the bucket
    update bitwise for AdamW and SGD, uniform and per-element, masked
    tail, fused zeroing; the int8 quantize, dequantize and bf16
    stochastic-rounding kernels bitwise, at 128, 1280 and 4096 elements
    with ragged NaN/inf tails, an all-zero row and two seeds, and on the
-   main path's largest bucket (589,824,000 elements); flash attention again on bf16 inputs (out
-   within one bf16 rounding step, lse 1e-4, gradients 1.6e-2 relative
-   with max|g| / 128 absolute); the RG-LRU scan's forward and reverse-scan
-   backward kernels bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256),
-   (3, 33, 100) and (1, 1, 4096) with and without h0 and an h_final
-   cotangent, and at the recurrent path's [1, 8192, 4096]; the RWKV-6 WKV
-   forward and backward kernels within max |diff| / max |plain| <= 1e-4 on
+   main path's largest bucket (589,824,000 elements); flash attention on
+   bf16 inputs through the tensor-core kernel (flash_fwd_sm90.cu) at
+   head dims 32, 64, 128 and 256, MQA 16:1, bidirectional, S below one
+   key block, windows below one key block, softcap on and off (out within
+   one bf16 rounding step, lse 1e-4, gradients 1.6e-2 relative with
+   max|g| / 128 absolute), then at the main path's global and local
+   shapes under the same checks, timed in turns with compiled flex_attention (kernel, flex,
+   kernel; the kernel must not be slower), with its TFLOP/s and share of
+   the bound; the RG-LRU scan's forward and reverse-scan backward kernels
+   bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256), (3, 33, 100) and
+   (1, 1, 4096) with and without h0 and an h_final cotangent, and at the
+   recurrent path's [1, 8192, 4096]; the RWKV-6 WKV forward and backward
+   kernels within max |diff| / max |plain| <= 1e-4 on
    o, S_final and every gradient, at (B, S, H, D) (2, 64, 2, 32), (1, 96,
    4, 64), (3, 40, 2, 64) and (1, 32, 1, 64) with and without s0 and a
    dS_final cotangent, and at the RWKV path's [1, 8192, 32, 64].  Times
@@ -29,7 +35,9 @@
    computes the same function and that the port never calls (compiled
    ``flex_attention`` with the softcap as ``score_mod`` and the causal /
    window mask as a block mask, on f32 and on bf16 inputs;
-   ``torch._fused_adamw_``; ``torch.mul`` of the int8 rows by their scales
+   ``torch._fused_adamw_``, which moves 28 B an element to the kernel's
+   32 as it leaves the gradients unzeroed, so both bytes bounds are
+   printed; ``torch.mul`` of the int8 rows by their scales
    for dequantize; none for quantize, stochastic rounding, the scan and
    the WKV), beside the least time the card could take.
 3. Drives the DeFT main path through ``repro_torch.launch.train.train``:
@@ -47,7 +55,8 @@
    bf16): its first steps once with every plain version forced, then the
    run with the counters zeroed, which must launch all five kernels
    (quantize = dequantize = synced buckets, stochastic rounding = buckets
-   x (init + updates), flash on bf16 inputs), keep every master buffer
+   x (init + updates), the bf16 tensor-core flash twice per attention
+   layer per step and the f32 flash never), keep every master buffer
    bf16 and the loss finite, and agree with the plain run within the
    limits PERF.md gives with their readings.  At coverage rate 1.8 the
    int8 wire leaves a one-step period; a second run at 4 x 1.8, whose
@@ -419,17 +428,24 @@ def bucket_phase(torch, layout, report):
         eps=spec.eps, amsgrad=False, maximize=False), 5)
     n = sum(sizes)
     nbytes = 4.0 * n * 8           # read p, m, v, g; write p, m, v, zeroed g
+    lib_bytes = 4.0 * n * 7        # _fused_adamw_ leaves g as it is
     flops = 17.0 * n               # the AdamW expression per element
     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
     bound_o = flops / F32_FLOPS_PER_S * 1e3
+    lib_bound = lib_bytes / HBM_BYTES_PER_S * 1e3
     print(f"bucket update main path ({len(sizes)} buckets, {n:,} elements, "
           f"largest {sizes[big]:,}): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, _fused_adamw_ {library_ms:.3f} ms, bound {bound_b:.3f} ms "
           f"(bytes), {nbytes / ms / 1e6:.0f} GB/s achieved")
+    print(f"  bytes: the kernel moves 32 B an element (zero_grads writes g), "
+          f"{bound_b / ms:.1%} of its bound; _fused_adamw_ does not zero the "
+          f"gradients and moves 28 B an element: bound {lib_bound:.3f} ms, "
+          f"{lib_bound / library_ms:.1%} of it")
     report["bucket_update"] = dict(
         cases=n_cases, elements=n, buckets=len(sizes), ms=ms,
         plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bound_b, bound_o),
-        bytes=nbytes, max_abs_err=err)
+        bytes=nbytes, max_abs_err=err, library_bytes=lib_bytes,
+        library_bound_ms=lib_bound)
     del bufs
     torch.cuda.empty_cache()
     return {
@@ -439,7 +455,9 @@ def bucket_phase(torch, layout, report):
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bound_b, bound_o),
         "bound_by": "bytes" if bound_b >= bound_o else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_bound_ms": lib_bound,
+        "library_note": "torch._fused_adamw_ does not zero the gradients: "
+                        "28 B an element against the kernel's 32",
         "shape": f"AdamW over all {len(sizes)} buckets of the main path "
                  f"({n} f32 elements), zero_grads",
     }
@@ -584,7 +602,10 @@ def quantize_phase(torch, layout, report):
 # ---------------------------------------------------------------------------
 # flash attention on bf16 inputs
 # ---------------------------------------------------------------------------
-def flash_bf16_phase(torch, report, entry):
+def flash_bf16_phase(torch, report):
+    """The bf16 tensor-core flash forward (flash_fwd_sm90.cu): the small
+    cases, then the main path's shapes, timed in turns with compiled
+    ``flex_attention`` (kernel, flex, kernel)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_fwd_cuda,
@@ -599,12 +620,41 @@ def flash_bf16_phase(torch, report, entry):
                                    generator=gen).bfloat16()
         return mk(h), mk(kvh), mk(kvh)
 
+    def grad_rel(q, k, v, kw, what):
+        """Autograd through the kernel against the plain forward (the
+        backward is plain in both): the largest |diff| / max |g|."""
+        w = torch.randn(q.shape, device="cuda", generator=gen)
+        grads = []
+        for impl in ("cuda", "plain"):
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            torch.sum(flash_attention(*xs, impl=impl, **kw).float()
+                      * w).backward()
+            grads.append([x.grad for x in xs])
+        rel = 0.0
+        for a, g in zip(*grads):
+            scale = g.float().abs().max().item()
+            d_max = (a.float() - g.float()).abs().max().item()
+            rel = max(rel, d_max / scale)
+            check(a.dtype == torch.bfloat16 and torch.allclose(
+                a.float(), g.float(), rtol=BF16_GRAD_RTOL, atol=scale / 128),
+                f"flash bf16 gradients disagree at {what}: max |diff| "
+                f"{d_max:.3g} of max |g| {scale:.3g}")
+        return rel
+
     worst = dict(out=0.0, lse=0.0, grad_rel=0.0)
+    # key blocks of 64 at D = 256, of 128 below; 128 query rows per CTA
     cases = [
         (2, 333, 8, 4, 256, True, 100, 50.0),   # ragged S, window, softcap
         (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
         (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
         (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
+        (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
+        (2, 128, 4, 2, 32, True, 0, 0.0),       # D 32: 64-byte swizzle
+        (2, 300, 4, 1, 32, True, 90, 30.0),     # window < key block
+        (2, 100, 4, 4, 64, False, 0, 0.0),      # S < key block
+        (2, 257, 8, 2, 64, True, 77, 50.0),     # window < key block, ragged
+        (2, 40, 8, 8, 128, True, 0, 50.0),      # S < key block, softcap
+        (2, 150, 8, 4, 256, True, 37, 0.0),     # window < key block
     ]
     for b, s, h, kvh, d, causal, window, cap in cases:
         kw = dict(causal=causal, window=window, softcap=cap)
@@ -621,22 +671,7 @@ def flash_bf16_phase(torch, report, entry):
               and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
               f"flash bf16 kernel disagrees with plain at "
               f"{b, s, h, kvh, d, kw}: out {o_err:.3g}, lse {l_err:.3g}")
-        w = torch.randn(q.shape, device="cuda", generator=gen)
-        grads = []
-        for impl in ("cuda", "plain"):
-            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            torch.sum(flash_attention(*xs, impl=impl, **kw).float()
-                      * w).backward()
-            grads.append([x.grad for x in xs])
-        g_rel = 0.0
-        for a, g in zip(*grads):
-            scale = g.float().abs().max().item()
-            d_max = (a.float() - g.float()).abs().max().item()
-            g_rel = max(g_rel, d_max / scale)
-            check(a.dtype == torch.bfloat16 and torch.allclose(
-                a.float(), g.float(), rtol=BF16_GRAD_RTOL, atol=scale / 128),
-                f"flash bf16 gradients disagree at {b, s, h, kvh, d, kw}: "
-                f"max |diff| {d_max:.3g} of max |g| {scale:.3g}")
+        g_rel = grad_rel(q, k, v, kw, (b, s, h, kvh, d, kw))
         worst = dict(out=max(worst["out"], o_err), lse=max(worst["lse"], l_err),
                      grad_rel=max(worst["grad_rel"], g_rel))
         print(f"flash bf16 D={d} S={s} H={h}/{kvh} {kw}: ok (out {o_err:.3g}, "
@@ -647,48 +682,74 @@ def flash_bf16_phase(torch, report, entry):
     shapes = {}
     for layer, window in (("global", 0), ("local", 4096)):
         kw = dict(causal=True, window=window, softcap=50.0)
-        out, _ = flash_fwd_cuda(q, k, v, **kw)
-        ref, _ = flash_fwd_plain(q, k, v, **kw)
+        out, lse = flash_fwd_cuda(q, k, v, **kw)
+        ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        l_err = (lse - ref_lse).abs().max().item()
         check(torch.allclose(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
-                             atol=1e-5),
+                             atol=1e-5)
+              and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
               f"flash bf16 kernel disagrees with plain at the {layer} "
-              f"main-path shape: max err {err:.3g}")
-        worst["out"] = max(worst["out"], err)
-        del out, ref
-        ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 5)
-        plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
+              f"main-path shape: out {err:.3g}, lse {l_err:.3g}")
+        del out, lse, ref, ref_lse
+        g_rel = grad_rel(q, k, v, kw, f"the {layer} main-path shape")
+        worst = dict(out=max(worst["out"], err), lse=max(worst["lse"], l_err),
+                     grad_rel=max(worst["grad_rel"], g_rel))
+        torch.cuda.empty_cache()
+        kern = lambda: flash_fwd_cuda(q, k, v, **kw)
         lib = flex_call(torch, q, k, v, window, 50.0)
-        lib_err = (lib().float()
-                   - flash_fwd_cuda(q, k, v, **kw)[0].float()).abs().max().item()
-        library_ms = time_ms(torch, lib, 3)
+        lib_err = (lib().float() - kern()[0].float()).abs().max().item()
+        # in turns on one card: kernel, flex, kernel
+        ms_a = time_ms(torch, kern, 10)
+        library_ms = time_ms(torch, lib, 10)
+        ms_b = time_ms(torch, kern, 10)
+        ms = (ms_a + ms_b) / 2
+        plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
         del lib
         flops = 4.0 * d * visible_pairs(s, True, window) * h * b
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
         bound_ops = flops / BF16_FLOPS_PER_S * 1e3
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(bound_ops, bound_bytes)
         shapes[layer] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(bound_ops, bound_bytes),
+            ms=ms, ms_turns=[ms_a, ms_b], plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound,
             bound_by="operations" if bound_ops >= bound_bytes else "bytes",
-            max_abs_err=err, library_max_abs_err=lib_err)
-        print(f"flash bf16 main-path {layer}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, flex_attention {library_ms:.3f} ms (max "
-              f"diff to the kernel {lib_err:.3g}), bound "
-              f"{shapes[layer]['bound_ms']:.3f} ms "
-              f"({shapes[layer]['bound_by']}, bf16 tensor-core peak)")
+            flops=flops, tflops=flops / ms / 1e9, bound_share=bound / ms,
+            max_abs_err=err, lse_err=l_err, grad_rel=g_rel,
+            library_max_abs_err=lib_err)
+        print(f"flash bf16 main-path {layer}: out {err:.3g}, lse "
+              f"{l_err:.3g}, grads {g_rel:.3g} of max |g|; kernel {ms_a:.3f} / "
+              f"{ms_b:.3f} ms (flex between them {library_ms:.3f} ms, max "
+              f"diff to the kernel {lib_err:.3g}), plain {plain_ms:.3f} ms, "
+              f"bound {bound:.3f} ms ({shapes[layer]['bound_by']}, bf16 "
+              f"tensor-core peak): {flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"bound's 4*D flops a pair, {bound / ms:.1%} of the bound")
+        check(ms <= library_ms,
+              f"flash bf16 {layer}: kernel {ms:.3f} ms slower than "
+              f"flex_attention {library_ms:.3f} ms")
     report["flash_bf16"] = dict(cases=len(cases), **worst, **shapes)
     torch.cuda.empty_cache()
-    entry.update(bf16_ms=shapes["global"]["ms"],
-                 bf16_plain_ms=shapes["global"]["plain_ms"],
-                 bf16_bound_ms=shapes["global"]["bound_ms"],
-                 bf16_library_ms=shapes["global"]["library_ms"],
-                 bf16_local_ms=shapes["local"]["ms"],
-                 bf16_local_plain_ms=shapes["local"]["plain_ms"],
-                 bf16_local_library_ms=shapes["local"]["library_ms"],
-                 bf16_max_abs_err=worst["out"],
-                 bf16_grad_err_of_max=worst["grad_rel"])
+    g, loc = shapes["global"], shapes["local"]
+    return {
+        "name": "flash_fwd_sm90", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_fwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
+        "launches": None, "max_abs_err": worst["out"],
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "shape": "bf16 B=1 S=8192 H=8 KV=4 D=256 causal softcap=50 "
+                 "(global layer)",
+        "tflops": g["tflops"], "bound_share": g["bound_share"],
+        "local_ms": loc["ms"], "local_plain_ms": loc["plain_ms"],
+        "local_bound_ms": loc["bound_ms"],
+        "local_library_ms": loc["library_ms"],
+        "local_bound_share": loc["bound_share"],
+        "lse_err": worst["lse"], "grad_err_of_max": worst["grad_rel"],
+        "library_note": "compiled flex_attention on bf16, softcap score_mod",
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1004,12 +1065,24 @@ def expected_launches(cfg, schedule, layout, steps):
     rwkv = kinds.count("rwkv")
     updates = sum(schedule.phases[i % schedule.period].do_update
                   for i in range(steps))
-    return {"flash_fwd": 2 * attn * steps, "rglru_fwd": 2 * rec * steps,
+    return {"flash_fwd": 2 * attn * steps, "flash_fwd_sm90": 0,
+            "rglru_fwd": 2 * rec * steps,
             "rglru_bwd": rec * steps, "rwkv6_fwd": 2 * rwkv * steps,
             "rwkv6_bwd": rwkv * steps,
             "bucket_update": layout.n_buckets * updates,
             "quantize_int8": 0, "dequantize_int8": 0,
             "stochastic_round_bf16": 0}
+
+
+def kernel_launches(counters):
+    """Each kernel's launches from its wrapper's count; ``flash_fwd_cuda``
+    counts both flash kernels, ``launches_bf16`` the tensor-core one's."""
+    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+
+    launches = {c.__name__.replace("_cuda", ""): c.launches for c in counters}
+    launches["flash_fwd_sm90"] = flash_fwd_cuda.launches_bf16
+    launches["flash_fwd"] -= flash_fwd_cuda.launches_bf16
+    return launches
 
 
 def leaf_params(cfg) -> int:
@@ -1087,9 +1160,10 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    flash_fwd_cuda.launches_bf16 = 0
     res = train(cfg, steps=steps, on_step=on_step,
                 log=lambda s: print("  " + s), **kw)
-    launches = {c.__name__.replace("_cuda", ""): c.launches for c in counters}
+    launches = kernel_launches(counters)
     peak = torch.cuda.max_memory_allocated()
 
     losses = res["losses"]
@@ -1216,8 +1290,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
     flash_fwd_cuda.launches_bf16 = 0
     res = train(cfg, steps=steps, on_step=on_step,
                 log=lambda s: print("  " + s), **kw)
-    launches = {c.__name__.replace("_cuda", ""): c.launches for c in counters}
-    launches_bf16 = flash_fwd_cuda.launches_bf16
+    launches = kernel_launches(counters)
     peak = torch.cuda.max_memory_allocated()
 
     rt, state, schedule = res["runtime"], res["state"], res["schedule"]
@@ -1249,8 +1322,11 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
     check(launches["bucket_update"] == nb * updates,
           f"bucket update launches {launches['bucket_update']} != {nb} x "
           f"{updates}")
-    check(launches["flash_fwd"] > 0 and launches_bf16 == launches["flash_fwd"],
-          f"flash launches {launches['flash_fwd']}, on bf16 {launches_bf16}")
+    attn = sum(sp.kind in ("attn", "local_attn") for sp in cfg.layer_specs())
+    check(launches["flash_fwd"] == 0
+          and launches["flash_fwd_sm90"] == 2 * attn * steps,
+          f"flash launches: f32 kernel {launches['flash_fwd']}, bf16 kernel "
+          f"{launches['flash_fwd_sm90']}, expected 0 and {2 * attn * steps}")
     check(launches["rglru_fwd"] == launches["rglru_bwd"] == 0
           and launches["rwkv6_fwd"] == launches["rwkv6_bwd"] == 0,
           f"recurrent-kernel launches {launches} on a model without "
@@ -1289,7 +1365,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
         loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
         tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
         bf16_grad_scratch_bytes=gscratch, launches=launches,
-        flash_launches_bf16=launches_bf16, collectives=res["collectives"],
+        collectives=res["collectives"],
         stats={k: v for k, v in rt.stats().items() if k != "phases"},
         **agree)
     report[key] = out
@@ -1355,7 +1431,7 @@ def run() -> int:
     print(f"built {sorted(per_lib)} in {build_s:.1f} s (parallel nvcc)")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "C75")):
                 print(f"  {name}: {line.strip()}")
     report["build_s"] = build_s
 
@@ -1418,7 +1494,7 @@ def run() -> int:
 
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
     entries += quantize_phase(torch, layout, report)
-    flash_bf16_phase(torch, report, entries[0])
+    entries.append(flash_bf16_phase(torch, report))
     entries += rglru_phase(torch, report)
     entries += rwkv6_phase(torch, report)
     rwkv_grad_phase(torch, rw_cfg, report)

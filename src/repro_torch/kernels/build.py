@@ -29,6 +29,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # name -> (source relative to kernels/, extra nvcc flags)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "flash_fwd": ("flash_attention/csrc/flash_fwd.cu", ()),
+    "flash_fwd_sm90": ("flash_attention/csrc/flash_fwd_sm90.cu", ("-ldl",)),
     "bucket_update": ("bucket_update/csrc/bucket_update.cu", ("--fmad=false",)),
     "quantize": ("quantize/csrc/quantize.cu", ("--fmad=false",)),
     "rglru_scan": ("rglru/csrc/rglru_scan.cu", ("--fmad=false",)),

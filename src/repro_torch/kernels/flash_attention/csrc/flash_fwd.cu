@@ -1,5 +1,6 @@
-// Blockwise online-softmax attention forward for Hopper (sm_90a), f32 or
-// bf16 inputs.
+// Blockwise online-softmax attention forward for Hopper (sm_90a) on the
+// CUDA cores, f32 inputs (bf16 inputs go to the tensor-core kernel of
+// flash_fwd_sm90.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _attn_kernel).  Same function: GQA through
@@ -11,13 +12,11 @@
 // _local_bwd) reads, and it masks ragged Sq/Sk instead of asserting that
 // they tile.
 //
-// Input types: like the Pallas kernel, which loads any dtype to f32,
+// Input type: like the Pallas kernel, which loads any dtype to f32,
 // accumulates in f32 and writes q's dtype (kernel.py:63-65, :150), the
-// kernel is a template on the input type.  bf16 q/k/v are widened to f32
-// as they are staged (a bf16 -> f32 widening is exact: the bits shift up
-// by 16), so shared memory holds f32 tiles in both cases and the layout,
-// the shared-memory size and the arithmetic are the same; the output is
-// rounded to nearest-even bf16 as it is stored, and lse stays f32.
+// kernel is a template on the input type; it is instantiated for f32 only.
+// It stays on the CUDA cores: TF32 tensor cores would break the f32
+// paths' 1e-4 agreement with the plain version.
 //
 // Scale: q is multiplied by sm_scale = 1/sqrt(D) while it is staged, as
 // the Pallas kernel does (kernel.py:63); the JAX blockwise path divides by
@@ -47,10 +46,7 @@
 //   * masked scores are -inf inside the kernel, so they contribute
 //     exactly 0 to the sums (the Pallas kernel's -1e30 gives the same
 //     result for every row that has one visible key).
-// A tensor-core (wgmma + TMA) version is later work; this one is simple
-// and correct first.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -66,27 +62,12 @@ constexpr float NEG = -1e30f;
 
 static_assert(NT == 4 * BQ, "softmax phase maps four threads to a row");
 
-// four consecutive elements of a row, widened to f32 / stored from f32
+// four consecutive elements of a row
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(r.x << 16),
-                     __uint_as_float(r.x & 0xFFFF0000u),
-                     __uint_as_float(r.y << 16),
-                     __uint_as_float(r.y & 0xFFFF0000u));
-}
 __device__ __forceinline__ void store4(float* p, float4 y) {
   *reinterpret_cast<float4*>(p) = y;
-}
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 y) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16_bits(y.x) | (bf16_bits(y.y) << 16),
-                 bf16_bits(y.z) | (bf16_bits(y.w) << 16));
 }
 
 template <int D>
@@ -350,7 +331,7 @@ int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes), one per input type.  Strides
+// Plain C entry point (bound with ctypes) for f32 inputs.  Strides
 // are in elements; the last (head-dim) stride must be 1 and every row
 // aligned to four elements (the Python wrapper checks both); `stream` is
 // a stream of `device`.  Returns a cudaError_t, or -1 for an unsupported
@@ -371,5 +352,4 @@ int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B,
                        sm_scale, device, stream);                            \
   }
 FLASH_ENTRY(flash_fwd_f32, float)
-FLASH_ENTRY(flash_fwd_bf16, __nv_bfloat16)
 #undef FLASH_ENTRY

@@ -4,14 +4,17 @@ backward, as one ``torch.autograd.Function``.
 Layout (the JAX package's, kept at the public function): q [B, Sq, H, D],
 k/v [B, Sk, KV, D]; GQA maps head h to kv head h // (H // KV).
 
-* Forward on a CUDA tensor: ``flash_fwd_cuda`` launches the hand-written
-  Hopper kernel (csrc/flash_fwd.cu, replacing the Pallas
-  ``flash_attention_pallas``) and returns (out, lse).  On a CPU tensor
-  the plain version ``flash_fwd_plain`` runs instead; on a CUDA tensor
-  the plain version runs only when the caller asks for it by name
-  (``impl="plain"``, used to hold the kernel against it).  q/k/v are f32
-  or bf16 (all three alike): both versions compute in f32 and write the
-  output in q's dtype, with lse in f32, as the Pallas kernel does.
+* Forward on a CUDA tensor: ``flash_fwd_cuda`` launches a hand-written
+  Hopper kernel replacing the Pallas ``flash_attention_pallas`` and
+  returns (out, lse): on f32 inputs the CUDA-core kernel of
+  csrc/flash_fwd.cu, on bf16 inputs the tensor-core kernel of
+  csrc/flash_fwd_sm90.cu (TMA, wgmma, P.V with P split into two bf16
+  terms).  On a CPU tensor the plain version ``flash_fwd_plain`` runs
+  instead; on a CUDA tensor the plain version runs only when the caller
+  asks for it by name (``impl="plain"``, used to hold the kernels against
+  it).  q/k/v are f32 or bf16 (all three alike):
+  every version accumulates in f32 and writes the output in q's dtype,
+  with lse in f32, as the Pallas kernel does.
 * Backward: ``flash_bwd_plain`` — the PyTorch counterpart of the JAX
   package's ``flash.py::_global_bwd`` / ``_local_bwd`` (the TPU kernel
   has no backward; JAX differentiates that plain-jnp code).  It
@@ -138,17 +141,36 @@ def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
 
 
 def _row_aligned(x: torch.Tensor) -> bool:
-    """Rows of four-element chunks the kernel can load whole."""
+    """Rows of four-element chunks the f32 kernel can load whole."""
     return (x.stride(-1) == 1 and x.data_ptr() % (4 * x.element_size()) == 0
             and all(s % 4 == 0 for s in x.stride()[:-1]))
 
 
-_ENTRY = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
+def _tma_strides(x: torch.Tensor) -> Tuple[int, int, int]:
+    """x's (batch, seq, head) element strides for a TMA tensor map.  A
+    dimension of size 1 is never stepped along, so it takes the stride a
+    contiguous tensor would have."""
+    b, s, h, d = x.shape
+    canonical = (s * h * d, h * d, d)
+    return tuple(st if n > 1 else c for st, n, c
+                 in zip(x.stride()[:3], x.shape[:3], canonical))
+
+
+def _tma_aligned(x: torch.Tensor) -> bool:
+    """A bf16 [B, S, H, D] tensor TMA can load: unit head-dim stride, a
+    16-byte-aligned base and every other stride a multiple of 16 bytes."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in _tma_strides(x)))
+
+
+_ENTRY = {torch.float32: ("flash_fwd", "flash_fwd_f32"),
+          torch.bfloat16: ("flash_fwd_sm90", "flash_fwd_sm90_bf16")}
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                    softcap: float = 0.0):
-    """Launch the Hopper forward kernel: (out [B,Sq,H,D], lse [B,H,Sq])."""
+    """Launch the Hopper forward kernel of q's dtype: (out [B,Sq,H,D],
+    lse [B,H,Sq])."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_fwd_cuda needs CUDA tensors")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _ENTRY):
@@ -161,33 +183,37 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"v{tuple(v.shape)}")
     if d not in _HEAD_DIMS or h % kvh:
         raise ValueError(f"unsupported head_dim={d} or heads {h}/{kvh}")
-    q, k, v = (x if _row_aligned(x) else x.contiguous() for x in (q, k, v))
+    bf16 = q.dtype == torch.bfloat16
+    aligned = _tma_aligned if bf16 else _row_aligned
+    q, k, v = (x if aligned(x) else x.contiguous() for x in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
         return out, lse
-    lib = build.library("flash_fwd")
-    name = _ENTRY[q.dtype]
-    fn = getattr(lib, name)
+    if bf16 and sk == 0:
+        raise ValueError("flash_fwd_cuda on bf16 needs at least one key")
+    lib_name, name = _ENTRY[q.dtype]
+    fn = getattr(build.library(lib_name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    strides = _tma_strides if bf16 else (lambda x: x.stride()[:3])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), b, h, kvh, sq, sk, d,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *strides(q), *strides(k), *strides(v),
              *out.stride()[:3], int(causal), int(window), float(softcap),
              1.0 / math.sqrt(d), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     flash_fwd_cuda.launches += 1
-    flash_fwd_cuda.launches_bf16 += int(q.dtype == torch.bfloat16)
+    flash_fwd_cuda.launches_bf16 += int(bf16)
     return out, lse
 
 
-flash_fwd_cuda.launches = 0
-flash_fwd_cuda.launches_bf16 = 0     # of those, launches on bf16 inputs
+flash_fwd_cuda.launches = 0          # launches of either kernel
+flash_fwd_cuda.launches_bf16 = 0     # of those, the bf16 tensor-core kernel's
 
 
 def _resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:

@@ -38,6 +38,7 @@ from repro_torch.train.runtime import DeftRuntime
 
 _CATEGORIES = (
     ("flash_fwd (this port)", ("flash_fwd_kernel",)),
+    ("flash_fwd bf16, tensor cores (this port)", ("flash_fwd_sm90_kernel",)),
     ("bucket_update (this port)", ("bucket_update_kernel",)),
     ("int8 quantize / dequantize (this port)", ("quant_int8_kernel",)),
     ("stochastic rounding (this port)", ("sr_bf16_kernel",)),

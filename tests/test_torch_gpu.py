@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import (
     flash_fwd_cuda,
     flash_fwd_plain,
 )
+from repro_torch.kernels.flash_attention.ops import _tma_aligned
 from repro_torch.kernels.quantize import (
     dequantize_int8_cuda,
     dequantize_int8_plain,
@@ -131,10 +132,22 @@ def test_bucket_kernel_bitwise(spec, elem):
     assert not g.any()
 
 
+# bf16 goes to the tensor-core kernel (flash_fwd_sm90.cu): key blocks of 64
+# at D = 256, 128 below; 128 query rows per CTA
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,h,kvh,s,causal,window,cap", [
     (128, 8, 2, 200, True, 0, 0.0),
     (256, 8, 4, 333, True, 100, 50.0),
+    (32, 4, 2, 128, True, 0, 0.0),          # 64-byte swizzle
+    (32, 4, 1, 300, True, 90, 30.0),        # window < key block, softcap
+    (64, 4, 4, 100, False, 0, 0.0),         # bidirectional, S < key block
+    (64, 8, 2, 257, True, 77, 50.0),        # window < key block, ragged
+    (128, 8, 8, 40, True, 0, 50.0),         # S < key block, softcap
+    (128, 4, 2, 390, False, 0, 0.0),        # bidirectional, S % 128 != 0
+    (256, 16, 1, 300, True, 64, 0.0),       # MQA 16:1, window = key block
+    (256, 4, 2, 200, False, 0, 50.0),       # bidirectional, softcap
+    (256, 8, 4, 150, True, 37, 0.0),        # window < key block, no softcap
+    (256, 2, 1, 20, True, 0, 0.0),          # S < key block
 ])
 def test_flash_kernel_bf16_matches_plain(d, h, kvh, s, causal, window, cap):
     _need_card()
@@ -160,6 +173,22 @@ def test_flash_kernel_bf16_matches_plain(d, h, kvh, s, causal, window, cap):
             atol=b.float().abs().max().item() / 128)
     with pytest.raises(TypeError):
         flash_fwd_cuda(q, k.float(), v)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_copies_strides_tma_cannot_take():
+    _need_card()
+    d = 128
+    q, k, v = (x.bfloat16() for x in _qkv(8, 2, 96, 4, 2, d + 4))
+    # head stride 132 elements: not a multiple of 16 bytes, so copied
+    qs, ks, vs = (x[..., :d] for x in (q, k, v))
+    assert not _tma_aligned(qs)
+    got = flash_fwd_cuda(qs, ks, vs, causal=True)
+    want = flash_fwd_cuda(*(x.contiguous() for x in (qs, ks, vs)), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):       # a head dim the kernel has no tile for
+        flash_fwd_cuda(*(x[..., :48] for x in (q, k, v)))
 
 
 def _hostile(n, n_valid, seed):
