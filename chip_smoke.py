@@ -28,9 +28,12 @@
    (1, 1, 4096) with and without h0 and an h_final cotangent, and at the
    recurrent path's [1, 8192, 4096]; the RWKV-6 WKV forward and backward
    kernels within max |diff| / max |plain| <= 1e-4 on
-   o, S_final and every gradient, at (B, S, H, D) (2, 64, 2, 32), (1, 96,
-   4, 64), (3, 40, 2, 64) and (1, 32, 1, 64) with and without s0 and a
-   dS_final cotangent, and at the RWKV path's [1, 8192, 32, 64].  Times
+   o, S_final and every gradient, and the forward's S_final and chunk-start
+   states bitwise, at (B, S, H, D) (2, 64, 2, 32), (1, 96, 4, 64), (3, 40,
+   2, 64), (1, 32, 1, 64), (1, 1000, 3, 64), (1, 5, 2, 64), (1, 1, 2, 64)
+   and (3, 70, 5, 32) with and without s0 and a dS_final cotangent, and at
+   the RWKV path's [1, 8192, 32, 64] (where the forward's own traffic is
+   printed beside its bound's).  Times
    each kernel, its plain version and a PyTorch library call that
    computes the same function and that the port never calls (compiled
    ``flex_attention`` with the softcap as ``score_mod`` and the causal /
@@ -878,9 +881,15 @@ def rwkv6_phase(torch, report):
 
     def compare(r, k, v, w, u, s0, do, dsf, what):
         """Both kernels against the chunked plain pair: the largest
-        max |diff| / max |plain| over o, S_final and every gradient."""
+        max |diff| / max |plain| over o, S_final and every gradient; the
+        chunk-start states and S_final bitwise (the state update sums
+        ke^T v over t in order, as the plain product does)."""
         o, sf, states = rwkv6_fwd_cuda(r, k, v, w, u, s0, save_states=True)
         ro, rsf, rstates = _chunked_forward(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        check(torch.equal(states, rstates) and torch.equal(sf, rsf),
+              f"rwkv6 forward: states or S_final not bitwise equal to the "
+              f"plain pair's at {what}")
         got = [o, sf] + list(rwkv6_bwd_cuda(r, k, v, w, u, states, do, dsf,
                                             need_ds0=s0 is not None))
         want = [ro, rsf] + list(rwkv6_bwd_plain(r, k, v, w, u, s0, do, dsf,
@@ -901,7 +910,8 @@ def rwkv6_phase(torch, report):
 
     n_cases, max_err = 0, 0.0
     for shape in ((2, 64, 2, 32), (1, 96, 4, 64), (3, 40, 2, 64),
-                  (1, 32, 1, 64)):
+                  (1, 32, 1, 64), (1, 1000, 3, 64), (1, 5, 2, 64),
+                  (1, 1, 2, 64), (3, 70, 5, 32)):
         r, k, v, w, u, s0, do, dsf = inputs(*shape)
         for use_s0 in (False, True):
             for use_dsf in (False, True):
@@ -912,7 +922,8 @@ def rwkv6_phase(torch, report):
                 max_err = max(max_err, err)
                 n_cases += 1
     print(f"rwkv6 kernels: {n_cases} small cases within {RWKV_TOL} of the "
-          f"plain pair (max |diff| / max |plain| {max_err:.3g})")
+          f"plain pair (max |diff| / max |plain| {max_err:.3g}), states and "
+          f"S_final bitwise")
 
     # the path's shape: one time-mix layer of rwkv6-1.6b at batch 1,
     # sequence 8192; the path passes no s0 and no dS_final
@@ -921,13 +932,21 @@ def rwkv6_phase(torch, report):
     path_err, errs, path_abs = compare(r, k, v, w, u, None, do, None,
                                        f"the path's shape {shape}")
     print(f"rwkv6 kernels: the path's shape {shape} within {RWKV_TOL} of the "
-          f"plain pair: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+          f"plain pair: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + "; states and S_final bitwise")
     max_err = max(max_err, path_err)
     _, _, states = rwkv6_fwd_cuda(r, k, v, w, u, save_states=True)
     b, s, h, d = shape
     n = b * s * h * d
     nc = -(-s // CHUNK)
     state_bytes = 4.0 * b * h * nc * d * d
+    # what the forward's three passes move: pass 1 reads k, v, w and writes
+    # every chunk's dS and e^{lw_end}; the scan reads and rewrites the
+    # states, reads e^{lw_end} and writes S_final; pass 3 reads r, k, v, w
+    # and the states and writes o.  The bound counts each byte once.
+    ew_bytes = 4.0 * b * h * nc * d
+    fwd_design_bytes = (32.0 * n + 4 * state_bytes + 2 * ew_bytes
+                        + 4.0 * b * h * d * d)
     # flops a (b, h, chunk): forward A, A v, rd S, ke^T v; backward rd^T do,
     # A again, A^T do, ke dS, do v^T, dA kd, do S^T, dA^T rd, v dS^T
     tt, dd = 2.0 * CHUNK * CHUNK * d, 2.0 * CHUNK * d * d
@@ -973,6 +992,15 @@ def rwkv6_phase(torch, report):
                                      bound_bytes_ms=bound_b,
                                      bound_ops_ms=bound_o, bytes=nbytes,
                                      flops=flops)
+        if name == "rwkv6_fwd":
+            gbs = fwd_design_bytes / ms / 1e6
+            print(f"{name}: its three passes move {fwd_design_bytes / 1e9:.3f} "
+                  f"GB ({fwd_design_bytes / nbytes:.2f}x the bound's "
+                  f"{nbytes / 1e9:.3f} GB), {gbs:.0f} GB/s of that traffic, "
+                  f"{fwd_design_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+            report["rwkv6"][name].update(design_bytes=fwd_design_bytes,
+                                         design_gb_s=gbs)
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",

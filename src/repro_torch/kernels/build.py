@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -114,6 +115,26 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LOADED[name] = lib
     return lib
+
+
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def c_params(text: str, fn: str) -> List[Tuple[object, str]]:
+    """The parameters of ``extern "C" int fn(...)`` in a kernel source's
+    text, as (ctypes type, name): a pointer is ``c_void_p``."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + fn + r"\s*\(([^)]*)\)", text)
+    if m is None:
+        raise KeyError(f"no extern \"C\" entry point {fn}")
+    params = []
+    for p in m.group(1).split(","):
+        p = " ".join(p.replace("*", " * ").split())
+        name = p.split()[-1]
+        kind = p[: -len(name)].replace("const ", "").strip()
+        params.append((ctypes.c_void_p if "*" in kind else _C_TYPES[kind],
+                       name))
+    return params
 
 
 def check(err: int, what: str) -> None:

@@ -22,10 +22,10 @@
 // (explicit fmaf; the unit builds with --fmad=false, so nothing else
 // contracts), each summed in order over its short inner dimension.  Where
 // the plain version's matrix product accumulates in that order too, the
-// results are bitwise equal on the card (the chunk-start states, S_final, dr
-// and dk at the path's shape); A's diagonal and the plain version's
-// reductions sum in another order, so o, dv, dw and du are held to a stated
-// tolerance, not bitwise.
+// results are bitwise equal on the card (the chunk-start states and S_final
+// at every shape tested, dr and dk at the path's shape); A's diagonal and
+// the plain version's reductions sum in another order, so o, dv, dw and du
+// are held to a stated tolerance, not bitwise.
 //
 // Layout: r, k, v, w, do and the gradients are read and written in the
 // model's [B, S, H, D] through their strides (no transpose to [B*H, S, D]);
@@ -34,24 +34,40 @@
 // model's head size, and 32); a ragged last chunk is masked as the plain
 // version pads: r = k = v = do = 0 and w = 1 beyond S.
 //
-// Parallelism.  The columns of S are independent: column j of o and of S_out
-// needs only v[:, j].  So the forward runs one CTA per (b*h, group of CW = 16
-// value columns) — D/16 CTAs a head, 128 at the training path's B = 1, H = 32,
-// D = 64 on the card's 132 SMs — and each recomputes the cheap [T, T] matrix
-// A.  It walks the chunks in order with its [D, 16] slice of S in shared
-// memory, and stages the next chunk's r, k, w and its v columns with cp.async
-// while this one computes.  When a gradient is wanted it also writes each
-// chunk's start state (the wrapper's choice: 134 MB a layer at the path's
-// [1, 8192, 32, 64], written once at 0.04 ms of bandwidth; under remat only
-// one layer's is alive in the backward), so the backward never replays the
-// forward scan.  The state cotangent is column-separable the same way, so
-// backward pass 1 is the same walk in reverse with dS in registers: it
-// writes every chunk's dS_out (and ds0).  With S_in and dS_out of every
-// chunk in memory, the rest of the backward needs no sequence order: pass 2
-// runs one CTA per (b*h, chunk) — 8,192 at the path's shape — recomputes the
-// chunk's decays and A, and writes dr, dk, dv, dw and the chunk's partial du
-// (summed over the value columns inside the CTA, so no partials cross CTAs);
-// pass 3 sums du over batch and chunks in a fixed order.
+// Forward.  Only S_out = e^{lw_end} S_in + ke^T v needs the chunk before;
+// everything else is per chunk.  So the forward is three launches in one C
+// call, and no matrix product sits on the sequential path:
+//   1. state contributions, one CTA of 256 threads per (b*h, chunk) — 8,192
+//      at the training path's B = 1, S = 8192, H = 32, D = 64: the chunk's
+//      decays (log w, then the cumulative sum, one thread a channel, then
+//      ke; all in shared memory), dS = ke^T v [D, D] into the chunk's slot
+//      of `states`, e^{lw_end} into the scratch ew [B, H, NC, D];
+//   2. the state scan, elementwise: one thread per (b*h, i, j) — 131,072 —
+//      walks the chunks, reads dS_c, writes S_in in its place and sets
+//      S = e^{lw_end}[i] S + dS_c (a multiply, then an add), with 8 chunks'
+//      loads in flight ahead of the chain; it writes S_final (s0 or 0 when
+//      S = 0);
+//   3. outputs, one CTA per (b*h, chunk): the decays again (rd, kd), A's
+//      diagonal beside them, then A's strictly lower part (threads 0..127)
+//      beside rd S_in (threads 128..255, 4 rows x 4 columns each), then
+//      o = A v + rd S_in.
+// Every sum keeps the single-walk kernel's order (A over kk, dS over t, the
+// state update as written), so o, S_final and the states are bitwise those
+// of that kernel.  The chunk-start states are written on every call: they
+// are the scan's scratch too (134 MB at the path's shape; under remat both
+// forward calls of a layer keep them for the backward anyway), so the
+// backward never replays the forward scan.
+//
+// Backward.  The state cotangent is column-separable: column j of dS needs
+// only do[:, j].  So backward pass 1 runs one CTA per (b*h, group of CW = 16
+// value columns), walks the chunks in reverse with its [D, 16] slice of dS
+// in registers, staging the next chunk with cp.async, and writes every
+// chunk's dS_out (and ds0).  With S_in and dS_out of every chunk in memory,
+// the rest needs no sequence order: pass 2 runs one CTA per (b*h, chunk) —
+// 8,192 at the path's shape — recomputes the chunk's decays and A, and
+// writes dr, dk, dv, dw and the chunk's partial du (summed over the value
+// columns inside the CTA, so no partials cross CTAs); pass 3 sums du over
+// batch and chunks in a fixed order.
 //
 // What bounds it on the H100, at the path's [1, 8192, 32, 64] f32:
 //   forward: bytes 20 B an element of r, k, v, w, o (335.5 MB, 0.100 ms at
@@ -60,11 +76,16 @@
 //   TFLOP/s f32: bound 0.140 ms, by bytes.  Backward: 36 B an element (read
 //   r, k, v, w, do; write dr, dk, dv, dw) plus the states, 738 MB, 0.220 ms;
 //   1,703,936 flops per (b, h, chunk), 13.96 GFLOP, 0.208 ms: bound 0.220
-//   ms, by bytes.  The design aims at enough CTAs to fill the card and at
-//   shared-memory tiles with padded row strides (no bank conflicts); the
-//   scan passes are chains of small dependent products, their loads hidden
-//   by cp.async staging.  No tensor cores: TF32 or wgmma would change the
-//   numerics (later work).
+//   ms, by bytes.  The forward's own traffic is more than its bound's:
+//   pass 1 reads k, v, w and writes dS (0.34 GB), the scan reads and
+//   rewrites the states (0.27 GB), pass 3 reads r, k, v, w and the states
+//   and writes o (0.47 GB): 1.08 GB, 0.32 ms at 3.35 TB/s, 2.3x the bound's
+//   bytes, for 8,192-way parallelism in the chunk passes.  Shared-memory
+//   tiles have padded row strides (no bank conflicts).  No tensor cores:
+//   TF32 or wgmma would change the numerics, and at 13.7 flop a byte the
+//   forward is below the f32 CUDA-core ridge anyway.  The backward's pass 1
+//   is still a chain of small dependent products, its loads hidden by
+//   cp.async staging.
 //
 // Numerical domain (the reference's own, not guarded in either package):
 // e^{-lw_inc} overflows f32 once 32 |log w| passes ~88.
@@ -75,9 +96,11 @@
 namespace {
 
 constexpr int T = 32;        // chunk length (the TPU kernel's default)
-constexpr int CW = 16;       // value columns of S a scan CTA owns
-constexpr int NT_SCAN = 128; // threads of a forward / backward-scan CTA
+constexpr int CW = 16;       // value columns of S a backward-scan CTA owns
+constexpr int NT_SCAN = 128; // threads of a backward-scan CTA
 constexpr int NT_CHUNK = 256;  // threads of a backward-chunk CTA
+constexpr int NT_PASS = 256;   // threads of a forward CTA
+constexpr int SCAN_AHEAD = 8;  // chunks a forward-scan thread loads ahead
 
 __device__ __forceinline__ void copy16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -131,168 +154,339 @@ __device__ __forceinline__ void chunk_decays(
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (B*H, D/CW), NT_SCAN threads
+// forward pass 1: every chunk's state contribution, one CTA per (b*h, chunk)
 // ---------------------------------------------------------------------------
 template <int D>
-struct FwdSmem {
-  static constexpr int LDS = D + 4;  // staged rows (16-byte cp.async)
-  static constexpr int LD = D + 1;   // computed rows (odd: no bank conflicts)
-  float r[2][T][LDS], k[2][T][LDS], w[2][T][LDS];
-  float v[2][T][CW];
-  float rd[T][LD], kd[T][LD], ke[T][LD];
-  float a[T][T + 1];
-  float s[D][CW];
-  float u[D], ew[D];
+struct FwdStateSmem {
+  static constexpr int LD = D + 4;   // 16-byte rows, read along a row only
+  float k[T][LD], v[T][LD], w[T][LD];   // k becomes ke, w lw_inc in place
 };
 
+// dS_c = ke^T v [D, D] into states[c] and e^{lw_end} into ew[c]
 template <int D>
-__global__ void __launch_bounds__(NT_SCAN)
-    rwkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ w,
-                     const float* __restrict__ u,
-                     const float* __restrict__ s0, float* __restrict__ o,
-                     float* __restrict__ sfin, float* __restrict__ states,
-                     int64_t S, int64_t H) {
-  using Sm = FwdSmem<D>;
-  constexpr int LDS = Sm::LDS, LD = Sm::LD;
-  constexpr int E = CW * D / NT_SCAN;   // state entries a thread updates
+__global__ void __launch_bounds__(NT_PASS, 3)
+    rwkv6_fwd_state_kernel(const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ w,
+                           float* __restrict__ states, float* __restrict__ ew,
+                           int64_t S, int64_t H, int64_t NC) {
+  using Sm = FwdStateSmem<D>;
+  constexpr int LD = Sm::LD, V4 = D / 4;
+  constexpr int RI = D * D / (4 * NT_PASS);   // rows of dS a thread sums
+  static_assert(RI >= 1, "dS: at least one row a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
   const int tid = threadIdx.x;
-  const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int j0 = blockIdx.y * CW;
-  const int64_t NC = (S + T - 1) / T;
+  const int64_t bh = blockIdx.x / NC, c = blockIdx.x - bh * NC;
+  const int64_t b = bh / H, h = bh - b * H;
 
-  auto issue = [&](int64_t c) {
-    const int st = (int)(c & 1);
-    constexpr int V4 = D / 4;
-    for (int idx = tid; idx < T * V4; idx += NT_SCAN) {
-      const int t = idx / V4, q = (idx % V4) * 4;
-      const int64_t tt = c * T + t;
-      if (tt < S) {
-        const int64_t g = row_of(b, tt, h, S, H, D) + q;
-        copy16(&sm.r[st][t][q], r + g);
-        copy16(&sm.k[st][t][q], k + g);
-        copy16(&sm.w[st][t][q], w + g);
-      } else {
-        fill4(&sm.r[st][t][q], 0.f);
-        fill4(&sm.k[st][t][q], 0.f);
-        fill4(&sm.w[st][t][q], 1.f);
-      }
+  for (int idx = tid; idx < T * V4; idx += NT_PASS) {
+    const int t = idx / V4, q = (idx % V4) * 4;
+    const int64_t tt = c * T + t;
+    if (tt < S) {
+      const int64_t g = row_of(b, tt, h, S, H, D) + q;
+      copy16(&sm.k[t][q], k + g);
+      copy16(&sm.v[t][q], v + g);
+      copy16(&sm.w[t][q], w + g);
+    } else {
+      fill4(&sm.k[t][q], 0.f);
+      fill4(&sm.v[t][q], 0.f);
+      fill4(&sm.w[t][q], 1.f);
     }
-    for (int idx = tid; idx < T * (CW / 4); idx += NT_SCAN) {
-      const int t = idx / (CW / 4), q = (idx % (CW / 4)) * 4;
-      const int64_t tt = c * T + t;
-      if (tt < S)
-        copy16(&sm.v[st][t][q], v + row_of(b, tt, h, S, H, D) + j0 + q);
-      else
-        fill4(&sm.v[st][t][q], 0.f);
-    }
-  };
-
-  // this thread's slice of the state: row si, columns sj .. sj+E-1
-  const int si = tid / (CW / E), sj = (tid % (CW / E)) * E;
-  const int64_t sbase = (bh * D + si) * D + j0 + sj;
-#pragma unroll
-  for (int e = 0; e < E; ++e) sm.s[si][sj + e] = s0 ? s0[sbase + e] : 0.f;
-  if (tid < D) sm.u[tid] = u[h * D + tid];
-
-  if (NC > 0) issue(0);
+  }
   commit();
-  for (int64_t c = 0; c < NC; ++c) {
-    const int st = (int)(c & 1);
-    if (c + 1 < NC) issue(c + 1);
-    commit();
-    wait_pending<1>();  // chunk c has landed
-    __syncthreads();
+  wait_pending<0>();
+  __syncthreads();
+  // the decays as chunk_decays computes them, with only the cumulative sum
+  // left to one thread a channel: log w, then lw_inc in order, then
+  // ke = k e^{lw_end - lw_inc} and e^{lw_end}
+  for (int idx = tid; idx < T * D; idx += NT_PASS) {
+    const int t = idx / D, i = idx % D;
+    sm.w[t][i] = logf(fmaxf(sm.w[t][i], 1e-30f));
+  }
+  __syncthreads();
+  if (tid < D) {
+    float inc = 0.f;
+    for (int t = 0; t < T; ++t) {
+      inc = inc + sm.w[t][tid];
+      sm.w[t][tid] = inc;
+    }
+    ew[(bh * NC + c) * D + tid] = expf(inc);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < T * D; idx += NT_PASS) {
+    const int t = idx / D, i = idx % D;
+    sm.k[t][i] = sm.k[t][i] * expf(sm.w[T - 1][i] - sm.w[t][i]);
+  }
+  __syncthreads();
 
-    // 1. decays, one channel a thread
-    if (tid < D)
-      chunk_decays<LDS, LD>(&sm.r[st][0][0], &sm.k[st][0][0],
-                            &sm.w[st][0][0], tid, &sm.rd[0][0], &sm.kd[0][0],
-                            &sm.ke[0][0], nullptr, sm.ew);
-    __syncthreads();
-
-    // 2. A [T, T]: a 2 x 4 tile a thread
-    {
-      const int m0 = (tid / 8) * 2, n0 = (tid % 8) * 4;
-      float acc[2][4] = {};
-      if (n0 < m0 + 1) {  // some entry of the tile lies below the diagonal
-        for (int kk = 0; kk < D; ++kk) {
-          const float a0 = sm.rd[m0][kk], a1 = sm.rd[m0 + 1][kk];
+  // RI rows x 4 columns a thread, each summed over t in order
+  const int jq = (tid % V4) * 4, i0 = (tid / V4) * RI;
+  float acc[RI][4] = {};
+  for (int t = 0; t < T; ++t) {
+    const float4 vv = *reinterpret_cast<const float4*>(&sm.v[t][jq]);
+    float x4[RI];
+    if constexpr (RI == 4) {
+      const float4 kq = *reinterpret_cast<const float4*>(&sm.k[t][i0]);
+      x4[0] = kq.x; x4[1] = kq.y; x4[2] = kq.z; x4[3] = kq.w;
+    } else {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float bj = sm.kd[n0 + j][kk];
-            acc[0][j] = fmaf(a0, bj, acc[0][j]);
-            acc[1][j] = fmaf(a1, bj, acc[1][j]);
-          }
-        }
+      for (int ri = 0; ri < RI; ++ri) x4[ri] = sm.k[t][i0 + ri];
+    }
+#pragma unroll
+    for (int ri = 0; ri < RI; ++ri) {
+      const float x = x4[ri];
+      acc[ri][0] = fmaf(x, vv.x, acc[ri][0]);
+      acc[ri][1] = fmaf(x, vv.y, acc[ri][1]);
+      acc[ri][2] = fmaf(x, vv.z, acc[ri][2]);
+      acc[ri][3] = fmaf(x, vv.w, acc[ri][3]);
+    }
+  }
+  float* dst = states + ((bh * NC + c) * D + i0) * D + jq;
+#pragma unroll
+  for (int ri = 0; ri < RI; ++ri)
+    *reinterpret_cast<float4*>(dst + ri * D) =
+        make_float4(acc[ri][0], acc[ri][1], acc[ri][2], acc[ri][3]);
+}
+
+// ---------------------------------------------------------------------------
+// forward pass 2: the state scan, one thread per (b*h, i, j).  states[c]
+// holds dS_c on entry and S_in of chunk c on exit; S = e^{lw_end} S + dS.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NT_PASS)
+    rwkv6_fwd_scan_kernel(const float* __restrict__ ew,
+                          const float* __restrict__ s0,
+                          float* __restrict__ states,
+                          float* __restrict__ sfin, int64_t BH, int64_t NC) {
+  constexpr int64_t DD = D * D;
+  const int64_t idx = (int64_t)blockIdx.x * NT_PASS + threadIdx.x;
+  if (idx >= BH * DD) return;
+  const int64_t bh = idx / DD, ij = idx - bh * DD;
+  float* st = states + bh * NC * DD + ij;             // chunk c: st[c * DD]
+  const float* e = ew + bh * NC * D + ij / D;         // chunk c: e[c * D]
+  float s = s0 ? s0[idx] : 0.f;
+  // a ring of SCAN_AHEAD chunks' loads in flight ahead of the chain
+  float dn[SCAN_AHEAD] = {}, en[SCAN_AHEAD] = {};
+#pragma unroll
+  for (int q = 0; q < SCAN_AHEAD; ++q) {
+    if (q < NC) {
+      dn[q] = st[q * DD];
+      en[q] = e[q * D];
+    }
+  }
+  for (int64_t c0 = 0; c0 < NC; c0 += SCAN_AHEAD) {
+    float d[SCAN_AHEAD], x[SCAN_AHEAD];
+#pragma unroll
+    for (int q = 0; q < SCAN_AHEAD; ++q) {
+      d[q] = dn[q];
+      x[q] = en[q];
+    }
+#pragma unroll
+    for (int q = 0; q < SCAN_AHEAD; ++q) {
+      const int64_t c = c0 + SCAN_AHEAD + q;
+      if (c < NC) {
+        dn[q] = st[c * DD];
+        en[q] = e[c * D];
       }
+    }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int m = m0 + mi;
+    for (int q = 0; q < SCAN_AHEAD; ++q) {
+      const int64_t c = c0 + q;
+      if (c < NC) {
+        st[c * DD] = s;
+        s = x[q] * s + d[q];
+      }
+    }
+  }
+  sfin[idx] = s;
+}
+
+// ---------------------------------------------------------------------------
+// forward pass 3: every chunk's output, one CTA per (b*h, chunk)
+// ---------------------------------------------------------------------------
+// the ro-th row of output group g of NG: the pair (g, 2 NG - 1 - g),
+// repeated every 2 NG rows, so each thread's rows of A v sum to one length
+__device__ __forceinline__ int out_row(int ro, int g, int NG) {
+  const int base = (ro / 2) * 2 * NG;
+  return ro % 2 == 0 ? base + g : base + 2 * NG - 1 - g;
+}
+
+template <int D>
+struct FwdOutSmem {
+  static constexpr int LDS = D + 4;  // staged rows (16-byte cp.async)
+  static constexpr int LD = D + 1;   // computed rows (odd: no bank conflicts)
+  float r[T][LDS], k[T][LDS], w[T][LDS], v[T][LDS];
+  float s[D][LDS];                   // S_in
+  float rd[T][LDS];                  // read 16 bytes at a time along i
+  float kd[T][LD];
+  float a[T][T + 1];
+  alignas(16) float u[D];
+};
+
+// o = A v + rd S_in, A = strict_lower(rd kd^T) + diag(sum_i r u k)
+template <int D>
+__global__ void __launch_bounds__(NT_PASS, 3)
+    rwkv6_fwd_out_kernel(const float* __restrict__ r,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ w,
+                         const float* __restrict__ u,
+                         const float* __restrict__ states,
+                         float* __restrict__ o, int64_t S, int64_t H,
+                         int64_t NC) {
+  using Sm = FwdOutSmem<D>;
+  constexpr int LDS = Sm::LDS, LD = Sm::LD, V4 = D / 4;
+  // threads 0..127 compute A, 128..255 o: NG groups of V4 threads, each
+  // thread RO rows (paired t and 2 NG - 1 - t, so every thread's A v chains
+  // have one total length) x 4 columns
+  constexpr int NG = (NT_PASS / 2) / V4, RO = T / NG;
+  static_assert(NT_PASS == 256 && T == 32 && RO % 2 == 0,
+                "thread roles laid out for 256 threads and T = 32");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int64_t bh = blockIdx.x / NC, c = blockIdx.x - bh * NC;
+  const int64_t b = bh / H, h = bh - b * H;
+
+  // 0. stage the chunk and its start state
+  for (int idx = tid; idx < T * V4; idx += NT_PASS) {
+    const int t = idx / V4, q = (idx % V4) * 4;
+    const int64_t tt = c * T + t;
+    if (tt < S) {
+      const int64_t g = row_of(b, tt, h, S, H, D) + q;
+      copy16(&sm.r[t][q], r + g);
+      copy16(&sm.k[t][q], k + g);
+      copy16(&sm.w[t][q], w + g);
+      copy16(&sm.v[t][q], v + g);
+    } else {
+      fill4(&sm.r[t][q], 0.f);
+      fill4(&sm.k[t][q], 0.f);
+      fill4(&sm.w[t][q], 1.f);
+      fill4(&sm.v[t][q], 0.f);
+    }
+  }
+  const float* sin = states + (bh * NC + c) * D * D;
+  for (int idx = tid; idx < D * V4; idx += NT_PASS) {
+    const int i = idx / V4, q = (idx % V4) * 4;
+    copy16(&sm.s[i][q], sin + i * D + q);
+  }
+  commit();
+  if (tid < D) sm.u[tid] = u[h * D + tid];
+  wait_pending<0>();
+  __syncthreads();
+
+  // 1. the decays as chunk_decays computes them, with only the cumulative
+  //    sum left to one thread a channel: log w in place
+  for (int idx = tid; idx < T * D; idx += NT_PASS) {
+    const int t = idx / D, i = idx % D;
+    sm.w[t][i] = logf(fmaxf(sm.w[t][i], 1e-30f));
+  }
+  __syncthreads();
+
+  // 2. lw_inc (into kd for now) and lw_exc (into rd), one channel a thread,
+  //    beside A's diagonal (one row a thread, its r and k rows read 16
+  //    bytes at a time, summed over kk in order)
+  if (tid < D) {
+    float inc = 0.f;
+    for (int t = 0; t < T; ++t) {
+      const float lw = sm.w[t][tid];
+      inc = inc + lw;
+      sm.kd[t][tid] = inc;
+      sm.rd[t][tid] = inc - lw;
+    }
+  } else if (tid < D + T) {
+    const int m = tid - D;
+    float x = 0.f;
+    for (int kk = 0; kk < D; kk += 4) {
+      const float4 rr = *reinterpret_cast<const float4*>(&sm.r[m][kk]);
+      const float4 kq = *reinterpret_cast<const float4*>(&sm.k[m][kk]);
+      const float4 uu = *reinterpret_cast<const float4*>(&sm.u[kk]);
+      x = fmaf(rr.x, uu.x * kq.x, x);
+      x = fmaf(rr.y, uu.y * kq.y, x);
+      x = fmaf(rr.z, uu.z * kq.z, x);
+      x = fmaf(rr.w, uu.w * kq.w, x);
+    }
+    sm.a[m][m] = x;
+  }
+  __syncthreads();
+
+  // 3. rd = r e^{lw_exc}, kd = k e^{-lw_inc}
+  for (int idx = tid; idx < T * D; idx += NT_PASS) {
+    const int t = idx / D, i = idx % D;
+    sm.rd[t][i] = sm.r[t][i] * expf(sm.rd[t][i]);
+    sm.kd[t][i] = sm.k[t][i] * expf(-sm.kd[t][i]);
+  }
+  __syncthreads();
+
+  // 4. A's strictly lower part (threads 0..127: a 2 x 4 tile each) beside
+  //    rd S_in (threads 128..255, in registers until A is done)
+  const int q = tid - NT_PASS / 2, jq = (q % V4) * 4, g = q / V4;
+  float sv[RO][4] = {};
+  if (tid < NT_PASS / 2) {
+    const int m0 = (tid / 8) * 2, n0 = (tid % 8) * 4;
+    if (n0 < m0 + 1) {  // some entry of the tile lies below the diagonal
+      float acc[2][4] = {};
+      for (int kk = 0; kk < D; ++kk) {
+        const float a0 = sm.rd[m0][kk], a1 = sm.rd[m0 + 1][kk];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int n = n0 + j;
-          float x = 0.f;
-          if (n < m) {
-            x = acc[mi][j];
-          } else if (n == m) {
-            for (int kk = 0; kk < D; ++kk)
-              x = fmaf(sm.r[st][m][kk], sm.u[kk] * sm.k[st][m][kk], x);
-          }
-          sm.a[m][n] = x;
+          const float bj = sm.kd[n0 + j][kk];
+          acc[0][j] = fmaf(a0, bj, acc[0][j]);
+          acc[1][j] = fmaf(a1, bj, acc[1][j]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n0 + j < m0 + mi) sm.a[m0 + mi][n0 + j] = acc[mi][j];
+    }
+  } else {
+    for (int i = 0; i < D; i += 4) {
+      float4 x[RO];
+#pragma unroll
+      for (int ro = 0; ro < RO; ++ro)
+        x[ro] = *reinterpret_cast<const float4*>(
+            &sm.rd[out_row(ro, g, NG)][i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 ss = *reinterpret_cast<const float4*>(&sm.s[i + e][jq]);
+#pragma unroll
+        for (int ro = 0; ro < RO; ++ro) {
+          const float xe = e == 0 ? x[ro].x : e == 1 ? x[ro].y
+                         : e == 2 ? x[ro].z : x[ro].w;
+          sv[ro][0] = fmaf(xe, ss.x, sv[ro][0]);
+          sv[ro][1] = fmaf(xe, ss.y, sv[ro][1]);
+          sv[ro][2] = fmaf(xe, ss.z, sv[ro][2]);
+          sv[ro][3] = fmaf(xe, ss.w, sv[ro][3]);
         }
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    // 3. o = A v + rd S for this CTA's columns: 4 columns of one row a thread
-    {
-      const int t = tid / (CW / 4), jq = (tid % (CW / 4)) * 4;
-      float av[4] = {}, sv[4] = {};
+  // 5. o = A v + rd S_in (threads 128..255)
+  if (tid >= NT_PASS / 2) {
+#pragma unroll
+    for (int ro = 0; ro < RO; ++ro) {
+      const int t = out_row(ro, g, NG);
+      float av[4] = {};
       for (int s = 0; s <= t; ++s) {
         const float x = sm.a[t][s];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) av[j] = fmaf(x, sm.v[st][s][jq + j], av[j]);
-      }
-      for (int i = 0; i < D; ++i) {
-        const float x = sm.rd[t][i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = fmaf(x, sm.s[i][jq + j], sv[j]);
+        const float4 vv = *reinterpret_cast<const float4*>(&sm.v[s][jq]);
+        av[0] = fmaf(x, vv.x, av[0]);
+        av[1] = fmaf(x, vv.y, av[1]);
+        av[2] = fmaf(x, vv.z, av[2]);
+        av[3] = fmaf(x, vv.w, av[3]);
       }
       const int64_t tt = c * T + t;
-      if (tt < S) {
-        float4 out = make_float4(av[0] + sv[0], av[1] + sv[1], av[2] + sv[2],
-                                 av[3] + sv[3]);
-        *reinterpret_cast<float4*>(o + row_of(b, tt, h, S, H, D) + j0 + jq) =
-            out;
-      }
+      if (tt < S)
+        *reinterpret_cast<float4*>(o + row_of(b, tt, h, S, H, D) + jq) =
+            make_float4(av[0] + sv[ro][0], av[1] + sv[ro][1],
+                        av[2] + sv[ro][2], av[3] + sv[ro][3]);
     }
-    __syncthreads();
-
-    // 4. S = e^{lw_end} S + ke^T v (the chunk-start state saved first)
-    {
-      float acc[E] = {};
-      for (int t = 0; t < T; ++t) {
-        const float x = sm.ke[t][si];
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] = fmaf(x, sm.v[st][t][sj + e], acc[e]);
-      }
-      const float ew = sm.ew[si];
-      float* dst = states ? states + ((bh * NC + c) * D + si) * D + j0 + sj
-                          : nullptr;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float old = sm.s[si][sj + e];
-        if (dst) dst[e] = old;
-        sm.s[si][sj + e] = ew * old + acc[e];
-      }
-    }
-    __syncthreads();
   }
-#pragma unroll
-  for (int e = 0; e < E; ++e) sfin[sbase + e] = sm.s[si][sj + e];
 }
 
 // ---------------------------------------------------------------------------
@@ -633,13 +827,31 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 template <int D>
 int fwd(const float* r, const float* k, const float* v, const float* w,
         const float* u, const float* s0, float* o, float* sfin,
-        float* states, long long B, long long S, long long H,
+        float* states, float* ew, long long B, long long S, long long H,
         cudaStream_t stream) {
-  const size_t smem = sizeof(FwdSmem<D>);
-  cudaError_t e = set_smem(rwkv6_fwd_kernel<D>, smem);
+  const long long NC = (S + T - 1) / T, BH = B * H;
+  if (BH * NC > 0x7fffffffLL) return -1;
+  cudaError_t e;
+  if (NC > 0) {
+    const size_t smem1 = sizeof(FwdStateSmem<D>);
+    e = set_smem(rwkv6_fwd_state_kernel<D>, smem1);
+    if (e != cudaSuccess) return (int)e;
+    rwkv6_fwd_state_kernel<D><<<(unsigned)(BH * NC), NT_PASS, smem1,
+                                stream>>>(k, v, w, states, ew, S, H, NC);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long n = BH * D * D;
+  rwkv6_fwd_scan_kernel<D><<<(unsigned)((n + NT_PASS - 1) / NT_PASS),
+                             NT_PASS, 0, stream>>>(ew, s0, states, sfin, BH,
+                                                   NC);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || NC == 0) return (int)e;
+  const size_t smem3 = sizeof(FwdOutSmem<D>);
+  e = set_smem(rwkv6_fwd_out_kernel<D>, smem3);
   if (e != cudaSuccess) return (int)e;
-  rwkv6_fwd_kernel<D><<<dim3((unsigned)(B * H), D / CW), NT_SCAN, smem,
-                        stream>>>(r, k, v, w, u, s0, o, sfin, states, S, H);
+  rwkv6_fwd_out_kernel<D><<<(unsigned)(BH * NC), NT_PASS, smem3, stream>>>(
+      r, k, v, w, u, states, o, S, H, NC);
   return (int)cudaGetLastError();
 }
 
@@ -673,22 +885,26 @@ int bwd(const float* r, const float* k, const float* v, const float* w,
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Every array is contiguous f32
-// and 16-byte aligned.  s0 may be null (zero initial state), states null (no
-// chunk-start states wanted); in the backward dsfin may be null (no
-// cotangent on the final state) and ds0 null (no gradient for s0).  dstates
-// [B, H, NC, D, D] and du_part [B, H, NC, D] are scratch.  Returns a
-// cudaError_t, or -1 for a head size other than 32 or 64 or too many chunks.
+// and 16-byte aligned.  s0 may be null (zero initial state); the forward
+// always writes the chunk-start states [B, H, NC, D, D] (they are its scan's
+// scratch too) and ew [B, H, NC, D] is scratch.  In the backward dsfin may
+// be null (no cotangent on the final state) and ds0 null (no gradient for
+// s0); dstates [B, H, NC, D, D] and du_part [B, H, NC, D] are scratch.
+// Returns a cudaError_t, or -1 for a head size other than 32 or 64 or too
+// many chunks.
 extern "C" int rwkv6_fwd_f32(const float* r, const float* k, const float* v,
                              const float* w, const float* u, const float* s0,
-                             float* o, float* sfin, float* states,
+                             float* o, float* sfin, float* states, float* ew,
                              long long B, long long S, long long H,
                              long long D, int device, void* stream) {
   if (B * H <= 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64) return fwd<64>(r, k, v, w, u, s0, o, sfin, states, B, S, H, st);
-  if (D == 32) return fwd<32>(r, k, v, w, u, s0, o, sfin, states, B, S, H, st);
+  if (D == 64)
+    return fwd<64>(r, k, v, w, u, s0, o, sfin, states, ew, B, S, H, st);
+  if (D == 32)
+    return fwd<32>(r, k, v, w, u, s0, o, sfin, states, ew, B, S, H, st);
   return -1;
 }
 

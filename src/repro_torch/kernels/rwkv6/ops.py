@@ -204,6 +204,14 @@ def _check_inputs(r, k, v, w, u, s0):
     return b, s, h, d
 
 
+# the C entry points' parameters: device pointers, then B, S, H, D, the
+# device index and the stream
+FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4
+                + [ctypes.c_int, ctypes.c_void_p])
+BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] * 4
+                + [ctypes.c_int, ctypes.c_void_p])
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -213,25 +221,30 @@ def _n_chunks(s: int) -> int:
 
 
 def rwkv6_fwd_cuda(r, k, v, w, u, s0=None, *, save_states: bool = False):
-    """Launch the Hopper forward kernel: (o, S_final, states); ``states``
-    [B, H, NC, D, D] (the chunk-start states) only with ``save_states``."""
+    """Launch the Hopper forward kernels (state contributions, state scan,
+    outputs: one C call, one count): (o, S_final, states).  ``states``
+    [B, H, NC, D, D] (the chunk-start states) is returned only with
+    ``save_states``; without it the buffer is still allocated, as the
+    scan's scratch, and dropped on return."""
     b, s, h, d = _check_inputs(r, k, v, w, u, s0)
-    o = torch.empty((b, s, h, d), dtype=torch.float32, device=r.device)
-    sfin = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
-    states = (torch.empty((b, h, _n_chunks(s), d, d), dtype=torch.float32,
-                          device=r.device) if save_states else None)
+    nc = _n_chunks(s)
+    dev = r.device
+    o = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+    sfin = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, nc, d, d), dtype=torch.float32, device=dev)
     if b * h == 0:
-        return o, sfin, states
+        return o, sfin, states if save_states else None
+    ew = torch.empty((b, h, nc, d), dtype=torch.float32, device=dev)
     fn = build.library("rwkv6").rwkv6_fwd_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = FWD_ARGTYPES
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), _ptr(s0), o.data_ptr(), sfin.data_ptr(),
-             _ptr(states), b, s, h, d, r.device.index, _stream(r))
+             states.data_ptr(), ew.data_ptr(), b, s, h, d, dev.index,
+             _stream(r))
     build.check(err, "rwkv6_fwd_f32")
     rwkv6_fwd_cuda.launches += 1
-    return o, sfin, states
+    return o, sfin, states if save_states else None
 
 
 rwkv6_fwd_cuda.launches = 0
@@ -260,8 +273,7 @@ def rwkv6_bwd_cuda(r, k, v, w, u, states, do, ds_final=None, *,
     du_part = torch.empty((b, h, nc, d), dtype=torch.float32, device=dev)
     fn = build.library("rwkv6").rwkv6_bwd_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = BWD_ARGTYPES
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), states.data_ptr(), do.data_ptr(), _ptr(ds_final),
              *(g.data_ptr() for g in grads), du.data_ptr(), _ptr(ds0),

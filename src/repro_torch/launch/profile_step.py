@@ -44,7 +44,9 @@ _CATEGORIES = (
     ("stochastic rounding (this port)", ("sr_bf16_kernel",)),
     ("RG-LRU scan forward (this port)", ("rglru_fwd_kernel",)),
     ("RG-LRU scan backward (this port)", ("rglru_bwd_kernel",)),
-    ("RWKV-6 WKV forward (this port)", ("rwkv6_fwd_kernel",)),
+    ("RWKV-6 WKV forward (this port)", ("rwkv6_fwd_state_kernel",
+                                        "rwkv6_fwd_scan_kernel",
+                                        "rwkv6_fwd_out_kernel")),
     ("RWKV-6 WKV backward (this port)", ("rwkv6_bwd_scan_kernel",
                                          "rwkv6_bwd_chunk_kernel",
                                          "rwkv6_du_kernel")),

@@ -14,9 +14,9 @@ atol max|g| / 128 (the plain backward reads the kernel's rounded output);
 the bucket update, the three quantize kernels and the two RG-LRU scan
 kernels bitwise (each rounds every operation separately, as the plain
 version's elementwise kernels do, and the hash is integer arithmetic); the
-RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o,
-S_final and every gradient (f32 on both sides, another summation order
-inside the small products).
+RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o and
+every gradient (f32 on both sides, another summation order inside the small
+products), S_final and the chunk-start states bitwise.
 """
 import numpy as np
 import pytest
@@ -265,7 +265,9 @@ def _rel(x, y):
 @pytest.mark.parametrize("with_s0,with_dsf", [(False, False), (True, False),
                                               (False, True), (True, True)])
 @pytest.mark.parametrize("b,s,h,d", [(2, 64, 2, 32), (1, 96, 4, 64),
-                                     (3, 40, 2, 64), (1, 32, 1, 64)])
+                                     (3, 40, 2, 64), (1, 32, 1, 64),
+                                     (1, 1000, 3, 64), (1, 5, 2, 64),
+                                     (1, 1, 2, 64), (3, 70, 5, 32)])
 def test_rwkv6_kernels_match_plain(b, s, h, d, with_s0, with_dsf):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(b * 1000 + s + h + d)
@@ -278,8 +280,11 @@ def test_rwkv6_kernels_match_plain(b, s, h, d, with_s0, with_dsf):
     o, sf, states = rwkv6_fwd_cuda(r, k, v, w, u, s0, save_states=True)
     ro, rsf, rstates = _chunked_forward(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    for x, y in ((o, ro), (sf, rsf), (states, rstates)):
-        assert _rel(x, y) <= TOL
+    assert _rel(o, ro) <= TOL
+    # the state update sums ke^T v over t in order, as the plain product does
+    assert torch.equal(sf, rsf) and torch.equal(states, rstates)
+    o2, sf2, none = rwkv6_fwd_cuda(r, k, v, w, u, s0)   # states as scratch
+    assert none is None and torch.equal(o2, o) and torch.equal(sf2, sf)
     got = rwkv6_bwd_cuda(r, k, v, w, u, states, do, dsf, need_ds0=with_s0)
     want = rwkv6_bwd_plain(r, k, v, w, u, s0, do, dsf, states=rstates)
     torch.cuda.synchronize()

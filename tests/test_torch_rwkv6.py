@@ -29,6 +29,7 @@ import torch
 from repro.kernels.rwkv6 import rwkv6_mix as jax_rwkv6_mix
 from repro.kernels.rwkv6 import rwkv6_pallas, rwkv6_reference
 from repro.kernels.rwkv6.ops import _chunked_jnp
+from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6 import (
     rwkv6_bwd_cuda,
     rwkv6_bwd_plain,
@@ -37,6 +38,7 @@ from repro_torch.kernels.rwkv6 import (
     rwkv6_mix,
     rwkv6_reference_plain,
 )
+from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.ops import _RWKV6
 
 TOL = 1e-4
@@ -179,3 +181,16 @@ def test_dispatch_never_launches_on_cpu_tensors():
         rwkv6_fwd_cuda(*args)
     with pytest.raises(ValueError):
         rwkv6_mix(*args, impl="pallas")
+
+
+@pytest.mark.parametrize("entry,argtypes", [
+    ("rwkv6_fwd_f32", ops.FWD_ARGTYPES), ("rwkv6_bwd_f32", ops.BWD_ARGTYPES)])
+def test_wrapper_argtypes_match_c_signature(entry, argtypes):
+    """The ctypes binding passes as many arguments, of the same kinds, as
+    the kernel source's ``extern "C"`` entry point takes (a pointer is
+    ``c_void_p``, ``long long`` is ``c_longlong``): a scratch argument
+    added to one side only fails here, not on the card."""
+    src, _ = build.SOURCES["rwkv6"]
+    text = (build._PKG / src).read_text()
+    params = build.c_params(text, entry)
+    assert [t for t, _ in params] == list(argtypes), [n for _, n in params]
