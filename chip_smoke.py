@@ -7,10 +7,13 @@
    source, all started together) and prints the compiler's register and
    spill counts (and any ptxas performance warning).
 2. Holds each kernel against its plain PyTorch version on the card:
-   flash attention on f32 at head dims 128 and 256 with GQA (MQA 16:1
-   too), causal, window, softcap and a ragged length (out, lse and autograd
-   gradients within 1e-4), then at the paths' shapes (gemma2-2b's global
-   and local layers, recurrentgemma-9b's MQA local layer); the bucket
+   flash attention on f32 (the split-TF32 tensor-core kernel) at head dims
+   128 and 256 with GQA (MQA 16:1 too), causal, window, softcap and a
+   ragged length (out, lse and autograd gradients within 1e-4; its split
+   pass's K/V hi + lo bitwise), then at the paths' shapes (gemma2-2b's
+   global and local layers, recurrentgemma-9b's MQA local layer), with its
+   bound at the TF32 rate for the three products beside the CUDA-core
+   bound and the kernel's registers and spills; the bucket
    update bitwise for AdamW and SGD, uniform and per-element, masked
    tail, fused zeroing; the int8 quantize, dequantize and bf16
    stochastic-rounding kernels bitwise, at 128, 1280 and 4096 elements
@@ -108,6 +111,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 FLASH_TOL = 1e-4              # f32, another summation order than cuBLAS
 BF16_OUT_RTOL = 2 ** -7       # bf16 out: one rounding step of bf16
 BF16_GRAD_RTOL = 1.6e-2       # bf16 grads, with atol max|g| / 128
@@ -129,6 +133,22 @@ DELAYED_COVERAGE_RATE = 4 * COVERAGE_RATE
 RG_ARCH, RG_LAYERS, RG_OF_LAYERS, RG_STEPS = "recurrentgemma-9b", 6, 38, 8
 RG_WINDOW = 2048
 RG_WIDTH = 4096                 # lru_width: the scan's W
+# the f32 flash forward's small cases: (B, S, H, KV, D, causal, window, softcap)
+FLASH_CASES = [
+    (2, 333, 8, 4, 256, True, 100, 50.0),   # ragged S, window, softcap
+    (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
+    (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
+    (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
+    (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
+]
+# the paths' attention shapes, all causal: (B, S, H, KV, D, window, softcap)
+# for gemma2-2b's global and local layers (8 heads over 4, softcap 50) and
+# recurrentgemma-9b's local attention layer (MQA 16 over 1, no softcap)
+FLASH_PATH_SHAPES = {
+    "global": (BATCH, SEQ, 8, 4, 256, 0, 50.0),
+    "local": (BATCH, SEQ, 8, 4, 256, 4096, 50.0),
+    "recurrentgemma": (BATCH, SEQ, 16, 1, 256, RG_WINDOW, 0.0),
+}
 # the RWKV-6 path: rwkv6-1.6b at full width and full depth (24 of 24 layers),
 # 8 steps (two DeFT schedule periods at coverage rate 1.8); its time-mix has
 # 32 heads of size 64.  The WKV kernels against the plain pair: both f32,
@@ -185,6 +205,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / iters
 
 
+def kernel_ms(torch, fn, iters: int, match: str) -> dict:
+    """Device time a launch of each kernel whose name holds ``match``, over
+    ``iters`` calls of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if match in e.key:
+            t = getattr(e, "device_time_total", None)
+            per[e.key] = (e.cuda_time_total if t is None else t) / 1e3 / e.count
+    return per
+
+
 def flex_call(torch, q, k, v, window: int, cap: float):
     """One compiled ``flex_attention`` call computing the same function as
     the flash kernel: GQA, causal (and window) block mask, softcap
@@ -225,10 +264,15 @@ def visible_pairs(s: int, causal: bool, window: int) -> int:
 # flash attention
 # ---------------------------------------------------------------------------
 def flash_phase(torch, report):
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_fwd_cuda,
         flash_fwd_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_split_plain,
+        split_buffer,
     )
 
     gen = torch.Generator(device="cuda")
@@ -238,21 +282,22 @@ def flash_phase(torch, report):
         mk = lambda n: torch.randn((b, s, n, d), device="cuda", generator=gen)
         return mk(h), mk(kvh), mk(kvh)
 
+    def split_bitwise(k, v, split, what):
+        want = flash_split_plain(k, v)
+        torch.cuda.synchronize()
+        check(torch.equal(split.view(torch.int32), want.view(torch.int32)),
+              f"flash split pass not bitwise equal to its plain version at "
+              f"{what}")
+
     max_err = 0.0
-    # (B, S, H, KV, D, causal, window, softcap)
-    cases = [
-        (2, 333, 8, 4, 256, True, 100, 50.0),   # ragged S, window, softcap
-        (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
-        (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
-        (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
-        (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
-    ]
-    for b, s, h, kvh, d, causal, window, cap in cases:
+    for b, s, h, kvh, d, causal, window, cap in FLASH_CASES:
         kw = dict(causal=causal, window=window, softcap=cap)
         q, k, v = qkv(b, s, h, kvh, d)
-        out, lse = flash_fwd_cuda(q, k, v, **kw)
+        split = split_buffer(b, kvh, s, d, "cuda")
+        out, lse = flash_fwd_cuda(q, k, v, split=split, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        split_bitwise(k, v, split, (b, s, h, kvh, d))
         check(out.shape == ref.shape and lse.shape == ref_lse.shape,
               f"flash shapes {tuple(out.shape)} {tuple(lse.shape)}")
         err = max((out - ref).abs().max().item(),
@@ -274,18 +319,13 @@ def flash_phase(torch, report):
         max_err = max(max_err, err)
         print(f"flash D={d} S={s} H={h}/{kvh} {kw}: ok (max err {err:.3g})")
 
-    # the paths' shapes, B=1, S=8192, D=256: gemma2-2b's global and local
-    # layers (8 heads over 4, softcap 50) and recurrentgemma-9b's local
-    # attention layer (MQA, 16 heads over 1, window 2048, no softcap)
+    # the paths' shapes
     shapes = {}
-    for layer, h, kvh, window, cap in (("global", 8, 4, 0, 50.0),
-                                       ("local", 8, 4, 4096, 50.0),
-                                       ("recurrentgemma", 16, 1, RG_WINDOW,
-                                        0.0)):
-        b, s, d = BATCH, SEQ, 256
+    for layer, (b, s, h, kvh, d, window, cap) in FLASH_PATH_SHAPES.items():
         q, k, v = qkv(b, s, h, kvh, d)
         kw = dict(causal=True, window=window, softcap=cap)
-        out, lse = flash_fwd_cuda(q, k, v, **kw)
+        split = split_buffer(b, kvh, s, d, "cuda")
+        out, lse = flash_fwd_cuda(q, k, v, split=split, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = max((out - ref).abs().max().item(),
@@ -296,30 +336,47 @@ def flash_phase(torch, report):
               f"shape: max err {err:.3g}")
         max_err = max(max_err, err)
         del out, lse, ref, ref_lse
+        split_bitwise(k, v, split, f"the {layer} layer's shape")
+        del split
         ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 5)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
         lib = flex_call(torch, q, k, v, window, cap)
         lib_err = (lib() - flash_fwd_cuda(q, k, v, **kw)[0]).abs().max().item()
         library_ms = time_ms(torch, lib, 3)
         del lib
+        # the function's 4 D flops a visible pair at the card's TF32 rate
+        # (the least the tensor cores can do it in); beside it the kernel's
+        # own split-TF32 work (three products each) at that rate, and the
+        # function at the f32 rate of the CUDA cores
         flops = 4.0 * d * visible_pairs(s, True, window) * h * b
         nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * s)
-        bound_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ops = flops / TF32_FLOPS_PER_S * 1e3
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         shapes[layer] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(bound_ops, bound_bytes),
             bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+            bound_split_tf32_ms=max(3 * bound_ops, bound_bytes),
+            bound_f32_cuda_core_ms=max(flops / F32_FLOPS_PER_S * 1e3,
+                                       bound_bytes),
             flops=flops, bytes=nbytes, max_abs_err=err,
             library_max_abs_err=lib_err)
+        sh = shapes[layer]
         print(f"flash {layer} layer (B={b} S={s} H={h}/{kvh} D={d} "
               f"window={window} softcap={cap}): kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, flex_attention {library_ms:.3f} ms (max "
-              f"diff to the kernel {lib_err:.3g}), bound "
-              f"{shapes[layer]['bound_ms']:.3f} ms "
-              f"({shapes[layer]['bound_by']}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
-    report["flash"] = dict(cases=len(cases), max_abs_err=max_err, **shapes)
+              f"diff to the kernel {lib_err:.3g}), bound {sh['bound_ms']:.3f} "
+              f"ms ({sh['bound_by']}, TF32), {sh['bound_ms'] / ms:.1%} of it; "
+              f"split-TF32 work {sh['bound_split_tf32_ms']:.3f} ms "
+              f"({sh['bound_split_tf32_ms'] / ms:.1%}); CUDA-core bound "
+              f"{sh['bound_f32_cuda_core_ms']:.3f} ms; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s of the function's, "
+              f"{3 * flops / ms / 1e9:.1f} TF32 TFLOP/s issued")
+    ptxas = build.ptxas_report(build.build_log("flash_fwd"),
+                               "flash_fwd_tf32_kernel<256>")
+    print("; ".join(ptxas))
+    report["flash"] = dict(cases=len(FLASH_CASES), max_abs_err=max_err,
+                           ptxas_d256=ptxas, **shapes)
     torch.cuda.empty_cache()
     g = shapes["global"]
     return {
@@ -329,6 +386,8 @@ def flash_phase(torch, report):
         "launches": None, "max_abs_err": max_err,
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "bound_split_tf32_ms": g["bound_split_tf32_ms"],
+        "bound_f32_cuda_core_ms": g["bound_f32_cuda_core_ms"],
         "shape": "B=1 S=8192 H=8 KV=4 D=256 causal softcap=50 (global layer)",
         "local_ms": shapes["local"]["ms"],
         "local_plain_ms": shapes["local"]["plain_ms"],
@@ -339,6 +398,12 @@ def flash_phase(torch, report):
         "rg_library_ms": shapes["recurrentgemma"]["library_ms"],
         "rg_shape": f"B=1 S=8192 H=16 KV=1 D=256 causal window={RG_WINDOW} "
                     f"(recurrentgemma-9b local layer)",
+        "ptxas": ptxas,
+        "note": "a split pass writes K and V as TF32 hi + lo; S = Q.K^T and "
+                "P.V each run as three TF32 wgmmas (hi.hi + hi.lo + lo.hi); "
+                "bound: 4 D flops a visible pair at 495 TFLOP/s TF32 (the "
+                "kernel's split-TF32 work, three times that, stands in "
+                "bound_split_tf32_ms)",
         "library_note": "compiled flex_attention, softcap score_mod",
     }
 
@@ -1458,9 +1523,8 @@ def run() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {sorted(per_lib)} in {build_s:.1f} s (parallel nvcc)")
     for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if any(w in line for w in ("registers", "spill", "C75")):
-                print(f"  {name}: {line.strip()}")
+        for line in build.ptxas_report(build.build_log(name)):
+            print(f"  {name}: {line}")
     report["build_s"] = build_s
 
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)

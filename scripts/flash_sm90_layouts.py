@@ -22,8 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -79,28 +77,15 @@ def build(name: str, text: str):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kb
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"lib{name}.so"
-    cu.write_text(text)
-    res = subprocess.run([kb.nvcc_path(), str(cu)] + kb._ARCH + kb._COMMON
-                         + ["-ldl", "-o", str(so)],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise SystemExit(f"nvcc failed for {name}:\n{res.stdout}{res.stderr}")
-    lines, d = [], None
-    for line in (res.stdout + res.stderr).splitlines():
-        m = re.search(r"kernelILi(\d+)E", line)
-        if "Compiling entry" in line and m:
-            d = int(m.group(1))
-        if "spill" in line or "Used" in line or "C75" in line:
-            lines.append(f"D={d}: {line.strip()[:150]}")
-    fn = ctypes.CDLL(str(so)).flash_fwd_sm90_bf16
+    lib, log = kb.build_sources({name: text}, "flash_fwd_sm90",
+                                OUT_DIR)[name]
+    fn = lib.flash_fwd_sm90_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return fn, lines
+    return fn, kb.ptxas_report(log)
 
 
 def main() -> int:
@@ -117,9 +102,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_fwd_plain
     from repro_torch.kernels.flash_attention.ops import _tma_strides
 
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import card_line, time_ms
+
+    card = card_line()
     print(card)
     shipped = SRC.read_text()
     fns, report = {}, {"card": card, "layouts": {}}
@@ -146,19 +132,6 @@ def main() -> int:
         if err:
             raise RuntimeError(f"launch failed with code {err}")
 
-    def time_ms(fn, window):
-        for _ in range(3):
-            call(fn, window)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(args.iters):
-            call(fn, window)
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / args.iters
-
     ok = True
     for window in (0, 4096):
         ref, ref_lse = flash_fwd_plain(q, k, v, causal=True, window=window,
@@ -172,7 +145,8 @@ def main() -> int:
             ok &= good
             report["layouts"][name][f"window{window}_ok"] = good
         del ref, ref_lse
-        turns = [(n, time_ms(fns[n], window))
+        turns = [(n, time_ms(torch, lambda: call(fns[n], window),
+                             args.iters, 3))
                  for n in ("shipped", "producer", "producer", "shipped")]
         for name in fns:
             ms = [t for n, t in turns if n == name]

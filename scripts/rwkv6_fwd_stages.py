@@ -31,8 +31,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -80,33 +78,14 @@ def build_all(variants):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kb
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, text in variants.items():
-        cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"lib{name}.so"
-        cu.write_text(text)
-        jobs[name] = (so, subprocess.Popen(
-            [kb.nvcc_path(), str(cu)] + kb._ARCH + kb._COMMON
-            + list(kb.SOURCES["rwkv6"][1]) + ["-o", str(so)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
-    for name, (so, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).rwkv6_fwd_f32
+    for name, (lib, log) in kb.build_sources(variants, "rwkv6",
+                                             OUT_DIR).items():
+        fn = lib.rwkv6_fwd_f32
         params = kb.c_params(variants[name], "rwkv6_fwd_f32")
         fn.restype = ctypes.c_int
         fn.argtypes = [t for t, _ in params]
-        ptxas, kernel = [], "?"
-        for line in log.splitlines():
-            m = re.search(r"(rwkv6_\w+?kernel)(?:ILi(\d+)E)?", line)
-            if "Compiling entry" in line and m:
-                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
-                                       else "")
-            elif "Used" in line or "spill stores" in line:
-                ptxas.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
-        built[name] = (fn, [n for _, n in params], ptxas)
+        built[name] = (fn, [n for _, n in params], kb.ptxas_report(log))
     return built
 
 
@@ -122,12 +101,11 @@ def main() -> int:
         print("rwkv6_fwd_stages: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import card_line, kernel_ms, time_ms
     from repro_torch.kernels.rwkv6.ops import CHUNK, _chunked_forward
 
-    card = subprocess.run(["nvidia-smi", "-i", "0",
-                           "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(card)
     source = Path(args.source).read_text()
     shipped = SHIPPED.read_text()
@@ -218,26 +196,13 @@ def main() -> int:
 
     r, k, v, w, u, _ = inputs(*PATH_SHAPE)
 
-    def time_ms(name):
-        call, _ = caller(name, r, k, v, w, u, None)
-        for _ in range(3):
-            call()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(args.iters):
-            call()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / args.iters
-
     order = (["source", "shipped", "shipped", "source"] if len(whole) == 2
              else ["source"])
     order += [n for n in built if n.startswith("cut_")] + ["source"]
     times = {}
     for n in order:
-        times.setdefault(n, []).append(time_ms(n))
+        call = caller(n, r, k, v, w, u, None)[0]
+        times.setdefault(n, []).append(time_ms(torch, call, args.iters, 3))
     report["ms"] = times
     for n, t in times.items():
         print(f"{n} at {list(PATH_SHAPE)}: " + " / ".join(f"{x:.4f}" for x in t)
@@ -245,25 +210,11 @@ def main() -> int:
     ship = "shipped" if "shipped" in built else (
         "source" if source == shipped else None)
     if ship:
-        from torch.profiler import ProfilerActivity, profile
-
         call, _ = caller(ship, r, k, v, w, u, None)
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.iters):
-                call()
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.key_averages():
-            if "rwkv6" in e.key:
-                t = getattr(e, "device_time_total", None)
-                if t is None:
-                    t = e.cuda_time_total
-                per[e.key] = t / 1e3 / args.iters
+        per = kernel_ms(torch, call, args.iters, "rwkv6")
         report["shipped_per_kernel_ms"] = per
         for n, t in per.items():
-            print(f"shipped kernel {n}: {t:.4f} ms a call")
+            print(f"shipped kernel {n}: {t:.4f} ms a launch")
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=1))
     return 0

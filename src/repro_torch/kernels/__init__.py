@@ -7,8 +7,9 @@ Every TPU kernel of the JAX package (each function that reaches
 | Pallas entry (src/repro/kernels/...)                      | Computes                                   | Port |
 |-----------------------------------------------------------|--------------------------------------------|------|
 | flash_attention/kernel.py::flash_attention_pallas (:103)  | online-softmax attention forward, GQA,     | flash_attention/csrc/flash_fwd.cu (CUDA), |
-|                                                           | causal/window skip, softcap; f32 or bf16   | f32 inputs, CUDA cores; |
-|                                                           | in, f32 accumulate, q's dtype out          | flash_attention/csrc/flash_fwd_sm90.cu |
+|                                                           | causal/window skip, softcap; f32 or bf16   | f32 inputs, split-TF32 wgmma (a split |
+|                                                           | in, f32 accumulate, q's dtype out          | pass, then hi.hi + hi.lo + lo.hi); |
+|                                                           |                                            | flash_attention/csrc/flash_fwd_sm90.cu |
 |                                                           |                                            | (CUDA), bf16 inputs, TMA + wgmma |
 | bucket_update/kernel.py::bucket_update_pallas (:129)      | fused AdamW / SGD over one flat bucket     | bucket_update/csrc/bucket_update.cu (CUDA) |
 | quantize/kernel.py::stochastic_round_bf16_pallas (:69)    | seeded stochastic rounding f32 -> bf16     | quantize/csrc/quantize.cu (CUDA) |

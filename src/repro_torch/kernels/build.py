@@ -52,14 +52,47 @@ def nvcc_path() -> str:
     )
 
 
+def _flags(name: str) -> List[str]:
+    return _ARCH + _COMMON + list(SOURCES[name][1])
+
+
 def _target(name: str) -> Tuple[Path, List[str]]:
-    src, extra = SOURCES[name]
-    path = _PKG / src
-    flags = _ARCH + _COMMON + list(extra)
+    path = _PKG / SOURCES[name][0]
+    flags = _flags(name)
     digest = hashlib.sha256(
         path.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so", [str(path)] + flags
+
+
+def _compile(jobs: Dict[str, Tuple[Path, List[str]]]) -> Dict[str, Tuple[str, float]]:
+    """Run one nvcc per job, all started together: {key: (library path,
+    its source and flags)} -> {key: (compiler output, seconds)}.  A library
+    is written under a temporary name and moved into place only once it
+    built; each compiler output is kept beside it as ``<lib>.log``.  Raises
+    if any build failed."""
+    import time
+
+    nvcc = nvcc_path() if jobs else ""
+    procs = []
+    for key, (out, args) in jobs.items():
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        procs.append((key, out, tmp, time.perf_counter(), subprocess.Popen(
+            [nvcc] + args + ["-o", str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    done: Dict[str, Tuple[str, float]] = {}
+    failed = []
+    for key, out, tmp, t0, proc in procs:
+        log, _ = proc.communicate()
+        done[key] = (log, time.perf_counter() - t0)
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{key}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return done
 
 
 def build_all() -> Dict[str, float]:
@@ -67,35 +100,69 @@ def build_all() -> Dict[str, float]:
     Returns {name: seconds} for the libraries built by this call; each
     build's compiler output (register and spill counts) is kept beside
     the library as ``<lib>.log``."""
-    import time
-
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
-    jobs = []
-    for name in SOURCES:
-        out, args = _target(name)
-        if out.exists():
+    jobs = {name: _target(name) for name in SOURCES}
+    jobs = {name: job for name, job in jobs.items() if not job[0].exists()}
+    return {name: s for name, (_, s) in _compile(jobs).items()}
+
+
+def build_sources(texts: Dict[str, str], lib: str,
+                  out_dir: Path) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Build revisions of kernel library ``lib``'s source with the flags
+    ``library(lib)`` is built with: {name: source text} -> {name: (loaded
+    library, compiler output)}, one nvcc each, all started together, into
+    ``out_dir/<name>.cu`` and ``out_dir/lib<name>.so``."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, text in texts.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        jobs[name] = (out_dir / f"lib{name}.so", [str(cu)] + _flags(lib))
+    done = _compile(jobs)
+    return {name: (ctypes.CDLL(str(jobs[name][0])), done[name][0])
+            for name in texts}
+
+
+def _short_name(mangled: str) -> str:
+    """``kernel<D>`` of a mangled entry function name: the last of its
+    length-prefixed names, and its first template argument if it is an
+    int (``_ZN12_GLOBAL__N_121flash_fwd_tf32_kernelILi256EEEv...`` ->
+    ``flash_fwd_tf32_kernel<256>``)."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while True:
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            break
+        j = i + m.end()
+        name, i = mangled[j:j + int(m.group())], j + int(m.group())
+    t = re.match(r"ILi(\d+)E", mangled[i:])
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
+def ptxas_report(log: str, kernel: str = "") -> List[str]:
+    """The register, spill, advisory (C75xx) and warning lines of an nvcc
+    log (its ``-Xptxas -v`` output), each as ``kernel<D>: line``, where
+    ``kernel<D>`` is the entry function's name and first template argument.
+    Only the kernels whose short name starts with ``kernel`` when it is
+    given."""
+    lines, current = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"function '(\w+)'", line)
+        if "Compiling entry function" in line:
+            current = _short_name(m.group(1)) if m else "?"
             continue
-        nvcc = nvcc or nvcc_path()
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc] + args + ["-o", str(tmp)]
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, out, tmp, proc, t0))
-    times: Dict[str, float] = {}
-    failed = []
-    for name, out, tmp, proc, t0 in jobs:
-        log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+        # an advisory (C75xx) or warning names its function itself
+        advisory = "warning" in line.lower() or "(C75" in line
+        where = _short_name(m.group(1)) if advisory and m else current
+        if not where.startswith(kernel):
             continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return times
+        if "Used" in line or "spill stores" in line:
+            lines.append(f"{where}: {line.split(':', 1)[-1].strip()}")
+        elif advisory:
+            text = re.sub(r" in (the )?function '\w+'", "", line.strip())
+            lines.append(f"{where}: {text[:200]}")
+    return lines
 
 
 def build_log(name: str) -> str:

@@ -6,13 +6,15 @@ k/v [B, Sk, KV, D]; GQA maps head h to kv head h // (H // KV).
 
 * Forward on a CUDA tensor: ``flash_fwd_cuda`` launches a hand-written
   Hopper kernel replacing the Pallas ``flash_attention_pallas`` and
-  returns (out, lse): on f32 inputs the CUDA-core kernel of
-  csrc/flash_fwd.cu, on bf16 inputs the tensor-core kernel of
-  csrc/flash_fwd_sm90.cu (TMA, wgmma, P.V with P split into two bf16
-  terms).  On a CPU tensor the plain version ``flash_fwd_plain`` runs
-  instead; on a CUDA tensor the plain version runs only when the caller
-  asks for it by name (``impl="plain"``, used to hold the kernels against
-  it).  q/k/v are f32 or bf16 (all three alike):
+  returns (out, lse): on f32 inputs the split-TF32 tensor-core kernel of
+  csrc/flash_fwd.cu (a split pass writes K and V as TF32 hi + lo into
+  scratch, ``flash_split_plain`` is its plain version; both products run
+  as three TF32 wgmmas, hi.hi + hi.lo + lo.hi), on bf16 inputs the
+  tensor-core kernel of csrc/flash_fwd_sm90.cu (TMA, wgmma, P.V with P
+  split into two bf16 terms).  On a CPU tensor the plain version
+  ``flash_fwd_plain`` runs instead; on a CUDA tensor the plain version
+  runs only when the caller asks for it by name (``impl="plain"``, used to
+  hold the kernels against it).  q/k/v are f32 or bf16 (all three alike):
   every version accumulates in f32 and writes the output in q's dtype,
   with lse in f32, as the Pallas kernel does.
 * Backward: ``flash_bwd_plain`` — the PyTorch counterpart of the JAX
@@ -140,6 +142,74 @@ def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+# The f32 kernel's split pass (csrc/flash_fwd.cu, flash_split_kernel).  Its
+# scratch holds, for each (batch, kv head) and block of SPLIT_BK keys (zero
+# past Sk), K's D / dc stages then V's, each stage a hi half then a lo half of
+# SPLIT_BK * dc floats, dc = min(D, 64): K's stage c is keys x d-columns
+# [c dc, (c + 1) dc), V's is d-rows [c dc, (c + 1) dc) x keys, transposed, with
+# the keys of each group of 8 in the order SPLIT_KEY_ORDER.  A half is column
+# chunks of 32 floats (K: the stage's d-columns; V: its 64 key positions),
+# each chunk its rows of 128 bytes in the 128-byte swizzle: the 16-byte unit u
+# of row r sits at unit u ^ (r % 8).
+SPLIT_BK = 64
+SPLIT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: f32 ``x`` rounded to 10 mantissa bits, to
+    nearest with ties away from zero (the low 13 bits of the result are 0)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_shape(b: int, kvh: int, sk: int, d: int) -> Tuple[int, ...]:
+    """[B * KVH, key blocks, (K, V), stages, (hi, lo), SPLIT_BK * dc]."""
+    dc = min(d, 64)
+    return (b * kvh, -(-sk // SPLIT_BK), 2, d // dc, 2, SPLIT_BK * dc)
+
+
+def split_buffer(b: int, kvh: int, sk: int, d: int, device) -> torch.Tensor:
+    """Scratch for the f32 kernel's split pass."""
+    return torch.empty(split_shape(b, kvh, sk, d), dtype=torch.float32,
+                       device=device)
+
+
+def _swizzled(t: torch.Tensor) -> torch.Tensor:
+    """[..., R, W] -> [..., W * R]: W / 32 column chunks, each R rows of 32
+    in the 128-byte swizzle (an involution on each row's 16-byte units)."""
+    *lead, rows, w = t.shape
+    t = t.reshape(*lead, rows, w // 32, 32).transpose(-3, -2)
+    r = torch.arange(rows, device=t.device)[:, None]
+    c = torch.arange(32, device=t.device)[None, :]
+    idx = (((c // 4) ^ (r % 8)) * 4 + c % 4).expand_as(t)
+    return torch.gather(t, -1, idx).reshape(*lead, w * rows)
+
+
+def flash_split_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 kernel's split pass: K and V [B, Sk, KV, D]
+    -> the scratch ``split_shape`` describes, bit for bit."""
+    b, sk, kvh, d = k.shape
+    _, nkb, _, nch, _, _ = split_shape(b, kvh, sk, d)
+    dc = d // nch
+    pad = nkb * SPLIT_BK - sk
+
+    def blocks(x):                     # [B * KVH, key blocks, SPLIT_BK, D]
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.permute(0, 2, 1, 3).reshape(b * kvh, nkb, SPLIT_BK, d)
+
+    order = torch.tensor([8 * (i // 8) + SPLIT_KEY_ORDER[i % 8]
+                          for i in range(SPLIT_BK)], device=k.device)
+    kt = blocks(k).reshape(b * kvh, nkb, SPLIT_BK, nch, dc).transpose(2, 3)
+    vt = blocks(v)[:, :, order].reshape(b * kvh, nkb, SPLIT_BK, nch, dc)
+    vt = vt.permute(0, 1, 3, 4, 2)     # [.., stage, d-row, key position]
+    parts = []
+    for t in (kt, vt):
+        hi = tf32_round(t)
+        lo = tf32_round(t - hi)
+        parts.append(torch.stack([_swizzled(hi), _swizzled(lo)], dim=3))
+    return torch.stack(parts, dim=2)
+
+
 def _row_aligned(x: torch.Tensor) -> bool:
     """Rows of four-element chunks the f32 kernel can load whole."""
     return (x.stride(-1) == 1 and x.data_ptr() % (4 * x.element_size()) == 0
@@ -165,12 +235,22 @@ def _tma_aligned(x: torch.Tensor) -> bool:
 
 _ENTRY = {torch.float32: ("flash_fwd", "flash_fwd_f32"),
           torch.bfloat16: ("flash_fwd_sm90", "flash_fwd_sm90_bf16")}
+# the two entry points' parameters: q, k, v, o, lse (and the f32 kernel's
+# split scratch), B, H, KVH, Sq, Sk, D, the twelve strides, causal, window,
+# softcap, sm_scale, device, stream
+_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p])
+F32_ARGTYPES = [ctypes.c_void_p] * 6 + _TAIL
+BF16_ARGTYPES = [ctypes.c_void_p] * 5 + _TAIL
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                   softcap: float = 0.0):
+                   softcap: float = 0.0, split: Optional[torch.Tensor] = None):
     """Launch the Hopper forward kernel of q's dtype: (out [B,Sq,H,D],
-    lse [B,H,Sq])."""
+    lse [B,H,Sq]).  On f32 inputs ``split`` is the split pass's scratch
+    (``split_buffer``; allocated here when None): after the call it holds
+    what ``flash_split_plain(k, v)`` computes.  Needs at least one key."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_fwd_cuda needs CUDA tensors")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _ENTRY):
@@ -190,18 +270,27 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
         return out, lse
-    if bf16 and sk == 0:
-        raise ValueError("flash_fwd_cuda on bf16 needs at least one key")
+    if sk == 0:
+        raise ValueError("flash_fwd_cuda needs at least one key")
     lib_name, name = _ENTRY[q.dtype]
     fn = getattr(build.library(lib_name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    strides = _tma_strides if bf16 else (lambda x: x.stride()[:3])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b, h, kvh, sq, sk, d,
+    if bf16:
+        fn.argtypes = BF16_ARGTYPES
+        ptrs = (q, k, v, out, lse)
+        strides = _tma_strides
+    else:
+        fn.argtypes = F32_ARGTYPES
+        if split is None:
+            split = split_buffer(b, kvh, sk, d, q.device)
+        elif (tuple(split.shape) != split_shape(b, kvh, sk, d)
+              or split.dtype != torch.float32 or not split.is_contiguous()
+              or split.device != q.device):
+            raise ValueError(f"split scratch must be a contiguous f32 "
+                             f"tensor of shape {split_shape(b, kvh, sk, d)}")
+        ptrs = (q, k, v, out, lse, split)
+        strides = lambda x: x.stride()[:3]
+    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, d,
              *strides(q), *strides(k), *strides(v),
              *out.stride()[:3], int(causal), int(window), float(softcap),
              1.0 / math.sqrt(d), q.device.index,

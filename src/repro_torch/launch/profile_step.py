@@ -37,7 +37,8 @@ from repro_torch.train.bucketing import build_bucket_layout
 from repro_torch.train.runtime import DeftRuntime
 
 _CATEGORIES = (
-    ("flash_fwd (this port)", ("flash_fwd_kernel",)),
+    ("flash_fwd f32, split-TF32 tensor cores (this port)",
+     ("flash_fwd_tf32_kernel", "flash_split_kernel")),
     ("flash_fwd bf16, tensor cores (this port)", ("flash_fwd_sm90_kernel",)),
     ("bucket_update (this port)", ("bucket_update_kernel",)),
     ("int8 quantize / dequantize (this port)", ("quant_int8_kernel",)),

@@ -7,8 +7,9 @@ with only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: flash attention 1e-4 absolute and relative on out, lse and
-the autograd gradients (f32 with another summation order than cuBLAS's
-matmuls in the plain version); on bf16 inputs lse keeps 1e-4, out (bf16)
+the autograd gradients (f32 inputs: split-TF32 products, about 2^-22
+relative, summed in another order than the plain version's matmuls), its
+f32 split pass bitwise (rounding and data movement only); on bf16 inputs lse keeps 1e-4, out (bf16)
 rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
 atol max|g| / 128 (the plain backward reads the kernel's rounded output);
 the bucket update, the three quantize kernels and the two RG-LRU scan
@@ -32,7 +33,11 @@ from repro_torch.kernels.flash_attention import (
     flash_fwd_cuda,
     flash_fwd_plain,
 )
-from repro_torch.kernels.flash_attention.ops import _tma_aligned
+from repro_torch.kernels.flash_attention.ops import (
+    _tma_aligned,
+    flash_split_plain,
+    split_buffer,
+)
 from repro_torch.kernels.quantize import (
     dequantize_int8_cuda,
     dequantize_int8_plain,
@@ -130,6 +135,30 @@ def test_bucket_kernel_bitwise(spec, elem):
     assert torch.equal(p, want[0]) and torch.equal(m, want[1])
     assert (not adam) or torch.equal(v, want[2])
     assert not g.any()
+
+
+# the f32 kernel's split pass writes K and V as TF32 hi + lo, in its stages'
+# layout, bit for bit what the plain version computes
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,kvh,s", [(32, 2, 128), (64, 4, 100), (128, 2, 200),
+                                     (256, 4, 333), (256, 1, 64), (256, 1, 1)])
+def test_flash_split_pass_bitwise(d, kvh, s):
+    _need_card()
+    q, k, v = _qkv(7, 2, s, 2 * kvh, kvh, d)
+    split = split_buffer(2, kvh, s, d, "cuda")
+    flash_fwd_cuda(q, k, v, causal=True, split=split)
+    want = flash_split_plain(k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(split.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_needs_a_key(dtype):
+    _need_card()
+    q, k, v = (x.to(dtype) for x in _qkv(9, 1, 16, 2, 1, 64))
+    with pytest.raises(ValueError, match="at least one key"):
+        flash_fwd_cuda(q, k[:, :0], v[:, :0])
 
 
 # bf16 goes to the tensor-core kernel (flash_fwd_sm90.cu): key blocks of 64
