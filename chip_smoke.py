@@ -31,12 +31,15 @@
    (1, 1, 4096) with and without h0 and an h_final cotangent, and at the
    recurrent path's [1, 8192, 4096]; the RWKV-6 WKV forward and backward
    kernels within max |diff| / max |plain| <= 1e-4 on
-   o, S_final and every gradient, and the forward's S_final and chunk-start
-   states bitwise, at (B, S, H, D) (2, 64, 2, 32), (1, 96, 4, 64), (3, 40,
-   2, 64), (1, 32, 1, 64), (1, 1000, 3, 64), (1, 5, 2, 64), (1, 1, 2, 64)
-   and (3, 70, 5, 32) with and without s0 and a dS_final cotangent, and at
-   the RWKV path's [1, 8192, 32, 64] (where the forward's own traffic is
-   printed beside its bound's).  Times
+   o, S_final and every gradient, the forward's S_final and chunk-start
+   states and the backward's ds0 bitwise, at (B, S, H, D) (2, 64, 2, 32),
+   (1, 96, 4, 64), (3, 40, 2, 64), (1, 32, 1, 64), (1, 1000, 3, 64), (1,
+   5, 2, 64), (1, 1, 2, 64), (3, 70, 5, 32) and, for 1, 7, 8, 9 and 33
+   chunks around the scans' 8-chunk look-ahead, (1, 32, 2, 64), (1, 224,
+   2, 64), (1, 256, 2, 32), (1, 280, 2, 64), (2, 1056, 2, 64), with and
+   without s0 and a dS_final cotangent, and at the RWKV path's [1, 8192,
+   32, 64] (where each direction's own traffic is printed beside its
+   bound's, and each launch of the two C calls is timed).  Times
    each kernel, its plain version and a PyTorch library call that
    computes the same function and that the port never calls (compiled
    ``flex_attention`` with the softcap as ``score_mod`` and the causal /
@@ -101,6 +104,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -947,8 +951,8 @@ def rwkv6_phase(torch, report):
     def compare(r, k, v, w, u, s0, do, dsf, what):
         """Both kernels against the chunked plain pair: the largest
         max |diff| / max |plain| over o, S_final and every gradient; the
-        chunk-start states and S_final bitwise (the state update sums
-        ke^T v over t in order, as the plain product does)."""
+        chunk-start states, S_final and ds0 bitwise (the state updates sum
+        ke^T v and rd^T do over t in order, as the plain products do)."""
         o, sf, states = rwkv6_fwd_cuda(r, k, v, w, u, s0, save_states=True)
         ro, rsf, rstates = _chunked_forward(r, k, v, w, u, s0)
         torch.cuda.synchronize()
@@ -960,6 +964,9 @@ def rwkv6_phase(torch, report):
         want = [ro, rsf] + list(rwkv6_bwd_plain(r, k, v, w, u, s0, do, dsf,
                                                 states=rstates))
         torch.cuda.synchronize()
+        check(s0 is None or torch.equal(got[-1], want[-1]),
+              f"rwkv6 backward: ds0 not bitwise equal to the plain pair's at "
+              f"{what}")
         errs, abs_err = {}, {}
         for name, x, y in zip(names, got, want):
             check((x is None) == (y is None), f"rwkv6 {name} at {what}")
@@ -976,7 +983,9 @@ def rwkv6_phase(torch, report):
     n_cases, max_err = 0, 0.0
     for shape in ((2, 64, 2, 32), (1, 96, 4, 64), (3, 40, 2, 64),
                   (1, 32, 1, 64), (1, 1000, 3, 64), (1, 5, 2, 64),
-                  (1, 1, 2, 64), (3, 70, 5, 32)):
+                  (1, 1, 2, 64), (3, 70, 5, 32), (1, 32, 2, 64),
+                  (1, 224, 2, 64), (1, 256, 2, 32), (1, 280, 2, 64),
+                  (2, 1056, 2, 64)):
         r, k, v, w, u, s0, do, dsf = inputs(*shape)
         for use_s0 in (False, True):
             for use_dsf in (False, True):
@@ -987,8 +996,8 @@ def rwkv6_phase(torch, report):
                 max_err = max(max_err, err)
                 n_cases += 1
     print(f"rwkv6 kernels: {n_cases} small cases within {RWKV_TOL} of the "
-          f"plain pair (max |diff| / max |plain| {max_err:.3g}), states and "
-          f"S_final bitwise")
+          f"plain pair (max |diff| / max |plain| {max_err:.3g}), states, "
+          f"S_final and ds0 bitwise")
 
     # the path's shape: one time-mix layer of rwkv6-1.6b at batch 1,
     # sequence 8192; the path passes no s0 and no dS_final
@@ -1008,10 +1017,19 @@ def rwkv6_phase(torch, report):
     # what the forward's three passes move: pass 1 reads k, v, w and writes
     # every chunk's dS and e^{lw_end}; the scan reads and rewrites the
     # states, reads e^{lw_end} and writes S_final; pass 3 reads r, k, v, w
-    # and the states and writes o.  The bound counts each byte once.
+    # and the states and writes o.  The backward's four: pass 1 reads r, w,
+    # do and writes every chunk's rd^T do and e^{lw_end}; the scan reads and
+    # rewrites those products and reads e^{lw_end}; pass 3 reads r, k, v,
+    # w, do, the states and the cotangents and writes dr, dk, dv, dw and
+    # du's partials; pass 4 reads the partials and writes du.  The bound
+    # counts each byte once.
     ew_bytes = 4.0 * b * h * nc * d
-    fwd_design_bytes = (32.0 * n + 4 * state_bytes + 2 * ew_bytes
-                        + 4.0 * b * h * d * d)
+    design_bytes = {
+        "rwkv6_fwd": (32.0 * n + 4 * state_bytes + 2 * ew_bytes
+                      + 4.0 * b * h * d * d),
+        "rwkv6_bwd": (48.0 * n + 5 * state_bytes + 4 * ew_bytes
+                      + 4.0 * h * d)}
+    passes = {"rwkv6_fwd": "three", "rwkv6_bwd": "four"}
     # flops a (b, h, chunk): forward A, A v, rd S, ke^T v; backward rd^T do,
     # A again, A^T do, ke dS, do v^T, dA kd, do S^T, dA^T rd, v dS^T
     tt, dd = 2.0 * CHUNK * CHUNK * d, 2.0 * CHUNK * d * d
@@ -1029,10 +1047,13 @@ def rwkv6_phase(torch, report):
             36.0 * n + state_bytes + 4.0 * h * d,
             (5 * tt + 4 * dd) * b * h * nc),
     }
-    note = {"rwkv6_fwd": "the chunked WKV forward of rwkv6_pallas",
+    note = {"rwkv6_fwd": "the chunked WKV forward of rwkv6_pallas: state "
+                         "contributions, elementwise state scan, outputs",
             "rwkv6_bwd": "the WKV backward: the TPU kernel has none (JAX "
                          "differentiates rwkv6/ops.py::_chunked_jnp), so "
-                         "this kernel is the port's own"}
+                         "this kernel is the port's own: rd^T do "
+                         "contributions, elementwise reverse scan, "
+                         "gradients at two CTAs an SM, du's sum"}
     fwd_outs = ("o", "S_final")
     abs_by = {"rwkv6_fwd": max(path_abs[n] for n in fwd_outs),
               "rwkv6_bwd": max(v for n, v in path_abs.items()
@@ -1057,15 +1078,19 @@ def rwkv6_phase(torch, report):
                                      bound_bytes_ms=bound_b,
                                      bound_ops_ms=bound_o, bytes=nbytes,
                                      flops=flops)
-        if name == "rwkv6_fwd":
-            gbs = fwd_design_bytes / ms / 1e6
-            print(f"{name}: its three passes move {fwd_design_bytes / 1e9:.3f} "
-                  f"GB ({fwd_design_bytes / nbytes:.2f}x the bound's "
-                  f"{nbytes / 1e9:.3f} GB), {gbs:.0f} GB/s of that traffic, "
-                  f"{fwd_design_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
-                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
-            report["rwkv6"][name].update(design_bytes=fwd_design_bytes,
-                                         design_gb_s=gbs)
+        own = design_bytes[name]
+        gbs = own / ms / 1e6
+        print(f"{name}: its {passes[name]} passes move {own / 1e9:.3f} GB "
+              f"({own / nbytes:.2f}x the bound's {nbytes / 1e9:.3f} GB), "
+              f"{gbs:.0f} GB/s of that traffic, "
+              f"{own / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        per_launch = {re.search(r"rwkv6_\w+", k).group(0): v for k, v in
+                      kernel_ms(torch, kern, 10, name).items()}
+        print(f"{name} per launch: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in per_launch.items()))
+        report["rwkv6"][name].update(design_bytes=own, design_gb_s=gbs,
+                                     per_launch_ms=per_launch)
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
@@ -1077,6 +1102,7 @@ def rwkv6_phase(torch, report):
             "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes this chunked "
                             "recurrence",
+            "per_launch_ms": per_launch,
             "shape": f"r, k, v, w [B, S, H, D] = {list(shape)} f32, no s0 "
                      f"(one time-mix layer of rwkv6-1.6b)",
         })

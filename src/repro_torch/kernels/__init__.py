@@ -18,13 +18,16 @@ Every TPU kernel of the JAX package (each function that reaches
 | rglru/kernel.py::rglru_scan_pallas (:49)                  | linear recurrence h_t = a_t h_{t-1} + b_t  | rglru/csrc/rglru_scan.cu (CUDA), |
 |                                                           |                                            | forward and reverse-scan backward |
 | rwkv6/kernel.py::rwkv6_pallas (:85)                       | chunked (T = 32) RWKV-6 WKV with a [D, D]  | rwkv6/csrc/rwkv6.cu (CUDA), |
-|                                                           | state per head, D 32 or 64                 | forward and chunked backward |
+|                                                           | state per head, D 32 or 64                 | forward and backward, each |
+|                                                           |                                            | chunk-parallel passes around |
+|                                                           |                                            | an elementwise chunk scan |
 
 The flash-attention backward is plain PyTorch (a port of the JAX
 package's ``flash.py`` recompute backward; the TPU kernel has none).  The
 RG-LRU scan's and the RWKV-6 WKV's backwards are kernels of the port's own
 (the TPU kernels have none either): the scan run in reverse, and the WKV's
-reverse state-cotangent scan followed by one pass per chunk.
+per-chunk rdᵀ·do contributions, an elementwise reverse scan of the state
+cotangent, one gradient pass per chunk and du's sum.
 
 On the CPU each wrapper runs its plain version (``PYTHONPATH=src python -m
 pytest -q tests/test_torch_rwkv6.py`` holds the WKV's against the JAX

@@ -18,13 +18,17 @@ o ``[B, S, H, D]`` and S_final ``[B, H, D, D]``, in f32 from the dispatcher
   the state is computed for all chunks at once; only the state update runs
   in the loop over chunks.
 * ``rwkv6_bwd_plain`` is the chunked reverse pass (the TPU kernel has no
-  VJP; the JAX package differentiates ``_chunked_jnp``): the state
-  cotangent dS is carried from the last chunk to the first,
-  ``dS_in = rdᵀ do + e^{lw_end}∘dS_out``, and every chunk's gradients
-  follow from its own inputs, its chunk-start state and its dS_out.
+  VJP; the JAX package differentiates ``_chunked_jnp``): every chunk's
+  ``rdᵀ do`` at once, then the state cotangent dS carried from the last
+  chunk to the first, ``dS_in = rdᵀ do + e^{lw_end}∘dS_out``, and every
+  chunk's gradients from its own inputs, its chunk-start state and its
+  dS_out.
 * ``rwkv6_fwd_cuda`` / ``rwkv6_bwd_cuda`` launch the Hopper kernels of
   ``csrc/rwkv6.cu``, which do the same operations in the same order (the
-  forward replaces the Pallas ``rwkv6_pallas``).
+  forward replaces the Pallas ``rwkv6_pallas``).  Each direction is one C
+  call: chunk-parallel state contributions, an elementwise scan over the
+  chunks (forward from the first, backward from the last), then the
+  chunk-parallel outputs or gradients (and, backward, du's sum).
 * ``rwkv6_mix`` is the dispatcher: the kernels for CUDA tensors; on CPU
   tensors the token loop up to S = 128 and the chunked pair beyond, as the
   JAX dispatcher picks off the TPU; ``impl="plain"`` (or ``"chunked"``)
@@ -133,8 +137,8 @@ def rwkv6_bwd_plain(r, k, v, w, u, s0, do, ds_final=None, states=None):
     """Chunked reverse pass: (dr, dk, dv, dw, du, ds0), ds0 None without s0.
 
     ``states`` are the forward's chunk-start states (recomputed when not
-    given).  dS runs from the last chunk to the first; then, for every
-    chunk at once:
+    given).  Every chunk's ``rdᵀ do`` at once, then dS runs from the last
+    chunk to the first; then, for every chunk at once:
     ``dv = Aᵀ do + k_end dS_out``; ``dA = tril_strict(do vᵀ)`` and the
     diagonal's ``do_t·v_t`` (through ``r∘u∘k`` into dr, dk and du);
     ``drd = dA kd + do S_inᵀ``, ``dkd = dAᵀ rd``, ``dk_end = v dS_outᵀ``;
@@ -147,11 +151,11 @@ def rwkv6_bwd_plain(r, k, v, w, u, s0, do, ds_final=None, states=None):
     dout = _to_chunks(do, (-s) % CHUNK, 0.0)
     nc = dout.shape[2]
     ds = _init(r, ds_final)
+    contrib = c.rd.transpose(-1, -2) @ dout                    # [B,H,NC,D,D]
     dstates = torch.empty_like(states)
     for i in range(nc - 1, -1, -1):
         dstates[:, :, i] = ds
-        ds = (c.rd[:, :, i].transpose(-1, -2) @ dout[:, :, i]
-              + c.ew[:, :, i, :, None] * ds)
+        ds = contrib[:, :, i] + c.ew[:, :, i, :, None] * ds
     dv = c.a.transpose(-1, -2) @ dout + c.ke @ dstates
     da_full = dout @ c.v.transpose(-1, -2)
     ddiag = torch.diagonal(da_full, dim1=-2, dim2=-1)          # [B,H,NC,T]
@@ -208,7 +212,7 @@ def _check_inputs(r, k, v, w, u, s0):
 # device index and the stream
 FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4
                 + [ctypes.c_int, ctypes.c_void_p])
-BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] * 4
+BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_longlong] * 4
                 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -252,9 +256,10 @@ rwkv6_fwd_cuda.launches = 0
 
 def rwkv6_bwd_cuda(r, k, v, w, u, states, do, ds_final=None, *,
                    need_ds0: bool = False):
-    """Launch the Hopper backward kernels: (dr, dk, dv, dw, du, ds0); ds0
-    only with ``need_ds0``.  ``states`` are the forward's chunk-start
-    states (``rwkv6_fwd_cuda(..., save_states=True)``)."""
+    """Launch the Hopper backward kernels (chunk contributions, reverse
+    scan, gradients, du's sum: one C call, one count): (dr, dk, dv, dw, du,
+    ds0); ds0 only with ``need_ds0``.  ``states`` are the forward's
+    chunk-start states (``rwkv6_fwd_cuda(..., save_states=True)``)."""
     b, s, h, d = _check_inputs(r, k, v, w, u, None)
     nc = _n_chunks(s)
     _check(states, (b, h, nc, d, d), "states")
@@ -268,8 +273,10 @@ def rwkv6_bwd_cuda(r, k, v, w, u, states, do, ds_final=None, *,
            if need_ds0 else None)
     if b * h == 0:
         return (*grads, du.zero_(), ds0)
-    # scratch: every chunk's state cotangent dS_out and du's partial sums
+    # scratch: every chunk's rdᵀ do, then its state cotangent dS_out;
+    # e^{lw_end} of every chunk; du's partial sums
     dstates = torch.empty_like(states)
+    ew = torch.empty((b, h, nc, d), dtype=torch.float32, device=dev)
     du_part = torch.empty((b, h, nc, d), dtype=torch.float32, device=dev)
     fn = build.library("rwkv6").rwkv6_bwd_f32
     fn.restype = ctypes.c_int
@@ -277,8 +284,8 @@ def rwkv6_bwd_cuda(r, k, v, w, u, states, do, ds_final=None, *,
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), states.data_ptr(), do.data_ptr(), _ptr(ds_final),
              *(g.data_ptr() for g in grads), du.data_ptr(), _ptr(ds0),
-             dstates.data_ptr(), du_part.data_ptr(), b, s, h, d,
-             dev.index, _stream(r))
+             dstates.data_ptr(), ew.data_ptr(), du_part.data_ptr(), b, s,
+             h, d, dev.index, _stream(r))
     build.check(err, "rwkv6_bwd_f32")
     rwkv6_bwd_cuda.launches += 1
     return (*grads, du, ds0)

@@ -48,9 +48,10 @@ _CATEGORIES = (
     ("RWKV-6 WKV forward (this port)", ("rwkv6_fwd_state_kernel",
                                         "rwkv6_fwd_scan_kernel",
                                         "rwkv6_fwd_out_kernel")),
-    ("RWKV-6 WKV backward (this port)", ("rwkv6_bwd_scan_kernel",
+    ("RWKV-6 WKV backward (this port)", ("rwkv6_bwd_state_kernel",
+                                         "rwkv6_bwd_scan_kernel",
                                          "rwkv6_bwd_chunk_kernel",
-                                         "rwkv6_du_kernel")),
+                                         "rwkv6_bwd_du_kernel")),
     ("matrix products", ("gemm", "Gemm", "cutlass", "cublas", "xmma", "sm90",
                          "nvjet")),
     ("collectives", ("nccl",)),

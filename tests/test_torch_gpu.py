@@ -17,7 +17,7 @@ kernels bitwise (each rounds every operation separately, as the plain
 version's elementwise kernels do, and the hash is integer arithmetic); the
 RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o and
 every gradient (f32 on both sides, another summation order inside the small
-products), S_final and the chunk-start states bitwise.
+products), S_final, the chunk-start states and ds0 bitwise.
 """
 import numpy as np
 import pytest
@@ -296,7 +296,12 @@ def _rel(x, y):
 @pytest.mark.parametrize("b,s,h,d", [(2, 64, 2, 32), (1, 96, 4, 64),
                                      (3, 40, 2, 64), (1, 32, 1, 64),
                                      (1, 1000, 3, 64), (1, 5, 2, 64),
-                                     (1, 1, 2, 64), (3, 70, 5, 32)])
+                                     (1, 1, 2, 64), (3, 70, 5, 32),
+                                     # 1, 7, 8, 9 and 33 chunks: at and
+                                     # around the scans' 8-chunk look-ahead
+                                     (1, 32, 2, 64), (1, 224, 2, 64),
+                                     (1, 256, 2, 32), (1, 280, 2, 64),
+                                     (2, 1056, 2, 64)])
 def test_rwkv6_kernels_match_plain(b, s, h, d, with_s0, with_dsf):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(b * 1000 + s + h + d)
@@ -320,6 +325,9 @@ def test_rwkv6_kernels_match_plain(b, s, h, d, with_s0, with_dsf):
     assert (got[5] is None) == (want[5] is None) == (not with_s0)
     for x, y in zip(got, want):
         assert x is None or _rel(x, y) <= TOL
+    # ds0: dS summed over the chunks as the plain loop sums it, from the
+    # same rd^T do products
+    assert not with_s0 or torch.equal(got[5], want[5])
     # the autograd Function launches both kernels and matches the plain one
     grads = []
     for impl in ("cuda", "plain"):

@@ -20,6 +20,9 @@ one of five chunks.  Tolerances, the JAX package's own 1e-4:
 * the plain backward against torch autograd through the plain forward, and
   ``torch.autograd.gradcheck`` in float64.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,3 +197,27 @@ def test_wrapper_argtypes_match_c_signature(entry, argtypes):
     text = (build._PKG / src).read_text()
     params = build.c_params(text, entry)
     assert [t for t, _ in params] == list(argtypes), [n for _, n in params]
+
+
+_stages_spec = importlib.util.spec_from_file_location(
+    "rwkv6_stages",
+    Path(__file__).resolve().parents[1] / "scripts/rwkv6_stages.py")
+rwkv6_stages = importlib.util.module_from_spec(_stages_spec)
+_stages_spec.loader.exec_module(rwkv6_stages)
+
+
+@pytest.mark.parametrize("stage", ["decays", "A", "grads"])
+def test_bwd_stage_cuts_apply_to_the_shipped_source(stage):
+    """Each stage of the gradient pass that ``scripts/rwkv6_stages.py
+    --bwd`` cuts is marked in the shipped ``rwkv6.cu`` and closed by a
+    barrier: the cut removes lines of ``rwkv6_bwd_chunk_kernel`` only and
+    keeps every barrier."""
+    _, kernel, stages, _ = rwkv6_stages.DIRECTIONS["bwd"]
+    shipped = rwkv6_stages.SHIPPED.read_text()
+    cut = rwkv6_stages.cut_stages(shipped, kernel, stages, [stage])
+    start = shipped.index(f"{kernel}(")
+    end = shipped.index("\n}\n", start)
+    assert cut != shipped
+    assert cut[:start] == shipped[:start]
+    assert cut.endswith(shipped[end:])
+    assert cut.count("__syncthreads();") == shipped.count("__syncthreads();")
