@@ -48,7 +48,15 @@
    32 as it leaves the gradients unzeroed, so both bytes bounds are
    printed; ``torch.mul`` of the int8 rows by their scales
    for dequantize; none for quantize, stochastic rounding, the scan and
-   the WKV), beside the least time the card could take.
+   the WKV), beside the least time the card could take.  Then the bucket
+   update on the spans of the sharded flat engine: the main path's layout
+   rebuilt at 4 shards, its largest bucket (589,824,000 elements) and its
+   bucket with per-element hyperparameters updated span by span through
+   ``apply_bucket_updates(shard_id=s)`` with NaN/inf in the last span's
+   padded gradient tail, reassembled bitwise to the full-buffer kernel
+   apply with clipping off and within 1e-6 with it on (the norm summed on
+   the host from the spans' sums), and bf16sr spans bitwise against the
+   plain version.
 3. Drives the DeFT main path through ``repro_torch.launch.train.train``:
    gemma2-2b at full width with its depth cut to 8 of 26 layers, batch 1,
    sequence 8192 (the 4096 window really masks), coverage rate 1.8.  The
@@ -59,6 +67,13 @@
    say (flash twice per attention layer per step: forward and remat
    recompute; the bucket update once per bucket per update), issue
    exactly ``phase_collectives`` per phase, and keep the loss finite.
+   Then the same configuration on the sharded flat engine (``fsdp=True``,
+   one shard on the one card, the gather skip on: the period-3 schedule
+   reuses the gather at one position), held the same way to its own plain
+   run and to the replicated run (step-0 loss bitwise, params after the
+   first period within the same limits), with the same launches and
+   exactly ``phase_collectives_sharded`` per phase; its peak memory is
+   printed beside the replicated run's.
 4. Drives DeFT's precision path the same way, with int8 gradient wires on
    every bucket and a bf16sr resident master (forward and backward in
    bf16): its first steps once with every plain version forced, then the
@@ -70,7 +85,13 @@
    limits PERF.md gives with their readings.  At coverage rate 1.8 the
    int8 wire leaves a one-step period; a second run at 4 x 1.8, whose
    schedule merges and delays updates and rotates generations, is held
-   to the same checks over its first period.
+   to the same checks over its first period.  A third runs that delayed
+   configuration on the sharded flat engine with bf16 compute and the
+   gather skip on, held to the same limits against its plain run, where
+   every gathered bucket's int8 values and scales also go through the
+   quantize and dequantize kernels (quantize = dequantize = synced plus
+   gathered buckets) and the collectives equal
+   ``phase_collectives_sharded``.
 5. Drives recurrentgemma-9b (Griffin) the same way as 3: full width
    (d_model and lru_width 4096, MQA 16 heads over 1, head_dim 256, d_ff
    12288, window 2048), depth cut to 6 of 38 layers (two periods of
@@ -179,6 +200,11 @@ PREC_LOSS_RTOL = 2e-3
 PREC_PARAM_MAX_DIFF = 1e-2    # in every bucket
 PREC_PARAM_MAX_OVER = 1e-2    # share of all params beyond one bf16 ulp ...
 PREC_BUCKET_MAX_OVER = 0.1    # ... and of any one bucket's
+# the sharded flat engine: the bucket update on the spans of a layout of
+# SHARDS shards, held to the full-buffer apply within the JAX package's own
+# bound with clipping on (the squared norm sums in another order); the
+# sharded paths run at one shard on the one card
+SHARDS, SHARD_CLIP_TOL = 4, 1e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -533,6 +559,153 @@ def bucket_phase(torch, layout, report):
         "shape": f"AdamW over all {len(sizes)} buckets of the main path "
                  f"({n} f32 elements), zero_grads",
     }
+
+
+def sharded_update_phase(torch, meta, bucket_of, nb, report):
+    """The bucket update on the spans of the sharded flat engine: the main
+    path's layout rebuilt with SHARDS shards; its largest bucket and its
+    bucket with per-element hyperparameters updated once per span through
+    ``apply_bucket_updates(shard_id=s)`` (the norm summed on the host from
+    the four spans' sums) and reassembled, against one full-buffer apply:
+    bitwise with clipping off, within SHARD_CLIP_TOL with it on.  NaN/inf
+    ride the padded tail of the last span.  bf16sr spans are held bitwise
+    against the plain version (update and rounding)."""
+    from repro_torch.kernels.bucket_update import (
+        apply_bucket_updates,
+        bucket_update_cuda,
+        build_segments,
+    )
+    from repro_torch.kernels.quantize import stochastic_round_bf16_cuda
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.bucketing import build_bucket_layout
+    from repro_torch.tree import tree_leaves
+
+    full = build_bucket_layout(meta, bucket_of, nb, shard_count=SHARDS)
+    hp = dict(weight_decay=0.01, decay_mask="matrix", ndim1_lr_scale=0.5)
+    seg = build_segments(full, adamw(LR, **hp))
+    big = max(range(nb), key=lambda b: full.buf_sizes[b])
+    elem = next(b for b in range(nb) if seg.uniform(b) is None)
+    chosen = (big, elem)
+    leaves = tree_leaves(meta)
+    lay = build_bucket_layout(
+        tuple(leaves[i] for b in chosen for i in full.leaves[b]),
+        tuple(j for j, b in enumerate(chosen) for _ in full.leaves[b]), 2,
+        shard_count=SHARDS)
+    check(lay.buf_sizes == tuple(full.buf_sizes[b] for b in chosen)
+          and lay.sizes == tuple(full.sizes[b] for b in chosen)
+          and lay.sizes[1] < lay.buf_sizes[1],
+          f"the sharded update's buckets {chosen}: {lay.sizes} of "
+          f"{lay.buf_sizes}, the layout's {full.buf_sizes}")
+    spans = lay.shard_sizes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    tail = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30],
+                        device="cuda")
+    start = {}
+    for name, scale in (("p", 0.02), ("m", 1e-3), ("v", 1e-6), ("g", 1e-3)):
+        start[name] = []
+        for n, v in zip(lay.buf_sizes, lay.sizes):
+            x = torch.randn(n, device="cuda", generator=gen) * scale
+            x = x.abs() if name == "v" else x
+            x[v:] = 0.0
+            start[name].append(x)
+    # hostile values in the padded tail (the last span's) of the gradient
+    for b in range(2):
+        t = lay.buf_sizes[b] - lay.sizes[b]
+        start["g"][b][lay.sizes[b]:] = tail.repeat((t + 3) // 4)[:t]
+    step0 = torch.tensor(2, dtype=torch.int32, device="cuda")
+    gscale = 0.5
+
+    def state(master="f32"):
+        p = [x.clone() for x in start["p"]]
+        if master == "bf16sr":
+            p = [x.to(torch.bfloat16) for x in p]
+        return p, [x.clone() for x in start["g"]], {
+            "step": step0.clone(), "m": [x.clone() for x in start["m"]],
+            "v": [x.clone() for x in start["v"]]}
+
+    def span(bufs, s):
+        return [x[s * spans[b]:(s + 1) * spans[b]] for b, x in enumerate(bufs)]
+
+    masked = [g.clone() for g in start["g"]]
+    for b, g in enumerate(masked):
+        g[lay.sizes[b]:] = 0.0
+    # the norm the engine's all-reduce sums: each span's squared sum, on
+    # the host
+    total = sum(float(torch.sum(torch.square(g * gscale)))
+                for s in range(SHARDS) for g in span(masked, s))
+    total_t = torch.tensor(total, dtype=torch.float32, device="cuda")
+    del masked
+
+    def by_spans(spec, master="f32", impl=None):
+        p, g, opt = state(master)
+        launches = bucket_update_cuda.launches
+        for s in range(SHARDS):
+            o = {"step": opt["step"].clone(), "m": span(opt["m"], s),
+                 "v": span(opt["v"], s)}
+            apply_bucket_updates(
+                spec, build_segments(lay, spec), span(p, s), span(g, s), o,
+                grad_scale=gscale, impl=impl, shard_id=s,
+                norm_psum=(lambda t: total_t) if spec.grad_clip else None,
+                master_dtype=master,
+                quantize_impl="plain" if impl == "plain" else None)
+        check(bucket_update_cuda.launches - launches
+              == (0 if impl == "plain" else 2 * SHARDS),
+              f"sharded update launches: {bucket_update_cuda.launches - launches}")
+        torch.cuda.synchronize()
+        return p, opt
+
+    out = {}
+    for clip in (0.0, 1.0):
+        spec = adamw(LR, grad_clip=clip, **hp)
+        p_full, g_full, opt_full = state()
+        apply_bucket_updates(spec, build_segments(lay, spec), p_full, g_full,
+                             opt_full, grad_scale=gscale)
+        p_sh, opt_sh = by_spans(spec)
+        err = 0.0
+        for b in range(2):
+            for got, want in ((p_sh[b], p_full[b]), (opt_sh["m"][b],
+                                                     opt_full["m"][b]),
+                              (opt_sh["v"][b], opt_full["v"][b])):
+                check(bool(torch.isfinite(got).all()),
+                      f"sharded update (clip {clip}): a non-finite value in "
+                      f"bucket {chosen[b]}")
+                d = (got - want).abs()
+                err = max(err, d.max().item())
+                if clip:
+                    ok = bool((d <= SHARD_CLIP_TOL
+                               + SHARD_CLIP_TOL * want.abs()).all())
+                else:
+                    ok = torch.equal(got, want)
+                check(ok, f"sharded update (clip {clip}) vs the full-buffer "
+                          f"apply on bucket {chosen[b]}: max err {d.max():.3g}")
+        out[f"clip{clip:g}_max_abs_err"] = err
+        del p_full, g_full, opt_full, p_sh, opt_sh
+        torch.cuda.empty_cache()
+    spec = adamw(LR, **hp)
+    sr = stochastic_round_bf16_cuda.launches
+    p_k, opt_k = by_spans(spec, "bf16sr")
+    check(stochastic_round_bf16_cuda.launches - sr == 2 * SHARDS,
+          "bf16sr spans did not launch the stochastic-rounding kernel")
+    p_pl, opt_pl = by_spans(spec, "bf16sr", impl="plain")
+    for b in range(2):
+        check(torch.equal(p_k[b].view(torch.int16), p_pl[b].view(torch.int16))
+              and torch.equal(opt_k["m"][b], opt_pl["m"][b])
+              and torch.equal(opt_k["v"][b], opt_pl["v"][b]),
+              f"bf16sr spans not bitwise the plain version on bucket "
+              f"{chosen[b]}")
+    del p_k, opt_k, p_pl, opt_pl, start
+    torch.cuda.empty_cache()
+    report["sharded_update"] = dict(
+        shards=SHARDS, buckets=list(chosen), sizes=list(lay.sizes),
+        buf_sizes=list(lay.buf_sizes), span=list(spans), **out)
+    print(f"sharded update: {SHARDS} spans of buckets {chosen} "
+          f"({lay.sizes[0]:,} elements; {lay.sizes[1]:,} of "
+          f"{lay.buf_sizes[1]:,} with per-element hyperparameters and NaN/inf "
+          f"in the last span's tail) reassemble to the full-buffer apply "
+          f"bitwise with clipping off, within {SHARD_CLIP_TOL} with it on "
+          f"(max err {out['clip1_max_abs_err']:.3g}); bf16sr spans bitwise "
+          f"equal to the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -1213,15 +1386,38 @@ def leaf_params(cfg) -> int:
     return sum(x.numel() for x in tree_leaves(init_params(cfg, device="meta")))
 
 
+def sharded_collectives(schedule, layout, steps):
+    """What ``phase_collectives_sharded`` says each of ``steps`` steps of
+    the sharded engine with the gather skip on issues: a position reuses
+    its gather when it is not the first and the one before did not update;
+    AdamW's grad clipping is on."""
+    from repro_torch.train.runtime import phase_collectives_sharded
+
+    period = schedule.period
+    reuse = [(t > 0 and not schedule.phases[t - 1].do_update,) * layout.n_buckets
+             for t in range(period)]
+    check(any(any(r) for r in reuse), "the sharded path's schedule has no "
+                                      "position that reuses a gather")
+    return [phase_collectives_sharded(schedule.phases[i % period], layout,
+                                      reuse[i % period], True)
+            for i in range(steps)]
+
+
 def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
-              bucket_share=None):
+              bucket_share=None, fsdp=False, keep=None):
     """One f32 DeFT path: the first schedule period once with every plain
     version forced, then ``steps`` steps with every launch counter set to 0
     just before and read just after, held to the plain run.
 
     ``bucket_share`` replaces the element-count limit on the params by a
     share of each bucket's elements beyond 10 * PARAM_TOL, with every
-    param within RWKV_PARAM_MAX_DIFF (the rwkv path: see its limits)."""
+    param within RWKV_PARAM_MAX_DIFF (the rwkv path: see its limits).
+
+    ``fsdp`` runs the sharded flat engine (one shard on the one card) with
+    the gather skip on, and holds it also against the replicated run whose
+    step-0 loss and params after the first period ``keep`` holds: the loss
+    bitwise, the params to the same limits as against the plain run.
+    Without ``fsdp``, a given ``keep`` receives them."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     from repro_torch.kernels.quantize import (
@@ -1240,6 +1436,8 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     kw = dict(scheduler="deft", batch=BATCH, seq=SEQ,
               coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK)
+    if fsdp:
+        kw.update(fsdp=True)
 
     # reference: the first period with the plain versions forced
     ref = train(cfg, steps=period, attn_impl="plain", scan_impl="plain",
@@ -1251,10 +1449,26 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     torch.cuda.empty_cache()
 
     agree = {}
+    against_rep = {}
 
     def on_step(step, runtime, state, metrics):
         if step != period - 1:
             return
+        if keep is not None and not fsdp:
+            keep["params"] = [b.to("cpu", copy=True) for b in state["pbuf"]]
+        if fsdp:
+            check(runtime.stats()["sharded_state"]
+                  and runtime.stats()["gather_skip"]
+                  and [b.numel() for b in state["pbuf"]]
+                  == list(runtime.layout.shard_sizes),
+                  f"{key} is not the sharded engine with the gather skip")
+            rep = [(buf - want.cuda()).abs()
+                   for buf, want in zip(state["pbuf"], keep["params"])]
+            against_rep.update(
+                max_param_diff=max(d.max().item() for d in rep),
+                n_params_over_tol=sum(int((d > PARAM_TOL).sum().item())
+                                      for d in rep))
+            del rep
         per_bucket = []
         for buf, want in zip(state["pbuf"], ref_params):
             d = (buf - want.cuda()).abs()
@@ -1289,9 +1503,25 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     want = expected_launches(cfg, schedule, res["layout"], steps)
     check(launches == want, f"{key} launches {launches}, expected {want}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    for i, got in enumerate(res["collectives"]):
-        want = phase_collectives(schedule.phases[i % period])
+    if fsdp:
+        wants = sharded_collectives(schedule, res["layout"], steps)
+    else:
+        wants = [phase_collectives(schedule.phases[i % period])
+                 for i in range(steps)]
+    for i, (got, want) in enumerate(zip(res["collectives"], wants)):
         check(got == want, f"step {i}: issued {got}, schedule says {want}")
+    if keep is not None and not fsdp:
+        keep["loss0"] = losses[0]
+    if fsdp:
+        check(losses[0] == keep["loss0"],
+              f"{key} step-0 loss {losses[0]!r} is not the replicated "
+              f"run's {keep['loss0']!r}")
+        check(against_rep["max_param_diff"] <= PARAM_MAX_DIFF
+              and against_rep["n_params_over_tol"] <= PARAM_MAX_OVER,
+              f"{key} params after the first period vs the replicated run: "
+              f"max |diff| {against_rep['max_param_diff']:.3g}, "
+              f"{against_rep['n_params_over_tol']} elements beyond "
+              f"{PARAM_TOL}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     check(rel <= 1e-4, f"{key} losses vs the plain run: rel diff {rel:.3g} "
                        f"({losses[:period]} vs {ref_losses})")
@@ -1329,6 +1559,12 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
         loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
         tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
         launches=launches, collectives=res["collectives"], **agree)
+    if fsdp:
+        out.update(
+            against_replicated=against_rep,
+            gathered_bytes=4 * sum(res["layout"].buf_sizes),
+            stats={k: v for k, v in res["runtime"].stats().items()
+                   if k != "phases"})
     report[key] = out
     print(f"{key} ({arch}, {cfg.n_layers} of {of_layers} layers): {steps} "
           f"steps, median step {step_s:.3f} s, "
@@ -1338,16 +1574,31 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
           f"{rel:.2g}, params max diff {agree['max_param_diff']:.3g} "
           f"({agree['n_params_over_tol']} of {agree['n_params']} over "
           f"{PARAM_TOL})")
+    if fsdp:
+        rep = report["main_path"]
+        print(f"  vs the replicated run: step-0 loss bitwise equal, params "
+              f"max diff {against_rep['max_param_diff']:.3g} "
+              f"({against_rep['n_params_over_tol']} over {PARAM_TOL}); "
+              f"replicated median step {rep['median_step_s']:.3f} s, "
+              f"{rep['tokens_per_s']:.0f} tok/s, peak "
+              f"{rep['peak_bytes'] / 2**30:.2f} GiB (the gathered f32 "
+              f"params add {out['gathered_bytes'] / 2**30:.2f} GiB)")
     del res
     torch.cuda.empty_cache()
     return launches
 
 
-def precision_path(torch, cfg, report, key, coverage_rate, delayed):
+def precision_path(torch, cfg, report, key, coverage_rate, delayed,
+                   fsdp=False):
     """DeFT's precision path at the main path's cut: int8 gradient wires
     on every bucket and a bf16sr resident master (so the forward and
     backward run in bf16 on the bf16 params).  ``delayed`` requires a
-    schedule that merges (update_k > 1) and rotates generations."""
+    schedule that merges (update_k > 1) and rotates generations.
+
+    ``fsdp`` runs it on the sharded flat engine (one shard) with the gather
+    skip on and bf16 compute (that engine reads params at the compute
+    dtype): each gathered bucket then runs int8 through the quantize and
+    dequantize kernels too, as its values and scales are all-gathered."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     from repro_torch.kernels.quantize import (
@@ -1366,6 +1617,8 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
               coverage_rate=coverage_rate, partition_elems=PARTITION_ELEMS,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK,
               wire_precision=WIRE, master_dtype=MASTER)
+    if fsdp:
+        kw.update(fsdp=True, compute_dtype="bf16")
     window = PREC_REF_STEPS
 
     # reference: the first steps with every kernel's plain version forced
@@ -1428,13 +1681,28 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
     check(window <= steps and (not delayed or window == period),
           f"the {key} comparison window {window} vs period {period}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    for i, got in enumerate(res["collectives"]):
-        want = phase_collectives(schedule.phases[i % period])
+    if fsdp:
+        wants = sharded_collectives(schedule, layout, steps)
+    else:
+        wants = [phase_collectives(schedule.phases[i % period])
+                 for i in range(steps)]
+    for i, (got, want) in enumerate(zip(res["collectives"], wants)):
         check(got == want, f"step {i}: issued {got}, schedule says {want}")
-    synced = sum(c["primary"] + c["secondary"] for c in res["collectives"])
+    if fsdp:
+        check(rt.stats()["sharded_state"] and rt.stats()["gather_skip"],
+              f"{key} is not the sharded engine with the gather skip")
+        synced = sum(c["reduce_scatter"] for c in res["collectives"])
+        # an int8 param gather is two all-gathers: values and scales
+        gathered = sum(c["param_gather"] for c in res["collectives"]) // 2
+    else:
+        synced = sum(c["primary"] + c["secondary"]
+                     for c in res["collectives"])
+        gathered = 0
     updates = sum(schedule.phases[i % period].do_update for i in range(steps))
-    check(launches["quantize_int8"] == launches["dequantize_int8"] == synced,
-          f"int8 wire launches {launches} != {synced} synced buckets")
+    check(launches["quantize_int8"] == launches["dequantize_int8"]
+          == synced + gathered,
+          f"int8 wire launches {launches} != {synced} synced + {gathered} "
+          f"gathered buckets")
     check(launches["stochastic_round_bf16"] == nb * (1 + updates),
           f"stochastic rounding launches {launches['stochastic_round_bf16']} "
           f"!= {nb} buckets x (init + {updates} updates)")
@@ -1480,7 +1748,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
         updates_per_period=schedule.updates_per_period,
         batch_size_sequence=list(schedule.batch_size_sequence),
         steps=steps, updates=updates, synced_buckets=synced,
-        losses=losses, ref_losses=ref_losses, ref_steps=window,
+        gathered_buckets=gathered, losses=losses, ref_losses=ref_losses, ref_steps=window,
         loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
         tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
         bf16_grad_scratch_bytes=gscratch, launches=launches,
@@ -1504,6 +1772,11 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed):
     print(f"  beside the f32 path: median step {f32['median_step_s']:.3f} s, "
           f"{f32['tokens_per_s']:.0f} tok/s, peak "
           f"{f32['peak_bytes'] / 2**30:.2f} GiB")
+    if fsdp:
+        rep = report["precision_path_delayed"]
+        print(f"  beside the replicated engine's delayed run: median step "
+              f"{rep['median_step_s']:.3f} s, {rep['tokens_per_s']:.0f} "
+              f"tok/s, peak {rep['peak_bytes'] / 2**30:.2f} GiB")
     del res, rt, state
     torch.cuda.empty_cache()
     return launches
@@ -1611,20 +1884,29 @@ def run() -> int:
           f"two periods ({rw_schedule.period})")
 
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
+    sharded_update_phase(torch, meta, bucket_of, nb, report)
     entries += quantize_phase(torch, layout, report)
     entries.append(flash_bf16_phase(torch, report))
     entries += rglru_phase(torch, report)
     entries += rwkv6_phase(torch, report)
     rwkv_grad_phase(torch, rw_cfg, report)
+    replicated = {}
     launches = {
         "f32": main_path(torch, cfg, schedule, report, "main_path", ARCH, 26,
-                         2 * schedule.period + 2),
+                         2 * schedule.period + 2, keep=replicated),
+        "f32 sharded": main_path(torch, cfg, schedule, report,
+                                 "sharded_path", ARCH, 26,
+                                 2 * schedule.period + 2, fsdp=True,
+                                 keep=replicated),
         f"{WIRE}+{MASTER}": precision_path(
             torch, cfg, report, "precision_path", COVERAGE_RATE,
             delayed=False),
         f"{WIRE}+{MASTER} delayed": precision_path(
             torch, cfg, report, "precision_path_delayed",
             DELAYED_COVERAGE_RATE, delayed=True),
+        f"{WIRE}+{MASTER} sharded": precision_path(
+            torch, cfg, report, "sharded_precision_path",
+            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True),
         f"{RG_ARCH} f32": main_path(torch, rg_cfg, rg_schedule, report,
                                     "recurrent_path", RG_ARCH, RG_OF_LAYERS,
                                     RG_STEPS),
@@ -1633,6 +1915,7 @@ def run() -> int:
                                       RWKV_STEPS,
                                       bucket_share=RWKV_BUCKET_SHARE),
     }
+    del replicated
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}
         e["launches"] = next((n for n in by_path.values() if n), 0)

@@ -14,11 +14,15 @@ whole-state optimizer step of the flat engine.
 * ``apply_bucket_updates`` — one (delayed) optimizer update over every
   bucket: global-norm clip (plain torch ops, as JAX keeps it outside
   Pallas), then one update per bucket, step counter advanced once.
-  Replicated engine only (one whole buffer per bucket on every rank).
+  With ``shard_id`` it runs on one rank's spans of the sharded flat
+  engine (port of the JAX package's sharded mode): every gradient span's
+  padded tail is zeroed first, the kernels run unmasked over whole spans
+  and the clip norm is summed across ranks by ``norm_psum``.
   With ``master_dtype="bf16sr"`` the param buffers are bf16 residents:
-  each bucket upcasts to f32 for the fused update and the result is
-  rounded back into the same bf16 buffer by the seeded stochastic-rounding
-  kernel (``kernels/quantize``), seed ``wire_seed(step, bucket)``.
+  each bucket (or span) upcasts to f32 for the fused update and the
+  result is rounded back into the same bf16 buffer by the seeded
+  stochastic-rounding kernel (``kernels/quantize``), seed
+  ``wire_seed(step, bucket)``, over the buffer's own indices.
 
 Scalars ride one f32 (1, 128) device row [grad_scale, clip, lr, bc1,
 bc2] (``pack_scalars``), so the clip factor computed on the device never
@@ -27,7 +31,7 @@ syncs to the host.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -202,6 +206,8 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
                          gbuf: Sequence[torch.Tensor], opt: Dict[str, Any], *,
                          grad_scale=1.0, lr_scale=1.0, zero_grads: bool = False,
                          impl: Optional[str] = None,
+                         shard_id: Optional[int] = None,
+                         norm_psum: Optional[Callable] = None,
                          master_dtype: Optional[str] = None,
                          quantize_impl: Optional[str] = None
                          ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Any],
@@ -213,18 +219,47 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
     span, then one fused update per bucket.  A bf16sr master (bf16
     ``pbuf``) is updated through a transient f32 copy of one bucket at a
     time and rounded back into its buffer; the moments stay f32.
-    ``quantize_impl`` picks the rounding's implementation.  Returns
-    (pbuf, opt, zeroed gbuf | None) — the same tensors, updated."""
+    ``quantize_impl`` picks the rounding's implementation.
+
+    **Sharded mode** (``shard_id`` given): every buffer is this rank's
+    span of its bucket (``layout.shard_sizes[b]`` elements from global
+    offset ``shard_id * span``).  The padded tail lies in the trailing
+    spans, so which elements are valid depends on the shard: each
+    gradient span's tail is zeroed in place (hostile values there cannot
+    reach the norm or the params), and the kernels run unmasked over the
+    whole span (``n_valid = span``; the p/m/v tails are zero by the
+    engine's invariant, and a zero gradient keeps them zero).  The squared
+    norm of the spans is summed across ranks by ``norm_psum``, which grad
+    clipping therefore requires.
+
+    Returns (pbuf, opt, zeroed gbuf | None) — the same tensors, updated."""
     layout = segments.layout
     adam = spec.name == "adamw"
     if master_dtype not in (None, "f32", "bf16sr"):
         raise ValueError(f"master_dtype={master_dtype!r}")
     bf16sr = master_dtype == "bf16sr"
+    sharded = shard_id is not None
+    if sharded and spec.grad_clip and norm_psum is None:
+        raise ValueError(
+            "sharded update with grad_clip needs norm_psum: each rank sees "
+            "1/N of the gradient, so a local norm would clip every shard "
+            "differently")
     dev = pbuf[0].device
+    if sharded:
+        spans = layout.shard_sizes
+        for b, g in enumerate(gbuf):
+            valid = min(max(layout.sizes[b] - shard_id * spans[b], 0), spans[b])
+            if valid < spans[b]:
+                g[valid:].zero_()
     if spec.grad_clip:
-        sq = [torch.sum(torch.square(g[: layout.sizes[b]] * grad_scale))
-              for b, g in enumerate(gbuf)]
-        clip = clip_factor(spec, torch.sqrt(torch.sum(torch.stack(sq))))
+        if sharded:
+            sq = [torch.sum(torch.square(g * grad_scale)) for g in gbuf]
+            gn = torch.sqrt(norm_psum(torch.sum(torch.stack(sq))))
+        else:
+            sq = [torch.sum(torch.square(g[: layout.sizes[b]] * grad_scale))
+                  for b, g in enumerate(gbuf)]
+            gn = torch.sqrt(torch.sum(torch.stack(sq)))
+        clip = clip_factor(spec, gn)
     else:
         clip = torch.ones((), dtype=torch.float32, device=dev)
     step_new = opt["step"] + 1
@@ -232,12 +267,14 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
                            lr_scale=lr_scale)
     for b in range(layout.n_buckets):
         uniform = segments.uniform(b)
-        elem = None if uniform is not None else segments.device_hparams(b, dev)
+        elem = None if uniform is not None else segments.device_hparams(
+            b, dev, shard=shard_id)
         p = pbuf[b].float() if bf16sr else pbuf[b]
         bucket_update(spec, p, opt["m"][b],
                       opt["v"][b] if adam else None, gbuf[b], scalars,
-                      n_valid=layout.sizes[b], uniform=uniform,
-                      elem_hparams=elem, zero_grads=zero_grads, impl=impl)
+                      n_valid=spans[b] if sharded else layout.sizes[b],
+                      uniform=uniform, elem_hparams=elem,
+                      zero_grads=zero_grads, impl=impl)
         if not bf16sr:
             continue
         stochastic_round_bf16(p, wire_seed(step_new, b), impl=quantize_impl,

@@ -7,7 +7,9 @@ needs a per-element (lr_scale, weight_decay), constant within a leaf
 span.  ``uniform(b)`` is the fast path (one pair for the whole bucket,
 passed as kernel arguments); otherwise ``element_hparams(b)`` materializes
 the map, tail masked to (0, 0).  ``device_hparams`` keeps the
-materialized arrays on the device once per (bucket, device).
+materialized arrays on the device once per (bucket, device);
+``element_hparams_shard`` / ``device_hparams(..., shard=)`` serve one
+rank's contiguous span of them on the sharded flat engine.
 """
 from __future__ import annotations
 
@@ -68,8 +70,31 @@ class BucketSegments:
         )
         return sc[ids], wd[ids]
 
-    def device_hparams(self, b: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``element_hparams(b)`` as f32 tensors on ``device`` (cached)."""
+    def _span(self, b: int, shard: int, n_shards: int) -> slice:
+        """Shard ``shard``'s contiguous span ``[shard * span, (shard + 1) *
+        span)`` of bucket ``b``, ``span = buf_sizes[b] // n_shards``."""
+        padded = self.layout.buf_sizes[b]
+        if padded % n_shards:
+            raise ValueError(
+                f"bucket {b}: buffer length {padded} does not split into "
+                f"{n_shards} shards — build the layout with "
+                f"shard_count={n_shards}")
+        span = padded // n_shards
+        return slice(shard * span, (shard + 1) * span)
+
+    def element_hparams_shard(self, b: int, shard: int, n_shards: int
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+        """``element_hparams(b)`` sliced to shard ``shard``'s span."""
+        sl = self._span(b, shard, n_shards)
+        sc, wd = self.element_hparams(b)
+        return sc[sl], wd[sl]
+
+    def device_hparams(self, b: int, device, shard: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``element_hparams(b)`` as f32 tensors on ``device`` (cached);
+        with ``shard``, views of the layout's span ``shard`` of them (a
+        span starts at a multiple of ``shards * 128`` elements, so every
+        view is 512-byte aligned)."""
         key = (b, str(device))
         hit = self._on_device.get(key)
         if hit is None:
@@ -77,7 +102,10 @@ class BucketSegments:
             hit = (torch.from_numpy(sc).to(device),
                    torch.from_numpy(wd).to(device))
             self._on_device[key] = hit
-        return hit
+        if shard is None:
+            return hit
+        sl = self._span(b, shard, self.layout.shards)
+        return tuple(x[sl] for x in hit)
 
 
 def build_segments(layout: "BucketLayout", spec: OptimizerSpec) -> BucketSegments:

@@ -1,9 +1,11 @@
 """Training driver of the port: DDP baseline or the DeFT pipeline
 (profile -> knapsack solver -> Preserver -> replicated flat engine).
 
-Port of ``repro/launch/train.py`` for the replicated engine's flags,
-the precision ones (``--wire-precision``, ``--master-dtype``,
-``--compute-dtype``, DESIGN.md §13) included.  Runs on the card unless
+Port of ``repro/launch/train.py`` for the flat engines' flags: the
+precision ones (``--wire-precision``, ``--master-dtype``,
+``--compute-dtype``, DESIGN.md §13) and ``--fsdp``, the sharded flat
+engine (params and moments 1/N per rank, DESIGN.md §8; by default the
+archs ``repro_torch.sharding.needs_fsdp`` names).  Runs on the card unless
 ``--device cpu``.  Under ``torchrun`` the process
 group comes from its environment; run alone it is a one-rank group
 (NCCL on the card, gloo on the CPU), so every gradient sum still goes
@@ -12,6 +14,8 @@ through a real collective.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --scheduler deft --steps 8 --batch 4 --seq 64 \
         --wire-precision int8 --master-dtype bf16sr
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+        --smoke --steps 6 --batch 2 --seq 32 --device cpu --fsdp
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.core.profiler import HardwareModel
 from repro_torch.data.pipeline import make_batch
 from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import adamw
+from repro_torch.sharding import needs_fsdp
 from repro_torch.train.bucketing import (
     assign_buckets,
     build_bucket_layout,
@@ -102,6 +107,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           update_impl: Optional[str] = None,
           quantize_impl: Optional[str] = None, wire_precision: str = "f32",
           master_dtype: str = "f32", compute_dtype: str = "f32",
+          fsdp: Optional[bool] = None,
           on_step: Optional[Callable] = None,
           log: Callable = print) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
@@ -112,9 +118,12 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     "plain" force the kernels' plain versions (a comparison knob).
     ``wire_precision`` ("auto", "f32", "bf16", "int8"), ``master_dtype``
     ("f32", "bf16sr") and ``compute_dtype`` ("f32", "bf16") are the DeFT
-    engine's precision (the DDP baseline takes none).  Returns the losses, per-step wall
-    times (each step synchronised), the schedule, the runtime and the
-    final state."""
+    engine's precision (the DDP baseline takes none).  ``fsdp`` runs the
+    sharded flat engine over a layout of one shard per rank (None: the
+    arch's default, ``needs_fsdp``); its gather skip is on where the
+    schedule can reuse a gather.  Returns the
+    losses, per-step wall times (each step synchronised), the schedule,
+    the runtime and the final state."""
     device = torch.device(device)
     init_distributed(device)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -124,7 +133,12 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     opt = adamw(lr)
     out: Dict[str, Any] = {"losses": [], "step_s": [], "collectives": []}
     runtime = None
+    if fsdp is None:
+        fsdp = needs_fsdp(cfg.name)
     if scheduler == "ddp":
+        if fsdp:
+            raise ValueError("the port's DDP baseline is replicated: fsdp "
+                             "needs --scheduler deft")
         state = init_ddp_state(cfg, opt, seed=seed, device=device)
         step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
                                 attn_impl=attn_impl, scan_impl=scan_impl)
@@ -143,7 +157,8 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         if plan.precision is not None:
             log(f"precision: wire={plan.precision.describe()} "
                 f"master={plan.precision.master}")
-        layout = build_bucket_layout(params_abs, bucket_of, nb)
+        layout = build_bucket_layout(params_abs, bucket_of, nb,
+                                     shard_count=world if fsdp else 1)
         if plan.precision is not None:
             layout = layout.with_precision(plan.precision)
         cdt = COMPUTE_DTYPES[compute_dtype]
@@ -151,7 +166,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             cfg, opt, schedule, layout, device=device, loss_chunk=loss_chunk,
             attn_impl=attn_impl, scan_impl=scan_impl, update_impl=update_impl,
             quantize_impl=quantize_impl, compute_dtype=cdt,
-            master_dtype=master_dtype)
+            master_dtype=master_dtype, fsdp=fsdp)
         state = runtime.init_state(seed, dtype=cdt or torch.float32)
         out.update(schedule=schedule, layout=layout, times=times)
     else:
@@ -208,6 +223,10 @@ def main() -> None:
                     help="resident master-param dtype: 'bf16sr' keeps params "
                          "at bf16 with seeded stochastic-rounded updates "
                          "(moments stay f32)")
+    ap.add_argument("--fsdp", action="store_true", default=None,
+                    help="drive the SHARDED flat engine: params and optimizer "
+                         "moments resident 1/N over the ranks (default: the "
+                         "arch's policy)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -226,7 +245,7 @@ def main() -> None:
                 device=args.device, loss_chunk=args.loss_chunk,
                 wire_precision=args.wire_precision,
                 master_dtype=args.master_dtype,
-                compute_dtype=args.compute_dtype)
+                compute_dtype=args.compute_dtype, fsdp=args.fsdp)
     dt = time.time() - t0
     print(f"{args.steps} steps in {dt:.1f}s "
           f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")

@@ -1,10 +1,12 @@
 """Gradient bucketing over parameter-tree leaves and the static flat-buffer
 layout of the replicated engine.
 
-Port of ``repro/train/bucketing.py`` (replicated layouts): buckets over the real tree leaves in model input->output order, filled
+Port of ``repro/train/bucketing.py`` (replicated and sharded layouts):
+buckets over the real tree leaves in model input->output order, filled
 greedily to ``partition_elems``; ``BucketLayout`` maps every leaf to a
-span of one flat buffer per bucket, padded to ``PAD_MULTIPLE``, and
-carries the per-bucket wire precision policy (DESIGN.md §13).  Leaf
+span of one flat buffer per bucket, padded to ``PAD_MULTIPLE`` (times the
+shard count of the sharded flat engine, DESIGN.md §8), and carries the
+per-bucket wire precision policy (DESIGN.md §13).  Leaf
 order is ``jax.tree_util.tree_flatten`` order (``repro_torch.tree``), so
 a layout built here equals the JAX package's layout of the same tree.
 """
@@ -104,8 +106,12 @@ class BucketLayout:
     sizes:          per bucket, element count of its valid span.
     shapes:         per leaf (tree_flatten order), the original shape.
     padded_sizes:   per bucket, the allocated length (``sizes`` rounded up
-                    to a multiple of the 128-lane width every kernel tiles
-                    by; the tail is always zero).
+                    to a multiple of ``shards`` times the 128-lane width
+                    every kernel tiles by; the tail is always zero).
+    shards:         shard count of the sharded flat engine: every buffer
+                    splits into ``shards`` equal contiguous spans, each a
+                    lane-aligned kernel operand.  1 is the replicated
+                    engine.
     precision:      per-bucket wire precision policy; ``None`` means
                     all-f32 wires and an f32 master.
     """
@@ -117,12 +123,14 @@ class BucketLayout:
     sizes: Tuple[int, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     padded_sizes: Tuple[int, ...]
+    shards: int = 1
     precision: Optional[PrecisionPolicy] = None
 
     def __post_init__(self):
-        if any(n % PAD_MULTIPLE for n in self.padded_sizes):
+        if any(n % (PAD_MULTIPLE * self.shards) for n in self.padded_sizes):
             raise ValueError(f"bucket buffers {self.padded_sizes} are not all "
-                             f"{PAD_MULTIPLE}-lane multiples")
+                             f"multiples of {self.shards} x {PAD_MULTIPLE} "
+                             f"lanes")
         if self.precision is not None:
             self.precision.validate(self.n_buckets)
 
@@ -151,16 +159,33 @@ class BucketLayout:
     def buf_sizes(self) -> Tuple[int, ...]:
         return self.padded_sizes
 
+    @property
+    def shard_sizes(self) -> Tuple[int, ...]:
+        """Per bucket, the length of one rank's contiguous span
+        (``buf_sizes[b] // shards``, a lane multiple by construction).
+        Shard ``s`` of bucket ``b`` covers ``[s * span, (s + 1) * span)``."""
+        return tuple(n // self.shards for n in self.buf_sizes)
+
 
 def build_bucket_layout(params, bucket_of_leaf: Sequence[int], n_buckets: int,
-                        *, pad_multiple: int = PAD_MULTIPLE) -> BucketLayout:
+                        *, pad_multiple: int = PAD_MULTIPLE,
+                        shard_count: int = 1) -> BucketLayout:
     """Precompute the per-bucket flat-buffer layout of a parameter tree
-    (only leaf shapes are read; meta tensors work)."""
+    (only leaf shapes are read; meta tensors work).
+
+    ``shard_count > 1`` builds the layout of the sharded flat engine:
+    every buffer is padded to a multiple of ``shard_count * pad_multiple``
+    so it splits into ``shard_count`` equal, lane-aligned spans, and an
+    empty bucket still gets one unit so that every span is a non-empty
+    kernel and collective operand."""
     if pad_multiple <= 0 or pad_multiple % PAD_MULTIPLE:
         raise ValueError(
             f"pad_multiple={pad_multiple} must be a positive multiple of "
             f"{PAD_MULTIPLE} (the bucket-update kernel's lane width)"
         )
+    if shard_count < 1:
+        raise ValueError(f"shard_count={shard_count} must be >= 1")
+    unit = pad_multiple * shard_count
     flat = tree_leaves(params)
     if len(flat) != len(bucket_of_leaf):
         raise ValueError(f"{len(bucket_of_leaf)} bucket ids for "
@@ -177,7 +202,10 @@ def build_bucket_layout(params, bucket_of_leaf: Sequence[int], n_buckets: int,
             acc += _numel(shapes[i])
         offsets.append(tuple(offs))
         sizes.append(acc)
-        padded.append(-(-acc // pad_multiple) * pad_multiple)
+        if acc:
+            padded.append(-(-acc // unit) * unit)
+        else:
+            padded.append(unit if shard_count > 1 else 0)
     return BucketLayout(
         bucket_of_leaf=tuple(bucket_of_leaf),
         n_buckets=n_buckets,
@@ -186,24 +214,26 @@ def build_bucket_layout(params, bucket_of_leaf: Sequence[int], n_buckets: int,
         sizes=tuple(sizes),
         shapes=shapes,
         padded_sizes=tuple(padded),
+        shards=shard_count,
     )
 
 
+def flatten_bucket(layout: BucketLayout, leaf_vals, b: int) -> torch.Tensor:
+    """Bucket ``b``'s flat f32 buffer of leaf values (tree_flatten order),
+    zero-padded to the allocated length (a new tensor on the leaves'
+    device; a low-precision leaf is promoted exactly)."""
+    dev = leaf_vals[0].device if len(leaf_vals) else "cpu"
+    buf = torch.zeros((layout.buf_sizes[b],), dtype=torch.float32, device=dev)
+    for i, off in zip(layout.leaves[b], layout.offsets[b]):
+        n = _numel(layout.shapes[i])
+        buf[off:off + n] = leaf_vals[i].reshape(-1)
+    return buf
+
+
 def flatten_buckets(layout: BucketLayout, leaf_vals) -> List[torch.Tensor]:
-    """Pack leaf values (tree_flatten order) into per-bucket flat f32
-    buffers, zero-padded to the allocated length (new tensors; a
-    low-precision leaf is promoted exactly)."""
-    out = []
-    for b in range(layout.n_buckets):
-        ref = leaf_vals[layout.leaves[b][0]] if layout.leaves[b] else None
-        dev = ref.device if ref is not None else "cpu"
-        buf = torch.zeros((layout.buf_sizes[b],), dtype=torch.float32,
-                          device=dev)
-        for i, off in zip(layout.leaves[b], layout.offsets[b]):
-            n = _numel(layout.shapes[i])
-            buf[off:off + n] = leaf_vals[i].reshape(-1)
-        out.append(buf)
-    return out
+    """Every bucket's :func:`flatten_bucket`."""
+    return [flatten_bucket(layout, leaf_vals, b)
+            for b in range(layout.n_buckets)]
 
 
 def unflatten_buckets(layout: BucketLayout, flats) -> List[torch.Tensor]:

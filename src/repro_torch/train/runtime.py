@@ -29,10 +29,25 @@ Port of ``repro/train/runtime.py`` (``_route_and_sync``,
   scratch buffer of its dtype and is promoted exactly into the f32
   gradient buffer.
 
+With ``fsdp=True`` it is the sharded flat engine instead (port of
+``_deft_body_flat_rs``, DESIGN.md §8-§9, without AG streaming or ring
+chains): each rank keeps only its contiguous 1/N span of every param and
+moment buffer (``layout.shard_sizes``); the forward all-gathers the
+spans into full buffers at each bucket's wire precision
+(``_wire_gather``: int8 gathers the int8 values and the per-row f32
+scales), or reuses the previous phase's gathered buffers where no update
+came in between (the gather skip, ``pgather``); a scheduled sync is a
+reduce-scatter into this rank's span, followed by an all-gather back into
+the full buffer only when the generation outlives the phase; the update
+kernels run on the spans, clipped by the norm summed across ranks.
+``cur``/``fut`` stay full length on every rank: an unsynced generation
+holds contributions to every span.
+
 JAX's arrays are immutable and its executables donate the state; the
 port updates the buffers in place instead (the same memory footprint:
-param, two moments, two generations and one gradient buffer per bucket)
-and recycles the consumed generation as the next step's gradient buffer.
+param, two moments, two generations and one gradient buffer per bucket,
+plus the gathered params on the sharded engine) and recycles the
+consumed generation as the next step's gradient buffer.
 There is no AOT cache: phases are deduplicated by ``PhaseSpec`` and each
 unique phase keeps its dispatch statistics.
 """
@@ -54,14 +69,16 @@ from repro_torch.kernels.bucket_update import (
 )
 from repro_torch.kernels.quantize import (
     cast_compute,
+    dequantize_int8,
     quantize_dequantize_int8,
+    quantize_int8,
     stochastic_round_bf16,
 )
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim.optimizers import OptimizerSpec, apply_updates, init_opt_state
 from repro_torch.train.bucketing import (
     BucketLayout,
-    flatten_buckets,
+    flatten_bucket,
     unflatten_buckets,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -70,10 +87,16 @@ TrainState = Dict[str, Any]
 
 
 class DataParallel:
-    """The collectives of the replicated engine over one process group,
-    with a count of what was issued (reset per step by the runtime)."""
+    """The collectives of the DeFT engines over one process group, with a
+    count of what was issued (reset per step by the runtime).  ``keys``
+    names the counts: ``REPLICATED`` for the replicated engine and the DDP
+    baseline, ``SHARDED`` for the sharded flat engine."""
 
-    def __init__(self, group=None):
+    REPLICATED = ("primary", "secondary", "metrics")
+    SHARDED = ("param_gather", "reduce_scatter", "all_gather", "norm",
+               "metrics")
+
+    def __init__(self, group=None, keys: Tuple[str, ...] = REPLICATED):
         if not dist.is_initialized():
             raise RuntimeError(
                 "the DeFT runtime syncs through torch.distributed: initialise "
@@ -81,10 +104,11 @@ class DataParallel:
             )
         self.group = group
         self.size = dist.get_world_size(group)
-        self.counts = {"primary": 0, "secondary": 0, "metrics": 0}
+        self.rank = dist.get_rank(group)
+        self.counts = dict.fromkeys(keys, 0)
 
     def reset(self) -> None:
-        self.counts = {k: 0 for k in self.counts}
+        self.counts = dict.fromkeys(self.counts, 0)
 
     def primary(self, x: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(x, group=self.group)
@@ -102,6 +126,32 @@ class DataParallel:
         else:
             dist.all_reduce(x, group=self.group)
         self.counts["secondary"] += 1
+        return x
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's span of the ranks' sum of ``x`` (a new tensor)."""
+        out = torch.empty(x.numel() // self.size, dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=self.group)
+        self.counts["reduce_scatter"] += 1
+        return out
+
+    def all_gather(self, span: torch.Tensor,
+                   out: Optional[torch.Tensor] = None,
+                   count: str = "all_gather") -> torch.Tensor:
+        """Every rank's ``span`` concatenated in rank order, into ``out``
+        (a new tensor when None); counted under ``count``."""
+        if out is None:
+            out = torch.empty(span.numel() * self.size, dtype=span.dtype,
+                              device=span.device)
+        dist.all_gather_into_tensor(out, span, group=self.group)
+        self.counts[count] += 1
+        return out
+
+    def norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of a squared-norm scalar (in place)."""
+        dist.all_reduce(x.reshape(1), group=self.group)
+        self.counts["norm"] += 1
         return x
 
     def metrics(self, x: torch.Tensor) -> torch.Tensor:
@@ -168,6 +218,41 @@ def phase_collectives(phase: PhaseSpec) -> Dict[str, int]:
     return {"primary": primary, "secondary": secondary, "metrics": 1}
 
 
+def phase_collectives_sharded(phase: PhaseSpec, layout: BucketLayout,
+                              reuse: Optional[Tuple[bool, ...]],
+                              clip: bool) -> Dict[str, int]:
+    """Collectives one phase of the sharded flat engine issues, by
+    construction: a param all-gather per bucket whose gather is not reused
+    (two on an int8 wire: values and scales), a reduce-scatter per synced
+    generation of a bucket, a trailing all-gather per synced generation
+    that outlives the phase, one norm all-reduce per update with grad
+    clipping on, and the single metrics all-reduce."""
+    n = len(phase.route_new)
+    reuse = reuse or (False,) * n
+    consumed_new = phase.do_update and phase.update_source == "new"
+    consumed_cur = phase.do_update and phase.update_source == "cur"
+    new = [phase.rotate and phase.route_new[b] == "sync" for b in range(n)]
+    cur = list(phase.sync_cur)
+    return {
+        "param_gather": sum(2 if layout.wire(b) == "int8" else 1
+                            for b in range(n) if not reuse[b]),
+        "reduce_scatter": sum(new) + sum(cur),
+        "all_gather": (0 if consumed_new else sum(new))
+                      + (0 if consumed_cur else sum(cur)),
+        "norm": int(bool(phase.do_update and clip)),
+        "metrics": 1,
+    }
+
+
+def _gather_reuse_masks(schedule: DeftSchedule) -> List[Tuple[bool, ...]]:
+    """Per cycle position, the per-bucket gather-skip mask.  A stored
+    gather is valid when no update touched the params since the previous
+    phase gathered them, i.e. when that phase did not update; position 0
+    always gathers, so a fresh cycle never reads a cold cache."""
+    return [((t > 0 and not schedule.phases[t - 1].do_update),)
+            * len(ph.route_new) for t, ph in enumerate(schedule.phases)]
+
+
 def _wire_sync(x: torch.Tensor, wire: str, collective,
                impl: Optional[str] = None) -> torch.Tensor:
     """Run a gradient-sum ``collective`` at a bucket's wire precision, the
@@ -186,6 +271,46 @@ def _wire_sync(x: torch.Tensor, wire: str, collective,
     if wire == "int8":
         quantize_dequantize_int8(x, impl=impl, out=x)
     return collective(x)
+
+
+def _wire_reduce_scatter(x: torch.Tensor, wire: str, reduce_scatter,
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """The shard-local half of a sharded sync at a bucket's wire
+    precision: this rank's span of the ranks' sum of ``x``, as a new f32
+    tensor.  An int8 wire projects ``x`` onto the grid in place first, as
+    ``_wire_sync`` does; the engine reads ``x`` after that only as the
+    target of the trailing all-gather, or not at all when the update
+    consumes the bucket."""
+    if wire == "bf16":
+        return reduce_scatter(x.to(torch.bfloat16)).float()
+    if wire == "int8":
+        quantize_dequantize_int8(x, impl=impl, out=x)
+    return reduce_scatter(x)
+
+
+def _wire_gather(span: torch.Tensor, wire: str, gather, out: torch.Tensor,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """One param all-gather at a bucket's wire precision, decoded into
+    ``out``, a full buffer of the forward's dtype (so the wire dtype is
+    invisible downstream).  ``gather(x, out=None)`` all-gathers ``x``.
+
+    * ``int8`` quantizes the f32 span, gathers the int8 values and the
+      per-row f32 scales (two all-gathers) and dequantizes the whole
+      buffer.
+    * ``bf16`` gathers a bf16 copy of the span and casts it to ``out``.
+    * ``f32`` casts the span to the forward dtype before the gather (the
+      cast is elementwise, so the gathered values are the same and a bf16
+      forward moves half the bytes)."""
+    if wire == "int8":
+        q, s = quantize_int8(span.float(), impl=impl)
+        q, s = gather(q), gather(s)
+        if out.dtype == torch.float32:
+            return dequantize_int8(q, s, impl=impl, out=out)
+        return out.copy_(dequantize_int8(q, s, impl=impl))
+    x = cast_compute(span, torch.bfloat16 if wire == "bf16" else out.dtype)
+    if x.dtype == out.dtype:
+        return gather(x, out)
+    return out.copy_(gather(x))
 
 
 @dataclasses.dataclass
@@ -210,7 +335,8 @@ def _grad_leaves(layout: BucketLayout, pbuf, gbuf) -> List[torch.Tensor]:
 
 
 class DeftRuntime:
-    """Runs one DeFT schedule on the replicated flat-resident engine.
+    """Runs one DeFT schedule on the flat-resident engine: replicated, or
+    sharded over the ranks with ``fsdp=True``.
 
     ``step(i, state, batch)`` runs cycle phase ``i % period`` and returns
     (state, metrics); the state's buffers are updated in place.
@@ -219,7 +345,13 @@ class DeftRuntime:
     dtype; ``master_dtype`` ("f32" or "bf16sr", None to take the layout's)
     the resident param dtype; ``attn_impl`` / ``scan_impl`` /
     ``update_impl`` / ``quantize_impl`` = "plain" force the kernels' plain
-    versions."""
+    versions.  ``fsdp`` selects the sharded flat engine, whose layout must
+    be built with ``shard_count`` equal to the group's size;
+    ``gather_skip`` (None: on when the schedule has a position that can
+    reuse a gather) lets it skip the param all-gathers of a phase that no
+    update preceded.  The replicated engine's forward reads a bf16sr
+    master in bf16, the sharded one reads params at ``compute_dtype`` (f32
+    when None), as the JAX package's two engines do."""
 
     def __init__(self, cfg: ArchConfig, opt_spec: OptimizerSpec,
                  schedule: DeftSchedule, layout: BucketLayout, *,
@@ -229,13 +361,29 @@ class DeftRuntime:
                  update_impl: Optional[str] = None,
                  quantize_impl: Optional[str] = None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 master_dtype: Optional[str] = None):
+                 master_dtype: Optional[str] = None,
+                 fsdp: bool = False,
+                 gather_skip: Optional[bool] = None):
+        if gather_skip and not fsdp:
+            raise ValueError(
+                "gather_skip only applies to the sharded flat engine "
+                "(fsdp=True): the replicated engine never all-gathers params")
         self.cfg = cfg
         self.opt_spec = opt_spec
         self.schedule = schedule
         self.layout = layout
         self.device = torch.device(device)
-        self.dp = DataParallel(group)
+        self.fsdp = bool(fsdp)
+        self.dp = DataParallel(group, DataParallel.SHARDED if self.fsdp
+                               else DataParallel.REPLICATED)
+        if self.fsdp and layout.shards != self.dp.size:
+            # the layout's own check keeps every span a multiple of 128
+            # lanes, so the int8 wire's blockwise grid tiles each span
+            raise ValueError(
+                f"sharded flat engine: BucketLayout was built with "
+                f"shard_count={layout.shards} but the process group has "
+                f"{self.dp.size} ranks — build the layout with "
+                f"build_bucket_layout(..., shard_count={self.dp.size})")
         self.loss_chunk = loss_chunk
         self.attn_impl = attn_impl
         self.scan_impl = scan_impl
@@ -256,14 +404,22 @@ class DeftRuntime:
         if self.master_dtype not in ("f32", "bf16sr"):
             raise ValueError(f"master_dtype={self.master_dtype!r}")
         # the forward reads (and autograd differentiates) this dtype
-        self._leaf_dtype = compute_dtype or (
-            torch.bfloat16 if self.master_dtype == "bf16sr" else torch.float32)
+        if self.fsdp or self.master_dtype == "f32":
+            self._leaf_dtype = compute_dtype or torch.float32
+        else:
+            self._leaf_dtype = compute_dtype or torch.bfloat16
         self._structure = init_params(cfg, device="meta")
         shapes = tuple(tuple(l.shape) for l in tree_leaves(self._structure))
         if shapes != layout.shapes:
             raise ValueError("BucketLayout does not match this config's "
                              "parameter tree")
         self.segments = build_segments(layout, opt_spec)
+        masks = _gather_reuse_masks(schedule)
+        self.gather_skip = bool(
+            gather_skip if gather_skip is not None
+            else self.fsdp and any(any(m) for m in masks))
+        # per cycle position, the mask (None with the skip off)
+        self._reuse = masks if self.gather_skip else [None] * schedule.period
         unique: Dict[PhaseSpec, int] = {}
         self.phase_of_step = tuple(unique.setdefault(ph, len(unique))
                                    for ph in schedule.phases)
@@ -283,23 +439,48 @@ class DeftRuntime:
         """Train state whose param buffers hold ``params`` (a tree),
         promoted into the f32 master; a bf16sr master is then rounded
         down bucket by bucket by the stochastic-rounding kernel, with seed
-        b + 1 as JAX's ``_round_master``."""
-        pbuf = tuple(flatten_buckets(
-            self.layout, [p.to(self.device) for p in tree_leaves(params)]))
-        if self.master_dtype == "bf16sr":
-            pbuf = tuple(stochastic_round_bf16(p, b + 1, impl=self.quantize_impl)
-                         for b, p in enumerate(pbuf))
-        acc = init_fused_accumulators(self.layout, self.device)
-        return {
-            "pbuf": pbuf,
-            "opt": init_flat_opt_state(self.opt_spec, self.layout.buf_sizes,
-                                       self.device),
+        b + 1 as JAX's ``_round_master``, over the whole buffer.  The
+        sharded engine keeps this rank's span of each rounded buffer and
+        allocates its moments at span length (1/N residency); ``cur``,
+        ``fut`` and the gradient buffers are full length on every rank."""
+        leaves = [p.to(self.device) for p in tree_leaves(params)]
+        layout = self.layout
+        pbuf = []
+        for b in range(layout.n_buckets):
+            buf = flatten_bucket(layout, leaves, b)
+            if self.master_dtype == "bf16sr":
+                buf = stochastic_round_bf16(buf, b + 1,
+                                            impl=self.quantize_impl)
+            if self.fsdp:
+                span = layout.shard_sizes[b]
+                buf = buf[self.dp.rank * span:(self.dp.rank + 1) * span].clone()
+            pbuf.append(buf)
+        del leaves
+        acc = init_fused_accumulators(layout, self.device)
+        state = {
+            "pbuf": tuple(pbuf),
+            "opt": init_flat_opt_state(
+                self.opt_spec,
+                layout.shard_sizes if self.fsdp else layout.buf_sizes,
+                self.device),
             "cur": acc["cur"],
             "fut": acc["fut"],
             "gbuf": tuple(torch.zeros((n,), dtype=torch.float32,
                                       device=self.device)
-                          for n in self.layout.buf_sizes),
+                          for n in layout.buf_sizes),
         }
+        if self.gather_skip:
+            state["pgather"] = self._init_pgather()
+        return state
+
+    def _init_pgather(self) -> Tuple[torch.Tensor, ...]:
+        """Cold gather cache: full zero buffers of the forward's dtype.
+        Position 0 of a cycle always gathers into them before any phase
+        reads them; the engine gathers into these buffers in place, so
+        the cache is the gathered tensors themselves."""
+        return tuple(torch.zeros((n,), dtype=self._leaf_dtype,
+                                 device=self.device)
+                     for n in self.layout.buf_sizes)
 
     def init_state(self, seed: int = 0,
                    dtype: torch.dtype = torch.float32) -> TrainState:
@@ -315,9 +496,14 @@ class DeftRuntime:
             init_params(self.cfg, seed=seed, device=self.device, dtype=dtype))
 
     def params_tree(self, state: TrainState):
-        """Parameter tree of views into the param buffers."""
+        """Parameter tree of views into the param buffers.  On the sharded
+        engine the spans are all-gathered into new full buffers first: a
+        collective, which every rank must call."""
+        pbuf = state["pbuf"]
+        if self.fsdp:
+            pbuf = [self.dp.all_gather(p) for p in pbuf]
         return tree_unflatten(self._structure,
-                              unflatten_buckets(self.layout, state["pbuf"]))
+                              unflatten_buckets(self.layout, pbuf))
 
     # ---- one phase ---------------------------------------------------------
     def step(self, i: int, state: TrainState, batch
@@ -325,33 +511,53 @@ class DeftRuntime:
         off = i % self.period
         phase = self.schedule.phases[off]
         t0 = time.perf_counter()
-        layout = self.layout
-        n_dp = self.dp.size
         self.dp.reset()
+        if self.fsdp:
+            new_state, loss, parts = self._step_sharded(off, phase, state,
+                                                        batch)
+        else:
+            new_state, loss, parts = self._step_replicated(phase, state,
+                                                           batch)
+        metrics = _fused_metrics(loss, parts, phase, self.dp.size, self.dp)
+        st = self._stats[self.phase_of_step[off]]
+        st.dispatches += 1
+        st.dispatch_s += time.perf_counter() - t0
+        self.last_collectives = dict(self.dp.counts)
+        return new_state, metrics
 
-        # differentiate w.r.t. the params at the leaf dtype: f32 gradients
-        # accumulate straight into gbuf, others into a scratch buffer of
-        # their dtype that is promoted into gbuf after the backward.  The
-        # scratch is freed before the syncs and the update: held across
-        # steps it would raise the peak by its size and save no pass, as
-        # it has to be zeroed for the next backward either way.
-        src = [cast_compute(p, self._leaf_dtype) for p in state["pbuf"]]
+    def _loss_and_grads(self, params: List[torch.Tensor], gbuf, batch):
+        """Forward and backward on ``params`` (full flat buffers at the
+        leaf dtype): f32 gradients accumulate straight into ``gbuf``,
+        others into a scratch buffer of their dtype that is promoted into
+        ``gbuf`` after the backward.  The scratch is freed before the
+        syncs and the update: held across steps it would raise the peak
+        by its size and save no pass, as it has to be zeroed for the next
+        backward either way."""
         if self._leaf_dtype == torch.float32:
-            gdst = state["gbuf"]
+            gdst = gbuf
         else:
             gdst = [torch.zeros((n,), dtype=self._leaf_dtype,
-                                device=self.device) for n in layout.buf_sizes]
-        leaves = _grad_leaves(layout, src, gdst)
+                                device=self.device)
+                    for n in self.layout.buf_sizes]
+        leaves = _grad_leaves(self.layout, params, gdst)
         loss, parts = loss_fn(
             tree_unflatten(self._structure, leaves), self.cfg, batch,
             loss_chunk=self.loss_chunk, attn_impl=self.attn_impl,
             scan_impl=self.scan_impl)
         loss.backward()
-        del leaves, src
-        if gdst is not state["gbuf"]:
-            for g, lo in zip(state["gbuf"], gdst):
+        del leaves
+        if gdst is not gbuf:
+            for g, lo in zip(gbuf, gdst):
                 g.copy_(lo)
-        del gdst
+        return loss, parts
+
+    def _step_replicated(self, phase: PhaseSpec, state: TrainState, batch):
+        layout = self.layout
+        n_dp = self.dp.size
+        # differentiate w.r.t. the params at the leaf dtype
+        src = [cast_compute(p, self._leaf_dtype) for p in state["pbuf"]]
+        loss, parts = self._loss_and_grads(src, state["gbuf"], batch)
+        del src
 
         def sync(x: torch.Tensor, b: int) -> torch.Tensor:
             coll = self.dp.secondary if phase.secondary[b] else self.dp.primary
@@ -385,8 +591,106 @@ class DeftRuntime:
         # the generation this phase retired becomes the next gradient buffer
         for d in dead:
             d.zero_()
+        return {
+            "pbuf": state["pbuf"],
+            "opt": state["opt"],
+            "cur": tuple(new_cur),
+            "fut": tuple(new_fut),
+            "gbuf": tuple(dead),
+        }, loss, parts
 
-        metrics = _fused_metrics(loss, parts, phase, n_dp, self.dp)
+    def _step_sharded(self, off: int, phase: PhaseSpec, state: TrainState,
+                      batch):
+        """One phase of the sharded flat engine (``_deft_body_flat_rs``
+        without AG streaming and ring chains), on the same three full
+        buffers per bucket as the replicated engine: the gradient buffer,
+        ``cur`` and ``fut``.  A synced generation that outlives the phase
+        is all-gathered back into its own buffer; one the update consumes
+        stays a span, and its full buffer is zeroed after the update (the
+        update reads spans, so the zeroing cannot ride its launches)."""
+        layout, dp = self.layout, self.dp
+        nb, rank = layout.n_buckets, dp.rank
+        spans = layout.shard_sizes
+        reuse = self._reuse[off] or (False,) * nb
+        cache = state.get("pgather")
+        gather = lambda x, out=None: dp.all_gather(x, out, "param_gather")
+        params = []
+        for b in range(nb):
+            if reuse[b]:
+                params.append(cache[b])
+                continue
+            out = (cache[b] if cache is not None else torch.empty(
+                (layout.buf_sizes[b],), dtype=self._leaf_dtype,
+                device=self.device))
+            params.append(_wire_gather(state["pbuf"][b], layout.wire(b),
+                                       gather, out, self.quantize_impl))
+        loss, parts = self._loss_and_grads(params, state["gbuf"], batch)
+        del params
+
+        def sync(x: torch.Tensor, b: int) -> torch.Tensor:
+            return _wire_reduce_scatter(x, layout.wire(b), dp.reduce_scatter,
+                                        self.quantize_impl)
+
+        consumed_new = phase.do_update and phase.update_source == "new"
+        consumed_cur = phase.do_update and phase.update_source == "cur"
+        g_flat, cur, fut = (list(state[k]) for k in ("gbuf", "cur", "fut"))
+        gen_sh: List[Optional[torch.Tensor]] = [None] * nb
+        cur_sh: List[Optional[torch.Tensor]] = [None] * nb
+        if phase.rotate:
+            # the fresh generation merges with the future accumulator
+            gen = [g.add_(f) for g, f in zip(g_flat, fut)]
+            for b in range(nb):
+                if phase.route_new[b] != "sync":
+                    continue
+                # a span is kept only where the update reads it
+                if consumed_new:
+                    gen_sh[b] = sync(gen[b], b)
+                else:
+                    dp.all_gather(sync(gen[b], b), gen[b])
+            new_fut = [f.zero_() for f in fut]
+        else:
+            gen = None
+            new_fut = [f.add_(g) for f, g in zip(fut, g_flat)]
+        for b in range(nb):
+            if not phase.sync_cur[b]:
+                continue
+            if consumed_cur:
+                cur_sh[b] = sync(cur[b], b)
+            else:
+                dp.all_gather(sync(cur[b], b), cur[b])
+
+        if phase.do_update:
+            src, src_sh = (cur, cur_sh) if consumed_cur else (gen, gen_sh)
+            # the merged gradient's span: the fresh reduce-scatter where
+            # this phase synced the bucket, else this rank's span of the
+            # stored (already summed) generation
+            src_sh = [y if y is not None
+                      else src[b][rank * spans[b]:(rank + 1) * spans[b]]
+                      for b, y in enumerate(src_sh)]
+            apply_bucket_updates(
+                self.opt_spec, self.segments, state["pbuf"], src_sh,
+                state["opt"], grad_scale=1.0 / (dp.size * phase.update_k),
+                impl=self.update_impl, shard_id=rank,
+                norm_psum=dp.norm if self.opt_spec.grad_clip else None,
+                master_dtype=self.master_dtype,
+                quantize_impl=self.quantize_impl)
+            del src_sh
+            if consumed_cur and gen is not None:
+                new_cur, dead = gen, cur
+            elif consumed_cur:
+                new_cur, dead = cur, g_flat
+            else:
+                new_cur, dead = gen, cur
+            if not (consumed_cur and gen is not None):
+                for c in new_cur:          # the consumed generation
+                    c.zero_()
+        elif phase.rotate:
+            new_cur, dead = gen, cur
+        else:
+            new_cur, dead = cur, g_flat
+        del gen_sh, cur_sh
+        for d in dead:
+            d.zero_()
         new_state = {
             "pbuf": state["pbuf"],
             "opt": state["opt"],
@@ -394,14 +698,16 @@ class DeftRuntime:
             "fut": tuple(new_fut),
             "gbuf": tuple(dead),
         }
-        st = self._stats[self.phase_of_step[off]]
-        st.dispatches += 1
-        st.dispatch_s += time.perf_counter() - t0
-        self.last_collectives = dict(self.dp.counts)
-        return new_state, metrics
+        if cache is not None:
+            new_state["pgather"] = cache
+        return new_state, loss, parts
 
     # ---- reporting ---------------------------------------------------------
     def collectives_per_phase(self) -> List[Dict[str, int]]:
+        if self.fsdp:
+            return [phase_collectives_sharded(p, self.layout, self._reuse[t],
+                                              bool(self.opt_spec.grad_clip))
+                    for t, p in enumerate(self.schedule.phases)]
         return [phase_collectives(p) for p in self.schedule.phases]
 
     def stats(self) -> Dict[str, Any]:
@@ -415,6 +721,9 @@ class DeftRuntime:
             "n_buckets": self.layout.n_buckets,
             "n_leaves": self.layout.n_leaves,
             "dp": self.dp.size,
+            "sharded_state": self.fsdp,
+            "shards": self.layout.shards,
+            "gather_skip": self.gather_skip,
             "compute_dtype": str(self.compute_dtype or torch.float32
                                  ).replace("torch.", ""),
             "wire_precision": (self.layout.precision.describe()
@@ -425,7 +734,8 @@ class DeftRuntime:
             "dispatch_s_total": total,
             "collectives_per_phase": coll,
             "max_collectives_in_a_phase": max(
-                (c["primary"] + c["secondary"] for c in coll), default=0),
+                (sum(v for k, v in c.items() if k != "metrics")
+                 for c in coll), default=0),
             "phases": [dataclasses.asdict(s) for s in self._stats],
         }
 

@@ -12,8 +12,9 @@ relative, summed in another order than the plain version's matmuls), its
 f32 split pass bitwise (rounding and data movement only); on bf16 inputs lse keeps 1e-4, out (bf16)
 rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
 atol max|g| / 128 (the plain backward reads the kernel's rounded output);
-the bucket update, the three quantize kernels and the two RG-LRU scan
-kernels bitwise (each rounds every operation separately, as the plain
+the bucket update (on whole buffers, and on the four spans of a sharded
+layout reassembled against the full-buffer apply), the three quantize
+kernels and the two RG-LRU scan kernels bitwise (each rounds every operation separately, as the plain
 version's elementwise kernels do, and the hash is integer arithmetic); the
 RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o and
 every gradient (f32 on both sides, another summation order inside the small
@@ -24,8 +25,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.bucket_update import (
+    apply_bucket_updates,
     bucket_update_cuda,
     bucket_update_ref,
+    build_segments,
     pack_scalars,
 )
 from repro_torch.kernels.flash_attention import (
@@ -61,6 +64,7 @@ from repro_torch.kernels.rwkv6 import (
 )
 from repro_torch.kernels.rwkv6.ops import _chunked_forward
 from repro_torch.optim.optimizers import adamw, sgd_momentum
+from repro_torch.train.bucketing import build_bucket_layout
 
 TOL = 1e-4
 BF16_OUT_RTOL = 2 ** -7
@@ -135,6 +139,102 @@ def test_bucket_kernel_bitwise(spec, elem):
     assert torch.equal(p, want[0]) and torch.equal(m, want[1])
     assert (not adam) or torch.equal(v, want[2])
     assert not g.any()
+
+
+SPAN_SHARDS = 4
+
+
+def _span_case(opt, elem, master):
+    """A 4-shard layout of two buckets whose padded tails lie in their
+    last spans (NaN/inf there in the gradient), its spec and start
+    buffers."""
+    shapes = {"w": (37, 90), "b": (13,), "h": (2000,), "u": (5, 7, 30)}
+    lay = build_bucket_layout(
+        {k: torch.empty(v, device="meta") for k, v in shapes.items()},
+        (0, 1, 1, 0), 2, shard_count=SPAN_SHARDS)
+    kw = dict(grad_clip=0.0)
+    if elem:
+        kw.update(decay_mask="matrix", ndim1_lr_scale=0.5)
+    spec = (adamw(1e-2, weight_decay=0.01, **kw) if opt == "adamw" else
+            sgd_momentum(3e-2, momentum=0.85, weight_decay=0.02, **kw))
+    rng = np.random.default_rng(11)
+    bufs = {}
+    for name in ("p", "m", "v", "g"):
+        bufs[name] = []
+        for n, valid in zip(lay.buf_sizes, lay.sizes):
+            x = rng.standard_normal(n).astype(np.float32)
+            x = np.abs(x) if name == "v" else x
+            x[valid:] = (np.resize(np.array([np.nan, np.inf, -np.inf],
+                                            np.float32), n - valid)
+                         if name == "g" else 0.0)
+            bufs[name].append(torch.from_numpy(x).cuda())
+    if master == "bf16sr":
+        bufs["p"] = [x.to(torch.bfloat16) for x in bufs["p"]]
+    return lay, spec, bufs
+
+
+def _span_update(lay, spec, bufs, master, impl=None):
+    """One update of every span in turn (fresh step counters), on copies
+    of ``bufs``; returns the reassembled p, m, v."""
+    spans = lay.shard_sizes
+    c = {k: [x.clone() for x in v] for k, v in bufs.items()}
+    for s in range(SPAN_SHARDS):
+        cut = lambda xs: [x[s * spans[b]:(s + 1) * spans[b]]
+                          for b, x in enumerate(xs)]
+        opt = {"step": torch.tensor(2, dtype=torch.int32, device="cuda"),
+               "m": cut(c["m"])}
+        if spec.name == "adamw":
+            opt["v"] = cut(c["v"])
+        apply_bucket_updates(spec, build_segments(lay, spec), cut(c["p"]),
+                             cut(c["g"]), opt, grad_scale=0.5, impl=impl,
+                             shard_id=s, master_dtype=master,
+                             quantize_impl="plain" if impl == "plain" else None)
+    torch.cuda.synchronize()
+    return c["p"], c["m"], c["v"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("elem", [False, True], ids=["uniform", "per-element"])
+@pytest.mark.parametrize("opt", ["adamw", "sgd"])
+def test_bucket_kernel_on_spans_bitwise(opt, elem):
+    """Each of the four spans through the kernel reassembles bitwise to one
+    kernel apply over the whole buffers; the hostile gradient tail does
+    not leak."""
+    _need_card()
+    lay, spec, bufs = _span_case(opt, elem, "f32")
+    launches = bucket_update_cuda.launches
+    got = _span_update(lay, spec, bufs, "f32")
+    assert bucket_update_cuda.launches - launches == 2 * SPAN_SHARDS
+    full = {k: [x.clone() for x in v] for k, v in bufs.items()}
+    opt_f = {"step": torch.tensor(2, dtype=torch.int32, device="cuda"),
+             "m": full["m"], "v": full["v"]}
+    apply_bucket_updates(spec, build_segments(lay, spec), full["p"],
+                         full["g"], opt_f, grad_scale=0.5)
+    torch.cuda.synchronize()
+    for k, xs in zip("pmv", got):
+        if k == "v" and spec.name != "adamw":
+            continue
+        for x, want in zip(xs, full[k]):
+            assert torch.isfinite(x).all() and torch.equal(x, want), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("elem", [False, True], ids=["uniform", "per-element"])
+@pytest.mark.parametrize("opt", ["adamw", "sgd"])
+def test_bucket_kernel_on_bf16sr_spans_bitwise(opt, elem):
+    """bf16sr spans: the kernels (update and stochastic rounding over the
+    span's own indices) bitwise equal to the plain versions."""
+    _need_card()
+    lay, spec, bufs = _span_case(opt, elem, "bf16sr")
+    sr = stochastic_round_bf16_cuda.launches
+    got = _span_update(lay, spec, bufs, "bf16sr")
+    assert stochastic_round_bf16_cuda.launches - sr == 2 * SPAN_SHARDS
+    want = _span_update(lay, spec, bufs, "bf16sr", impl="plain")
+    for b in range(lay.n_buckets):
+        assert torch.equal(got[0][b].view(torch.int16),
+                           want[0][b].view(torch.int16))
+        assert torch.equal(got[1][b], want[1][b])
+        assert torch.equal(got[2][b], want[2][b])
 
 
 # the f32 kernel's split pass writes K and V as TF32 hi + lo, in its stages'
