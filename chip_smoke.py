@@ -73,7 +73,17 @@
    run and to the replicated run (step-0 loss bitwise, params after the
    first period within the same limits), with the same launches and
    exactly ``phase_collectives_sharded`` per phase; its peak memory is
-   printed beside the replicated run's.
+   printed beside the replicated run's.  Then the same sharded run with
+   its param gathers streamed into the forward (``decoupled=True``,
+   ``decoupled_path``), every loss and param bitwise the sharded run's,
+   printing the buckets' first-touch order and the param gathers issued
+   before the forward's first compute; then ``chain_path``: the
+   replicated run and the streamed sharded run with ``secondary_chain=
+   (0,)``, every synced bucket forced onto the secondary link and every
+   param gather onto link 1 (``route_all_secondary``), each bitwise its
+   unrouted run, with its collectives chained and no P2P round (one rank:
+   the chain is the identity).  Each of these runs has its own plain run,
+   launch counts and collectives checked as above.
 4. Drives DeFT's precision path the same way, with int8 gradient wires on
    every bucket and a bf16sr resident master (forward and backward in
    bf16): its first steps once with every plain version forced, then the
@@ -91,7 +101,9 @@
    every gathered bucket's int8 values and scales also go through the
    quantize and dequantize kernels (quantize = dequantize = synced plus
    gathered buckets) and the collectives equal
-   ``phase_collectives_sharded``.
+   ``phase_collectives_sharded``.  A fourth streams that run's gathers
+   (``decoupled_precision_path``): bitwise the third, with the same
+   launches.
 5. Drives recurrentgemma-9b (Griffin) the same way as 3: full width
    (d_model and lru_width 4096, MQA 16 heads over 1, head_dim 256, d_ff
    12288, window 2048), depth cut to 6 of 38 layers (two periods of
@@ -1403,8 +1415,82 @@ def sharded_collectives(schedule, layout, steps):
             for i in range(steps)]
 
 
+def route_all_secondary(schedule, times):
+    """The chain path's (schedule, AG plan): every synced bucket on the
+    secondary link and every param gather on link 1, as the JAX package's
+    4-device chain test forces them (``train(reroute=...)``)."""
+    from repro_torch.core.deft import plan_ag_stream
+
+    nb = len(schedule.phases[0].route_new)
+    schedule = dataclasses.replace(schedule, phases=tuple(
+        dataclasses.replace(ph, secondary=tuple(
+            (ph.route_new[b] == "sync" and ph.rotate) or ph.sync_cur[b]
+            for b in range(nb))) for ph in schedule.phases))
+    ag = plan_ag_stream(schedule, times)
+    return schedule, dataclasses.replace(ag, items=tuple(
+        dataclasses.replace(i, link=1) for i in ag.items))
+
+
+def stored_run(state, losses):
+    """What a later path is held to: the losses up to and every param
+    buffer after the first period (on the host)."""
+    return {"losses": list(losses),
+            "params": [b.to("cpu", copy=True) for b in state["pbuf"]]}
+
+
+def held_to(key, against, state, losses):
+    """Hold a run to ``against`` = (name, stored run, bitwise): every
+    stored loss and every param buffer equal, or (not bitwise) the step-0
+    loss equal and the params within PARAM_MAX_DIFF with at most
+    PARAM_MAX_OVER elements beyond PARAM_TOL.  Returns the distances."""
+    name, want, bitwise = against
+    n = len(want["losses"])
+    got = dict(against=name, bitwise=bitwise, max_param_diff=0.0,
+               n_params_over_tol=0, n_params_differing=0)
+    for buf, w in zip(state["pbuf"], want["params"]):
+        # one bucket at a time, so the check adds one bucket to the peak
+        d = (buf.float() - w.cuda().float()).abs()
+        got["max_param_diff"] = max(got["max_param_diff"], d.max().item())
+        got["n_params_over_tol"] += int((d > PARAM_TOL).sum().item())
+        got["n_params_differing"] += int((d > 0).sum().item())
+        del d
+    if bitwise:
+        check(losses[:n] == want["losses"] and got["n_params_differing"] == 0
+              and all(b.dtype == w.dtype for b, w in zip(state["pbuf"],
+                                                         want["params"])),
+              f"{key} is not bitwise {name}: losses {losses[:n]} vs "
+              f"{want['losses']}, {got['n_params_differing']} params differ "
+              f"(max |diff| {got['max_param_diff']:.3g})")
+    else:
+        check(losses[0] == want["losses"][0],
+              f"{key} step-0 loss {losses[0]!r} is not {name}'s "
+              f"{want['losses'][0]!r}")
+        check(got["max_param_diff"] <= PARAM_MAX_DIFF
+              and got["n_params_over_tol"] <= PARAM_MAX_OVER,
+              f"{key} params after the first period vs {name}: max |diff| "
+              f"{got['max_param_diff']:.3g}, {got['n_params_over_tol']} "
+              f"elements beyond {PARAM_TOL}")
+    return got
+
+
+def print_against(report, against, dist_):
+    """One line: how a run compares with the stored one, beside that
+    run's step time, tokens/s and peak."""
+    name, _, bitwise = against
+    rep = report[name]
+    print(f"  vs {name}: "
+          + ("every loss and param bitwise equal" if bitwise else
+             f"step-0 loss bitwise equal, params max diff "
+             f"{dist_['max_param_diff']:.3g} "
+             f"({dist_['n_params_over_tol']} over {PARAM_TOL})")
+          + f"; its median step {rep['median_step_s']:.3f} s, "
+          f"{rep['tokens_per_s']:.0f} tok/s, peak "
+          f"{rep['peak_bytes'] / 2**30:.2f} GiB")
+
+
 def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
-              bucket_share=None, fsdp=False, keep=None):
+              bucket_share=None, fsdp=False, decoupled=False, chain=False,
+              store=None, against=None):
     """One f32 DeFT path: the first schedule period once with every plain
     version forced, then ``steps`` steps with every launch counter set to 0
     just before and read just after, held to the plain run.
@@ -1414,10 +1500,14 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     param within RWKV_PARAM_MAX_DIFF (the rwkv path: see its limits).
 
     ``fsdp`` runs the sharded flat engine (one shard on the one card) with
-    the gather skip on, and holds it also against the replicated run whose
-    step-0 loss and params after the first period ``keep`` holds: the loss
-    bitwise, the params to the same limits as against the plain run.
-    Without ``fsdp``, a given ``keep`` receives them."""
+    the gather skip on; ``decoupled`` streams its param gathers into the
+    forward (and prints the buckets' first-touch order and the gathers
+    issued before the forward's first compute); ``chain`` routes every
+    synced bucket and every param gather along the one-rank chain (0,)
+    (``route_all_secondary``), which must run no P2P op.  ``store`` (a
+    dict) receives the run's losses over and params after the first
+    period; ``against`` = (name, stored run, bitwise) holds the run to one
+    stored earlier (``held_to``)."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     from repro_torch.kernels.quantize import (
@@ -1437,7 +1527,9 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
               coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK)
     if fsdp:
-        kw.update(fsdp=True)
+        kw.update(fsdp=True, decoupled=decoupled)
+    if chain:
+        kw.update(secondary_chain=(0,), reroute=route_all_secondary)
 
     # reference: the first period with the plain versions forced
     ref = train(cfg, steps=period, attn_impl="plain", scan_impl="plain",
@@ -1449,26 +1541,30 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     torch.cuda.empty_cache()
 
     agree = {}
-    against_rep = {}
+    vs_stored = {}
+    stream = {}
+    p2p = []
+    run_losses = []
 
     def on_step(step, runtime, state, metrics):
+        p2p.extend(runtime.last_p2p)
+        run_losses.append(float(metrics["loss"]))
+        if decoupled and step == period:      # position 0, order recorded
+            stream.update(runtime.last_stream)
         if step != period - 1:
             return
-        if keep is not None and not fsdp:
-            keep["params"] = [b.to("cpu", copy=True) for b in state["pbuf"]]
         if fsdp:
-            check(runtime.stats()["sharded_state"]
-                  and runtime.stats()["gather_skip"]
+            st = runtime.stats()
+            check(st["sharded_state"] and st["gather_skip"]
+                  and st["decoupled"] == decoupled
                   and [b.numel() for b in state["pbuf"]]
                   == list(runtime.layout.shard_sizes),
-                  f"{key} is not the sharded engine with the gather skip")
-            rep = [(buf - want.cuda()).abs()
-                   for buf, want in zip(state["pbuf"], keep["params"])]
-            against_rep.update(
-                max_param_diff=max(d.max().item() for d in rep),
-                n_params_over_tol=sum(int((d > PARAM_TOL).sum().item())
-                                      for d in rep))
-            del rep
+                  f"{key} is not the sharded engine with the gather skip"
+                  f"{' streamed' if decoupled else ''}")
+        if store is not None:
+            store.update(stored_run(state, run_losses))
+        if against is not None:
+            vs_stored.update(held_to(key, against, state, run_losses))
         per_bucket = []
         for buf, want in zip(state["pbuf"], ref_params):
             d = (buf - want.cuda()).abs()
@@ -1503,25 +1599,29 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     want = expected_launches(cfg, schedule, res["layout"], steps)
     check(launches == want, f"{key} launches {launches}, expected {want}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    if fsdp:
+    check(against is None or vs_stored,
+          f"{key} was not held to {against and against[0]}")
+    if chain:
+        # the rerouted schedule's counts, with every chained collective
+        routed = res["schedule"]
+        check(all(ph.secondary[b] == ((ph.route_new[b] == "sync"
+                                       and ph.rotate) or ph.sync_cur[b])
+                  for ph in routed.phases for b in range(len(ph.secondary))),
+              f"{key}: not every synced bucket is on the secondary link")
+        per_phase = res["runtime"].collectives_per_phase()
+        wants = [per_phase[i % period] for i in range(steps)]
+        chained = sum(c["chained"] for c in res["collectives"])
+        check(chained > 0 and not p2p
+              and all(c["chain_rounds"] == 0 for c in res["collectives"]),
+              f"{key}: {chained} chained collectives, {len(p2p)} P2P rounds "
+              f"(one rank: the chain must route and move nothing)")
+    elif fsdp:
         wants = sharded_collectives(schedule, res["layout"], steps)
     else:
         wants = [phase_collectives(schedule.phases[i % period])
                  for i in range(steps)]
     for i, (got, want) in enumerate(zip(res["collectives"], wants)):
         check(got == want, f"step {i}: issued {got}, schedule says {want}")
-    if keep is not None and not fsdp:
-        keep["loss0"] = losses[0]
-    if fsdp:
-        check(losses[0] == keep["loss0"],
-              f"{key} step-0 loss {losses[0]!r} is not the replicated "
-              f"run's {keep['loss0']!r}")
-        check(against_rep["max_param_diff"] <= PARAM_MAX_DIFF
-              and against_rep["n_params_over_tol"] <= PARAM_MAX_OVER,
-              f"{key} params after the first period vs the replicated run: "
-              f"max |diff| {against_rep['max_param_diff']:.3g}, "
-              f"{against_rep['n_params_over_tol']} elements beyond "
-              f"{PARAM_TOL}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     check(rel <= 1e-4, f"{key} losses vs the plain run: rel diff {rel:.3g} "
                        f"({losses[:period]} vs {ref_losses})")
@@ -1561,35 +1661,46 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
         launches=launches, collectives=res["collectives"], **agree)
     if fsdp:
         out.update(
-            against_replicated=against_rep,
             gathered_bytes=4 * sum(res["layout"].buf_sizes),
             stats={k: v for k, v in res["runtime"].stats().items()
                    if k != "phases"})
+    if against is not None:
+        out["against"] = vs_stored
+    if decoupled:
+        out["stream"] = {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in stream.items()}
+    if chain:
+        out.update(chained=chained, p2p_rounds=len(p2p))
     report[key] = out
     print(f"{key} ({arch}, {cfg.n_layers} of {of_layers} layers): {steps} "
           f"steps, median step {step_s:.3f} s, "
           f"{BATCH * SEQ / step_s:.0f} tok/s, peak memory "
-          f"{peak / 2**30:.2f} GiB, launches {launches}, loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}, vs plain: loss rel "
+          f"{peak / 2**30:.2f} GiB [{report['card']}], launches {launches}, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, vs plain: loss rel "
           f"{rel:.2g}, params max diff {agree['max_param_diff']:.3g} "
           f"({agree['n_params_over_tol']} of {agree['n_params']} over "
           f"{PARAM_TOL})")
-    if fsdp:
-        rep = report["main_path"]
-        print(f"  vs the replicated run: step-0 loss bitwise equal, params "
-              f"max diff {against_rep['max_param_diff']:.3g} "
-              f"({against_rep['n_params_over_tol']} over {PARAM_TOL}); "
-              f"replicated median step {rep['median_step_s']:.3f} s, "
-              f"{rep['tokens_per_s']:.0f} tok/s, peak "
-              f"{rep['peak_bytes'] / 2**30:.2f} GiB (the gathered f32 "
-              f"params add {out['gathered_bytes'] / 2**30:.2f} GiB)")
+    if against is not None:
+        print_against(report, against, vs_stored)
+    if fsdp and not decoupled:
+        print(f"  the gathered f32 params: "
+              f"{out['gathered_bytes'] / 2**30:.2f} GiB")
+    if decoupled:
+        print(f"  streamed: buckets first touched in the order "
+              f"{list(stream['touched'])}; {stream['issued_at_first_touch']} "
+              f"param gathers issued before the forward's first compute "
+              f"(the burst engine: every bucket's, "
+              f"{res['layout'].n_buckets})")
+    if chain:
+        print(f"  chain (0,): {chained} collectives routed onto it, "
+              f"{len(p2p)} P2P rounds")
     del res
     torch.cuda.empty_cache()
     return launches
 
 
 def precision_path(torch, cfg, report, key, coverage_rate, delayed,
-                   fsdp=False):
+                   fsdp=False, decoupled=False, store=None, against=None):
     """DeFT's precision path at the main path's cut: int8 gradient wires
     on every bucket and a bf16sr resident master (so the forward and
     backward run in bf16 on the bf16 params).  ``delayed`` requires a
@@ -1598,7 +1709,9 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     ``fsdp`` runs it on the sharded flat engine (one shard) with the gather
     skip on and bf16 compute (that engine reads params at the compute
     dtype): each gathered bucket then runs int8 through the quantize and
-    dequantize kernels too, as its values and scales are all-gathered."""
+    dequantize kernels too, as its values and scales are all-gathered;
+    ``decoupled`` streams those gathers into the forward.  ``store`` and
+    ``against`` are ``main_path``'s, over the comparison window."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     from repro_torch.kernels.quantize import (
@@ -1618,7 +1731,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK,
               wire_precision=WIRE, master_dtype=MASTER)
     if fsdp:
-        kw.update(fsdp=True, compute_dtype="bf16")
+        kw.update(fsdp=True, compute_dtype="bf16", decoupled=decoupled)
     window = PREC_REF_STEPS
 
     # reference: the first steps with every kernel's plain version forced
@@ -1631,10 +1744,20 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     torch.cuda.empty_cache()
 
     agree = {}
+    vs_stored = {}
+    stream = {}
+    run_losses = []
 
     def on_step(step, runtime, state, metrics):
+        run_losses.append(float(metrics["loss"]))
+        if decoupled and step == window:      # position 0, order recorded
+            stream.update(runtime.last_stream)
         if step != window - 1:
             return
+        if store is not None:
+            store.update(stored_run(state, run_losses))
+        if against is not None:
+            vs_stored.update(held_to(key, against, state, run_losses))
         per_bucket = []
         for buf, want in zip(state["pbuf"], ref_params):
             w = want.cuda().float()
@@ -1688,9 +1811,13 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
                  for i in range(steps)]
     for i, (got, want) in enumerate(zip(res["collectives"], wants)):
         check(got == want, f"step {i}: issued {got}, schedule says {want}")
+    check(against is None or vs_stored,
+          f"{key} was not held to {against and against[0]}")
     if fsdp:
-        check(rt.stats()["sharded_state"] and rt.stats()["gather_skip"],
-              f"{key} is not the sharded engine with the gather skip")
+        check(rt.stats()["sharded_state"] and rt.stats()["gather_skip"]
+              and rt.stats()["decoupled"] == decoupled,
+              f"{key} is not the sharded engine with the gather skip"
+              f"{' streamed' if decoupled else ''}")
         synced = sum(c["reduce_scatter"] for c in res["collectives"])
         # an int8 param gather is two all-gathers: values and scales
         gathered = sum(c["param_gather"] for c in res["collectives"]) // 2
@@ -1755,6 +1882,11 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
         collectives=res["collectives"],
         stats={k: v for k, v in rt.stats().items() if k != "phases"},
         **agree)
+    if against is not None:
+        out["against"] = vs_stored
+    if decoupled:
+        out["stream"] = {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in stream.items()}
     report[key] = out
     f32 = report["main_path"]
     print(f"{key} ({WIRE} wires, {MASTER} master, coverage rate "
@@ -1762,7 +1894,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
           f"updates/period {schedule.updates_per_period}, batch-size seq "
           f"{tuple(schedule.batch_size_sequence)}, median step {step_s:.3f} s, "
           f"{BATCH * SEQ / step_s:.0f} tok/s, peak memory "
-          f"{peak / 2**30:.2f} GiB (bf16 gradient scratch "
+          f"{peak / 2**30:.2f} GiB [{report['card']}] (bf16 gradient scratch "
           f"{gscratch / 2**30:.2f} GiB), launches {launches}, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; vs plain over {window} "
           f"steps: loss rel {rel:.2g}, params max diff "
@@ -1777,6 +1909,12 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
         print(f"  beside the replicated engine's delayed run: median step "
               f"{rep['median_step_s']:.3f} s, {rep['tokens_per_s']:.0f} "
               f"tok/s, peak {rep['peak_bytes'] / 2**30:.2f} GiB")
+    if against is not None:
+        print_against(report, against, vs_stored)
+    if decoupled:
+        print(f"  streamed: buckets first touched in the order "
+              f"{list(stream['touched'])}; {stream['issued_at_first_touch']} "
+              f"param gathers issued before the forward's first compute")
     del res, rt, state
     torch.cuda.empty_cache()
     return launches
@@ -1890,14 +2028,26 @@ def run() -> int:
     entries += rglru_phase(torch, report)
     entries += rwkv6_phase(torch, report)
     rwkv_grad_phase(torch, rw_cfg, report)
-    replicated = {}
+    replicated, sharded, streamed, sharded_prec = {}, {}, {}, {}
+    steps = 2 * schedule.period + 2
     launches = {
         "f32": main_path(torch, cfg, schedule, report, "main_path", ARCH, 26,
-                         2 * schedule.period + 2, keep=replicated),
-        "f32 sharded": main_path(torch, cfg, schedule, report,
-                                 "sharded_path", ARCH, 26,
-                                 2 * schedule.period + 2, fsdp=True,
-                                 keep=replicated),
+                         steps, store=replicated),
+        "f32 sharded": main_path(
+            torch, cfg, schedule, report, "sharded_path", ARCH, 26, steps,
+            fsdp=True, store=sharded,
+            against=("main_path", replicated, False)),
+        "f32 sharded streamed": main_path(
+            torch, cfg, schedule, report, "decoupled_path", ARCH, 26, steps,
+            fsdp=True, decoupled=True, store=streamed,
+            against=("sharded_path", sharded, True)),
+        "f32 chain": main_path(
+            torch, cfg, schedule, report, "chain_path", ARCH, 26, steps,
+            chain=True, against=("main_path", replicated, True)),
+        "f32 sharded streamed chain": main_path(
+            torch, cfg, schedule, report, "chain_path_sharded", ARCH, 26,
+            steps, fsdp=True, decoupled=True, chain=True,
+            against=("decoupled_path", streamed, True)),
         f"{WIRE}+{MASTER}": precision_path(
             torch, cfg, report, "precision_path", COVERAGE_RATE,
             delayed=False),
@@ -1906,7 +2056,12 @@ def run() -> int:
             DELAYED_COVERAGE_RATE, delayed=True),
         f"{WIRE}+{MASTER} sharded": precision_path(
             torch, cfg, report, "sharded_precision_path",
-            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True),
+            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True,
+            store=sharded_prec),
+        f"{WIRE}+{MASTER} sharded streamed": precision_path(
+            torch, cfg, report, "decoupled_precision_path",
+            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True, decoupled=True,
+            against=("sharded_precision_path", sharded_prec, True)),
         f"{RG_ARCH} f32": main_path(torch, rg_cfg, rg_schedule, report,
                                     "recurrent_path", RG_ARCH, RG_OF_LAYERS,
                                     RG_STEPS),
@@ -1915,7 +2070,7 @@ def run() -> int:
                                       RWKV_STEPS,
                                       bucket_share=RWKV_BUCKET_SHARE),
     }
-    del replicated
+    del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}
         e["launches"] = next((n for n in by_path.values() if n), 0)

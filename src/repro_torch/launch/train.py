@@ -3,19 +3,24 @@
 
 Port of ``repro/launch/train.py`` for the flat engines' flags: the
 precision ones (``--wire-precision``, ``--master-dtype``,
-``--compute-dtype``, DESIGN.md §13) and ``--fsdp``, the sharded flat
+``--compute-dtype``, DESIGN.md §13), ``--fsdp``, the sharded flat
 engine (params and moments 1/N per rank, DESIGN.md §8; by default the
-archs ``repro_torch.sharding.needs_fsdp`` names).  Runs on the card unless
-``--device cpu``.  Under ``torchrun`` the process
-group comes from its environment; run alone it is a one-rank group
-(NCCL on the card, gloo on the CPU), so every gradient sum still goes
-through a real collective.
+archs ``repro_torch.sharding.needs_fsdp`` names), ``--decoupled``, its
+param all-gathers streamed into the forward (DESIGN.md §12), and
+``--pod``, a ``pod x data`` layout of the ranks whose syncs are
+hierarchical.  Runs on the card unless ``--device cpu``.  Under
+``torchrun`` the process group comes from its environment; run alone it
+is a one-rank group (NCCL on the card, gloo on the CPU), so every
+gradient sum still goes through a real collective.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --scheduler deft --steps 8 --batch 4 --seq 64 \
         --wire-precision int8 --master-dtype bf16sr
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 6 --batch 2 --seq 32 --device cpu --fsdp
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen3-4b --smoke --steps 6 --batch 2 --seq 32 --device cpu \
+        --fsdp --decoupled
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import argparse
 import os
 import socket
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -62,6 +67,30 @@ def init_distributed(device: torch.device) -> None:
         port = s.getsockname()[1]
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
+
+
+def pod_groups(pod: int):
+    """(data group, pod group) of this rank in a ``pod x data`` layout of
+    the world, rank ``p * data + d`` at pod ``p``, data position ``d`` (the
+    JAX mesh's device order).  Every rank builds every group, in the same
+    order, as ``dist.new_group`` requires; ``pod == 1`` is (None, None):
+    one DP axis over the world."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if pod < 1 or world % pod:
+        raise ValueError(f"--pod {pod} does not divide the {world} ranks")
+    if pod == 1:
+        return None, None
+    data = world // pod
+    data_group = pod_group = None
+    for p in range(pod):
+        g = dist.new_group([p * data + d for d in range(data)])
+        if rank // data == p:
+            data_group = g
+    for d in range(data):
+        g = dist.new_group([p * data + d for p in range(pod)])
+        if rank % data == d:
+            pod_group = g
+    return data_group, pod_group
 
 
 def build_schedule(params, cfg, *, dp: int, seq_len: int,
@@ -107,7 +136,9 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           update_impl: Optional[str] = None,
           quantize_impl: Optional[str] = None, wire_precision: str = "f32",
           master_dtype: str = "f32", compute_dtype: str = "f32",
-          fsdp: Optional[bool] = None,
+          fsdp: Optional[bool] = None, decoupled: bool = False,
+          pod: int = 1, secondary_chain: Optional[Sequence[int]] = None,
+          reroute: Optional[Callable] = None,
           on_step: Optional[Callable] = None,
           log: Callable = print) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
@@ -121,12 +152,20 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     engine's precision (the DDP baseline takes none).  ``fsdp`` runs the
     sharded flat engine over a layout of one shard per rank (None: the
     arch's default, ``needs_fsdp``); its gather skip is on where the
-    schedule can reuse a gather.  Returns the
+    schedule can reuse a gather, and ``decoupled`` streams its param
+    gathers into the forward.  ``pod`` lays the ranks out as ``pod x
+    data`` (``pod_groups``): the sharded layout splits over 'data' and the
+    syncs are hierarchical.  ``secondary_chain`` routes the secondary
+    link's collectives along that ring chain of the 'data' ranks;
+    ``reroute(schedule, times)`` returns the (schedule, AG plan) the
+    runtime runs instead of the planner's schedule and no AG plan.
+    Returns the
     losses, per-step wall times (each step synchronised), the schedule,
     the runtime and the final state."""
     device = torch.device(device)
     init_distributed(device)
     rank, world = dist.get_rank(), dist.get_world_size()
+    data_group, pod_group = pod_groups(pod)
     if batch % world:
         raise ValueError(f"global batch {batch} does not split over {world} ranks")
     per = batch // world
@@ -139,6 +178,10 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         if fsdp:
             raise ValueError("the port's DDP baseline is replicated: fsdp "
                              "needs --scheduler deft")
+        if decoupled or secondary_chain is not None:
+            raise ValueError("the DDP baseline has no param gather to "
+                             "stream and no secondary link: decoupled and "
+                             "secondary_chain need --scheduler deft")
         state = init_ddp_state(cfg, opt, seed=seed, device=device)
         step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
                                 attn_impl=attn_impl, scan_impl=scan_impl)
@@ -148,7 +191,9 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             params_abs, cfg, dp=world, seq_len=seq, per_device_batch=per,
             partition_elems=partition_elems, coverage_rate=coverage_rate,
             wire_precision=wire_precision, master_dtype=master_dtype)
-        schedule = plan.schedule
+        schedule, ag_plan = plan.schedule, None
+        if reroute is not None:
+            schedule, ag_plan = reroute(schedule, times)
         log(f"deft: {nb} buckets, CR={times.coverage_rate:.2f}, "
             f"period={schedule.period}, "
             f"updates/period={schedule.updates_per_period}, "
@@ -158,7 +203,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             log(f"precision: wire={plan.precision.describe()} "
                 f"master={plan.precision.master}")
         layout = build_bucket_layout(params_abs, bucket_of, nb,
-                                     shard_count=world if fsdp else 1)
+                                     shard_count=world // pod if fsdp else 1)
         if plan.precision is not None:
             layout = layout.with_precision(plan.precision)
         cdt = COMPUTE_DTYPES[compute_dtype]
@@ -166,7 +211,9 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             cfg, opt, schedule, layout, device=device, loss_chunk=loss_chunk,
             attn_impl=attn_impl, scan_impl=scan_impl, update_impl=update_impl,
             quantize_impl=quantize_impl, compute_dtype=cdt,
-            master_dtype=master_dtype, fsdp=fsdp)
+            master_dtype=master_dtype, fsdp=fsdp, decoupled=decoupled,
+            group=data_group, outer_group=pod_group,
+            secondary_chain=secondary_chain, ag_plan=ag_plan)
         state = runtime.init_state(seed, dtype=cdt or torch.float32)
         out.update(schedule=schedule, layout=layout, times=times)
     else:
@@ -227,6 +274,14 @@ def main() -> None:
                     help="drive the SHARDED flat engine: params and optimizer "
                          "moments resident 1/N over the ranks (default: the "
                          "arch's policy)")
+    ap.add_argument("--decoupled", action="store_true",
+                    help="stream per-bucket param all-gathers into the "
+                         "forward instead of the phase-start burst "
+                         "(DESIGN.md §12; needs --fsdp)")
+    ap.add_argument("--pod", type=int, default=1,
+                    help="outer 'pod' axis of a pod x data layout of the "
+                         "ranks: syncs reduce-scatter over 'data', "
+                         "all-reduce over 'pod', all-gather over 'data'")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -245,7 +300,8 @@ def main() -> None:
                 device=args.device, loss_chunk=args.loss_chunk,
                 wire_precision=args.wire_precision,
                 master_dtype=args.master_dtype,
-                compute_dtype=args.compute_dtype, fsdp=args.fsdp)
+                compute_dtype=args.compute_dtype, fsdp=args.fsdp,
+                decoupled=args.decoupled, pod=args.pod)
     dt = time.time() - t0
     print(f"{args.steps} steps in {dt:.1f}s "
           f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")

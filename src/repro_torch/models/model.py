@@ -28,7 +28,7 @@ from repro_torch.models.common import (
     init_norm,
     softcap,
 )
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_dense, tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +91,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 
 def _period_views(stacked, n_periods: int):
-    """Per-period trees of views into one stacked pattern position."""
+    """Per-period trees of views into one stacked pattern position (every
+    leaf of a lazy position materializes here, JAX's ``lax.scan``
+    boundary)."""
     leaves = tree_leaves(stacked)
     unbound = [leaf.unbind(0) for leaf in leaves]
     return [tree_unflatten(stacked, [u[i] for u in unbound])
@@ -115,7 +117,9 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                                         attn_impl=attn_impl,
                                         scan_impl=scan_impl)
         if remat:
-            return checkpoint(fn, p, x, use_reentrant=False,
+            # a lazy (streamed) block is materialized here, at the
+            # checkpoint boundary, so the recompute never gathers
+            return checkpoint(fn, tree_dense(p), x, use_reentrant=False,
                               preserve_rng_state=False)
         return fn(p, x)
 

@@ -30,18 +30,28 @@ Port of ``repro/train/runtime.py`` (``_route_and_sync``,
   gradient buffer.
 
 With ``fsdp=True`` it is the sharded flat engine instead (port of
-``_deft_body_flat_rs``, DESIGN.md §8-§9, without AG streaming or ring
-chains): each rank keeps only its contiguous 1/N span of every param and
-moment buffer (``layout.shard_sizes``); the forward all-gathers the
-spans into full buffers at each bucket's wire precision
-(``_wire_gather``: int8 gathers the int8 values and the per-row f32
-scales), or reuses the previous phase's gathered buffers where no update
-came in between (the gather skip, ``pgather``); a scheduled sync is a
-reduce-scatter into this rank's span, followed by an all-gather back into
-the full buffer only when the generation outlives the phase; the update
-kernels run on the spans, clipped by the norm summed across ranks.
-``cur``/``fut`` stay full length on every rank: an unsynced generation
-holds contributions to every span.
+``_deft_body_flat_rs``, DESIGN.md §8-§9): each rank keeps only its
+contiguous 1/N span of every param and moment buffer
+(``layout.shard_sizes``); the forward all-gathers the spans into full
+buffers at each bucket's wire precision (``_wire_gather``: int8 gathers
+the int8 values and the per-row f32 scales), or reuses the previous
+phase's gathered buffers where no update came in between (the gather
+skip, ``pgather``); a scheduled sync is a reduce-scatter into this rank's
+span, followed by an all-gather back into the full buffer only when the
+generation outlives the phase; the update kernels run on the spans,
+clipped by the norm summed across ranks.  ``cur``/``fut`` stay full
+length on every rank: an unsynced generation holds contributions to
+every span.  With ``decoupled`` (DESIGN.md §12) the param gathers are not
+a burst before the forward: each is issued ahead of the forward's first
+touch of its bucket (``train/streaming.py``).
+
+Over a ``pod x data`` layout (an outer group, DESIGN.md §8) the joint
+syncs run over the world and the others are hierarchical: reduce-scatter
+over 'data', all-reduce over 'pod', all-gather over 'data'; the sharded
+engine's spans are 1/N over 'data'.  With ``secondary_chain`` (DESIGN.md
+§14) the secondary link's collectives, and the param gathers an AG plan
+puts on it, run along that ring chain of the 'data' ranks
+(``train/chains.py``), bitwise the JAX chain's.
 
 JAX's arrays are immutable and its executables donate the state; the
 port updates the buffers in place instead (the same memory footprint:
@@ -55,7 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -81,81 +91,146 @@ from repro_torch.train.bucketing import (
     flatten_bucket,
     unflatten_buckets,
 )
+from repro_torch.train.chains import (
+    chain_all_gather,
+    chain_all_reduce,
+    chain_reduce_scatter,
+)
+from repro_torch.train.streaming import ParamStream, lazy_param_tree
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 TrainState = Dict[str, Any]
 
 
 class DataParallel:
-    """The collectives of the DeFT engines over one process group, with a
-    count of what was issued (reset per step by the runtime).  ``keys``
-    names the counts: ``REPLICATED`` for the replicated engine and the DDP
-    baseline, ``SHARDED`` for the sharded flat engine."""
+    """The collectives of the DeFT engines, with a count of what was
+    issued (reset per step by the runtime).  ``keys`` names the counts:
+    ``REPLICATED`` for the replicated engine and the DDP baseline,
+    ``SHARDED`` for the sharded flat engine.
+
+    ``group`` is the 'data' group (None: the world).  ``outer`` is the
+    'pod' group of a ``pod x data`` layout of the world
+    (``launch.train.pod_groups``; None: one DP axis): the joint
+    ``('pod', 'data')`` sums (primary syncs, metrics) then run over the
+    world, and every sharded sync adds an all-reduce over ``outer``
+    (counted as ``outer``).  ``chain`` is the secondary link's ring chain
+    over the 'data' group's ranks: secondary syncs, and the gathers the
+    engine marks ``chained``, run along it (``train/chains.py``), each
+    counted as ``chained`` besides its own count, each of its rounds as
+    ``chain_rounds``, with the round's ``(source, destination)`` pairs
+    appended to ``p2p``."""
 
     REPLICATED = ("primary", "secondary", "metrics")
     SHARDED = ("param_gather", "reduce_scatter", "all_gather", "norm",
                "metrics")
 
-    def __init__(self, group=None, keys: Tuple[str, ...] = REPLICATED):
+    def __init__(self, group=None, keys: Tuple[str, ...] = REPLICATED, *,
+                 outer=None, chain: Optional[Tuple[int, ...]] = None):
         if not dist.is_initialized():
             raise RuntimeError(
                 "the DeFT runtime syncs through torch.distributed: initialise "
                 "a process group first (launch.train.init_distributed)"
             )
         self.group = group
+        self.outer = outer
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        self.n_outer = 1 if outer is None else dist.get_world_size(outer)
+        self.n_dp = self.size * self.n_outer
+        if outer is not None and self.n_dp != dist.get_world_size():
+            raise ValueError(
+                f"a {self.n_outer} x {self.size} pod x data layout does not "
+                f"cover the {dist.get_world_size()} ranks of the world")
+        # the group of a joint sum over every DP axis
+        self.joint = group if outer is None else None
+        self.chain = chain
+        keys = tuple(keys) + (("outer",) if outer is not None else ()) \
+            + (("chained", "chain_rounds") if chain is not None else ())
         self.counts = dict.fromkeys(keys, 0)
+        self.p2p: List[Tuple[Tuple[int, int], ...]] = []
 
     def reset(self) -> None:
         self.counts = dict.fromkeys(self.counts, 0)
+        self.p2p = []
+
+    def _round(self, perm: Tuple[Tuple[int, int], ...]) -> None:
+        self.p2p.append(perm)
+        self.counts["chain_rounds"] += 1
+
+    def _outer_sum(self, x: torch.Tensor) -> torch.Tensor:
+        if self.outer is not None:
+            dist.all_reduce(x, group=self.outer)
+            self.counts["outer"] += 1
+        return x
 
     def primary(self, x: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(x, group=self.group)
+        dist.all_reduce(x, group=self.joint)
         self.counts["primary"] += 1
         return x
 
     def secondary(self, x: torch.Tensor) -> torch.Tensor:
-        """Reduce-scatter then all-gather (in place); ``all_reduce`` when
-        the buffer does not split evenly over the ranks."""
+        """In place: along the chain with one DP axis; else reduce-scatter
+        over 'data', all-reduce over 'pod', all-gather over 'data';
+        ``all_reduce`` when the buffer does not split evenly over 'data'."""
         n = x.numel()
-        if n % self.size == 0 and n >= self.size:
+        if self.chain is not None and self.outer is None:
+            chain_all_reduce(x, self.chain, self.group, self._round)
+            self.counts["chained"] += 1
+        elif n % self.size == 0 and n >= self.size:
             shard = torch.empty(n // self.size, dtype=x.dtype, device=x.device)
             dist.reduce_scatter_tensor(shard, x, group=self.group)
+            self._outer_sum(shard)
             dist.all_gather_into_tensor(x, shard, group=self.group)
         else:
-            dist.all_reduce(x, group=self.group)
+            dist.all_reduce(x, group=self.joint)
         self.counts["secondary"] += 1
         return x
 
-    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's span of the ranks' sum of ``x`` (a new tensor)."""
-        out = torch.empty(x.numel() // self.size, dtype=x.dtype,
-                          device=x.device)
-        dist.reduce_scatter_tensor(out, x, group=self.group)
+    def reduce_scatter(self, x: torch.Tensor, chained: bool = False
+                       ) -> torch.Tensor:
+        """This rank's 'data' span of every rank's sum of ``x`` (a new
+        tensor at more than one rank): a reduce-scatter over 'data' (along
+        the chain when ``chained``), then an all-reduce over 'pod'."""
+        if chained:
+            out = chain_reduce_scatter(x, self.chain, self.group, self._round)
+            self.counts["chained"] += 1
+        else:
+            out = torch.empty(x.numel() // self.size, dtype=x.dtype,
+                              device=x.device)
+            dist.reduce_scatter_tensor(out, x, group=self.group)
         self.counts["reduce_scatter"] += 1
-        return out
+        return self._outer_sum(out)
 
     def all_gather(self, span: torch.Tensor,
                    out: Optional[torch.Tensor] = None,
-                   count: str = "all_gather") -> torch.Tensor:
-        """Every rank's ``span`` concatenated in rank order, into ``out``
-        (a new tensor when None); counted under ``count``."""
+                   count: str = "all_gather", chained: bool = False,
+                   async_op: bool = False):
+        """Every 'data' rank's ``span`` concatenated in rank order, into
+        ``out`` (a new tensor when None), along the chain when ``chained``;
+        counted under ``count``.  ``async_op`` returns (out, work): the
+        buffer is valid after ``work.wait()``."""
         if out is None:
             out = torch.empty(span.numel() * self.size, dtype=span.dtype,
                               device=span.device)
-        dist.all_gather_into_tensor(out, span, group=self.group)
+        work = None
+        if chained:
+            chain_all_gather(span, self.chain, self.group, out, self._round)
+            self.counts["chained"] += 1
+        else:
+            work = dist.all_gather_into_tensor(out, span, group=self.group,
+                                               async_op=async_op)
         self.counts[count] += 1
-        return out
+        return (out, work) if async_op else out
 
     def norm(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of a squared-norm scalar (in place)."""
+        """The sum over the 'data' ranks of a squared-norm scalar (in
+        place): the pod replicas hold the same spans."""
         dist.all_reduce(x.reshape(1), group=self.group)
         self.counts["norm"] += 1
         return x
 
     def metrics(self, x: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(x, group=self.group)
+        dist.all_reduce(x, group=self.joint)
         self.counts["metrics"] += 1
         return x
 
@@ -204,44 +279,77 @@ def _fused_metrics(loss, parts, phase: PhaseSpec, n_dp: int,
     }
 
 
-def phase_collectives(phase: PhaseSpec) -> Dict[str, int]:
+def phase_collectives(phase: PhaseSpec, layout: Optional[BucketLayout] = None,
+                      *, n_data: int = 1, outer: bool = False,
+                      chain: bool = False) -> Dict[str, int]:
     """Collectives one phase issues, by construction: one primary sync per
     primary-synced bucket, one secondary sync per secondary-synced bucket,
-    plus the single metrics all-reduce."""
+    plus the single metrics all-reduce.  Over ``n_data`` 'data' ranks with
+    an ``outer`` 'pod' group, a secondary sync whose buffer (``layout``)
+    splits over the ranks adds one all-reduce over 'pod'; with a ``chain``
+    each secondary sync is chained, in ``2 (n_data - 1)`` rounds."""
     n = len(phase.route_new)
     synced = [
         (phase.route_new[b] == "sync" and phase.rotate) or phase.sync_cur[b]
         for b in range(n)
     ]
     primary = sum(1 for b in range(n) if synced[b] and not phase.secondary[b])
-    secondary = sum(1 for b in range(n) if synced[b] and phase.secondary[b])
-    return {"primary": primary, "secondary": secondary, "metrics": 1}
+    secondary = [b for b in range(n) if synced[b] and phase.secondary[b]]
+    out = {"primary": primary, "secondary": len(secondary), "metrics": 1}
+    if outer:
+        out["outer"] = sum(1 for b in secondary
+                           if layout.buf_sizes[b] % n_data == 0
+                           and layout.buf_sizes[b] >= n_data)
+    if chain:
+        out["chained"] = len(secondary)
+        out["chain_rounds"] = 2 * (n_data - 1) * len(secondary)
+    return out
 
 
 def phase_collectives_sharded(phase: PhaseSpec, layout: BucketLayout,
                               reuse: Optional[Tuple[bool, ...]],
-                              clip: bool) -> Dict[str, int]:
+                              clip: bool, *, outer: bool = False,
+                              chain: bool = False,
+                              ag_links: Optional[Tuple[bool, ...]] = None
+                              ) -> Dict[str, int]:
     """Collectives one phase of the sharded flat engine issues, by
     construction: a param all-gather per bucket whose gather is not reused
     (two on an int8 wire: values and scales), a reduce-scatter per synced
     generation of a bucket, a trailing all-gather per synced generation
     that outlives the phase, one norm all-reduce per update with grad
-    clipping on, and the single metrics all-reduce."""
+    clipping on, and the single metrics all-reduce.  With an ``outer``
+    'pod' group every reduce-scatter adds one all-reduce over it; with a
+    ``chain`` over the ``layout.shards`` 'data' ranks, each reduce-scatter
+    and trailing all-gather of a secondary bucket, and each param gather
+    ``ag_links`` marks, is chained, in ``shards - 1`` rounds."""
     n = len(phase.route_new)
     reuse = reuse or (False,) * n
+    links = ag_links or (False,) * n
     consumed_new = phase.do_update and phase.update_source == "new"
     consumed_cur = phase.do_update and phase.update_source == "cur"
     new = [phase.rotate and phase.route_new[b] == "sync" for b in range(n)]
     cur = list(phase.sync_cur)
-    return {
-        "param_gather": sum(2 if layout.wire(b) == "int8" else 1
-                            for b in range(n) if not reuse[b]),
-        "reduce_scatter": sum(new) + sum(cur),
-        "all_gather": (0 if consumed_new else sum(new))
-                      + (0 if consumed_cur else sum(cur)),
+    gathers = [0 if reuse[b] else 2 if layout.wire(b) == "int8" else 1
+               for b in range(n)]
+    # per bucket: reduce-scatters, trailing all-gathers
+    rs = [int(new[b]) + int(cur[b]) for b in range(n)]
+    ag = [(0 if consumed_new else int(new[b]))
+          + (0 if consumed_cur else int(cur[b])) for b in range(n)]
+    out = {
+        "param_gather": sum(gathers),
+        "reduce_scatter": sum(rs),
+        "all_gather": sum(ag),
         "norm": int(bool(phase.do_update and clip)),
         "metrics": 1,
     }
+    if outer:
+        out["outer"] = sum(rs)
+    if chain:
+        out["chained"] = sum((rs[b] + ag[b] if phase.secondary[b] else 0)
+                             + (gathers[b] if links[b] else 0)
+                             for b in range(n))
+        out["chain_rounds"] = (layout.shards - 1) * out["chained"]
+    return out
 
 
 def _gather_reuse_masks(schedule: DeftSchedule) -> List[Tuple[bool, ...]]:
@@ -288,14 +396,17 @@ def _wire_reduce_scatter(x: torch.Tensor, wire: str, reduce_scatter,
     return reduce_scatter(x)
 
 
-def _wire_gather(span: torch.Tensor, wire: str, gather, out: torch.Tensor,
-                 impl: Optional[str] = None) -> torch.Tensor:
-    """One param all-gather at a bucket's wire precision, decoded into
-    ``out``, a full buffer of the forward's dtype (so the wire dtype is
-    invisible downstream).  ``gather(x, out=None)`` all-gathers ``x``.
+def _wire_gather_start(span: torch.Tensor, wire: str, start,
+                       out: torch.Tensor, impl: Optional[str] = None
+                       ) -> Callable[[], torch.Tensor]:
+    """Issue one param all-gather at a bucket's wire precision and return
+    the function that waits for it and decodes it into ``out``, a full
+    buffer of the forward's dtype (so the wire dtype is invisible
+    downstream).  ``start(x, out=None)`` issues the all-gather of ``x``
+    and returns (its result buffer, a work to wait on or None).
 
-    * ``int8`` quantizes the f32 span, gathers the int8 values and the
-      per-row f32 scales (two all-gathers) and dequantizes the whole
+    * ``int8`` quantizes the f32 span and issues the gathers of the int8
+      values and the per-row f32 scales; the finish dequantizes the whole
       buffer.
     * ``bf16`` gathers a bf16 copy of the span and casts it to ``out``.
     * ``f32`` casts the span to the forward dtype before the gather (the
@@ -303,14 +414,33 @@ def _wire_gather(span: torch.Tensor, wire: str, gather, out: torch.Tensor,
       forward moves half the bytes)."""
     if wire == "int8":
         q, s = quantize_int8(span.float(), impl=impl)
-        q, s = gather(q), gather(s)
-        if out.dtype == torch.float32:
-            return dequantize_int8(q, s, impl=impl, out=out)
-        return out.copy_(dequantize_int8(q, s, impl=impl))
+        (qg, wq), (sg, ws) = start(q), start(s)
+
+        def finish(q=q, s=s) -> torch.Tensor:   # sources live till landed
+            for w in (wq, ws):
+                if w is not None:
+                    w.wait()
+            if out.dtype == torch.float32:
+                return dequantize_int8(qg, sg, impl=impl, out=out)
+            return out.copy_(dequantize_int8(qg, sg, impl=impl))
+        return finish
     x = cast_compute(span, torch.bfloat16 if wire == "bf16" else out.dtype)
-    if x.dtype == out.dtype:
-        return gather(x, out)
-    return out.copy_(gather(x))
+    g, w = start(x, out) if x.dtype == out.dtype else start(x)
+
+    def finish(x=x) -> torch.Tensor:            # source lives till landed
+        if w is not None:
+            w.wait()
+        return g if g is out else out.copy_(g)
+    return finish
+
+
+def _wire_gather(span: torch.Tensor, wire: str, gather, out: torch.Tensor,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """One blocking param all-gather at a bucket's wire precision, decoded
+    into ``out`` (``_wire_gather_start``); ``gather(x, out=None)``
+    all-gathers ``x``."""
+    return _wire_gather_start(
+        span, wire, lambda x, o=None: (gather(x, o), None), out, impl)()
 
 
 @dataclasses.dataclass
@@ -346,16 +476,26 @@ class DeftRuntime:
     the resident param dtype; ``attn_impl`` / ``scan_impl`` /
     ``update_impl`` / ``quantize_impl`` = "plain" force the kernels' plain
     versions.  ``fsdp`` selects the sharded flat engine, whose layout must
-    be built with ``shard_count`` equal to the group's size;
+    be built with ``shard_count`` equal to the 'data' group's size;
     ``gather_skip`` (None: on when the schedule has a position that can
     reuse a gather) lets it skip the param all-gathers of a phase that no
-    update preceded.  The replicated engine's forward reads a bf16sr
-    master in bf16, the sharded one reads params at ``compute_dtype`` (f32
-    when None), as the JAX package's two engines do."""
+    update preceded, and ``decoupled`` streams its param gathers into the
+    forward.  The replicated engine's forward reads a bf16sr master in
+    bf16, the sharded one reads params at ``compute_dtype`` (f32 when
+    None), as the JAX package's two engines do.
+
+    ``group`` is the 'data' group (None: the world) and ``outer_group``
+    the 'pod' group of a ``pod x data`` layout (``launch.train.pod_groups``).
+    ``secondary_chain`` (a permutation of the 'data' ranks,
+    ``launch.mesh.ring_chain``) routes the secondary link's collectives
+    along that chain, and ``ag_plan`` (an ``AgStreamPlan``) the sharded
+    engine's param gathers it puts on link 1 (without a chain the plan
+    routes nothing, as in JAX)."""
 
     def __init__(self, cfg: ArchConfig, opt_spec: OptimizerSpec,
                  schedule: DeftSchedule, layout: BucketLayout, *,
-                 device="cuda", group=None, loss_chunk: int = 0,
+                 device="cuda", group=None, outer_group=None,
+                 loss_chunk: int = 0,
                  attn_impl: Optional[str] = None,
                  scan_impl: Optional[str] = None,
                  update_impl: Optional[str] = None,
@@ -363,25 +503,57 @@ class DeftRuntime:
                  compute_dtype: Optional[torch.dtype] = None,
                  master_dtype: Optional[str] = None,
                  fsdp: bool = False,
-                 gather_skip: Optional[bool] = None):
+                 gather_skip: Optional[bool] = None,
+                 decoupled: bool = False,
+                 secondary_chain: Optional[Sequence[int]] = None,
+                 ag_plan: Any = None):
         if gather_skip and not fsdp:
             raise ValueError(
                 "gather_skip only applies to the sharded flat engine "
                 "(fsdp=True): the replicated engine never all-gathers params")
+        if decoupled and not fsdp:
+            raise ValueError(
+                "decoupled AG streaming only applies to the sharded flat "
+                "engine (fsdp=True): the replicated engine has no per-bucket "
+                "param all-gather to stream (DESIGN.md §12)")
+        chain = None
+        if secondary_chain is not None:
+            chain = tuple(int(p) for p in secondary_chain)
+            if sorted(chain) != list(range(len(chain))):
+                raise ValueError(
+                    f"secondary_chain={chain} is not a permutation of "
+                    f"0..{len(chain) - 1} — build it with "
+                    f"launch.mesh.ring_chain")
+            if outer_group is not None and not fsdp:
+                raise ValueError(
+                    "secondary_chain on a multi-pod layout needs the sharded "
+                    "flat engine: its 'data' reduce-scatter is separate from "
+                    "the pod all-reduce, so the chain swaps in exactly.  The "
+                    "replicated engine syncs with ONE joint ('pod', 'data') "
+                    "sum whose reduction order a per-axis chain cannot "
+                    "reproduce (DESIGN.md §14)")
         self.cfg = cfg
         self.opt_spec = opt_spec
         self.schedule = schedule
         self.layout = layout
         self.device = torch.device(device)
         self.fsdp = bool(fsdp)
+        self.decoupled = bool(decoupled)
+        self.secondary_chain = chain
         self.dp = DataParallel(group, DataParallel.SHARDED if self.fsdp
-                               else DataParallel.REPLICATED)
+                               else DataParallel.REPLICATED,
+                               outer=outer_group, chain=chain)
+        if chain is not None and len(chain) != self.dp.size:
+            raise ValueError(
+                f"secondary_chain covers {len(chain)} positions but the "
+                f"'data' axis is {self.dp.size}-way — build it with "
+                f"launch.mesh.ring_chain({self.dp.size}, link)")
         if self.fsdp and layout.shards != self.dp.size:
             # the layout's own check keeps every span a multiple of 128
             # lanes, so the int8 wire's blockwise grid tiles each span
             raise ValueError(
                 f"sharded flat engine: BucketLayout was built with "
-                f"shard_count={layout.shards} but the process group has "
+                f"shard_count={layout.shards} but the 'data' group has "
                 f"{self.dp.size} ranks — build the layout with "
                 f"build_bucket_layout(..., shard_count={self.dp.size})")
         self.loss_chunk = loss_chunk
@@ -420,11 +592,38 @@ class DeftRuntime:
             else self.fsdp and any(any(m) for m in masks))
         # per cycle position, the mask (None with the skip off)
         self._reuse = masks if self.gather_skip else [None] * schedule.period
+        self._ag_plan = ag_plan
+        self._ag_links = self._ag_link_masks(schedule)
+        # per cycle position, the buckets' first-touch order of its first
+        # streamed dispatch (the order the gathers are issued ahead in)
+        self._touch_order: List[Optional[Tuple[int, ...]]] = \
+            [None] * schedule.period
+        self.last_stream: Optional[Dict[str, Any]] = None
         unique: Dict[PhaseSpec, int] = {}
         self.phase_of_step = tuple(unique.setdefault(ph, len(unique))
                                    for ph in schedule.phases)
         self._stats = [PhaseStats() for _ in unique]
         self.last_collectives: Dict[str, int] = dict(self.dp.counts)
+        self.last_p2p: List[Tuple[Tuple[int, int], ...]] = []
+
+    def _ag_link_masks(self, schedule: DeftSchedule
+                       ) -> List[Optional[Tuple[bool, ...]]]:
+        """Per cycle position, the per-bucket secondary-AG mask of the
+        sharded flat engine (DESIGN.md §14): True where the param
+        all-gather was planned onto the secondary link (``AgItem.link >=
+        1``), so that bucket's gather runs along the ring chain.  All None
+        without an AG plan, a chain or the sharded engine (as in JAX, the
+        plan alone routes nothing)."""
+        if (self._ag_plan is None or self.secondary_chain is None
+                or not self.fsdp):
+            return [None] * schedule.period
+        hot: Dict[int, set] = {}
+        for item in self._ag_plan.items:
+            if item.link >= 1:
+                hot.setdefault(item.phase, set()).add(item.bucket)
+        return [tuple(b in hot[t] for b in range(len(ph.route_new)))
+                if t in hot else None
+                for t, ph in enumerate(schedule.phases)]
 
     @property
     def period(self) -> int:
@@ -518,34 +717,42 @@ class DeftRuntime:
         else:
             new_state, loss, parts = self._step_replicated(phase, state,
                                                            batch)
-        metrics = _fused_metrics(loss, parts, phase, self.dp.size, self.dp)
+        metrics = _fused_metrics(loss, parts, phase, self.dp.n_dp, self.dp)
         st = self._stats[self.phase_of_step[off]]
         st.dispatches += 1
         st.dispatch_s += time.perf_counter() - t0
         self.last_collectives = dict(self.dp.counts)
+        self.last_p2p = list(self.dp.p2p)
         return new_state, metrics
 
-    def _loss_and_grads(self, params: List[torch.Tensor], gbuf, batch):
-        """Forward and backward on ``params`` (full flat buffers at the
-        leaf dtype): f32 gradients accumulate straight into ``gbuf``,
-        others into a scratch buffer of their dtype that is promoted into
-        ``gbuf`` after the backward.  The scratch is freed before the
-        syncs and the update: held across steps it would raise the peak
-        by its size and save no pass, as it has to be zeroed for the next
-        backward either way."""
+    def _loss_and_grads(self, params, gbuf, batch):
+        """Forward and backward on ``params``: full flat buffers at the
+        leaf dtype, or a ``ParamStream`` that gathers them as the forward
+        first touches them.  f32 gradients accumulate straight into
+        ``gbuf``, others into a scratch buffer of their dtype that is
+        promoted into ``gbuf`` after the backward.  The scratch is freed
+        before the syncs and the update: held across steps it would raise
+        the peak by its size and save no pass, as it has to be zeroed for
+        the next backward either way."""
         if self._leaf_dtype == torch.float32:
             gdst = gbuf
         else:
             gdst = [torch.zeros((n,), dtype=self._leaf_dtype,
                                 device=self.device)
                     for n in self.layout.buf_sizes]
-        leaves = _grad_leaves(self.layout, params, gdst)
+        if isinstance(params, ParamStream):
+            tree = lazy_param_tree(self._structure, self.layout,
+                                   params.get_full, gdst)
+        else:
+            tree = tree_unflatten(self._structure,
+                                  _grad_leaves(self.layout, params, gdst))
         loss, parts = loss_fn(
-            tree_unflatten(self._structure, leaves), self.cfg, batch,
-            loss_chunk=self.loss_chunk, attn_impl=self.attn_impl,
-            scan_impl=self.scan_impl)
+            tree, self.cfg, batch, loss_chunk=self.loss_chunk,
+            attn_impl=self.attn_impl, scan_impl=self.scan_impl)
+        if isinstance(params, ParamStream):
+            params.complete()        # the untouched buckets, for the cache
         loss.backward()
-        del leaves
+        del tree
         if gdst is not gbuf:
             for g, lo in zip(gbuf, gdst):
                 g.copy_(lo)
@@ -553,7 +760,7 @@ class DeftRuntime:
 
     def _step_replicated(self, phase: PhaseSpec, state: TrainState, batch):
         layout = self.layout
-        n_dp = self.dp.size
+        n_dp = self.dp.n_dp
         # differentiate w.r.t. the params at the leaf dtype
         src = [cast_compute(p, self._leaf_dtype) for p in state["pbuf"]]
         loss, parts = self._loss_and_grads(src, state["gbuf"], batch)
@@ -601,35 +808,63 @@ class DeftRuntime:
 
     def _step_sharded(self, off: int, phase: PhaseSpec, state: TrainState,
                       batch):
-        """One phase of the sharded flat engine (``_deft_body_flat_rs``
-        without AG streaming and ring chains), on the same three full
-        buffers per bucket as the replicated engine: the gradient buffer,
-        ``cur`` and ``fut``.  A synced generation that outlives the phase
+        """One phase of the sharded flat engine (``_deft_body_flat_rs``),
+        on the same three full buffers per bucket as the replicated
+        engine: the gradient buffer, ``cur`` and ``fut``.  The param
+        gathers run as a burst before the forward, or streamed into it
+        with ``decoupled``.  A synced generation that outlives the phase
         is all-gathered back into its own buffer; one the update consumes
         stays a span, and its full buffer is zeroed after the update (the
-        update reads spans, so the zeroing cannot ride its launches)."""
+        update reads spans, so the zeroing cannot ride its launches).  A
+        secondary bucket's reduce-scatter and trailing all-gather, and a
+        param gather the AG plan put on the secondary link, run along the
+        ring chain when one is set; the pod all-reduce stays on its own
+        group."""
         layout, dp = self.layout, self.dp
         nb, rank = layout.n_buckets, dp.rank
         spans = layout.shard_sizes
         reuse = self._reuse[off] or (False,) * nb
+        ag_links = self._ag_links[off] or (False,) * nb
+        on_chain = [self.secondary_chain is not None and phase.secondary[b]
+                    for b in range(nb)]
         cache = state.get("pgather")
-        gather = lambda x, out=None: dp.all_gather(x, out, "param_gather")
-        params = []
-        for b in range(nb):
-            if reuse[b]:
-                params.append(cache[b])
-                continue
+
+        def start(b: int) -> Callable[[], torch.Tensor]:
+            """Issue bucket ``b``'s param gather (asynchronous unless it
+            runs along the chain)."""
             out = (cache[b] if cache is not None else torch.empty(
                 (layout.buf_sizes[b],), dtype=self._leaf_dtype,
                 device=self.device))
-            params.append(_wire_gather(state["pbuf"][b], layout.wire(b),
-                                       gather, out, self.quantize_impl))
+
+            def gather(x, o=None):
+                if self.decoupled and not ag_links[b]:
+                    return dp.all_gather(x, o, "param_gather", async_op=True)
+                return dp.all_gather(x, o, "param_gather", ag_links[b]), None
+            return _wire_gather_start(state["pbuf"][b], layout.wire(b),
+                                      gather, out, self.quantize_impl)
+
+        if self.decoupled:
+            params = ParamStream(
+                start, [cache[b] if reuse[b] else None for b in range(nb)],
+                chained=ag_links, order=self._touch_order[off])
+        else:
+            params = [cache[b] if reuse[b] else start(b)()
+                      for b in range(nb)]
         loss, parts = self._loss_and_grads(params, state["gbuf"], batch)
+        if self.decoupled:
+            if self._touch_order[off] is None:
+                self._touch_order[off] = tuple(params.touched)
+            self.last_stream = {
+                "touched": tuple(params.touched),
+                "issued": tuple(params.issued),
+                "issued_at_first_touch": params.issued_at_first_touch}
         del params
 
         def sync(x: torch.Tensor, b: int) -> torch.Tensor:
-            return _wire_reduce_scatter(x, layout.wire(b), dp.reduce_scatter,
-                                        self.quantize_impl)
+            return _wire_reduce_scatter(
+                x, layout.wire(b),
+                lambda v: dp.reduce_scatter(v, on_chain[b]),
+                self.quantize_impl)
 
         consumed_new = phase.do_update and phase.update_source == "new"
         consumed_cur = phase.do_update and phase.update_source == "cur"
@@ -646,7 +881,9 @@ class DeftRuntime:
                 if consumed_new:
                     gen_sh[b] = sync(gen[b], b)
                 else:
-                    dp.all_gather(sync(gen[b], b), gen[b])
+                    # the trailing all-gather takes its reduce-scatter's link
+                    dp.all_gather(sync(gen[b], b), gen[b],
+                                  chained=on_chain[b])
             new_fut = [f.zero_() for f in fut]
         else:
             gen = None
@@ -657,7 +894,7 @@ class DeftRuntime:
             if consumed_cur:
                 cur_sh[b] = sync(cur[b], b)
             else:
-                dp.all_gather(sync(cur[b], b), cur[b])
+                dp.all_gather(sync(cur[b], b), cur[b], chained=on_chain[b])
 
         if phase.do_update:
             src, src_sh = (cur, cur_sh) if consumed_cur else (gen, gen_sh)
@@ -669,7 +906,7 @@ class DeftRuntime:
                       for b, y in enumerate(src_sh)]
             apply_bucket_updates(
                 self.opt_spec, self.segments, state["pbuf"], src_sh,
-                state["opt"], grad_scale=1.0 / (dp.size * phase.update_k),
+                state["opt"], grad_scale=1.0 / (dp.n_dp * phase.update_k),
                 impl=self.update_impl, shard_id=rank,
                 norm_psum=dp.norm if self.opt_spec.grad_clip else None,
                 master_dtype=self.master_dtype,
@@ -704,11 +941,15 @@ class DeftRuntime:
 
     # ---- reporting ---------------------------------------------------------
     def collectives_per_phase(self) -> List[Dict[str, int]]:
+        kw = dict(outer=self.dp.outer is not None,
+                  chain=self.secondary_chain is not None)
         if self.fsdp:
-            return [phase_collectives_sharded(p, self.layout, self._reuse[t],
-                                              bool(self.opt_spec.grad_clip))
-                    for t, p in enumerate(self.schedule.phases)]
-        return [phase_collectives(p) for p in self.schedule.phases]
+            return [phase_collectives_sharded(
+                p, self.layout, self._reuse[t], bool(self.opt_spec.grad_clip),
+                ag_links=self._ag_links[t], **kw)
+                for t, p in enumerate(self.schedule.phases)]
+        return [phase_collectives(p, self.layout, n_data=self.dp.size, **kw)
+                for p in self.schedule.phases]
 
     def stats(self) -> Dict[str, Any]:
         coll = self.collectives_per_phase()
@@ -720,8 +961,11 @@ class DeftRuntime:
             "updates_per_period": self.schedule.updates_per_period,
             "n_buckets": self.layout.n_buckets,
             "n_leaves": self.layout.n_leaves,
-            "dp": self.dp.size,
+            "dp": self.dp.n_dp,
+            "pod": self.dp.n_outer,
             "sharded_state": self.fsdp,
+            "decoupled": self.decoupled,
+            "secondary_chain": self.secondary_chain,
             "shards": self.layout.shards,
             "gather_skip": self.gather_skip,
             "compute_dtype": str(self.compute_dtype or torch.float32
@@ -734,7 +978,8 @@ class DeftRuntime:
             "dispatch_s_total": total,
             "collectives_per_phase": coll,
             "max_collectives_in_a_phase": max(
-                (sum(v for k, v in c.items() if k != "metrics")
+                (sum(v for k, v in c.items()
+                     if k not in ("metrics", "chained", "chain_rounds"))
                  for c in coll), default=0),
             "phases": [dataclasses.asdict(s) for s in self._stats],
         }

@@ -3,17 +3,21 @@
 The port keeps the JAX package's parameter tree (nested dicts and tuples
 of arrays) and its leaf order, because ``BucketLayout`` offsets are
 defined over that order: dict children in sorted key order, tuple and
-list children by position.  Anything else is a leaf.
+list children by position.  Any other mapping or sequence (the lazy views
+of ``train/streaming.py``) is walked the same way and rebuilt as a dict
+or tuple.  Anything else is a leaf.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
+from collections.abc import Sequence as SequenceABC
 from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
 Path = Tuple[str, ...]
 
 
 def _children(node) -> Iterator[Tuple[str, Any]]:
-    if isinstance(node, dict):
+    if isinstance(node, Mapping):
         for k in sorted(node):
             yield str(k), node[k]
     else:
@@ -22,7 +26,8 @@ def _children(node) -> Iterator[Tuple[str, Any]]:
 
 
 def _is_node(x) -> bool:
-    return isinstance(x, (dict, tuple, list))
+    return isinstance(x, (Mapping, SequenceABC)) and not isinstance(
+        x, (str, bytes))
 
 
 def tree_flatten_with_path(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
@@ -45,10 +50,12 @@ def tree_unflatten(structure, leaves: Sequence[Any]):
     it = iter(leaves)
 
     def build(node):
-        if isinstance(node, dict):
+        if isinstance(node, Mapping):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (tuple, list)):
             return type(node)(build(c) for c in node)
+        if _is_node(node):
+            return tuple(build(c) for c in node)
         return next(it)
 
     out = build(structure)
@@ -56,6 +63,12 @@ def tree_unflatten(structure, leaves: Sequence[Any]):
     if next(it, end) is not end:
         raise ValueError("more leaves than the structure holds")
     return out
+
+
+def tree_dense(tree):
+    """A plain dict/tuple tree of ``tree``'s leaves: materializes a lazy
+    view, and copies only the containers of a plain tree."""
+    return tree_unflatten(tree, tree_leaves(tree))
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -18,8 +18,13 @@ kernels and the two RG-LRU scan kernels bitwise (each rounds every operation sep
 version's elementwise kernels do, and the hash is integer arithmetic); the
 RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o and
 every gradient (f32 on both sides, another summation order inside the small
-products), S_final, the chunk-start states and ds0 bitwise.
+products), S_final, the chunk-start states and ds0 bitwise.  At one rank
+the chain collectives are the identity and issue no P2P op, and the
+decoupled sharded engine's streamed param gathers (f32 and int8 wires,
+also routed along the one-rank chain) train bitwise as the burst ones.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -63,8 +68,20 @@ from repro_torch.kernels.rwkv6 import (
     rwkv6_mix,
 )
 from repro_torch.kernels.rwkv6.ops import _chunked_forward
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.core.deft import plan_ag_stream
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.data.pipeline import make_batch
+from repro_torch.launch.train import build_schedule, init_distributed
+from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 from repro_torch.train.bucketing import build_bucket_layout
+from repro_torch.train.chains import (
+    chain_all_gather,
+    chain_all_reduce,
+    chain_reduce_scatter,
+)
+from repro_torch.train.runtime import DeftRuntime
 
 TOL = 1e-4
 BF16_OUT_RTOL = 2 ** -7
@@ -442,3 +459,58 @@ def test_rwkv6_kernels_match_plain(b, s, h, d, with_s0, with_dsf):
         assert _rel(x, y) <= TOL
     with pytest.raises(ValueError):          # head sizes 32 and 64 only
         rwkv6_fwd_cuda(*(x[..., :16].contiguous() for x in (r, k, v, w, u)))
+
+
+@pytest.mark.gpu
+def test_chains_at_one_rank_are_the_identity():
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    x = torch.randn(1021, device="cuda")
+    seen = []
+    assert chain_all_reduce(x, (0,), record=seen.append) is x
+    assert chain_reduce_scatter(x, (0,), record=seen.append) is x
+    out = torch.empty_like(x)
+    assert chain_all_gather(x, (0,), out=out, record=seen.append) is out
+    assert torch.equal(out, x) and seen == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wires", ["f32", "int8"])
+def test_streamed_gathers_bitwise_burst(wires):
+    """Smoke qwen3-4b on the one-shard sharded engine over a period + 1:
+    burst, streamed, and streamed with every synced bucket secondary and
+    every gather on the one-rank chain, bitwise in losses and params."""
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    cfg = reduce_for_smoke(get_config("qwen3-4b"))
+    meta = init_params(cfg, device="meta")
+    bucket_of, nb, times, plan = build_schedule(
+        meta, cfg, dp=1, seq_len=32, per_device_batch=2,
+        partition_elems=250_000, coverage_rate=1.8)
+    layout = build_bucket_layout(meta, bucket_of, nb)
+    if wires == "int8":
+        layout = layout.with_precision(PrecisionPolicy(("int8",) * nb))
+    sched = plan.schedule
+    routed = dataclasses.replace(sched, phases=tuple(
+        dataclasses.replace(ph, secondary=(True,) * nb)
+        for ph in sched.phases))
+    ag = plan_ag_stream(routed, times)
+    ag = dataclasses.replace(ag, items=tuple(
+        dataclasses.replace(i, link=1) for i in ag.items))
+    runs = []
+    for kw in ({}, {"decoupled": True},
+               {"decoupled": True, "secondary_chain": (0,), "ag_plan": ag}):
+        rt = DeftRuntime(cfg, adamw(1e-3), routed if kw.get("ag_plan")
+                         else sched, layout, device="cuda", fsdp=True, **kw)
+        state = rt.init_state(seed=0)
+        losses = []
+        for i in range(sched.period + 1):
+            state, m = rt.step(i, state, make_batch(cfg, 0, i, 2, 32,
+                                                    device="cuda"))
+            losses.append(float(m["loss"]))
+            assert not rt.last_p2p
+        runs.append((losses, [p.clone() for p in state["pbuf"]]))
+    for losses, pbuf in runs[1:]:
+        assert losses == runs[0][0]
+        for a, b in zip(pbuf, runs[0][1]):
+            assert torch.equal(a, b)
