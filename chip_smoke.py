@@ -123,7 +123,25 @@
    24 times and flash never.  Each path
    prints its parameter count as the sum of its leaves beside
    ``cfg.total_params()``'s formula (which undercounts rwkv6).
-7. Prints the kernels line, the card's name and power limit, and last the
+7. Checkpoints and resumes mid-cycle (``checkpoint_path``,
+   ``checkpoint_precision_path``): the main path's configuration and the
+   sharded delayed precision run's (int8 wires, bf16sr master, bf16
+   compute, the gather skip) run through ``train`` up to cycle position 2
+   (where ``fut`` holds a generation and the gather cache is read), go
+   through ``state_to_tree`` and the checkpoint module's ``encode`` into
+   host memory (the full-width state would take tens of minutes to
+   deflate to disk), come back on a fresh runtime through ``decode``,
+   ``tree_to_state`` and ``reset_cycle``, and finish the period bitwise
+   the stored uninterrupted runs (``main_path``,
+   ``sharded_precision_path``), the peak within the stored run's plus one
+   bucket; each prints its bytes, encode and decode seconds and host
+   memory.  Then real files at smoke size through ``train(ckpt=...)``:
+   saved every 2 steps, resumed, and resumed again after truncating the
+   newest npz (falling back to the step before), every resumed loss
+   bitwise the uninterrupted run's; and the host's
+   ``np.savez_compressed`` rate on 50,000,000 random f32 values with
+   the full-width disk save it implies.
+8. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -134,6 +152,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -141,6 +160,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1920,6 +1940,211 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint and mid-cycle resume
+# ---------------------------------------------------------------------------
+DEFLATE_ELEMS = 50_000_000       # the host's np.savez_compressed rate probe
+SMOKE_STEPS, SMOKE_EVERY = 6, 2  # the real-file resume at smoke size
+
+
+def host_rss() -> int:
+    """This process's resident host memory, in bytes."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def checkpoint_path(torch, cfg, report, key, against, **kw):
+    """Resume a run mid-cycle from an in-memory checkpoint and hold it
+    bitwise to the run stored earlier (``against`` = (name, stored run,
+    True)), which ran the same configuration (``kw``, ``train``'s
+    options) uninterrupted.
+
+    The first ``k`` steps run through ``train``, ``k`` being the first
+    cycle position whose predecessor does not update (a gather-skip run
+    reads its saved cache there), with ``cur`` or ``fut`` nonzero; the
+    state goes through ``state_to_tree`` and the checkpoint module's
+    ``encode`` into host numpy, and the runtime and state are dropped.  A
+    fresh runtime of the same schedule and layout ``decode``s it, takes it
+    with ``tree_to_state`` and ``reset_cycle``s from the saved position,
+    then finishes the period.  The peak device memory over both halves
+    may exceed the stored run's by at most one bucket's f32 buffer."""
+    from repro_torch.checkpoint import decode, encode
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import build_schedule, train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.runtime import DeftRuntime
+
+    name, want, bitwise = against
+    check(bitwise, f"{key} must be held bitwise")
+    kw = dict(scheduler="deft", batch=BATCH, seq=SEQ, seed=0, device="cuda",
+              lr=LR, loss_chunk=LOSS_CHUNK, partition_elems=PARTITION_ELEMS,
+              **kw)
+    schedule = build_schedule(
+        init_params(cfg, device="meta"), cfg, dp=1, seq_len=SEQ,
+        per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+        coverage_rate=kw["coverage_rate"],
+        wire_precision=kw.get("wire_precision", "f32"),
+        master_dtype=kw.get("master_dtype", "f32"))[3].schedule
+    period = schedule.period
+    k = next((t for t in range(1, period)
+              if not schedule.phases[t - 1].do_update), None)
+    check(k is not None and len(want["losses"]) == period,
+          f"{key}: no mid-cycle position after a phase without an update "
+          f"in {[ph.do_update for ph in schedule.phases]}, or the stored "
+          f"run is not one period")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    res = train(cfg, steps=k, log=lambda s: print("  " + s),
+                on_step=lambda i, rt, st, m: losses.append(float(m["loss"])),
+                **kw)
+    rt, state = res["runtime"], res["state"]
+    check(res["schedule"] == schedule, f"{key}: train planned another "
+                                       f"schedule")
+    check(any(bool(x.any()) for x in state["cur"] + state["fut"]),
+          f"{key}: cur and fut are zero at cycle position {k}")
+    layout, next_phase = res["layout"], rt.phase_in_cycle(k)
+    build = dict(loss_chunk=rt.loss_chunk, compute_dtype=rt.compute_dtype,
+                 master_dtype=rt.master_dtype, fsdp=rt.fsdp,
+                 decoupled=rt.decoupled)
+    rss0 = host_rss()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = encode(rt.state_to_tree(state))
+    encode_s = time.perf_counter() - t0
+    host_bytes = host_rss() - rss0
+    ckpt_bytes = sum(a.nbytes for a in arrays.values())
+    has_pg = any(n.startswith("pgather") for n in arrays)
+    check(has_pg == rt.gather_skip, f"{key}: gather cache saved {has_pg}, "
+                                    f"gather skip {rt.gather_skip}")
+    del res, rt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    rt = DeftRuntime(cfg, adamw(LR), schedule, layout, device="cuda", **build)
+    t0 = time.perf_counter()
+    state = rt.tree_to_state(
+        decode(arrays, rt.checkpoint_struct(layout), device="cpu"),
+        src_layout=layout)
+    rt.reset_cycle(k - next_phase)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del arrays
+    check(all(t.device.type == "cuda" for t in
+              state["pbuf"] + state["cur"] + state["fut"] + state["gbuf"]
+              + state["opt"]["m"] + state.get("pgather", ())),
+          f"{key}: a restored buffer is not on the card")
+    for step in range(k, period):
+        batch = make_batch(cfg, 0, step, BATCH, SEQ, device="cuda")
+        state, m = rt.step(step, state, batch)
+        losses.append(float(m["loss"]))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    held = held_to(key, against, state, losses)
+    stored_peak = report[name]["peak_bytes"]
+    bucket = 4 * max(layout.buf_sizes)
+    check(peak <= stored_peak + bucket,
+          f"{key}: peak {peak} beyond {name}'s {stored_peak} + one bucket "
+          f"{bucket}")
+    report[key] = dict(
+        saved_at=k, next_phase=next_phase, period=period,
+        pgather_saved=has_pg, ckpt_bytes=ckpt_bytes,
+        host_bytes=host_bytes, encode_s=encode_s, decode_s=decode_s,
+        peak_bytes=peak, stored_peak_bytes=stored_peak,
+        bucket_bytes=bucket, losses=losses, against=held)
+    print(f"{key} ({name}'s configuration): saved at cycle position {k} of "
+          f"{period}{' with the gather cache' if has_pg else ''}, "
+          f"{ckpt_bytes / 2**30:.2f} GiB of arrays (host memory "
+          f"{host_bytes / 2**30:.2f} GiB); state_to_tree + encode "
+          f"{encode_s:.2f} s, decode + tree_to_state {decode_s:.2f} s; "
+          f"peak {peak / 2**30:.2f} GiB against {name}'s "
+          f"{stored_peak / 2**30:.2f} GiB + one bucket "
+          f"{bucket / 2**30:.2f} GiB [{report['card']}]")
+    print_against(report, against, held)
+    del rt, state
+    torch.cuda.empty_cache()
+
+
+def checkpoint_files_phase(torch, report):
+    """Real checkpoint files at smoke size (``reduce_for_smoke`` of the
+    main path's arch) through ``train``: a run saving every SMOKE_EVERY
+    steps, its resume, and a resume after the newest npz was truncated
+    (a writer killed mid-save), which must fall back to the step before;
+    every resumed loss bitwise the uninterrupted run's.  Then the host's
+    ``np.savez_compressed`` rate on DEFLATE_ELEMS random f32 values, and
+    what it makes of a full-width save of ``checkpoint_path``'s arrays."""
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_step, valid_steps
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.train import train
+
+    cfg = reduce_for_smoke(get_config(ARCH))
+    quiet = dict(device="cuda", batch=2, seq=64, log=lambda s: None)
+    t_start = time.perf_counter()
+    whole = train(cfg, steps=SMOKE_STEPS, **quiet)["losses"]
+    half = SMOKE_STEPS // 2
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        first = train(cfg, steps=half, ckpt=d, ckpt_every=SMOKE_EVERY,
+                      **quiet)
+        check(valid_steps(d) == [SMOKE_EVERY, half],
+              f"saved steps {valid_steps(d)}")
+        logs = []
+        rest = train(cfg, steps=SMOKE_STEPS - half, ckpt=d, resume=True,
+                     ckpt_every=SMOKE_EVERY, **dict(quiet, log=logs.append))
+        check(rest["start_step"] == half and first["losses"]
+              + rest["losses"] == whole,
+              f"resumed at {rest['start_step']}: {rest['losses']} vs the "
+              f"uninterrupted {whole[half:]}")
+        newest = latest_step(d)
+        path = os.path.join(d, f"ckpt_{newest:08d}.npz")
+        with open(path, "rb+") as f:          # a writer killed mid-save
+            f.truncate(96)
+        prev = latest_step(d)
+        check(prev is not None and prev < newest,
+              f"step {newest} still counts after its npz was truncated")
+        logs = []
+        again = train(cfg, steps=1, ckpt=d, resume=True,
+                      **dict(quiet, log=logs.append))
+        check(again["start_step"] == prev
+              and f"resumed checkpoint step {prev}" in logs
+              and again["losses"] == whole[prev:prev + 1],
+              f"after truncating step {newest}: resumed at "
+              f"{again['start_step']} ({logs}), loss {again['losses']} vs "
+              f"{whole[prev:prev + 1]}")
+        files = sorted(os.listdir(d))
+    files_s = time.perf_counter() - t_start
+    print(f"checkpoint files (smoke {ARCH}, {SMOKE_STEPS} steps): saved "
+          f"every {SMOKE_EVERY}, resumed at {half} and, after truncating "
+          f"step {newest}'s npz, at {prev}: every resumed loss bitwise the "
+          f"uninterrupted run's ({files_s:.1f} s; files {files})")
+
+    x = np.random.default_rng(0).standard_normal(DEFLATE_ELEMS,
+                                                 dtype=np.float32)
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    np.savez_compressed(buf, x=x)
+    deflate_s = time.perf_counter() - t0
+    rate = x.nbytes / deflate_s
+    ratio = buf.getbuffer().nbytes / x.nbytes
+    full = report["checkpoint_path"]["ckpt_bytes"]
+    report["checkpoint_files"] = dict(
+        steps=SMOKE_STEPS, every=SMOKE_EVERY, resumed_at=half,
+        truncated=newest, fell_back_to=prev, seconds=files_s,
+        deflate_bytes=x.nbytes, deflate_s=deflate_s,
+        deflate_bytes_per_s=rate, deflate_ratio=ratio,
+        full_width_save_s_est=full / rate)
+    print(f"host deflate: np.savez_compressed of {DEFLATE_ELEMS:,} random "
+          f"f32 in {deflate_s:.2f} s, {rate / 1e6:.1f} MB/s, ratio "
+          f"{ratio:.3f}: a full-width disk save of checkpoint_path's "
+          f"{full / 2**30:.2f} GiB would take about {full / rate:.0f} s "
+          f"[{report['card']}]")
+
+
 def run() -> int:
     # torch.compile (the flex_attention yardstick) caches inside the
     # checkout and compiles in this process, starting no worker pool
@@ -2070,6 +2295,14 @@ def run() -> int:
                                       RWKV_STEPS,
                                       bucket_share=RWKV_BUCKET_SHARE),
     }
+    checkpoint_path(torch, cfg, report, "checkpoint_path",
+                    ("main_path", replicated, True),
+                    coverage_rate=COVERAGE_RATE)
+    checkpoint_path(torch, cfg, report, "checkpoint_precision_path",
+                    ("sharded_precision_path", sharded_prec, True),
+                    coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
+                    master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
+    checkpoint_files_phase(torch, report)
     del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

@@ -8,10 +8,12 @@ engine (params and moments 1/N per rank, DESIGN.md §8; by default the
 archs ``repro_torch.sharding.needs_fsdp`` names), ``--decoupled``, its
 param all-gathers streamed into the forward (DESIGN.md §12), and
 ``--pod``, a ``pod x data`` layout of the ranks whose syncs are
-hierarchical.  Runs on the card unless ``--device cpu``.  Under
-``torchrun`` the process group comes from its environment; run alone it
-is a one-rank group (NCCL on the card, gloo on the CPU), so every
-gradient sum still goes through a real collective.
+hierarchical, and checkpoints in the JAX package's format (``--ckpt``,
+``--ckpt-every``, ``--resume``; a SIGTERM or SIGUSR1 checkpoints and
+exits cleanly, DESIGN.md §10).  Runs on the card unless ``--device
+cpu``.  Under ``torchrun`` the process group comes from its environment;
+run alone it is a one-rank group (NCCL on the card, gloo on the CPU), so
+every gradient sum still goes through a real collective.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --scheduler deft --steps 8 --batch 4 --seq 64 \
@@ -21,18 +23,33 @@ gradient sum still goes through a real collective.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen3-4b --smoke --steps 6 --batch 2 --seq 32 --device cpu \
         --fsdp --decoupled
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+        --smoke --steps 4 --batch 2 --seq 32 --device cpu --ckpt CKPT_DIR \
+        --ckpt-every 2 [--resume]
 """
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import socket
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import (
+    latest_step,
+    load_layout_descriptor,
+    restore,
+    save,
+    save_layout_descriptor,
+    saved_keys,
+    schedule_digest,
+    valid_steps,
+)
 from repro_torch.configs import ARCH_NAMES, get_config, reduce_for_smoke
 from repro_torch.core.bucket import BucketTimes
 from repro_torch.core.deft import Planner, PlanRequest
@@ -120,6 +137,114 @@ def build_schedule(params, cfg, *, dp: int, seq_len: int,
     return bucket_of, nb, times, res
 
 
+def restore_runtime_state(runtime, ckpt_dir: str, params_abs,
+                          log: Callable = print):
+    """Restore the newest usable checkpoint into ``runtime``'s resident
+    state: ``(state, start_step)``, or ``(None, 0)`` when nothing on disk
+    restores (DESIGN.md §10).
+
+    * Only committed steps are tried (``valid_steps``); a step that still
+      fails to restore (torn arrays, a stale sidecar, another number of
+      ranks' accumulator rows) falls back to the previous one.
+    * A checkpoint written under another layout re-packs through the
+      LayoutTransition (``tree_to_state``).
+    * It continues mid-cycle only under the identical schedule (digest)
+      and layout, and, on a gather-skip runtime, only if the gather cache
+      was saved; otherwise the cycle restarts at the checkpoint step, and
+      a digest mismatch drops the gather cache with a warning.
+    * A restarted cycle on a checkpoint saved mid-cycle with live
+      accumulators restores as JAX's does, with a warning the JAX package
+      does not print: the partial generation is not synced as the saved
+      cycle would sync it, and replicas disagree from the first update.
+
+    The arrays are staged on the host and moved to the device bucket by
+    bucket, so the device holds the state once."""
+    layout = runtime.layout
+    run_digest = schedule_digest(runtime.schedule)
+    for last in reversed(valid_steps(ckpt_dir)):
+        try:
+            src_layout, next_phase, src_digest = \
+                load_layout_descriptor(ckpt_dir, last, params_abs)
+            if src_layout is None:
+                src_layout, next_phase, src_digest = layout, 0, ""
+            digest_ok = (not src_digest) or src_digest == run_digest
+            # read the gather cache only if the checkpoint has one and the
+            # layout and schedule both match
+            has_pg = any(k.startswith("pgather")
+                         for k in saved_keys(ckpt_dir, last))
+            ts = restore(
+                ckpt_dir, last,
+                runtime.checkpoint_struct(
+                    src_layout,
+                    with_pgather=(has_pg and src_layout == layout
+                                  and digest_ok)),
+                device="cpu")
+            state = runtime.tree_to_state(ts, src_layout=src_layout)
+        except Exception as e:      # torn arrays, stale sidecar, ...
+            log(f"resume: checkpoint step {last} unusable "
+                f"({type(e).__name__}: {e}); trying the previous one")
+            continue
+        # mid-cycle only under the byte-identical schedule, and only if
+        # the gather cache the resumed position may read was saved
+        same_cycle = (src_layout == layout and src_digest == run_digest
+                      and (not runtime.gather_skip or has_pg))
+        runtime.reset_cycle(last - next_phase if same_cycle else last)
+        if src_digest and not digest_ok:
+            log(f"resume: WARNING schedule digest mismatch at step {last} "
+                f"(saved {src_digest}, running {run_digest}) — gather cache "
+                f"dropped, cycle restarted at the checkpoint step")
+        if not same_cycle and next_phase and any(
+                bool(x.any()) for x in ts["cur"] + ts["fut"]):
+            # the JAX package restores this silently; its replicas
+            # disagree alike (tests/test_torch_repack.py)
+            log(f"resume: WARNING checkpoint step {last} was saved at cycle "
+                f"position {next_phase} with live accumulators; the "
+                f"restarted cycle does not sync them as the saved one "
+                f"would, and across ranks the replicas disagree from the "
+                f"first update")
+        log(f"resumed checkpoint step {last}"
+            + (" (re-packed from a different layout)"
+               if src_layout != layout else "")
+            + ("" if same_cycle else " (cycle restarted)"))
+        return state, last
+    return None, 0
+
+
+def save_checkpoint(ckpt_dir: str, step: int, runtime, state
+                    ) -> Optional[str]:
+    """Checkpoint ``state`` as step ``step`` (with the layout descriptor
+    of a DeFT ``runtime``; ``None`` for the DDP baseline, whose state is
+    already a tree).  Every rank takes part in ``state_to_tree``, which
+    builds the tree on rank 0's host alone; rank 0 writes and the others
+    wait at a barrier until the sidecar is committed.  Returns the npz
+    path on rank 0."""
+    tree = runtime.state_to_tree(state) if runtime is not None else state
+    path = None
+    if dist.get_rank() == 0:
+        path = save(ckpt_dir, step, tree)
+        if runtime is not None:
+            save_layout_descriptor(
+                ckpt_dir, step, runtime.layout,
+                next_phase=runtime.phase_in_cycle(step),
+                digest=schedule_digest(runtime.schedule))
+    del tree
+    dist.barrier()
+    return path
+
+
+PREEMPTION_SIGNALS = (signal.SIGTERM, signal.SIGUSR1)
+
+
+def _preempted(flag: Dict[str, Any], device: torch.device) -> bool:
+    """Whether any rank took a preemption signal (every rank calls this
+    at the top of each step, so all of them stop at the same step)."""
+    if dist.get_world_size() == 1:
+        return flag["sig"] is not None
+    seen = torch.tensor([int(flag["sig"] is not None)], device=device)
+    dist.all_reduce(seen, op=dist.ReduceOp.MAX)
+    return bool(seen.item())
+
+
 COMPUTE_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 
@@ -139,6 +264,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           fsdp: Optional[bool] = None, decoupled: bool = False,
           pod: int = 1, secondary_chain: Optional[Sequence[int]] = None,
           reroute: Optional[Callable] = None,
+          ckpt: str = "", ckpt_every: int = 0, resume: bool = False,
           on_step: Optional[Callable] = None,
           log: Callable = print) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
@@ -159,9 +285,16 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     link's collectives along that ring chain of the 'data' ranks;
     ``reroute(schedule, times)`` returns the (schedule, AG plan) the
     runtime runs instead of the planner's schedule and no AG plan.
-    Returns the
+
+    ``ckpt`` is a checkpoint directory: the state is saved there every
+    ``ckpt_every`` steps (0: only at the end) and at the end, and a
+    SIGTERM or SIGUSR1 saves it at the top of the next step and stops the
+    run (the previous handlers are back when ``train`` returns).
+    ``resume`` first restores the newest usable checkpoint there
+    (``restore_runtime_state``) and runs ``steps`` steps from its step,
+    on the batches of those steps.  Returns the
     losses, per-step wall times (each step synchronised), the schedule,
-    the runtime and the final state."""
+    the runtime, the final state and the first step run."""
     device = torch.device(device)
     init_distributed(device)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -172,6 +305,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     opt = adamw(lr)
     out: Dict[str, Any] = {"losses": [], "step_s": [], "collectives": []}
     runtime = None
+    start_step = 0
     if fsdp is None:
         fsdp = needs_fsdp(cfg.name)
     if scheduler == "ddp":
@@ -185,6 +319,12 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         state = init_ddp_state(cfg, opt, seed=seed, device=device)
         step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
                                 attn_impl=attn_impl, scan_impl=scan_impl)
+        if resume and ckpt:
+            last = latest_step(ckpt)
+            if last is not None:
+                state = restore(ckpt, last, state, device=device)
+                start_step = last
+                log(f"resumed checkpoint step {last}")
     elif scheduler == "deft":
         params_abs = init_params(cfg, device="meta")
         bucket_of, nb, times, plan = build_schedule(
@@ -214,31 +354,72 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             master_dtype=master_dtype, fsdp=fsdp, decoupled=decoupled,
             group=data_group, outer_group=pod_group,
             secondary_chain=secondary_chain, ag_plan=ag_plan)
-        state = runtime.init_state(seed, dtype=cdt or torch.float32)
+        state = None
+        if resume and ckpt:
+            state, start_step = restore_runtime_state(runtime, ckpt,
+                                                      params_abs, log=log)
+        if state is None:
+            state = runtime.init_state(seed, dtype=cdt or torch.float32)
         out.update(schedule=schedule, layout=layout, times=times)
     else:
         raise ValueError(f"unknown scheduler {scheduler!r}")
 
-    for step in range(steps):
-        full = make_batch(cfg, seed, step, batch, seq, device=device)
-        local = {k: v[rank * per:(rank + 1) * per] for k, v in full.items()}
-        _sync(device)
-        t0 = time.perf_counter()
-        if runtime is None:
-            state, m = step_fn(state, local)
-        else:
-            state, m = runtime.step(step, state, local)
-            out["collectives"].append(runtime.last_collectives)
-        loss = float(m["loss"])          # waits for the step
-        _sync(device)
-        out["step_s"].append(time.perf_counter() - t0)
-        out["losses"].append(loss)
-        if on_step is not None:
-            on_step(step, runtime, state, m)
-        if step % max(steps // 10, 1) == 0 or step == steps - 1:
-            log(f"step {step:4d} loss={loss:.4f} updated={bool(m['updated'])} "
-                f"({out['step_s'][-1]:.3f}s)")
-    out.update(runtime=runtime, state=state)
+    # a preemption signal (what cluster managers send before reclaiming
+    # the host) checkpoints and stops the run cleanly
+    preempted: Dict[str, Any] = {"sig": None}
+    previous = {}
+    if ckpt and threading.current_thread() is threading.main_thread():
+        def on_preempt(signum, frame):
+            preempted["sig"] = signum
+
+        for sig in PREEMPTION_SIGNALS:
+            previous[sig] = signal.signal(sig, on_preempt)
+    last_step = start_step + steps - 1
+    halted = False
+    try:
+        for step in range(start_step, start_step + steps):
+            if ckpt and _preempted(preempted, device):
+                log(f"preemption signal {preempted['sig']}: checkpointing "
+                    f"and exiting cleanly")
+                path = save_checkpoint(ckpt, step, runtime, state)
+                log(f"checkpoint -> {path}")
+                halted = True
+                last_step = step - 1
+                break
+            # batches are keyed by the global step: a resumed run goes on
+            # with the stream where it left off
+            full = make_batch(cfg, seed, step, batch, seq, device=device)
+            local = {k: v[rank * per:(rank + 1) * per]
+                     for k, v in full.items()}
+            _sync(device)
+            t0 = time.perf_counter()
+            if runtime is None:
+                state, m = step_fn(state, local)
+            else:
+                state, m = runtime.step(step, state, local)
+                out["collectives"].append(runtime.last_collectives)
+            loss = float(m["loss"])          # waits for the step
+            _sync(device)
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(loss)
+            if on_step is not None:
+                on_step(step, runtime, state, m)
+            if ckpt and ckpt_every > 0 \
+                    and (step + 1 - start_step) % ckpt_every == 0:
+                save_checkpoint(ckpt, step + 1, runtime, state)
+            if (step - start_step) % max(steps // 10, 1) == 0 \
+                    or step == last_step:
+                log(f"step {step:4d} loss={loss:.4f} "
+                    f"updated={bool(m['updated'])} "
+                    f"({out['step_s'][-1]:.3f}s)")
+        if ckpt and not halted:
+            path = save_checkpoint(ckpt, last_step + 1, runtime, state)
+            log(f"checkpoint -> {path}")
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    out.update(runtime=runtime, state=state, start_step=start_step,
+               halted=halted)
     return out
 
 
@@ -282,6 +463,15 @@ def main() -> None:
                     help="outer 'pod' axis of a pod x data layout of the "
                          "ranks: syncs reduce-scatter over 'data', "
                          "all-reduce over 'pod', all-gather over 'data'")
+    ap.add_argument("--ckpt", default="", help="checkpoint dir (optional)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="auto-checkpoint cadence in steps (0 = only at "
+                         "the end)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint from --ckpt "
+                         "before training (a checkpoint written under a "
+                         "different bucket layout is re-packed through "
+                         "the LayoutTransition)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -301,10 +491,12 @@ def main() -> None:
                 wire_precision=args.wire_precision,
                 master_dtype=args.master_dtype,
                 compute_dtype=args.compute_dtype, fsdp=args.fsdp,
-                decoupled=args.decoupled, pod=args.pod)
+                decoupled=args.decoupled, pod=args.pod, ckpt=args.ckpt,
+                ckpt_every=args.ckpt_every, resume=args.resume)
     dt = time.time() - t0
-    print(f"{args.steps} steps in {dt:.1f}s "
-          f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")
+    n = len(res["losses"])
+    print(f"{n} steps in {dt:.1f}s "
+          f"({n * args.batch * args.seq / dt:.0f} tok/s)")
     dist.destroy_process_group()
 
 

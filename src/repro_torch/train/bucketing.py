@@ -1,19 +1,21 @@
 """Gradient bucketing over parameter-tree leaves and the static flat-buffer
 layout of the replicated engine.
 
-Port of ``repro/train/bucketing.py`` (replicated and sharded layouts):
-buckets over the real tree leaves in model input->output order, filled
-greedily to ``partition_elems``; ``BucketLayout`` maps every leaf to a
-span of one flat buffer per bucket, padded to ``PAD_MULTIPLE`` (times the
-shard count of the sharded flat engine, DESIGN.md §8), and carries the
-per-bucket wire precision policy (DESIGN.md §13).  Leaf
+Port of ``repro/train/bucketing.py`` (replicated and sharded layouts,
+layout transitions): buckets over the real tree leaves in model
+input->output order, filled greedily to ``partition_elems``;
+``BucketLayout`` maps every leaf to a span of one flat buffer per bucket,
+padded to ``PAD_MULTIPLE`` (times the shard count of the sharded flat
+engine, DESIGN.md §8), and carries the per-bucket wire precision policy
+(DESIGN.md §13); a ``LayoutTransition`` remaps flat buffers from one
+layout of a tree to another (DESIGN.md §9).  Leaf
 order is ``jax.tree_util.tree_flatten`` order (``repro_torch.tree``), so
 a layout built here equals the JAX package's layout of the same tree.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -274,3 +276,130 @@ def coverage_rescale(times: BucketTimes, coverage_rate: float) -> float:
         * (times.fwd_total + times.bwd_total)
         / max(times.comm_total, 1e-12)
     )
+
+
+# ---------------------------------------------------------------------------
+# Layout transitions (a re-pack between two BucketLayouts of one tree)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SpanCopy:
+    """One contiguous copy of a layout transition: ``length`` elements
+    from offset ``src_off`` of src bucket ``src_bucket`` land at offset
+    ``dst_off`` of the dst bucket this copy belongs to."""
+
+    src_bucket: int
+    src_off: int
+    dst_off: int
+    length: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutTransition:
+    """Static per-leaf span remap between two :class:`BucketLayout` s of
+    the same parameter tree (DESIGN.md §9): every dst buffer is a
+    concatenation of slices of src buffers plus a zero tail.  Adjacent
+    leaves contiguous in both layouts merge into one :class:`SpanCopy`, so
+    a transition that only changes the shard count is one slice per
+    bucket.  ``identical[b]`` marks dst buckets whose buffer equals one src
+    buffer (one full-range copy, the same padded length):
+    :func:`repack_buffers` returns that src buffer itself."""
+
+    src: BucketLayout
+    dst: BucketLayout
+    copies: Tuple[Tuple[SpanCopy, ...], ...]   # per dst bucket
+    identical: Tuple[bool, ...]                # per dst bucket
+
+    @property
+    def moved_elems(self) -> int:
+        """Valid elements actually copied (identical buckets excluded)."""
+        return sum(
+            c.length
+            for b, spans in enumerate(self.copies)
+            if not self.identical[b]
+            for c in spans
+        )
+
+    def reverse(self) -> "LayoutTransition":
+        return build_layout_transition(self.dst, self.src)
+
+
+def build_layout_transition(src: BucketLayout, dst: BucketLayout
+                            ) -> LayoutTransition:
+    """The static span remap ``src`` -> ``dst`` (pure Python over the two
+    offset tables).  Both layouts must cover the same leaves (identical
+    ``shapes``); bucket count, assignment, padding and shard count may
+    differ."""
+    if src.shapes != dst.shapes:
+        raise ValueError(
+            f"layout transition needs the same parameter tree on both "
+            f"sides: src has {len(src.shapes)} leaves, dst "
+            f"{len(dst.shapes)} (or shapes differ)"
+        )
+    src_pos: Dict[int, Tuple[int, int]] = {}   # leaf -> (bucket, offset)
+    for b in range(src.n_buckets):
+        for i, off in zip(src.leaves[b], src.offsets[b]):
+            src_pos[i] = (b, off)
+    copies: List[Tuple[SpanCopy, ...]] = []
+    identical: List[bool] = []
+    for b in range(dst.n_buckets):
+        spans: List[SpanCopy] = []
+        run: Optional[List[int]] = None   # [src_bucket, src_off, dst_off, len]
+        for i, d_off in zip(dst.leaves[b], dst.offsets[b]):
+            sb, s_off = src_pos[i]
+            n = _numel(dst.shapes[i])
+            if (run is not None and run[0] == sb
+                    and run[1] + run[3] == s_off
+                    and run[2] + run[3] == d_off):
+                run[3] += n
+            else:
+                if run is not None:
+                    spans.append(SpanCopy(*run))
+                run = [sb, s_off, d_off, n]
+        if run is not None:
+            spans.append(SpanCopy(*run))
+        copies.append(tuple(spans))
+        identical.append(
+            len(spans) == 1
+            and spans[0].src_off == 0
+            and spans[0].dst_off == 0
+            and spans[0].length == dst.sizes[b]
+            and src.sizes[spans[0].src_bucket] == dst.sizes[b]
+            and src.buf_sizes[spans[0].src_bucket] == dst.buf_sizes[b]
+        )
+    return LayoutTransition(src=src, dst=dst, copies=tuple(copies),
+                            identical=tuple(identical))
+
+
+def repack_buffers(transition: LayoutTransition,
+                   src_bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Apply a layout transition to per-bucket buffers, remapped along
+    their last axis (1-D buffers and ``(rows, n)`` accumulator stacks
+    alike; leading axes pass through).  An identical bucket is the src
+    tensor itself; every other is a new tensor of the src dtype whose
+    padded tail is zero (src tails, zero by the flat engines' invariant,
+    are never read)."""
+    dst = transition.dst
+    out: List[torch.Tensor] = []
+    for b in range(dst.n_buckets):
+        if transition.identical[b]:
+            out.append(src_bufs[transition.copies[b][0].src_bucket])
+            continue
+        lead = tuple(src_bufs[0].shape[:-1])
+        # the zero fills take the src dtype, so a bf16 buffer stays bf16
+        zeros = lambda n: torch.zeros(lead + (n,), dtype=src_bufs[0].dtype,
+                                      device=src_bufs[0].device)
+        parts: List[torch.Tensor] = []
+        cursor = 0
+        for c in transition.copies[b]:
+            if c.dst_off > cursor:   # cannot happen (offsets are dense)
+                parts.append(zeros(c.dst_off - cursor))
+            parts.append(src_bufs[c.src_bucket][..., c.src_off:
+                                                c.src_off + c.length])
+            cursor = c.dst_off + c.length
+        if dst.buf_sizes[b] > cursor:
+            parts.append(zeros(dst.buf_sizes[b] - cursor))
+        if not parts:                # an empty bucket of no length
+            parts.append(zeros(0))
+        out.append(torch.cat(parts, dim=-1) if len(parts) > 1
+                   else parts[0].clone())
+    return out

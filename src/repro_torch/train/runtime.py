@@ -60,10 +60,18 @@ plus the gathered params on the sharded engine) and recycles the
 consumed generation as the next step's gradient buffer.
 There is no AOT cache: phases are deduplicated by ``PhaseSpec`` and each
 unique phase keeps its dispatch statistics.
+
+A checkpoint holds JAX's tree form of the state (``state_to_tree``):
+layout-free param and moment trees, the ``cur``/``fut`` accumulators as
+``(accum_devices, n)`` stacks of every DP rank's buffer, and the gather
+cache; ``tree_to_state`` inverts it, through a ``LayoutTransition`` when
+the checkpoint's layout differs, and ``reset_cycle`` resumes the schedule
+at the saved cycle position.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -88,7 +96,9 @@ from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim.optimizers import OptimizerSpec, apply_updates, init_opt_state
 from repro_torch.train.bucketing import (
     BucketLayout,
+    build_layout_transition,
     flatten_bucket,
+    repack_buffers,
     unflatten_buckets,
 )
 from repro_torch.train.chains import (
@@ -468,8 +478,8 @@ class DeftRuntime:
     """Runs one DeFT schedule on the flat-resident engine: replicated, or
     sharded over the ranks with ``fsdp=True``.
 
-    ``step(i, state, batch)`` runs cycle phase ``i % period`` and returns
-    (state, metrics); the state's buffers are updated in place.
+    ``step(i, state, batch)`` runs cycle phase ``phase_in_cycle(i)`` and
+    returns (state, metrics); the state's buffers are updated in place.
 
     ``compute_dtype`` (None or ``torch.bfloat16``) is the forward/backward
     dtype; ``master_dtype`` ("f32" or "bf16sr", None to take the layout's)
@@ -605,6 +615,7 @@ class DeftRuntime:
         self._stats = [PhaseStats() for _ in unique]
         self.last_collectives: Dict[str, int] = dict(self.dp.counts)
         self.last_p2p: List[Tuple[Tuple[int, int], ...]] = []
+        self._cycle_base = 0               # step at which the cycle restarts
 
     def _ag_link_masks(self, schedule: DeftSchedule
                        ) -> List[Optional[Tuple[bool, ...]]]:
@@ -632,6 +643,21 @@ class DeftRuntime:
     @property
     def n_unique_phases(self) -> int:
         return len(self._stats)
+
+    @property
+    def accum_devices(self) -> int:
+        """Rows of a checkpoint's accumulator stacks: every DP rank's."""
+        return self.dp.n_dp
+
+    def reset_cycle(self, step: int) -> None:
+        """Restart the schedule cycle at ``step``: a restored run that
+        cannot continue mid-cycle begins a fresh cycle there (position 0,
+        which always gathers)."""
+        self._cycle_base = step
+
+    def phase_in_cycle(self, i: int) -> int:
+        """The cycle position step ``i`` dispatches."""
+        return (i - self._cycle_base) % self.period
 
     # ---- state -----------------------------------------------------------
     def state_from_params(self, params) -> TrainState:
@@ -672,6 +698,10 @@ class DeftRuntime:
             state["pgather"] = self._init_pgather()
         return state
 
+    def _master_torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.master_dtype == "bf16sr" \
+            else torch.float32
+
     def _init_pgather(self) -> Tuple[torch.Tensor, ...]:
         """Cold gather cache: full zero buffers of the forward's dtype.
         Position 0 of a cycle always gathers into them before any phase
@@ -704,10 +734,174 @@ class DeftRuntime:
         return tree_unflatten(self._structure,
                               unflatten_buckets(self.layout, pbuf))
 
+    # ---- checkpoint form -----------------------------------------------
+    def _to_writer(self, buf: torch.Tensor, group) -> Optional[torch.Tensor]:
+        """Every rank of ``group``'s ``buf`` (one size on all of them) as
+        the rows of a host stack on global rank 0, the rank that writes
+        checkpoints; None elsewhere.  The rows arrive one rank at a time
+        through one device buffer of ``buf``'s size, so no device holds
+        more than one extra ``buf``; the other ranks send theirs (point to
+        point, uncounted), and a group without rank 0 moves nothing."""
+        me, size = dist.get_rank(), dist.get_world_size(group)
+        ranks = [r if group is None else dist.get_global_rank(group, r)
+                 for r in range(size)]
+        if 0 not in ranks:
+            return None
+        if me != 0:
+            dist.send(buf, dst=0, group=group)
+            return None
+        host = torch.empty((size, buf.numel()), dtype=buf.dtype)
+        tmp = torch.empty_like(buf) if size > 1 else None
+        for r, g in enumerate(ranks):
+            if g == 0:
+                host[r].copy_(buf)
+            else:
+                dist.recv(tmp, src=g, group=group)
+                host[r].copy_(tmp)
+        return host
+
+    def state_to_tree(self, state: TrainState) -> Optional[TrainState]:
+        """The JAX package's checkpoint form of a train state, on the host
+        of global rank 0 (the rank that writes checkpoints; None on the
+        others): ``{params, opt{step, m[, v]}, cur, fut[, pgather]}``.
+        Params and moments are layout-free trees (at the master dtype and
+        f32); ``cur``/``fut`` are ``(accum_devices, n)`` stacks of every DP
+        rank's buffer, row ``r`` the joint ('pod', 'data') rank ``r``, and
+        ``pgather`` one full buffer per bucket at the forward's dtype, all
+        bound to this runtime's layout.
+
+        Collective: every rank calls it.  Rank 0 receives each bucket (the
+        sharded engine's spans, each accumulator row) one rank at a time
+        into a device buffer the size of the bucket's span or row, and
+        copies it to its host; the others only send.  So each device holds
+        at most one span or row more than its state, and only rank 0's
+        host holds the tree."""
+        layout, dp = self.layout, self.dp
+        writer = dist.get_rank() == 0
+
+        def full(buf):
+            if self.fsdp:
+                rows = self._to_writer(buf, dp.group)
+                return None if rows is None else rows.reshape(-1)
+            return buf.to("cpu", copy=True) if writer else None
+
+        def tree_of(bufs):
+            leaves: List[torch.Tensor] = [None] * layout.n_leaves  # type: ignore
+            for b in range(layout.n_buckets):
+                host = full(bufs[b])
+                if host is None:
+                    continue
+                for i, off in zip(layout.leaves[b], layout.offsets[b]):
+                    shape = layout.shapes[i]
+                    leaves[i] = host[off:off + math.prod(shape)].view(shape)
+            return tree_unflatten(self._structure, leaves)
+
+        opt = {"m": tree_of(state["opt"]["m"])}
+        if "v" in state["opt"]:
+            opt["v"] = tree_of(state["opt"]["v"])
+        out = {"params": tree_of(state["pbuf"]), "opt": opt,
+               "cur": tuple(self._to_writer(c, dp.joint)
+                            for c in state["cur"]),
+               "fut": tuple(self._to_writer(f, dp.joint)
+                            for f in state["fut"])}
+        if not writer:
+            return None
+        opt["step"] = state["opt"]["step"].to("cpu", copy=True)
+        if "pgather" in state:
+            # a mid-cycle resume at a reuse position reads the cache
+            out["pgather"] = tuple(p.to("cpu", copy=True)
+                                   for p in state["pgather"])
+        return out
+
+    def tree_to_state(self, tree_state: TrainState,
+                      src_layout: Optional[BucketLayout] = None
+                      ) -> TrainState:
+        """Inverse of :meth:`state_to_tree`: this rank's resident state,
+        on the runtime's device, from a checkpoint tree (host or device
+        tensors, left untouched).
+
+        Params and moments re-flatten under this layout (this rank's span
+        on the sharded engine; a bf16sr master's bf16 values promote
+        exactly and cast back bit for bit).  The accumulators take row
+        ``rank`` of each stack, routed through the
+        :class:`~repro_torch.train.bucketing.LayoutTransition` when
+        ``src_layout`` (the layout the checkpoint was written under)
+        differs from this runtime's; a cross-layout restore starts the gather
+        cache cold.  ``gbuf`` is zero, as the engines leave the retired
+        generation between steps."""
+        layout, dp = self.layout, self.dp
+        dev = lambda x, dt=None: x.to(device=self.device,
+                                      dtype=dt or x.dtype, copy=True)
+        cross = src_layout is not None and src_layout != layout
+        row = dist.get_rank(dp.joint)
+        cur = [c[row] for c in tree_state["cur"]]
+        fut = [f[row] for f in tree_state["fut"]]
+        if cross:
+            tr = build_layout_transition(src_layout, layout)
+            cur, fut = repack_buffers(tr, cur), repack_buffers(tr, fut)
+
+        def bufs_of(tree, dtype):
+            leaves = tree_leaves(tree)
+            out = []
+            for b in range(layout.n_buckets):
+                buf = flatten_bucket(layout, leaves, b)
+                if self.fsdp:
+                    span = layout.shard_sizes[b]
+                    buf = buf[dp.rank * span:(dp.rank + 1) * span]
+                out.append(dev(buf, dtype))
+            return tuple(out)
+
+        f32 = torch.float32
+        opt = {"step": dev(tree_state["opt"]["step"], torch.int32),
+               "m": bufs_of(tree_state["opt"]["m"], f32)}
+        if "v" in tree_state["opt"]:
+            opt["v"] = bufs_of(tree_state["opt"]["v"], f32)
+        out = {"pbuf": bufs_of(tree_state["params"],
+                               self._master_torch_dtype()),
+               "opt": opt,
+               "cur": tuple(dev(c, f32) for c in cur),
+               "fut": tuple(dev(f, f32) for f in fut),
+               "gbuf": tuple(torch.zeros((n,), dtype=f32, device=self.device)
+                             for n in layout.buf_sizes)}
+        if self.gather_skip:
+            if not cross and "pgather" in tree_state:
+                out["pgather"] = tuple(dev(p, self._leaf_dtype)
+                                       for p in tree_state["pgather"])
+            else:
+                out["pgather"] = self._init_pgather()
+        return out
+
+    def checkpoint_struct(self, src_layout: Optional[BucketLayout] = None,
+                          *, with_pgather: Optional[bool] = None
+                          ) -> TrainState:
+        """Meta tensors shaped as :meth:`state_to_tree`'s output written
+        under ``src_layout`` (default: this runtime's layout): the ``like``
+        of ``checkpoint.restore``.  ``with_pgather`` says whether the
+        checkpoint carries the gather cache; by default only a same-layout
+        restore on a gather-skip runtime reads it."""
+        lay = src_layout or self.layout
+        if with_pgather is None:
+            with_pgather = self.gather_skip and lay == self.layout
+        meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+        f32 = torch.float32
+        tree = lambda dt: tree_unflatten(
+            self._structure, [meta(s, dt) for s in lay.shapes])
+        opt: Dict[str, Any] = {"step": meta((), torch.int32), "m": tree(f32)}
+        if self.opt_spec.name == "adamw":
+            opt["v"] = tree(f32)
+        acc = lambda: tuple(meta((self.accum_devices, n), f32)
+                            for n in lay.buf_sizes)
+        out = {"params": tree(self._master_torch_dtype()), "opt": opt,
+               "cur": acc(), "fut": acc()}
+        if with_pgather:
+            out["pgather"] = tuple(meta((n,), self._leaf_dtype)
+                                   for n in lay.buf_sizes)
+        return out
+
     # ---- one phase ---------------------------------------------------------
     def step(self, i: int, state: TrainState, batch
              ) -> Tuple[TrainState, Dict[str, Any]]:
-        off = i % self.period
+        off = self.phase_in_cycle(i)
         phase = self.schedule.phases[off]
         t0 = time.perf_counter()
         self.dp.reset()

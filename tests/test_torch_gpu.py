@@ -21,7 +21,10 @@ every gradient (f32 on both sides, another summation order inside the small
 products), S_final, the chunk-start states and ds0 bitwise.  At one rank
 the chain collectives are the identity and issue no P2P op, and the
 decoupled sharded engine's streamed param gathers (f32 and int8 wires,
-also routed along the one-rank chain) train bitwise as the burst ones.
+also routed along the one-rank chain) train bitwise as the burst ones.  A
+sharded bf16sr state (int8 wires, bf16 compute, the gather cache) goes
+through real checkpoint files and back onto the card bitwise, and a run
+resumed from them mid-cycle is bitwise the uninterrupted one.
 """
 import dataclasses
 
@@ -72,7 +75,13 @@ from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.deft import plan_ag_stream
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.data.pipeline import make_batch
-from repro_torch.launch.train import build_schedule, init_distributed
+from repro_torch.checkpoint import restore
+from repro_torch.launch.train import (
+    build_schedule,
+    init_distributed,
+    restore_runtime_state,
+    train,
+)
 from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 from repro_torch.train.bucketing import build_bucket_layout
@@ -82,6 +91,7 @@ from repro_torch.train.chains import (
     chain_reduce_scatter,
 )
 from repro_torch.train.runtime import DeftRuntime
+from repro_torch.tree import tree_leaves
 
 TOL = 1e-4
 BF16_OUT_RTOL = 2 ** -7
@@ -514,3 +524,44 @@ def test_streamed_gathers_bitwise_burst(wires):
         assert losses == runs[0][0]
         for a, b in zip(pbuf, runs[0][1]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """Smoke qwen3-4b on the sharded engine with int8 wires, a bf16sr
+    master and bf16 compute (period 5, the gather reused at position 3):
+    saved at step 3 and restored from the files, every tensor on the card
+    and bitwise the saved state; resumed, bitwise the uninterrupted run."""
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    cfg = reduce_for_smoke(get_config("qwen3-4b"))
+    kw = dict(batch=2, seq=32, device="cuda", partition_elems=250_000,
+              coverage_rate=7.2, fsdp=True, wire_precision="int8",
+              master_dtype="bf16sr", compute_dtype="bf16",
+              log=lambda s: None)
+    whole = train(cfg, steps=5, **kw)
+    d = str(tmp_path)
+    first = train(cfg, steps=3, ckpt=d, **kw)
+    rt, saved = first["runtime"], first["state"]
+    assert rt.phase_in_cycle(3) == 3 and rt.gather_skip
+    tree = restore(d, 3, rt.checkpoint_struct())
+    assert all(t.device.type == "cuda" for t in tree_leaves(tree))
+    logs = []
+    state, step = restore_runtime_state(rt, d, init_params(cfg, device="meta"),
+                                        log=logs.append)
+    assert step == 3 and logs == ["resumed checkpoint step 3"]
+    assert set(state) == set(saved)
+    for k in ("pbuf", "cur", "fut", "gbuf", "pgather"):
+        for a, b in zip(state[k], saved[k]):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b), k
+    for k in ("m", "v", "step"):
+        for a, b in zip(tree_leaves(state["opt"][k]),
+                        tree_leaves(saved["opt"][k])):
+            assert a.device.type == "cuda" and torch.equal(a, b), k
+    assert state["pbuf"][0].dtype == torch.bfloat16
+    rest = train(cfg, steps=2, ckpt=d, resume=True, **kw)
+    assert rest["start_step"] == 3
+    assert first["losses"] + rest["losses"] == whole["losses"]
+    for a, b in zip(rest["state"]["pbuf"], whole["state"]["pbuf"]):
+        assert torch.equal(a, b)
