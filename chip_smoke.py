@@ -141,7 +141,29 @@
    bitwise the uninterrupted run's; and the host's
    ``np.savez_compressed`` rate on 50,000,000 random f32 values with
    the full-width disk save it implies.
-8. Prints the kernels line, the card's name and power limit, and last the
+8. Drives the adaptive control plane on the card (``adapt_path``,
+   ``adapt_precision_path``): the main path's configuration and the
+   sharded delayed precision run's through ``train(adapt=True)`` with the
+   tracer on, the copied controller fed the synthetic walls of a 3x
+   bandwidth drop at step 4 and a repartitioner (where its replan keeps
+   the partition, the planner's partition at the first of 3, 10, 30, 100
+   x 200,000 elements that differs is staged at the same step), until
+   one period of the new schedule has passed after the swap.  One
+   layout-changing hot swap must land on a cycle boundary, re-packing the
+   resident state component by component; every step issues its
+   schedule's collectives and every kernel launches as its layers,
+   updates and layouts say; the Chrome trace (``chiprun_out/
+   adapt_trace.json``, ``adapt_precision_trace.json``) carries the
+   planned wire bytes on both sides of the swap; each run's peak stays
+   within its stored run's plus the larger of one state component and
+   the update's f32 temporaries of the new layout's largest bucket, and
+   the allocations live at the peak of the swap's window (the install
+   and the new layout's first step) are named; and every loss and param
+   is bitwise a run that switches layouts by hand (``repack_state``
+   between two sibling runtimes).  Prints the replan and swap steps, the
+   buckets, the elements moved, ``repack_s``, the step time on both sides
+   and the peak.
+9. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -2145,6 +2167,344 @@ def checkpoint_files_phase(torch, report):
           f"[{report['card']}]")
 
 
+# ---------------------------------------------------------------------------
+# The adaptive control plane: replan, hot swap, repack on the card
+# ---------------------------------------------------------------------------
+ADAPT_DROP_STEP, ADAPT_DROP_SCALE = 4, 3.0
+# steps of each run: the swap lands at 9 (f32) and 6 (precision) by the
+# controller's replay on the host, and one period of the new schedule
+# must pass after it (checked)
+ADAPT_STEPS = {"adapt_path": 14, "adapt_precision_path": 8}
+# the planner's partition the f32 swap falls back on where the controller
+# keeps its own: the first of these multiples of PARTITION_ELEMS whose
+# partition differs (at 3x every gemma2-2b leaf still fills a bucket)
+FALLBACK_SCALES = (3, 10, 30, 100)
+
+
+def peak_of_history(torch, base):
+    """The peak of allocated device bytes in the memory-history window now
+    ending (``torch.cuda.memory._record_memory_history``), which began
+    with ``base`` bytes allocated, and the window's own allocations live
+    at that peak, largest first: (bytes, the ``repro_torch`` frames that
+    made it, innermost first).  Bytes are counted as
+    ``max_memory_allocated`` counts them: an allocation at ``alloc``, its
+    release at ``free_requested``."""
+    snap = torch.cuda.memory._snapshot()
+    trace = snap["device_traces"][torch.cuda.current_device()]
+
+    def replay(stop):
+        live, cur, top, at = {}, base, base, -1
+        for k, ev in enumerate(trace[:stop]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                cur += ev["size"]
+                if cur > top:
+                    top, at = cur, k
+            elif ev["action"] == "free_requested":
+                live.pop(ev["addr"], None)
+                cur -= ev["size"]
+        return top, at, live
+
+    top, at, _ = replay(len(trace))
+    live = replay(at + 1)[2]
+    rows = []
+    for ev in sorted(live.values(), key=lambda e: -e["size"])[:8]:
+        frames = [f"{fr['filename'].split('repro_torch/')[-1]}:{fr['line']}"
+                  for fr in ev.get("frames", ())
+                  if "repro_torch" in fr["filename"]]
+        rows.append((ev["size"], frames[:4]))
+    return top, rows
+
+
+def adapt_path(torch, cfg, report, key, against, **kw):
+    """The launcher's adaptive loop on the card (``train(adapt=True)``):
+    the main path's configuration (``kw``: ``train``'s options) with the
+    tracer on, the copied controller with the settings of
+    ``tests/test_repack.py::test_adaptive_repartition_end_to_end`` (timing
+    trigger only) and a repartitioner, fed the synthetic walls of a 3x
+    bandwidth drop at step 4.  Where its replan keeps the partition, the
+    planner's partition at the first of FALLBACK_SCALES that changes it is
+    staged through ``prepare_swap(layout=)`` at the same step.
+
+    Checks that one layout-changing hot swap lands on a cycle boundary of
+    the old schedule and one new period passes after it; that each step
+    issues its schedule's collectives and each kernel launches as its
+    layers, updates and layouts say; that the trace's wire bytes equal the
+    plan before and after the swap (``obs.wire_bytes_report``); that the
+    peak exceeds ``against``'s (the stored run of the same configuration)
+    by at most the larger of one state component and the update's f32
+    temporaries of the new layout's largest bucket; and that every loss and
+    param is bitwise a run that switches layouts by hand: a sibling of the
+    first layout to the swap step, ``repack_state``, a sibling of the
+    second.  That repack's own peak may exceed the resident state by at
+    most one component (it moves one at a time)."""
+    from repro_torch.adapt import AdaptConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.bucket_update import bucket_update_cuda
+    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    from repro_torch.kernels.quantize import (
+        dequantize_int8_cuda,
+        quantize_int8_cuda,
+        stochastic_round_bf16_cuda,
+    )
+    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
+    from repro_torch.launch.train import build_schedule, train
+    from repro_torch.models.model import init_params
+    from repro_torch.obs import Tracer, wire_bytes_report
+    from repro_torch.train.bucketing import (
+        build_bucket_layout,
+        build_layout_transition,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = ADAPT_STEPS[key]
+    kw = dict(scheduler="deft", batch=BATCH, seq=SEQ, seed=0, device="cuda",
+              lr=LR, loss_chunk=LOSS_CHUNK, partition_elems=PARTITION_ELEMS,
+              **kw)
+    precision = dict(wire_precision=kw.get("wire_precision", "f32"),
+                     master_dtype=kw.get("master_dtype", "f32"))
+    meta = init_params(cfg, device="meta")
+    plan_of = lambda pe: build_schedule(
+        meta, cfg, dp=1, seq_len=SEQ, per_device_batch=BATCH,
+        partition_elems=pe, coverage_rate=kw["coverage_rate"], **precision)
+    base = plan_of(PARTITION_ELEMS)
+    fb_scale, fb = next(((k, p) for k in FALLBACK_SCALES
+                         for p in [plan_of(k * PARTITION_ELEMS)]
+                         if p[0] != base[0]), (None, None))
+    check(fb is not None, f"{key}: no partition of {FALLBACK_SCALES} x "
+                          f"{PARTITION_ELEMS} differs from the base one")
+    fb_layout = build_bucket_layout(meta, fb[0], fb[1]).with_precision(
+        fb[3].precision)
+    kept, planned, window = [], {}, {}
+
+    def on_step(step, runtime, state, metrics):
+        if step == 0:
+            planned["before"] = (runtime.wire_bytes_per_phase,
+                                 runtime.wire_bytes_split_per_phase,
+                                 runtime.collectives_per_phase())
+        if "base" in window and runtime.hot_swaps:
+            # the window closes after the install and the first step of
+            # the new layout
+            window["top"], window["live"] = peak_of_history(
+                torch, window.pop("base"))
+            window["run_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.memory._record_memory_history(enabled=None)
+        replans = [sp for sp in runtime.tracer.spans("replan")
+                   if sp.step == step and sp.args["changed"]]
+        if replans and not replans[-1].args["repartition"]:
+            kept.append(step)
+            runtime.prepare_swap(fb[3].schedule,
+                                 layout=fb_layout)
+        if runtime.swap_ready() and not runtime.hot_swaps \
+                and runtime.phase_in_cycle(step + 1) == 0:
+            # the next step installs the swap: record every allocation
+            # from here to the end of the new layout's first step
+            torch.cuda.synchronize()
+            window["base"] = torch.cuda.memory_allocated()
+            torch.cuda.memory._record_memory_history(
+                enabled="all", context="alloc", stacks="python",
+                max_entries=200_000)
+
+    counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
+                dequantize_int8_cuda, stochastic_round_bf16_cuda,
+                rglru_fwd_cuda, rglru_bwd_cuda, rwkv6_fwd_cuda,
+                rwkv6_bwd_cuda)
+    trace_path = (ROOT / "chiprun_out"
+                  / f"{key.replace('_path', '')}_trace.json")
+    trace_path.parent.mkdir(exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    flash_fwd_cuda.launches_bf16 = 0
+    res = train(cfg, steps=steps, on_step=on_step, adapt=True,
+                adapt_config=AdaptConfig(
+                    eta=1e-3, warmup_steps=2, check_every=2,
+                    cooldown_steps=100, min_loss_samples=10**9,
+                    wire_precision=precision["wire_precision"]),
+                adapt_drop_step=ADAPT_DROP_STEP,
+                adapt_drop_scale=ADAPT_DROP_SCALE, adapt_repartition=True,
+                trace=str(trace_path), log=lambda s: print("  " + s), **kw)
+    launches = kernel_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+
+    rt, losses = res["runtime"], res["losses"]
+    lay_a, sched_a = res["layout"], res["schedule"]
+    lay_b, sched_b = rt.layout, rt.schedule
+    st = rt.stats()
+    installs = [e for e in rt.swap_log if "event" not in e]
+    replan = next((e for e in res["controller"].events if e.changed), None)
+    check(replan is not None and len(installs) == 1
+          and st["hot_swaps"] == 1 and st["layout_swaps"] == 1
+          and lay_b != lay_a,
+          f"{key}: {st['replans']} replans, {st['hot_swaps']} hot swaps "
+          f"({st['layout_swaps']} layout-changing); swap log {rt.swap_log}")
+    swap = installs[0]["step"]
+    check(swap % sched_a.period == 0 and steps - swap >= sched_b.period,
+          f"{key}: the swap at step {swap} is not on a boundary of the "
+          f"period-{sched_a.period} schedule, or fewer than a period "
+          f"({sched_b.period}) of steps follow it in {steps}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    # the collectives each step issued, against its schedule's
+    after = rt.collectives_per_phase()
+    wants = [planned["before"][2][i % sched_a.period] if i < swap
+             else after[(i - swap) % sched_b.period] for i in range(steps)]
+    for i, (got, want) in enumerate(zip(res["collectives"], wants)):
+        check(got == want, f"{key} step {i}: issued {got}, schedule says "
+                           f"{want}")
+    # each kernel's launches, from the layers, updates and layouts
+    attn = sum(sp.kind in ("attn", "local_attn") for sp in cfg.layer_specs())
+    at = [(sched_a.phases[i % sched_a.period], lay_a) if i < swap
+          else (sched_b.phases[(i - swap) % sched_b.period], lay_b)
+          for i in range(steps)]
+    updated = sum(lay.n_buckets for ph, lay in at if ph.do_update)
+    bf16 = kw.get("compute_dtype") == "bf16" \
+        or precision["master_dtype"] == "bf16sr"
+    if rt.fsdp:
+        synced = sum(c["reduce_scatter"] for c in res["collectives"])
+        gathered = sum(c["param_gather"] for c in res["collectives"]) // 2
+    else:
+        synced = sum(c["primary"] + c["secondary"]
+                     for c in res["collectives"])
+        gathered = 0
+    int8 = precision["wire_precision"] == "int8"
+    sr = precision["master_dtype"] == "bf16sr"
+    want = {"flash_fwd": 0 if bf16 else 2 * attn * steps,
+            "flash_fwd_sm90": 2 * attn * steps if bf16 else 0,
+            "bucket_update": updated,
+            "quantize_int8": synced + gathered if int8 else 0,
+            "dequantize_int8": synced + gathered if int8 else 0,
+            "stochastic_round_bf16": lay_a.n_buckets + updated if sr else 0,
+            "rglru_fwd": 0, "rglru_bwd": 0, "rwkv6_fwd": 0, "rwkv6_bwd": 0}
+    check(launches == want, f"{key} launches {launches}, expected {want}")
+    # the wire bytes each step's syncs carried, against the plan in force
+    spans = rt.tracer.spans("collective-group")
+    wire = {}
+    for name, lo, hi, (per, split) in (
+            ("before", 0, swap, planned["before"][:2]),
+            ("after", swap, steps, (rt.wire_bytes_per_phase,
+                                    rt.wire_bytes_split_per_phase))):
+        part = Tracer()
+        for sp in spans:
+            if lo <= sp.step < hi:
+                part.add(sp.kind, sp.name, sp.t0, sp.t1, step=sp.step,
+                         phase=sp.phase, **sp.args)
+        rep = wire_bytes_report(part, per, split)
+        check(rep.ok and all(m is not None for m in rep.measured_per_phase),
+              f"{key} wire bytes {name} the swap: measured "
+              f"{rep.measured_per_phase} / {rep.measured_split}, planned "
+              f"{rep.planned_per_phase} / {rep.planned_split}")
+        wire[name] = dict(planned_per_phase=list(rep.planned_per_phase),
+                          precisions=list(rep.precisions))
+    # the peak: the repack at the boundary (no activations live) holds at
+    # most one component more than the resident state; a step of layout B
+    # holds what the stored run's steps hold, but its update's per-bucket
+    # f32 temporaries scale with B's largest bucket (span): the grad-clip
+    # norm's scaled gradient and its square, and on the sharded engine
+    # the reduce-scatter's span
+    component = 4 * max(sum(lay_a.buf_sizes), sum(lay_b.buf_sizes))
+    temps = 4 * max(lay_b.shard_sizes if rt.fsdp else lay_b.buf_sizes) \
+        * (2 * bool(rt.opt_spec.grad_clip) + rt.fsdp)
+    stored_peak = report[against]["peak_bytes"]
+    bound = stored_peak + max(component, temps)
+    check(peak <= bound,
+          f"{key}: peak {peak} beyond {against}'s {stored_peak} + the "
+          f"larger of one state component {component} and layout B's "
+          f"update temporaries {temps}")
+    repack = next(sp for sp in rt.tracer.spans("repack"))
+    step_s = res["step_s"]
+    before_s = statistics.median(step_s[1:swap])
+    after_s = statistics.median(step_s[swap + 1:])
+    stored = stored_run(res["state"], losses)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference: layout A to the swap step, repack_state, layout B;
+    # the repack's own peak above the resident state, measured here
+    ref = rt.spawn(schedule=sched_a, layout=lay_a)
+    state = ref.init_state(0, dtype=rt.compute_dtype or torch.float32)
+    ref_losses = []
+    for i in range(steps):
+        if i == swap:
+            ref = ref.spawn(schedule=sched_b, layout=lay_b)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state = ref.repack_state(state,
+                                     build_layout_transition(lay_a, lay_b),
+                                     src_schedule=sched_a)
+            torch.cuda.synchronize()
+            repack_extra = torch.cuda.max_memory_allocated() - resident
+            check(repack_extra <= component,
+                  f"{key}: the repack took {repack_extra} bytes above the "
+                  f"resident {resident}, more than one component "
+                  f"{component}")
+        state, m = ref.step(i - swap if i >= swap else i, state,
+                            make_batch(cfg, 0, i, BATCH, SEQ, device="cuda"))
+        ref_losses.append(float(m["loss"]))
+    held = held_to(key, ("the explicit repack", stored, True), state,
+                   ref_losses)
+    del ref, state, stored
+    torch.cuda.empty_cache()
+
+    report[key] = dict(
+        steps=steps, replan_step=replan.step,
+        controller_repartitioned=replan.partition_changed,
+        fallback_at=kept[0] if kept else None,
+        fallback_partition_elems=(fb_scale * PARTITION_ELEMS if kept
+                                  else None),
+        swap_step=swap, period_before=sched_a.period,
+        period_after=sched_b.period, buckets_before=lay_a.n_buckets,
+        buckets_after=lay_b.n_buckets,
+        moved_elems=repack.args["moved_elems"], repack_s=installs[0][
+            "repack_s"], precision_after=installs[0]["precision"],
+        median_step_s_before=before_s, median_step_s_after=after_s,
+        step_s=step_s, losses=losses, peak_bytes=peak,
+        stored_peak_bytes=stored_peak, component_bytes=component,
+        update_temporaries_bytes=temps, peak_bound_bytes=bound,
+        repack_resident_bytes=resident, repack_extra_bytes=repack_extra,
+        launches=launches, wire_bytes=wire, trace=str(trace_path),
+        swap_window_peak_bytes=window.get("top"),
+        swap_window_live=window.get("live"),
+        run_peak_at_window_end=window.get("run_peak"),
+        against=held, stats={k: v for k, v in st.items() if k != "phases"})
+    print(f"{key} ({against}'s configuration, {steps} steps): replanned at "
+          f"step {replan.step}"
+          + ("" if replan.partition_changed else
+             f" keeping its partition, so the planner's partition at "
+             f"{report[key]['fallback_partition_elems']:,} elements was "
+             f"staged at step {kept[0]}")
+          + f"; swapped at step {swap}: {lay_a.n_buckets} -> "
+          f"{lay_b.n_buckets} buckets, period {sched_a.period} -> "
+          f"{sched_b.period}, wires {installs[0]['precision']}, "
+          f"{repack.args['moved_elems']:,} elements moved in "
+          f"{installs[0]['repack_s']:.3f} s; median step {before_s:.3f} s "
+          f"before, {after_s:.3f} s after; peak {peak / 2**30:.2f} GiB "
+          f"against {against}'s {stored_peak / 2**30:.2f} GiB + the larger "
+          f"of one component {component / 2**30:.2f} GiB and the update "
+          f"temporaries {temps / 2**30:.2f} GiB; the explicit repack "
+          f"{repack_extra / 2**30:.2f} GiB above the resident "
+          f"{resident / 2**30:.2f} GiB [{report['card']}]; "
+          f"launches {launches}; wire bytes as planned on both sides; "
+          f"every loss and param bitwise the explicit repack; trace -> "
+          f"{trace_path.relative_to(ROOT)}")
+    if "top" in window:
+        print(f"  {key}: over the install and the first step of the new "
+              f"layout the allocated bytes peak at "
+              f"{window['top'] / 2**30:.2f} GiB (the run's peak by then "
+              f"{window['run_peak'] / 2**30:.2f} GiB); live there, made in "
+              f"that window:")
+        for n, frames in window["live"]:
+            print(f"    {n / 2**30:7.3f} GiB  "
+                  f"{' < '.join(frames) or '(made outside repro_torch)'}")
+    else:
+        print(f"  {key}: the swap was not armed a step before its "
+              f"boundary, so no allocation window was recorded")
+    return launches
+
+
 def run() -> int:
     # torch.compile (the flex_attention yardstick) caches inside the
     # checkout and compiles in this process, starting no worker pool
@@ -2303,6 +2663,13 @@ def run() -> int:
                     coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
                     master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
     checkpoint_files_phase(torch, report)
+    launches["f32 adapt"] = adapt_path(
+        torch, cfg, report, "adapt_path", "main_path",
+        coverage_rate=COVERAGE_RATE)
+    launches[f"{WIRE}+{MASTER} sharded adapt"] = adapt_path(
+        torch, cfg, report, "adapt_precision_path", "sharded_precision_path",
+        coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
+        master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
     del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

@@ -75,7 +75,7 @@ class PrecisionPolicy:
 
     ``wire`` is indexed by bucket position (0-based, matching
     ``BucketTimes``/``BucketLayout`` order).  Hashable and frozen so it
-    can ride on :class:`~repro.train.bucketing.BucketLayout` and key the
+    can ride on :class:`~repro_torch.train.bucketing.BucketLayout` and key the
     runtime's phase cache.
     """
 

@@ -8,6 +8,9 @@ and PyTorch's current stream.  Nothing is built at import time: the first
 one ``nvcc`` per source, all started together, into
 ``<repo>/build/torch_ext/``.  Library names carry a hash of the source and
 flags, so an edited source is rebuilt and a stale library is never loaded.
+Loading and building hold one module lock, so a background thread (a
+staged swap loading what its layout needs) and the training loop never
+build the same library at once.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -38,6 +42,9 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# held around every build and load: _compile's temporary names are
+# per process, so two threads must not build at once
+_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -73,26 +80,27 @@ def _compile(jobs: Dict[str, Tuple[Path, List[str]]]) -> Dict[str, Tuple[str, fl
     if any build failed."""
     import time
 
-    nvcc = nvcc_path() if jobs else ""
-    procs = []
-    for key, (out, args) in jobs.items():
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        procs.append((key, out, tmp, time.perf_counter(), subprocess.Popen(
-            [nvcc] + args + ["-o", str(tmp)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    done: Dict[str, Tuple[str, float]] = {}
-    failed = []
-    for key, out, tmp, t0, proc in procs:
-        log, _ = proc.communicate()
-        done[key] = (log, time.perf_counter() - t0)
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{key}:\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return done
+    with _LOCK:
+        nvcc = nvcc_path() if jobs else ""
+        procs = []
+        for key, (out, args) in jobs.items():
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            procs.append((key, out, tmp, time.perf_counter(), subprocess.Popen(
+                [nvcc] + args + ["-o", str(tmp)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        done: Dict[str, Tuple[str, float]] = {}
+        failed = []
+        for key, out, tmp, t0, proc in procs:
+            log, _ = proc.communicate()
+            done[key] = (log, time.perf_counter() - t0)
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{key}:\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return done
 
 
 def build_all() -> Dict[str, float]:
@@ -100,10 +108,12 @@ def build_all() -> Dict[str, float]:
     Returns {name: seconds} for the libraries built by this call; each
     build's compiler output (register and spill counts) is kept beside
     the library as ``<lib>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {name: _target(name) for name in SOURCES}
-    jobs = {name: job for name, job in jobs.items() if not job[0].exists()}
-    return {name: s for name, (_, s) in _compile(jobs).items()}
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {name: _target(name) for name in SOURCES}
+        jobs = {name: job for name, job in jobs.items()
+                if not job[0].exists()}
+        return {name: s for name, (_, s) in _compile(jobs).items()}
 
 
 def build_sources(texts: Dict[str, str], lib: str,
@@ -174,14 +184,18 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (building all missing ones
     first)."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        out, _ = _target(name)
-        if not out.exists():
-            build_all()
-        lib = ctypes.CDLL(str(out))
-        _LOADED[name] = lib
-    return lib
+    lib = _LOADED.get(name)       # a loaded library never waits on a build
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            out, _ = _target(name)
+            if not out.exists():
+                build_all()
+            lib = ctypes.CDLL(str(out))
+            _LOADED[name] = lib
+        return lib
 
 
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,

@@ -10,7 +10,11 @@ param all-gathers streamed into the forward (DESIGN.md §12), and
 ``--pod``, a ``pod x data`` layout of the ranks whose syncs are
 hierarchical, and checkpoints in the JAX package's format (``--ckpt``,
 ``--ckpt-every``, ``--resume``; a SIGTERM or SIGUSR1 checkpoints and
-exits cleanly, DESIGN.md §10).  Runs on the card unless ``--device
+exits cleanly, DESIGN.md §10), the online control plane (``--adapt``,
+``--adapt-drop-step``, ``--adapt-drop-scale``, ``--adapt-repartition``:
+telemetry, drift detection, a Preserver-gated replan and a hot swap at a
+cycle boundary, DESIGN.md §7 and §9) and ``--trace OUT.json``, a Chrome
+trace of every step's spans.  Runs on the card unless ``--device
 cpu``.  Under ``torchrun`` the process group comes from its environment;
 run alone it is a one-rank group (NCCL on the card, gloo on the CPU), so
 every gradient sum still goes through a real collective.
@@ -26,10 +30,14 @@ every gradient sum still goes through a real collective.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 4 --batch 2 --seq 32 --device cpu --ckpt CKPT_DIR \
         --ckpt-every 2 [--resume]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+        --smoke --steps 16 --batch 2 --seq 32 --device cpu --adapt \
+        --adapt-drop-step 4 --adapt-repartition --trace OUT.json
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import signal
 import socket
@@ -40,6 +48,14 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.adapt import (
+    AdaptConfig,
+    AdaptiveController,
+    BandwidthDrop,
+    RepartitionConfig,
+    Repartitioner,
+    SyntheticTelemetrySource,
+)
 from repro_torch.checkpoint import (
     latest_step,
     load_layout_descriptor,
@@ -57,11 +73,13 @@ from repro_torch.core.preserver import WalkParams
 from repro_torch.core.profiler import HardwareModel
 from repro_torch.data.pipeline import make_batch
 from repro_torch.models.model import init_params
+from repro_torch.obs import Tracer, format_event
 from repro_torch.optim.optimizers import adamw
 from repro_torch.sharding import needs_fsdp
 from repro_torch.train.bucketing import (
     assign_buckets,
     build_bucket_layout,
+    build_leaf_time_model,
     coverage_rescale,
     leaf_bucket_times,
 )
@@ -265,6 +283,9 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           pod: int = 1, secondary_chain: Optional[Sequence[int]] = None,
           reroute: Optional[Callable] = None,
           ckpt: str = "", ckpt_every: int = 0, resume: bool = False,
+          adapt: bool = False, adapt_config: Optional[AdaptConfig] = None,
+          adapt_drop_step: int = 0, adapt_drop_scale: float = 3.0,
+          adapt_repartition: bool = False, trace: str = "",
           on_step: Optional[Callable] = None,
           log: Callable = print) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
@@ -292,9 +313,24 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     run (the previous handlers are back when ``train`` returns).
     ``resume`` first restores the newest usable checkpoint there
     (``restore_runtime_state``) and runs ``steps`` steps from its step,
-    on the batches of those steps.  Returns the
-    losses, per-step wall times (each step synchronised), the schedule,
-    the runtime, the final state and the first step run."""
+    on the batches of those steps.
+
+    ``adapt`` attaches the adaptive controller (JAX's launcher wiring):
+    each step's wall feeds it, and a replan it adopts is staged with
+    ``prepare_swap(background=True)`` under the layout its view assumes,
+    a wire-precision change riding on it; ``adapt_config`` replaces the
+    launcher's ``AdaptConfig``.  ``adapt_drop_step > 0`` feeds it the
+    synthetic walls of a ``adapt_drop_scale``-fold bandwidth drop at that
+    step instead of the measured ones (the device synchronised, then the
+    host clock around the step, the largest over the ranks), and
+    ``adapt_repartition`` lets a replan change the bucket partition
+    itself.  Over several ranks the swap builds in the foreground, so
+    that every rank installs it at the same boundary.  ``trace`` is a path
+    for the Chrome trace of every span (written by rank 0).
+
+    Returns the losses, per-step wall times (each step synchronised), the
+    schedule, the runtime, the final state, the first step run and the
+    adaptive controller (None without ``adapt``)."""
     device = torch.device(device)
     init_distributed(device)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -304,6 +340,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     per = batch // world
     opt = adamw(lr)
     out: Dict[str, Any] = {"losses": [], "step_s": [], "collectives": []}
+    tracer = Tracer() if trace else None
     runtime = None
     start_step = 0
     if fsdp is None:
@@ -316,6 +353,9 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             raise ValueError("the DDP baseline has no param gather to "
                              "stream and no secondary link: decoupled and "
                              "secondary_chain need --scheduler deft")
+        if adapt:
+            raise ValueError("the adaptive control plane replans DeFT "
+                             "schedules: adapt needs --scheduler deft")
         state = init_ddp_state(cfg, opt, seed=seed, device=device)
         step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
                                 attn_impl=attn_impl, scan_impl=scan_impl)
@@ -353,7 +393,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             quantize_impl=quantize_impl, compute_dtype=cdt,
             master_dtype=master_dtype, fsdp=fsdp, decoupled=decoupled,
             group=data_group, outer_group=pod_group,
-            secondary_chain=secondary_chain, ag_plan=ag_plan)
+            secondary_chain=secondary_chain, ag_plan=ag_plan, tracer=tracer)
         state = None
         if resume and ckpt:
             state, start_step = restore_runtime_state(runtime, ckpt,
@@ -363,6 +403,81 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         out.update(schedule=schedule, layout=layout, times=times)
     else:
         raise ValueError(f"unknown scheduler {scheduler!r}")
+
+    # the online adaptive control plane
+    controller = telemetry = None
+    run_base = None          # scale-1 run times after a repartition
+    if adapt:
+        repartitioner = None
+        if adapt_repartition:
+            model = build_leaf_time_model(params_abs, cfg,
+                                          HardwareModel(dp_degree=world),
+                                          seq, per)
+            if coverage_rate > 0:
+                model = model.with_coverage_rate(bucket_of, nb, coverage_rate)
+            repartitioner = Repartitioner(model, RepartitionConfig(
+                base_partition_elems=partition_elems))
+        controller = AdaptiveController(
+            times, schedule, plan.scheduler_cfg,
+            cfg=adapt_config or AdaptConfig(
+                eta=1e-3, warmup_steps=4, check_every=4,
+                cooldown_steps=2 * schedule.period,
+                wire_precision=wire_precision),
+            repartitioner=repartitioner,
+            bucket_of=bucket_of if repartitioner else None,
+            tracer=runtime.tracer, precision=plan.precision)
+        if adapt_drop_step > 0:
+            telemetry = SyntheticTelemetrySource(
+                times, BandwidthDrop(step=adapt_drop_step,
+                                     comm_scale=adapt_drop_scale))
+            log(f"adapt: synthetic bandwidth drop x{adapt_drop_scale} at "
+                f"step {adapt_drop_step}")
+
+    def adapt_step(step: int, loss: float, wall: float):
+        """Feed one step to the controller and stage the replan it
+        adopts (JAX's launcher loop)."""
+        nonlocal run_base
+        if telemetry is not None:
+            # the priced view: synthetic walls reflect the installed wire
+            # precision, or every replan after a downgrade reads as drift
+            wall = telemetry.wall_time(
+                step, controller.schedule, controller.scheduler_cfg,
+                runtime.last_phase, solve_times=controller.wire_times(),
+                run_base=run_base)
+            cold = None
+        else:
+            if world > 1:                       # every rank replans alike
+                w = torch.tensor([wall], dtype=torch.float64, device=device)
+                dist.all_reduce(w, op=dist.ReduceOp.MAX)
+                wall = float(w.item())
+            cold = runtime.last_dispatch_first
+        event = controller.observe(step, runtime.last_phase, wall,
+                                   loss=loss, cold=cold)
+        if event is None:
+            return
+        log(format_event(event))
+        if not event.changed:
+            return
+        policy = controller.precision
+        if policy is not None and policy.master != runtime.master_dtype:
+            # the controller prices wires only: its policies come back
+            # with an f32 master, and the resident master is the runtime's
+            policy = dataclasses.replace(policy, master=runtime.master_dtype)
+        new_layout = None
+        if controller.repartitioner is not None:
+            # always the layout the controller's installed view assumes: a
+            # schedule solved for partition B never runs under layout A
+            new_layout = build_bucket_layout(
+                params_abs, controller.bucket_of, controller.times.n,
+                shard_count=world // pod if fsdp else 1,
+            ).with_precision(policy)
+        elif event.precision_changed:
+            new_layout = runtime.layout.with_precision(policy)
+        if event.partition_changed:
+            run_base = controller.repartitioner.base_times_for(
+                event.partition)
+        runtime.prepare_swap(event.schedule,
+                             background=world == 1, layout=new_layout)
 
     # a preemption signal (what cluster managers send before reclaiming
     # the host) checkpoints and stops the run cleanly
@@ -402,6 +517,11 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             _sync(device)
             out["step_s"].append(time.perf_counter() - t0)
             out["losses"].append(loss)
+            if tracer is not None:
+                tracer.add("step", f"step{step}", t0, tracer.now(),
+                           step=step)
+            if controller is not None:
+                adapt_step(step, loss, out["step_s"][-1])
             if on_step is not None:
                 on_step(step, runtime, state, m)
             if ckpt and ckpt_every > 0 \
@@ -418,8 +538,23 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
+    if controller is not None:
+        st = runtime.stats()
+        log(f"adapt: {st['replans']} replans, {st['hot_swaps']} hot-swaps "
+            f"({st['layout_swaps']} layout-changing), {st['cached_phases']} "
+            f"cached phases, {st['steps_per_s']:.2f} steps/s (dispatch)")
+        for sw in st["swap_log"]:
+            log("  " + format_event(sw))
+        for ev in controller.events:
+            log("  " + format_event(ev))
+    if tracer is not None and rank == 0:
+        tracer.export_chrome_trace(trace)
+        ts = tracer.stats()
+        dropped = (f", {ts['dropped']} dropped (ring full)"
+                   if ts["dropped"] else "")
+        log(f"trace -> {trace} ({ts['retained']} spans{dropped})")
     out.update(runtime=runtime, state=state, start_step=start_step,
-               halted=halted)
+               halted=halted, controller=controller)
     return out
 
 
@@ -472,6 +607,22 @@ def main() -> None:
                          "before training (a checkpoint written under a "
                          "different bucket layout is re-packed through "
                          "the LayoutTransition)")
+    ap.add_argument("--adapt", action="store_true",
+                    help="online control plane: telemetry -> drift "
+                         "detection -> replan -> phase hot-swap")
+    ap.add_argument("--adapt-drop-step", type=int, default=0,
+                    help="with --adapt: inject a synthetic bandwidth drop "
+                         "at this step (0 = use real measured wall times)")
+    ap.add_argument("--adapt-drop-scale", type=float, default=3.0,
+                    help="comm slowdown factor of the injected drop")
+    ap.add_argument("--adapt-repartition", action="store_true",
+                    help="with --adapt: replans may change the bucket "
+                         "partition itself — the runtime re-packs the "
+                         "flat state at a cycle boundary, no restart")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="record step/phase/collective/control-plane "
+                         "spans and export a Chrome-trace (Perfetto-"
+                         "loadable) JSON to this path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
@@ -492,7 +643,10 @@ def main() -> None:
                 master_dtype=args.master_dtype,
                 compute_dtype=args.compute_dtype, fsdp=args.fsdp,
                 decoupled=args.decoupled, pod=args.pod, ckpt=args.ckpt,
-                ckpt_every=args.ckpt_every, resume=args.resume)
+                ckpt_every=args.ckpt_every, resume=args.resume,
+                adapt=args.adapt, adapt_drop_step=args.adapt_drop_step,
+                adapt_drop_scale=args.adapt_drop_scale,
+                adapt_repartition=args.adapt_repartition, trace=args.trace)
     dt = time.time() - t0
     n = len(res["losses"])
     print(f"{n} steps in {dt:.1f}s "

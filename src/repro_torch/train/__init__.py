@@ -1,7 +1,9 @@
 from repro_torch.train.bucketing import (
     BucketLayout,
+    LeafTimeModel,
     assign_buckets,
     build_bucket_layout,
+    build_leaf_time_model,
     flatten_buckets,
     leaf_bucket_times,
     unflatten_buckets,
@@ -14,7 +16,8 @@ from repro_torch.train.runtime import (
 )
 
 __all__ = [
-    "BucketLayout", "assign_buckets", "build_bucket_layout",
-    "flatten_buckets", "leaf_bucket_times", "unflatten_buckets",
+    "BucketLayout", "LeafTimeModel", "assign_buckets", "build_bucket_layout",
+    "build_leaf_time_model", "flatten_buckets", "leaf_bucket_times",
+    "unflatten_buckets",
     "DeftRuntime", "init_ddp_state", "make_ddp_step", "phase_collectives",
 ]

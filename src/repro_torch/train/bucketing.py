@@ -2,13 +2,15 @@
 layout of the replicated engine.
 
 Port of ``repro/train/bucketing.py`` (replicated and sharded layouts,
-layout transitions): buckets over the real tree leaves in model
-input->output order, filled greedily to ``partition_elems``;
+layout transitions, the per-leaf time model): buckets over the real tree
+leaves in model input->output order, filled greedily to
+``partition_elems``;
 ``BucketLayout`` maps every leaf to a span of one flat buffer per bucket,
 padded to ``PAD_MULTIPLE`` (times the shard count of the sharded flat
 engine, DESIGN.md §8), and carries the per-bucket wire precision policy
 (DESIGN.md §13); a ``LayoutTransition`` remaps flat buffers from one
-layout of a tree to another (DESIGN.md §9).  Leaf
+layout of a tree to another (DESIGN.md §9); a ``LeafTimeModel`` prices any
+partition of the tree (the adaptive repartitioner's input).  Leaf
 order is ``jax.tree_util.tree_flatten`` order (``repro_torch.tree``), so
 a layout built here equals the JAX package's layout of the same tree.
 """
@@ -252,20 +254,128 @@ def unflatten_buckets(layout: BucketLayout, flats) -> List[torch.Tensor]:
 def leaf_bucket_times(params, cfg: ArchConfig, bucket_of_leaf: Sequence[int],
                       n_buckets: int, hw: HardwareModel, seq_len: int,
                       per_device_batch: int) -> BucketTimes:
-    """Analytical fwd/bwd/comm seconds per leaf-bucket (same arithmetic, in
-    the same order, as the JAX package's per-leaf time model)."""
+    """Analytical fwd/bwd/comm seconds per leaf-bucket."""
+    model = build_leaf_time_model(params, cfg, hw, seq_len, per_device_batch)
+    return model.bucket_times(bucket_of_leaf, n_buckets)
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf time model (repartitioning input)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LeafTimeModel:
+    """Per-leaf timing atoms from which bucket times for ANY partition of
+    the same parameter tree can be regenerated.
+
+    ``leaf_bucket_times`` bakes the partition into its output; the online
+    repartitioning path (adapt/repartition.py) instead needs "what would
+    this OTHER partition's BucketTimes be under the calibrated hardware"
+    — so the per-leaf fwd seconds and element counts are frozen once (a
+    pure-Python tuple dataclass; jax is only touched at construction) and
+    every candidate partition re-aggregates them.
+
+    ``comm_scale`` folds in the uniform coverage-rate rescale the train
+    driver applies (build_schedule's synthetic-CR knob), so regenerated
+    times stay comparable with the times the installed plan was solved
+    from.  ``bucket_times(..., comp_scale=, comm_scale=)`` additionally
+    applies calibration scales on top (adapt/calibrate.py semantics).
+    """
+
+    order: Tuple[int, ...]       # model-order traversal of flat leaf idx
+    fwd_s: Tuple[float, ...]     # per leaf (flat idx), analytic fwd seconds
+    elems: Tuple[int, ...]       # per leaf (flat idx), element count
+    hw: HardwareModel
+    comm_scale: float = 1.0      # uniform CR rescale folded into comm
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.fwd_s)
+
+    def with_comm_scale(self, scale: float) -> "LeafTimeModel":
+        return dataclasses.replace(self, comm_scale=scale)
+
+    def with_coverage_rate(
+        self,
+        bucket_of_leaf: Sequence[int],
+        n_buckets: int,
+        coverage_rate: float,
+    ) -> "LeafTimeModel":
+        """Fold the synthetic-CR rescale into the model so that
+        ``bucket_times(bucket_of_leaf, n_buckets)`` hits ``coverage_rate``
+        — the ONE place the rescale math lives, keeping candidate pricing
+        commensurable with the times the installed plan was solved from
+        (see :func:`coverage_rescale`)."""
+        t = self.bucket_times(bucket_of_leaf, n_buckets)
+        return self.with_comm_scale(
+            self.comm_scale * coverage_rescale(t, coverage_rate)
+        )
+
+    def partition(
+        self, partition_elems: int
+    ) -> Tuple[Tuple[int, ...], int]:
+        """Greedy model-order fill at ``partition_elems`` — literally
+        :func:`assign_buckets`' walk (shared via
+        :func:`greedy_fill_partition`), without the params tree."""
+        return greedy_fill_partition(self.order, self.elems,
+                                     partition_elems)
+
+    def bucket_times(
+        self,
+        bucket_of_leaf: Sequence[int],
+        n_buckets: int,
+        *,
+        comp_scale: float = 1.0,
+        comm_scale: float = 1.0,
+        precision: Optional[PrecisionPolicy] = None,
+    ) -> BucketTimes:
+        """BucketTimes of an arbitrary partition of this tree, optionally
+        under calibrated effective scales.  ``precision`` prices each
+        bucket's comm at its policy wire width (§13) — the latency term
+        inside ``allreduce_time`` stays fixed."""
+        if precision is not None:
+            precision.validate(n_buckets)
+        fwd = [0.0] * n_buckets
+        comm_elems = [0] * n_buckets
+        for i, b in enumerate(bucket_of_leaf):
+            fwd[b] += self.fwd_s[i]
+            comm_elems[b] += self.elems[i]
+        fwd = [f * comp_scale for f in fwd]
+        bwd = [2.0 * f for f in fwd]
+        c_scale = self.comm_scale * comm_scale
+        comm = [
+            self.hw.allreduce_time(
+                e,
+                bytes_per_elem=(
+                    None if precision is None
+                    else precision.wire_bytes_per_elem(b)
+                ),
+            ) * c_scale
+            for b, e in enumerate(comm_elems)
+        ]
+        return BucketTimes(tuple(fwd), tuple(bwd), tuple(comm))
+
+
+def build_leaf_time_model(params, cfg: ArchConfig, hw: HardwareModel,
+                          seq_len: int, per_device_batch: int
+                          ) -> LeafTimeModel:
+    """Freeze the per-leaf timing atoms of a parameter tree (shapes only:
+    a meta-device tree works), in the JAX package's arithmetic and leaf
+    order."""
     tokens = per_device_batch * seq_len
-    fwd = [0.0] * n_buckets
-    comm_elems = [0] * n_buckets
-    for (keys, leaf), b in zip(tree_flatten_with_path(params), bucket_of_leaf):
+    fwd_s: List[float] = []
+    elems: List[int] = []
+    for keys, leaf in tree_flatten_with_path(params):
         n = _numel(tuple(leaf.shape))
         active = leaf_active_fraction(cfg, keys)
         flops = 2.0 * n * active * tokens if len(leaf.shape) >= 2 else 0.0
-        fwd[b] += hw.compute_time(flops)
-        comm_elems[b] += n
-    bwd = [2.0 * f for f in fwd]
-    comm = [hw.allreduce_time(e) for e in comm_elems]
-    return BucketTimes(tuple(fwd), tuple(bwd), tuple(comm))
+        fwd_s.append(hw.compute_time(flops))
+        elems.append(n)
+    return LeafTimeModel(
+        order=tuple(ordered_leaf_indices(params)),
+        fwd_s=tuple(fwd_s),
+        elems=tuple(elems),
+        hw=hw,
+    )
 
 
 def coverage_rescale(times: BucketTimes, coverage_rate: float) -> float:

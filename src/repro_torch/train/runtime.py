@@ -61,6 +61,16 @@ consumed generation as the next step's gradient buffer.
 There is no AOT cache: phases are deduplicated by ``PhaseSpec`` and each
 unique phase keeps its dispatch statistics.
 
+The runtime's control surface (DESIGN.md §9-§11) is the JAX runtime's:
+``prepare_swap`` stages a replanned schedule, optionally under another
+bucket layout, and ``step`` installs it at the next cycle boundary,
+re-packing the resident buffers in place when the layout changes
+(``repack_state``); ``spawn`` builds a sibling runtime; every control-plane
+event, and with a ``tracer`` every step's phase and collective spans, is
+recorded into an ``obs.Tracer``.  A staged build derives the new segments,
+masks and phase table and loads the kernel libraries the staged layout
+runs, so no compiler runs on the hot path after the swap.
+
 A checkpoint holds JAX's tree form of the state (``state_to_tree``):
 layout-free param and moment trees, the ``cur``/``fut`` accumulators as
 ``(accum_devices, n)`` stacks of every DP rank's buffer, and the gather
@@ -72,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -79,6 +90,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.precision import WIRE_BYTES
 from repro_torch.core.scheduler import DeftSchedule, PhaseSpec
 from repro_torch.kernels.bucket_update import (
     apply_bucket_updates,
@@ -93,9 +105,11 @@ from repro_torch.kernels.quantize import (
     stochastic_round_bf16,
 )
 from repro_torch.models.model import init_params, loss_fn
+from repro_torch.obs.trace import Tracer
 from repro_torch.optim.optimizers import OptimizerSpec, apply_updates, init_opt_state
 from repro_torch.train.bucketing import (
     BucketLayout,
+    LayoutTransition,
     build_layout_transition,
     flatten_bucket,
     repack_buffers,
@@ -110,6 +124,7 @@ from repro_torch.train.streaming import ParamStream, lazy_param_tree
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 TrainState = Dict[str, Any]
+_UNSET: Any = object()      # "keep this runtime's value" (spawn)
 
 
 class DataParallel:
@@ -275,6 +290,48 @@ def _route_and_sync(phase: PhaseSpec, g_flat, cur, fut, sync):
     return gen, new_fut, cur_synced
 
 
+def _cur_at_boundary(schedule: DeftSchedule) -> List[str]:
+    """Each bucket's ``cur`` as a cycle of ``schedule`` leaves it at its
+    boundary (the steady state: two cycles from zero accumulators):
+    'zero', 'local' (this rank's own gradients) or 'summed' (over every
+    DP rank), by ``_route_and_sync`` and the update's rules."""
+    nb = len(schedule.phases[0].route_new)
+    cur = ["zero"] * nb
+    for ph in schedule.phases * 2:
+        gen = (["summed" if r == "sync" else "local" for r in ph.route_new]
+               if ph.rotate else None)
+        cur = ["summed" if ph.sync_cur[b] and s == "local" else s
+               for b, s in enumerate(cur)]
+        if ph.do_update:
+            cur = (gen if gen is not None and ph.update_source == "cur"
+                   else ["zero"] * nb)
+        elif gen is not None:
+            cur = gen
+    return cur
+
+
+def _cur_reading(schedule: DeftSchedule) -> List[Optional[str]]:
+    """How the first cycle of ``schedule`` reads each bucket's ``cur`` as
+    it stands at position 0: 'local' where it sums it before applying it,
+    'summed' where it applies it as it is, None where a rotation or an
+    update of the fresh generation drops it unread."""
+    nb = len(schedule.phases[0].route_new)
+    out: List[Optional[str]] = [None] * nb
+    open_ = [True] * nb
+    for ph in schedule.phases:
+        for b in range(nb):
+            if not open_[b]:
+                continue
+            if ph.sync_cur[b]:
+                out[b] = "local"
+            elif ph.do_update and ph.update_source == "cur":
+                out[b] = "summed"
+            elif not (ph.rotate or ph.do_update):
+                continue
+            open_[b] = False
+    return out
+
+
 def _fused_metrics(loss, parts, phase: PhaseSpec, n_dp: int,
                    dp: DataParallel) -> Dict[str, Any]:
     """Loss and aux parts ride ONE all-reduce, stacked to a vector."""
@@ -371,6 +428,39 @@ def _gather_reuse_masks(schedule: DeftSchedule) -> List[Tuple[bool, ...]]:
             * len(ph.route_new) for t, ph in enumerate(schedule.phases)]
 
 
+def wire_bytes(wire: str, n: int) -> int:
+    """Bytes one sync of an ``n``-element buffer puts on the wire at
+    ``wire`` precision: int8 counts the values plus 4 bytes of scale per
+    128-lane row."""
+    return n + 4 * (n // 128) if wire == "int8" else n * WIRE_BYTES[wire]
+
+
+def wire_bytes_split_of_phase(phase: PhaseSpec, layout: BucketLayout
+                              ) -> Tuple[int, int]:
+    """Planned (primary, secondary) wire bytes of one phase's scheduled
+    gradient syncs under ``layout``'s precision policy, split by
+    ``phase.secondary`` (JAX's ``_wire_bytes_split_of_phase``)."""
+    split = [0, 0]
+    for b in range(len(phase.route_new)):
+        if (phase.route_new[b] == "sync" and phase.rotate) \
+                or phase.sync_cur[b]:
+            split[bool(phase.secondary[b])] += wire_bytes(
+                layout.wire(b), layout.buf_sizes[b])
+    return split[0], split[1]
+
+
+@dataclasses.dataclass
+class _PendingSwap:
+    """A fully built staged schedule, installed by ``step`` at the next
+    cycle boundary; ``layout`` is None when the layout stays."""
+
+    schedule: DeftSchedule
+    keys: List[Tuple]                  # DeftRuntime._schedule_keys
+    layout: Optional[BucketLayout] = None
+    segments: Any = None
+    transition: Optional[LayoutTransition] = None
+
+
 def _wire_sync(x: torch.Tensor, wire: str, collective,
                impl: Optional[str] = None) -> torch.Tensor:
     """Run a gradient-sum ``collective`` at a bucket's wire precision, the
@@ -455,8 +545,9 @@ def _wire_gather(span: torch.Tensor, wire: str, gather, out: torch.Tensor,
 
 @dataclasses.dataclass
 class PhaseStats:
-    """Per-unique-phase dispatch statistics (host clock, enqueue time on
-    the card)."""
+    """Per-phase dispatch statistics (host clock, enqueue time on the
+    card), one per (layout, PhaseSpec, gather mask, AG-link mask) the
+    runtime has installed: JAX's phase-cache entry, kept across swaps."""
 
     dispatches: int = 0
     dispatch_s: float = 0.0
@@ -500,7 +591,13 @@ class DeftRuntime:
     ``launch.mesh.ring_chain``) routes the secondary link's collectives
     along that chain, and ``ag_plan`` (an ``AgStreamPlan``) the sharded
     engine's param gathers it puts on link 1 (without a chain the plan
-    routes nothing, as in JAX)."""
+    routes nothing, as in JAX).
+
+    ``tracer`` (an ``obs.Tracer``) turns on the per-step spans: ``phase``,
+    ``collective-group`` (with the bytes the phase's syncs put on each
+    link), ``update-apply`` and ``gather-skip``, named and tagged as
+    JAX's.  Without one, a private ring still records the control plane
+    (swaps, repacks, failed builds), which ``swap_log`` reads back."""
 
     def __init__(self, cfg: ArchConfig, opt_spec: OptimizerSpec,
                  schedule: DeftSchedule, layout: BucketLayout, *,
@@ -516,7 +613,8 @@ class DeftRuntime:
                  gather_skip: Optional[bool] = None,
                  decoupled: bool = False,
                  secondary_chain: Optional[Sequence[int]] = None,
-                 ag_plan: Any = None):
+                 ag_plan: Any = None,
+                 tracer: Optional[Tracer] = None):
         if gather_skip and not fsdp:
             raise ValueError(
                 "gather_skip only applies to the sharded flat engine "
@@ -544,7 +642,6 @@ class DeftRuntime:
                     "reproduce (DESIGN.md §14)")
         self.cfg = cfg
         self.opt_spec = opt_spec
-        self.schedule = schedule
         self.layout = layout
         self.device = torch.device(device)
         self.fsdp = bool(fsdp)
@@ -558,14 +655,6 @@ class DeftRuntime:
                 f"secondary_chain covers {len(chain)} positions but the "
                 f"'data' axis is {self.dp.size}-way — build it with "
                 f"launch.mesh.ring_chain({self.dp.size}, link)")
-        if self.fsdp and layout.shards != self.dp.size:
-            # the layout's own check keeps every span a multiple of 128
-            # lanes, so the int8 wire's blockwise grid tiles each span
-            raise ValueError(
-                f"sharded flat engine: BucketLayout was built with "
-                f"shard_count={layout.shards} but the 'data' group has "
-                f"{self.dp.size} ranks — build the layout with "
-                f"build_bucket_layout(..., shard_count={self.dp.size})")
         self.loss_chunk = loss_chunk
         self.attn_impl = attn_impl
         self.scan_impl = scan_impl
@@ -591,31 +680,62 @@ class DeftRuntime:
         else:
             self._leaf_dtype = compute_dtype or torch.bfloat16
         self._structure = init_params(cfg, device="meta")
+        self._check_layout(layout)
+        self.segments = build_segments(layout, opt_spec)
+        self.gather_skip = bool(
+            gather_skip if gather_skip is not None
+            else self.fsdp and any(any(m) for m in
+                                   _gather_reuse_masks(schedule)))
+        self._ag_plan = ag_plan
+        self.last_stream: Optional[Dict[str, Any]] = None
+        self.last_collectives: Dict[str, int] = dict(self.dp.counts)
+        self.last_p2p: List[Tuple[Tuple[int, int], ...]] = []
+        self._wire_count = [0, 0]          # this step's (primary, secondary)
+        self._cycle_base = 0               # step at which the cycle restarts
+        # per (layout, PhaseSpec, gather mask, AG-link mask) ever installed,
+        # its dispatch statistics: JAX's phase cache, kept across swaps
+        self._entries: Dict[Tuple, PhaseStats] = {}
+        # hot-swap state (JAX's prepare_swap / step protocol)
+        self._pending: Optional[_PendingSwap] = None
+        self._swap_gen = 0                 # a stale build does not publish
+        self._swap_thread: Optional[threading.Thread] = None
+        self.replans = 0                   # schedules staged via prepare_swap
+        self.hot_swaps = 0                 # schedules actually installed
+        self.layout_swaps = 0              # hot-swaps that re-packed state
+        self.swap_failures = 0             # staged builds that failed
+        self.last_swap_error: Optional[str] = None
+        # control-plane events always record into the tracer (``swap_log``
+        # is read back from them); per-step spans only with a tracer given
+        self.tracer = tracer if tracer is not None else Tracer(capacity=8192)
+        self.trace_steps = tracer is not None
+        self.last_phase = 0                # cycle phase of the last dispatch
+        self.last_dispatch_first = False   # last dispatch was an entry's first
+        self._swap_lock = threading.Lock()
+        self._install(schedule, self._schedule_keys(schedule, layout))
+
+    def _check_layout(self, layout: BucketLayout) -> None:
+        """Refuse a layout this runtime cannot run: another parameter
+        tree, a precision policy whose master is not the runtime's, or, on
+        the sharded engine, a shard count other than the 'data' group's
+        size (a repack across shard counts changes the number of ranks)."""
         shapes = tuple(tuple(l.shape) for l in tree_leaves(self._structure))
         if shapes != layout.shapes:
             raise ValueError("BucketLayout does not match this config's "
                              "parameter tree")
-        self.segments = build_segments(layout, opt_spec)
-        masks = _gather_reuse_masks(schedule)
-        self.gather_skip = bool(
-            gather_skip if gather_skip is not None
-            else self.fsdp and any(any(m) for m in masks))
-        # per cycle position, the mask (None with the skip off)
-        self._reuse = masks if self.gather_skip else [None] * schedule.period
-        self._ag_plan = ag_plan
-        self._ag_links = self._ag_link_masks(schedule)
-        # per cycle position, the buckets' first-touch order of its first
-        # streamed dispatch (the order the gathers are issued ahead in)
-        self._touch_order: List[Optional[Tuple[int, ...]]] = \
-            [None] * schedule.period
-        self.last_stream: Optional[Dict[str, Any]] = None
-        unique: Dict[PhaseSpec, int] = {}
-        self.phase_of_step = tuple(unique.setdefault(ph, len(unique))
-                                   for ph in schedule.phases)
-        self._stats = [PhaseStats() for _ in unique]
-        self.last_collectives: Dict[str, int] = dict(self.dp.counts)
-        self.last_p2p: List[Tuple[Tuple[int, int], ...]] = []
-        self._cycle_base = 0               # step at which the cycle restarts
+        if layout.master_dtype != self.master_dtype \
+                and layout.precision is not None:
+            raise ValueError(
+                f"master dtype disagreement: the runtime keeps a "
+                f"{self.master_dtype!r} master but the layout's precision "
+                f"policy says {layout.master_dtype!r}")
+        if self.fsdp and layout.shards != self.dp.size:
+            # the layout's own check keeps every span a multiple of 128
+            # lanes, so the int8 wire's blockwise grid tiles each span
+            raise ValueError(
+                f"sharded flat engine: BucketLayout was built with "
+                f"shard_count={layout.shards} but the 'data' group has "
+                f"{self.dp.size} ranks — build the layout with "
+                f"build_bucket_layout(..., shard_count={self.dp.size})")
 
     def _ag_link_masks(self, schedule: DeftSchedule
                        ) -> List[Optional[Tuple[bool, ...]]]:
@@ -636,13 +756,96 @@ class DeftRuntime:
                 if t in hot else None
                 for t, ph in enumerate(schedule.phases)]
 
+    def _schedule_keys(self, schedule: DeftSchedule, layout: BucketLayout
+                       ) -> List[Tuple]:
+        """Per cycle position, the phase's identity (JAX's entry key):
+        (layout, PhaseSpec, gather-skip mask or None, AG-link mask or
+        None)."""
+        masks = (_gather_reuse_masks(schedule) if self.gather_skip
+                 else [None] * schedule.period)
+        links = self._ag_link_masks(schedule)
+        return [(layout, ph, masks[t], links[t])
+                for t, ph in enumerate(schedule.phases)]
+
+    def _ensure_entries(self, schedule: DeftSchedule, layout: BucketLayout
+                        ) -> Tuple[int, int]:
+        """Create the statistics of the schedule's phases this runtime has
+        never installed under ``layout``: (new, reused) positions."""
+        new = reused = 0
+        for key in self._schedule_keys(schedule, layout):
+            if key in self._entries:
+                reused += 1
+            else:
+                self._entries[key] = PhaseStats()
+                new += 1
+        return new, reused
+
+    def _install(self, schedule: DeftSchedule, keys: List[Tuple]) -> None:
+        """Make ``schedule`` the running one under ``self.layout``, whose
+        per-position phase identities are ``keys`` (``_schedule_keys``):
+        its masks, phase table, collective counts and planned wire bytes,
+        resolved once here so that ``step`` only indexes."""
+        for key in keys:
+            self._entries.setdefault(key, PhaseStats())
+        self.schedule = schedule
+        # per cycle position: the gather-skip mask (None with the skip
+        # off) and the secondary-AG mask
+        self._reuse = [k[2] for k in keys]
+        self._ag_links = [k[3] for k in keys]
+        # per cycle position, the buckets' first-touch order of its first
+        # streamed dispatch (the order the gathers are issued ahead in)
+        self._touch_order: List[Optional[Tuple[int, ...]]] = \
+            [None] * schedule.period
+        index_of: Dict[Tuple, int] = {}
+        for key in keys:
+            index_of.setdefault(key, len(index_of))
+        self._unique = [self._entries[key] for key in index_of]
+        self.phase_of_step = tuple(index_of[key] for key in keys)
+        self._reuse_of_step = tuple(m is not None and any(m)
+                                    for m in self._reuse)
+        self._coll_of_step = tuple(phase_collectives(ph)
+                                   for ph in schedule.phases)
+        self._wire_bytes_split_of_step = tuple(
+            wire_bytes_split_of_phase(ph, self.layout)
+            for ph in schedule.phases)
+
     @property
     def period(self) -> int:
         return self.schedule.period
 
     @property
     def n_unique_phases(self) -> int:
-        return len(self._stats)
+        return len(self._unique)
+
+    @property
+    def n_cached_phases(self) -> int:
+        """Phases ever installed, across every schedule and layout."""
+        return len(self._entries)
+
+    @property
+    def wire_bytes_per_phase(self) -> Tuple[int, ...]:
+        """Planned bytes on the wire per cycle phase under the installed
+        layout's precision (what ``obs.wire_bytes_report`` audits the
+        trace against)."""
+        return tuple(p + s for p, s in self._wire_bytes_split_of_step)
+
+    @property
+    def wire_bytes_split_per_phase(self) -> Tuple[Tuple[int, int], ...]:
+        """Planned (primary, secondary) wire bytes per cycle phase: the
+        per-link vector ``obs.wire_bytes_report`` takes as
+        ``planned_split``."""
+        return self._wire_bytes_split_of_step
+
+    @property
+    def swap_log(self) -> List[Dict[str, Any]]:
+        """The swap-log dicts of JAX's runtime, read back from the trace:
+        one per ``swap-install`` event and per failed or abandoned build
+        (the ``swap-compile`` events carrying an ``event`` attr)."""
+        out: List[Dict[str, Any]] = []
+        for sp in self.tracer.spans(("swap-install", "swap-compile")):
+            if sp.kind == "swap-install" or "event" in sp.args:
+                out.append({"step": sp.step, **sp.args})
+        return out
 
     @property
     def accum_devices(self) -> int:
@@ -695,21 +898,22 @@ class DeftRuntime:
                           for n in layout.buf_sizes),
         }
         if self.gather_skip:
-            state["pgather"] = self._init_pgather()
+            state["pgather"] = self._init_pgather(self.layout)
         return state
 
     def _master_torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.master_dtype == "bf16sr" \
             else torch.float32
 
-    def _init_pgather(self) -> Tuple[torch.Tensor, ...]:
-        """Cold gather cache: full zero buffers of the forward's dtype.
-        Position 0 of a cycle always gathers into them before any phase
-        reads them; the engine gathers into these buffers in place, so
-        the cache is the gathered tensors themselves."""
+    def _init_pgather(self, layout: BucketLayout
+                      ) -> Tuple[torch.Tensor, ...]:
+        """Cold gather cache under ``layout``: full zero buffers of the
+        forward's dtype.  Position 0 of a cycle always gathers into them
+        before any phase reads them; the engine gathers into these buffers
+        in place, so the cache is the gathered tensors themselves."""
         return tuple(torch.zeros((n,), dtype=self._leaf_dtype,
                                  device=self.device)
-                     for n in self.layout.buf_sizes)
+                     for n in layout.buf_sizes)
 
     def init_state(self, seed: int = 0,
                    dtype: torch.dtype = torch.float32) -> TrainState:
@@ -868,7 +1072,7 @@ class DeftRuntime:
                 out["pgather"] = tuple(dev(p, self._leaf_dtype)
                                        for p in tree_state["pgather"])
             else:
-                out["pgather"] = self._init_pgather()
+                out["pgather"] = self._init_pgather(self.layout)
         return out
 
     def checkpoint_struct(self, src_layout: Optional[BucketLayout] = None,
@@ -898,13 +1102,366 @@ class DeftRuntime:
                                    for n in lay.buf_sizes)
         return out
 
+    # ---- layout changes and hot swaps ----------------------------------
+    def repack_state(self, state: TrainState, transition: LayoutTransition,
+                     src_schedule: Optional[DeftSchedule] = None
+                     ) -> TrainState:
+        """Re-flatten a train state from ``transition.src`` to
+        ``transition.dst`` (DESIGN.md §9): every element lands where
+        flatten(unflatten(state)) under the dst layout puts it, bit for
+        bit.  Consumes ``state``: its dicts are updated in place, one
+        component at a time (``pbuf``, ``m``, ``v``, ``cur``, ``fut``),
+        each source tuple dropped before the next is built, so the card
+        holds at most one component more than the state.  A dst bucket
+        identical to a src bucket is that src tensor, so a layout change
+        of wire precision alone moves nothing.  ``gbuf`` is allocated
+        zero under the dst layout and the gather cache starts cold
+        (position 0 of a cycle always gathers).
+
+        On the sharded engine at N ranks a dst span draws elements from
+        other ranks' spans: each src bucket is all-gathered over 'data'
+        once, this rank's dst pieces are copied out of it and it is
+        freed, so the card holds one component's spans and one full
+        bucket more.  Both layouts must
+        have the 'data' group's shard count.  Collective there: every
+        rank calls it.  Normally driven by the staged swap in
+        :meth:`step`; public for references, restores and tests.
+
+        ``src_schedule``, the schedule ``state`` was stepped under to a
+        cycle boundary, hands its accumulators over to this runtime's
+        schedule first (:meth:`_hand_over_cur`), as the staged swap
+        does."""
+        self._check_transition(transition)
+        if src_schedule is not None:
+            self._hand_over_cur(state, src_schedule, self.schedule,
+                                transition)
+        tr0 = self.tracer.now()
+        out = self._repack(state, transition)
+        self.tracer.add("repack", "repack-state", tr0, self.tracer.now(),
+                        moved_elems=transition.moved_elems,
+                        n_buckets=transition.dst.n_buckets)
+        return out
+
+    def _check_transition(self, transition: LayoutTransition) -> None:
+        self._check_layout(transition.dst)
+        if self.fsdp and transition.src.shards != self.dp.size:
+            raise ValueError(
+                f"sharded flat engine: the transition's source layout has "
+                f"shard_count={transition.src.shards} but the 'data' group "
+                f"has {self.dp.size} ranks; a repack across shard counts "
+                f"changes the number of ranks")
+
+    def _hand_over_cur(self, state: TrainState, src: DeftSchedule,
+                       dst: DeftSchedule,
+                       tr: Optional[LayoutTransition]) -> None:
+        """Make ``state['cur']``, as a cycle of ``src`` leaves it under the
+        layout in force (``tr.src``; the same layout when ``tr`` is None),
+        what the first cycle of ``dst`` expects of each element: an element
+        already summed over the DP ranks that ``dst`` sums again is kept on
+        DP rank 0 and zeroed on the others, and a rank-local element that
+        ``dst`` applies as summed is summed now.  Without this the first
+        case counts N times at N ranks.  In place, before the repack;
+        nothing at one DP rank, where a sum is the identity.  Collective:
+        every rank calls it, in the same order of pieces."""
+        if self.dp.n_dp == 1:
+            return
+        have, want = _cur_at_boundary(src), _cur_reading(dst)
+        lead = dist.get_rank(self.dp.joint) == 0
+        pieces = ([(b, 0, n, b) for b, n in enumerate(self.layout.buf_sizes)]
+                  if tr is None else
+                  [(c.src_bucket, c.src_off, c.length, b)
+                   for b, cs in enumerate(tr.copies) for c in cs])
+        cur = state["cur"]
+        for sb, off, n, b in pieces:
+            x = cur[sb][off:off + n]
+            if have[sb] == "summed" and want[b] == "local" and not lead:
+                x.zero_()
+            elif have[sb] == "local" and want[b] == "summed":
+                dist.all_reduce(x, group=self.dp.joint)
+
+    def _repack(self, state: TrainState, tr: LayoutTransition) -> TrainState:
+        dst = tr.dst
+        # the derived buffers go first: rebuilt, not moved
+        state["gbuf"] = None
+        state.pop("pgather", None)
+        opt = state["opt"]
+        for holder, key in ((state, "pbuf"), (opt, "m"), (opt, "v"),
+                            (state, "cur"), (state, "fut")):
+            if key not in holder:
+                continue
+            src, holder[key] = holder[key], None   # the last reference
+            spans = self.fsdp and self.dp.size > 1 and key in ("pbuf", "m",
+                                                               "v")
+            holder[key] = tuple(self._repack_spans(tr, src) if spans
+                                else repack_buffers(tr, src))
+            del src
+        state["gbuf"] = tuple(torch.zeros((n,), dtype=torch.float32,
+                                          device=self.device)
+                              for n in dst.buf_sizes)
+        if self.gather_skip:
+            state["pgather"] = self._init_pgather(dst)
+        return state
+
+    def _repack_spans(self, tr: LayoutTransition,
+                      spans: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's span of every dst bucket, from this rank's spans of
+        the src buckets (``repack_state`` at N ranks)."""
+        dst, rank = tr.dst, self.dp.rank
+        out = [spans[tr.copies[b][0].src_bucket] if tr.identical[b]
+               else torch.zeros((dst.shard_sizes[b],), dtype=spans[0].dtype,
+                                device=spans[0].device)
+               for b in range(dst.n_buckets)]
+        feeds: Dict[int, List[Tuple[int, Any]]] = {}
+        for b in range(dst.n_buckets):
+            if not tr.identical[b]:
+                for c in tr.copies[b]:
+                    feeds.setdefault(c.src_bucket, []).append((b, c))
+        for sb in sorted(feeds):           # the same order on every rank
+            full = torch.empty((tr.src.buf_sizes[sb],), dtype=spans[sb].dtype,
+                               device=spans[sb].device)
+            dist.all_gather_into_tensor(full, spans[sb], group=self.dp.group)
+            for b, c in feeds[sb]:
+                n = dst.shard_sizes[b]
+                lo = max(c.dst_off, rank * n)
+                hi = min(c.dst_off + c.length, (rank + 1) * n)
+                if lo < hi:
+                    at = c.src_off + lo - c.dst_off
+                    out[b][lo - rank * n:hi - rank * n] = full[at:at + hi - lo]
+            del full
+        return out
+
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _load_kernels(self, layout: BucketLayout) -> None:
+        """Load (building if missing) the kernel libraries a step under
+        ``layout`` launches that the layout change can bring in: the
+        bucket update and, for an int8 wire or a bf16sr master, the
+        quantize library.  Nothing on the CPU, where the plain versions
+        run."""
+        if self.device.type != "cuda":
+            return
+        from repro_torch.kernels import build
+
+        if self.update_impl != "plain":
+            build.library("bucket_update")
+        if self.quantize_impl != "plain" and (
+                self.master_dtype == "bf16sr"
+                or any(layout.wire(b) == "int8"
+                       for b in range(layout.n_buckets))):
+            build.library("quantize")
+
+    def _stage(self, schedule: DeftSchedule, layout: Optional[BucketLayout],
+               transition: Optional[LayoutTransition]) -> _PendingSwap:
+        """Build a staged swap: the segments of a new layout, the staged
+        schedule's masks and phase table, and the kernel libraries it
+        needs loaded."""
+        target = layout or self.layout
+        self._load_kernels(target)
+        return _PendingSwap(
+            schedule=schedule, keys=self._schedule_keys(schedule, target),
+            layout=layout, transition=transition,
+            segments=(build_segments(layout, self.opt_spec)
+                      if layout is not None else None))
+
+    def prepare_swap(self, schedule: DeftSchedule, *,
+                     background: bool = False,
+                     layout: Optional[BucketLayout] = None,
+                     retries: int = 2,
+                     retry_backoff_s: float = 0.05) -> Dict[str, Any]:
+        """Stage a replanned schedule for installation at the next cycle
+        boundary (JAX's ``prepare_swap``, without its ``state`` and
+        ``batch``: nothing here depends on their shapes).
+
+        The build (``_stage``) runs here, or on a daemon thread with
+        ``background=True`` while training keeps stepping the installed
+        schedule; the swap arms only once built, so :meth:`step` never
+        meets a half-built schedule, and a newer ``prepare_swap``
+        supersedes an older one.  A failed build is recorded as a
+        ``swap-compile-failed`` event (``swap_log``, ``swap_failures``)
+        and retried ``retries`` times with linear backoff, then abandoned
+        (``swap-abandoned``): the installed schedule keeps running.
+
+        ``layout`` (another :class:`BucketLayout` of the same tree: a new
+        partition and/or wire precision, the same master dtype and, on the
+        sharded engine, the same shard count) makes it a layout-changing
+        swap: at the boundary :meth:`step` re-packs the state in place
+        (:meth:`repack_state`) before dispatching phase 0 of the new
+        schedule.  Either way the accumulators are handed over to the new
+        schedule there (:meth:`_hand_over_cur`)."""
+        new_layout = transition = None
+        if layout is not None and layout != self.layout:
+            self._check_layout(layout)
+            new_layout = layout
+            transition = build_layout_transition(self.layout, layout)
+        new, reused = self._ensure_entries(schedule,
+                                           new_layout or self.layout)
+        self.replans += 1
+        info: Dict[str, Any] = {"new_phases": new, "reused_phases": reused,
+                                "background": background,
+                                "layout_change": new_layout is not None}
+        if new_layout is not None:
+            info["n_buckets"] = (self.layout.n_buckets, new_layout.n_buckets)
+            info["shards"] = (self.layout.shards, new_layout.shards)
+            info["moved_elems"] = transition.moved_elems
+        with self._swap_lock:
+            self._swap_gen += 1
+            gen = self._swap_gen
+            self._pending = None       # a newer replan supersedes an armed one
+
+        def build() -> None:
+            t0 = time.perf_counter()
+            tr0 = self.tracer.now()
+            attempt = 0
+            while True:
+                try:
+                    pending = self._stage(schedule, new_layout, transition)
+                    break
+                except Exception as e:   # noqa: BLE001 — recorded, retried
+                    attempt += 1
+                    self.swap_failures += 1
+                    err = f"{type(e).__name__}: {e}"
+                    self.last_swap_error = err
+                    retrying = attempt <= retries and self._swap_gen == gen
+                    self.tracer.instant(
+                        "swap-compile", "swap-compile-failed", step=None,
+                        event="swap-compile-failed", error=err,
+                        attempt=attempt, retrying=retrying)
+                    if not retrying:
+                        elapsed = time.perf_counter() - t0
+                        info.update(compile_s=elapsed,
+                                    compile_attempts=attempt, abandoned=True)
+                        self.tracer.instant(
+                            "swap-compile", "swap-abandoned", step=None,
+                            event="swap-abandoned", error=err,
+                            attempts=attempt, elapsed_s=elapsed,
+                            superseded=self._swap_gen != gen)
+                        return
+                    time.sleep(retry_backoff_s * attempt)
+            info["compile_s"] = time.perf_counter() - t0
+            info["compile_attempts"] = attempt + 1
+            self.tracer.add(
+                "swap-compile", "swap-compile", tr0, self.tracer.now(),
+                new_phases=new, reused_phases=reused, background=background,
+                layout_change=new_layout is not None, attempts=attempt + 1)
+            with self._swap_lock:      # publish last, unless superseded
+                if self._swap_gen == gen:
+                    self._pending = pending
+
+        if background:
+            self._swap_thread = threading.Thread(
+                target=build, name="deft-swap-build", daemon=True)
+            self._swap_thread.start()
+        else:
+            build()
+        return info
+
+    def swap_ready(self) -> bool:
+        """A staged schedule is built and armed for the next cycle
+        boundary."""
+        return self._pending is not None
+
+    def wait_swap_ready(self, timeout: Optional[float] = None) -> bool:
+        """Block until a background ``prepare_swap`` finishes its build."""
+        if self._swap_thread is not None:
+            self._swap_thread.join(timeout)
+        return self.swap_ready()
+
+    def _install_pending(self, i: int, state: TrainState) -> TrainState:
+        """Install the armed swap at step ``i`` (a cycle boundary): hand the
+        accumulators over to the new schedule, re-pack the state under a
+        new layout, then restart the cycle on the new schedule."""
+        with self._swap_lock:
+            pending, self._pending = self._pending, None
+        if pending is None:                # superseded since step looked
+            return state
+        self._hand_over_cur(state, self.schedule, pending.schedule,
+                            pending.transition)
+        repack_s = None
+        if pending.layout is not None:
+            self._sync_device()
+            t0 = time.perf_counter()
+            tr0 = self.tracer.now()
+            state = self._repack(state, pending.transition)
+            self._sync_device()
+            repack_s = time.perf_counter() - t0
+            self.tracer.add(
+                "repack", "swap-repack", tr0, self.tracer.now(), step=i,
+                moved_elems=pending.transition.moved_elems,
+                n_buckets=pending.layout.n_buckets)
+            self.layout = pending.layout
+            self.segments = pending.segments
+            self.layout_swaps += 1
+        self._install(pending.schedule, pending.keys)
+        self._cycle_base = i
+        self.hot_swaps += 1
+        self.tracer.instant(
+            "swap-install", "swap-install", step=i,
+            period=pending.schedule.period,
+            updates_per_period=pending.schedule.updates_per_period,
+            n_buckets=self.layout.n_buckets, shards=self.layout.shards,
+            repack_s=repack_s, precision=self._precision_name())
+        return state
+
+    def spawn(self, *, group: Any = _UNSET, outer_group: Any = _UNSET,
+              secondary_chain: Any = _UNSET,
+              schedule: Optional[DeftSchedule] = None,
+              layout: Optional[BucketLayout] = None,
+              fsdp: Optional[bool] = None,
+              gather_skip: Optional[bool] = None,
+              decoupled: Optional[bool] = None,
+              tracer: Optional[Tracer] = None) -> "DeftRuntime":
+        """A sibling runtime: this one's arch, optimizer, device, kernels
+        and precision, with the named knobs overridden (``group`` /
+        ``outer_group`` / ``secondary_chain`` in place of JAX's mesh).  An
+        inherited ``decoupled`` dies with the sharded engine; the sibling
+        re-resolves its gather skip against its own schedule unless
+        pinned, and shares this tracer when per-step tracing is on.  An
+        illegal combination raises in the sibling's constructor, before
+        any state exists.  No phase statistics are shared."""
+        fsdp_r = self.fsdp if fsdp is None else fsdp
+        dec_r = self.decoupled if decoupled is None else decoupled
+        if decoupled is None and not fsdp_r:
+            dec_r = False
+        keep = lambda v, mine: mine if v is _UNSET else v
+        return DeftRuntime(
+            self.cfg, self.opt_spec,
+            self.schedule if schedule is None else schedule,
+            self.layout if layout is None else layout,
+            device=self.device, group=keep(group, self.dp.group),
+            outer_group=keep(outer_group, self.dp.outer),
+            loss_chunk=self.loss_chunk, attn_impl=self.attn_impl,
+            scan_impl=self.scan_impl, update_impl=self.update_impl,
+            quantize_impl=self.quantize_impl,
+            compute_dtype=self.compute_dtype, master_dtype=self.master_dtype,
+            fsdp=fsdp_r, gather_skip=gather_skip, decoupled=dec_r,
+            secondary_chain=keep(secondary_chain, self.secondary_chain),
+            ag_plan=self._ag_plan,
+            tracer=(tracer if tracer is not None
+                    else self.tracer if self.trace_steps else None))
+
     # ---- one phase ---------------------------------------------------------
     def step(self, i: int, state: TrainState, batch
              ) -> Tuple[TrainState, Dict[str, Any]]:
+        """Run step ``i`` (cycle phase ``phase_in_cycle(i)``).  If a staged
+        swap is armed and ``i`` lands on a cycle boundary, it is installed
+        first and ``i`` becomes position 0 of the new cycle."""
+        if self._pending is not None \
+                and (i - self._cycle_base) % self.period == 0:
+            state = self._install_pending(i, state)
         off = self.phase_in_cycle(i)
         phase = self.schedule.phases[off]
-        t0 = time.perf_counter()
+        self.last_phase = off
+        entry = self._unique[self.phase_of_step[off]]
+        # a phase's first dispatch carries one-off work (kernel loads,
+        # allocator growth): tagged, so telemetry can leave it out
+        first = entry.dispatches == 0
+        self.last_dispatch_first = first
+        clock = self.tracer.now if self.trace_steps else time.perf_counter
+        t0 = clock()
         self.dp.reset()
+        self._wire_count = [0, 0]
         if self.fsdp:
             new_state, loss, parts = self._step_sharded(off, phase, state,
                                                         batch)
@@ -912,12 +1469,41 @@ class DeftRuntime:
             new_state, loss, parts = self._step_replicated(phase, state,
                                                            batch)
         metrics = _fused_metrics(loss, parts, phase, self.dp.n_dp, self.dp)
-        st = self._stats[self.phase_of_step[off]]
-        st.dispatches += 1
-        st.dispatch_s += time.perf_counter() - t0
+        t1 = clock()
+        entry.dispatches += 1
+        entry.dispatch_s += t1 - t0
         self.last_collectives = dict(self.dp.counts)
         self.last_p2p = list(self.dp.p2p)
+        if self.trace_steps:
+            self._trace_step(i, off, phase, first, t0, t1)
         return new_state, metrics
+
+    def _trace_step(self, i: int, off: int, phase: PhaseSpec, first: bool,
+                    t0: float, t1: float) -> None:
+        """The step's spans, named and tagged as JAX's; ``wire_bytes*``
+        are the bytes this dispatch's syncs put on each link."""
+        tr = self.tracer
+        tr.add("phase", f"phase{off}", t0, t1, step=i, phase=off,
+               first=first, update=phase.do_update)
+        coll = self._coll_of_step[off]
+        wb_p, wb_s = self._wire_count
+        tr.add("collective-group", f"collectives@{off}", t0, t1, step=i,
+               phase=off, primary=coll["primary"],
+               secondary=coll["secondary"], wire_bytes=wb_p + wb_s,
+               wire_bytes_primary=wb_p, wire_bytes_secondary=wb_s,
+               precision=self._precision_name())
+        if phase.do_update:
+            tr.instant("update-apply", f"update-k{phase.update_k}", t=t1,
+                       step=i, phase=off, k=phase.update_k,
+                       source=phase.update_source)
+        if self._reuse_of_step[off]:
+            tr.instant("gather-skip", "gather-skip", t=t0, step=i, phase=off)
+
+    def _count_wire(self, phase: PhaseSpec, b: int, x: torch.Tensor) -> None:
+        """Add one sync of bucket ``b``'s buffer ``x`` to this step's
+        bytes on its link."""
+        self._wire_count[bool(phase.secondary[b])] += wire_bytes(
+            self.layout.wire(b), x.numel())
 
     def _loss_and_grads(self, params, gbuf, batch):
         """Forward and backward on ``params``: full flat buffers at the
@@ -961,6 +1547,7 @@ class DeftRuntime:
         del src
 
         def sync(x: torch.Tensor, b: int) -> torch.Tensor:
+            self._count_wire(phase, b, x)
             coll = self.dp.secondary if phase.secondary[b] else self.dp.primary
             return _wire_sync(x, layout.wire(b), coll, self.quantize_impl)
 
@@ -1055,6 +1642,7 @@ class DeftRuntime:
         del params
 
         def sync(x: torch.Tensor, b: int) -> torch.Tensor:
+            self._count_wire(phase, b, x)
             return _wire_reduce_scatter(
                 x, layout.wire(b),
                 lambda v: dp.reduce_scatter(v, on_chain[b]),
@@ -1145,13 +1733,19 @@ class DeftRuntime:
         return [phase_collectives(p, self.layout, n_data=self.dp.size, **kw)
                 for p in self.schedule.phases]
 
+    def _precision_name(self) -> str:
+        return (self.layout.precision.describe()
+                if self.layout.precision is not None else "f32")
+
     def stats(self) -> Dict[str, Any]:
         coll = self.collectives_per_phase()
-        n = sum(s.dispatches for s in self._stats)
-        total = sum(s.dispatch_s for s in self._stats)
+        entries = list(self._entries.values())
+        n = sum(s.dispatches for s in entries)
+        total = sum(s.dispatch_s for s in entries)
         return {
             "period": self.period,
             "unique_phases": self.n_unique_phases,
+            "cached_phases": self.n_cached_phases,
             "updates_per_period": self.schedule.updates_per_period,
             "n_buckets": self.layout.n_buckets,
             "n_leaves": self.layout.n_leaves,
@@ -1164,18 +1758,26 @@ class DeftRuntime:
             "gather_skip": self.gather_skip,
             "compute_dtype": str(self.compute_dtype or torch.float32
                                  ).replace("torch.", ""),
-            "wire_precision": (self.layout.precision.describe()
-                               if self.layout.precision is not None
-                               else "f32"),
+            "wire_precision": self._precision_name(),
             "master_dtype": self.master_dtype,
+            "planned_wire_bytes_per_cycle": sum(self.wire_bytes_per_phase),
             "steps_dispatched": n,
             "dispatch_s_total": total,
+            # host dispatch rate (the card may still be running)
+            "steps_per_s": n / total if total > 0 else 0.0,
+            "replans": self.replans,
+            "hot_swaps": self.hot_swaps,
+            "layout_swaps": self.layout_swaps,
+            "swap_failures": self.swap_failures,
+            "last_swap_error": self.last_swap_error,
+            "swap_log": self.swap_log,
+            "trace": self.tracer.stats(),
             "collectives_per_phase": coll,
             "max_collectives_in_a_phase": max(
                 (sum(v for k, v in c.items()
                      if k not in ("metrics", "chained", "chain_rounds"))
                  for c in coll), default=0),
-            "phases": [dataclasses.asdict(s) for s in self._stats],
+            "phases": [dataclasses.asdict(s) for s in entries],
         }
 
 

@@ -84,7 +84,10 @@ from repro_torch.launch.train import (
 )
 from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import adamw, sgd_momentum
-from repro_torch.train.bucketing import build_bucket_layout
+from repro_torch.train.bucketing import (
+    build_bucket_layout,
+    build_layout_transition,
+)
 from repro_torch.train.chains import (
     chain_all_gather,
     chain_all_reduce,
@@ -564,4 +567,107 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     assert rest["start_step"] == 3
     assert first["losses"] + rest["losses"] == whole["losses"]
     for a, b in zip(rest["state"]["pbuf"], whole["state"]["pbuf"]):
+        assert torch.equal(a, b)
+
+
+def _replay_swap(cfg, rt, sched_a, lay_a, swap_step, n_steps, batch, seq,
+                 seed=0):
+    """The explicit reference of a hot-swapped run of ``rt``: a sibling of
+    schedule ``sched_a`` and layout ``lay_a`` to the swap step, then
+    ``repack_state`` onto a sibling built for ``rt``'s installed schedule
+    and layout.  Returns (losses, param buffers)."""
+    ref = rt.spawn(schedule=sched_a, layout=lay_a)
+    state = ref.init_state(seed, dtype=rt.compute_dtype or torch.float32)
+    losses = []
+    for i in range(n_steps):
+        if i == swap_step:
+            ref = ref.spawn(schedule=rt.schedule, layout=rt.layout)
+            state = ref.repack_state(
+                state, build_layout_transition(lay_a, rt.layout))
+        state, m = ref.step(i - swap_step if i >= swap_step else i, state,
+                            make_batch(cfg, seed, i, batch, seq,
+                                       device="cuda"))
+        losses.append(float(m["loss"]))
+    return losses, state["pbuf"]
+
+
+@pytest.mark.gpu
+def test_background_swap_loads_its_kernels(monkeypatch):
+    """An f32 run (no quantize kernel) stages a layout with a new partition
+    and int8 wires on a background thread while it keeps stepping: the
+    build loads the quantize library, the swap lands at a boundary, the
+    int8 kernels run after it, and the run is bitwise its explicit
+    reference."""
+    from repro_torch.kernels import build
+
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    cfg = reduce_for_smoke(get_config("qwen3-4b"))
+    meta = init_params(cfg, device="meta")
+    plans = [build_schedule(meta, cfg, dp=1, seq_len=32, per_device_batch=2,
+                            partition_elems=pe, coverage_rate=1.8)
+             for pe in (250_000, 120_000)]
+    (bo_a, nb_a, _, plan_a), (bo_b, nb_b, _, plan_b) = plans
+    lay_a = build_bucket_layout(meta, bo_a, nb_a)
+    lay_b = build_bucket_layout(meta, bo_b, nb_b).with_precision(
+        PrecisionPolicy(("int8",) * nb_b))
+    monkeypatch.setattr(build, "_LOADED", {
+        k: v for k, v in build._LOADED.items() if k != "quantize"})
+    rt = DeftRuntime(cfg, adamw(1e-3), plan_a.schedule, lay_a,
+                     device="cuda")
+    state = rt.init_state(seed=0)
+    losses, i = [], 0
+
+    def step():
+        nonlocal state, i
+        state, m = rt.step(i, state, make_batch(cfg, 0, i, 2, 32,
+                                                device="cuda"))
+        losses.append(float(m["loss"]))
+        i += 1
+
+    for _ in range(plan_a.schedule.period + 1):
+        step()
+    before = quantize_int8_cuda.launches
+    rt.prepare_swap(plan_b.schedule, layout=lay_b,
+                    background=True)
+    while not rt.swap_ready():             # the build runs meanwhile
+        assert i < 200 and not rt.swap_failures, rt.last_swap_error
+        step()
+    while rt.hot_swaps == 0:               # installed at the next boundary
+        step()
+    for _ in range(plan_b.schedule.period):
+        step()
+    assert rt.hot_swaps == 1 and rt.layout == lay_b
+    assert "quantize" in build._LOADED
+    assert quantize_int8_cuda.launches > before
+    swap_step = rt.swap_log[-1]["step"]
+    ref_losses, ref_pbuf = _replay_swap(cfg, rt, plan_a.schedule, lay_a,
+                                        swap_step, i, 2, 32)
+    assert losses == ref_losses
+    for a, b in zip(state["pbuf"], ref_pbuf):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_adapt_loop_on_the_card():
+    """The launcher's adaptive loop at smoke size: a 3x synthetic bandwidth
+    drop at step 4 replans onto another partition, the runtime re-packs at
+    a boundary and trains on, bitwise a run that switched layouts by
+    hand."""
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    cfg = reduce_for_smoke(get_config("qwen3-4b"))
+    res = train(cfg, steps=16, batch=2, seq=32, device="cuda", adapt=True,
+                adapt_drop_step=4, adapt_repartition=True,
+                log=lambda s: None)
+    rt = res["runtime"]
+    st = rt.stats()
+    assert st["replans"] == 1 and st["hot_swaps"] == 1
+    assert st["layout_swaps"] == 1 and rt.layout != res["layout"]
+    swap_step = rt.swap_log[-1]["step"]
+    assert swap_step % res["schedule"].period == 0
+    ref_losses, ref_pbuf = _replay_swap(cfg, rt, res["schedule"],
+                                        res["layout"], swap_step, 16, 2, 32)
+    assert res["losses"] == ref_losses
+    for a, b in zip(res["state"]["pbuf"], ref_pbuf):
         assert torch.equal(a, b)

@@ -205,3 +205,44 @@ def test_pack_scalars_matches_jax(specs, step):
                                        clip=jnp.float32(0.7)))
     assert got.shape == want.shape
     assert np.array_equal(got.numpy(), want)
+
+
+def test_library_loads_build_once_across_threads(tmp_path, monkeypatch):
+    """Two threads asking for libraries at once (a background swap build
+    and the training loop): one build runs, both get the one library."""
+    import threading
+    import time
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    builds = []
+
+    def fake_compile(jobs):
+        builds.append(sorted(jobs))
+        time.sleep(0.2)             # both threads are waiting by now
+        for out, _ in jobs.values():
+            out.write_bytes(b"")
+        return {k: ("", 0.0) for k in jobs}
+
+    monkeypatch.setattr(build, "_compile", fake_compile)
+    start = threading.Barrier(2)
+    got = {}
+
+    def load(name):
+        start.wait(timeout=10)
+        got[name] = build.library(name)
+
+    threads = [threading.Thread(target=load, args=(n,))
+               for n in ("quantize", "bucket_update")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert builds == [sorted(build.SOURCES)]
+    assert got == {n: ("lib", str(build._target(n)[0]))
+                   for n in ("quantize", "bucket_update")}
+    assert build.library("quantize") is got["quantize"]

@@ -1,10 +1,12 @@
-"""Drift guard: the port's copy of the numpy-only planner and configs must
-stay the JAX package's planner and configs.
+"""Drift guard: the port's copy of the numpy-only planner, configs and
+control planes must stay the JAX package's.
 
 The port imports nothing of ``repro``, so it carries copies of
-``repro/core`` and the configs it runs.  Each copied file must equal
-its original with only the package name in imports changed, and the
-copied planner must return the same schedule and bucket times.
+``repro/core``, the configs it runs, ``repro/obs`` and ``repro/adapt``.
+Each copied file must equal its original with only the package name in
+imports changed, the copied planner must return the same schedule and
+bucket times, and the port's per-leaf time model (the repartitioner's
+input) must equal JAX's.
 """
 import dataclasses
 import re
@@ -16,13 +18,17 @@ import pytest
 from repro.configs import get_config, reduce_for_smoke
 from repro.core.deft import Planner as JPlanner
 from repro.core.deft import PlanRequest as JPlanRequest
+from repro.core.profiler import HardwareModel as JHardwareModel
 from repro.launch.train import build_schedule as jax_build_schedule
+from repro.train.bucketing import build_leaf_time_model as jax_leaf_model
 from repro.models.model import init_params as jax_init_params
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduce_for_smoke as t_reduce
 from repro_torch.core.deft import Planner, PlanRequest
+from repro_torch.core.profiler import HardwareModel
 from repro_torch.launch.train import build_schedule
 from repro_torch.models.model import init_params
+from repro_torch.train.bucketing import build_leaf_time_model
 from repro_torch.tree import tree_leaves
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -30,14 +36,40 @@ COPIED = sorted(
     [f"core/{p.name}" for p in (SRC / "repro" / "core").glob("*.py")]
     + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py",
        "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py"]
+    + [f"{pkg}/{p.name}" for pkg in ("obs", "adapt")
+       for p in (SRC / "repro" / pkg).glob("*.py")]
 )
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_is_verbatim(rel):
     orig = (SRC / "repro" / rel).read_text()
-    want = re.sub(r"\brepro\.(core|configs)", r"repro_torch.\1", orig)
+    want = re.sub(
+        r"\brepro\.(core|configs|obs|adapt|elastic|train\.bucketing)",
+        r"repro_torch.\1", orig)
     assert (SRC / "repro_torch" / rel).read_text() == want
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b",
+                                  "rwkv6-1.6b"])
+def test_leaf_time_model_matches_jax(arch, smoke):
+    """The per-leaf atoms over a meta tree equal JAX's over its
+    ``eval_shape`` tree, and so do the bucket times they price."""
+    cfg, tcfg = get_config(arch), t_get_config(arch)
+    if smoke:
+        cfg, tcfg = reduce_for_smoke(cfg), t_reduce(tcfg)
+    jp = jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0), cfg))
+    jm = jax_leaf_model(jp, cfg, JHardwareModel(dp_degree=2), 64, 2)
+    tm = build_leaf_time_model(init_params(tcfg, device="meta"), tcfg,
+                               HardwareModel(dp_degree=2), 64, 2)
+    assert (tm.order, tm.fwd_s, tm.elems) == (jm.order, jm.fwd_s, jm.elems)
+    bo, nb = tm.partition(150_000)
+    assert (bo, nb) == jm.partition(150_000)
+    assert dataclasses.astuple(tm.with_coverage_rate(bo, nb, 1.8)
+                               .bucket_times(bo, nb)) == \
+        dataclasses.astuple(jm.with_coverage_rate(bo, nb, 1.8)
+                            .bucket_times(bo, nb))
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b",
