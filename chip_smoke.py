@@ -163,7 +163,24 @@
    between two sibling runtimes).  Prints the replan and swap steps, the
    buckets, the elements moved, ``repack_s``, the step time on both sides
    and the peak.
-9. Prints the kernels line, the card's name and power limit, and last the
+9. Drives the elastic control plane's bottom rungs on the card (one
+   card is one rank, so scale-downs across ranks and straggler detection
+   are held on CPU gloo ranks only): ``elastic_fallback_path`` and
+   ``elastic_fallback_precision_path``, the sharded f32 run and the
+   sharded delayed precision run to the first cycle boundary after a
+   period and a step, then ``migrate_state`` onto ``spawn(fsdp=False)``
+   (the fallback-replicated move) and two more periods, each held to its
+   stored runs before the move and bitwise, after it, a replicated
+   runtime rebuilt from the pre-move snapshot; the wire policy and
+   master unchanged, each step's collectives and each kernel's launches
+   as the two engines' schedules say, the peak within the stored sharded
+   run's plus one component; prints ``repack_s``, ``migrate_s``, the
+   peak and the step time before and after.  Then ``elastic_halt_phase``
+   at smoke size through ``train(elastic=True, elastic_drop_step=4,
+   ckpt=...)``: the only shard drops, the run halts with the emergency
+   checkpoint, and ``train(resume=True)`` finishes it bitwise an
+   uninterrupted run; prints the save and restore times.
+10. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -1420,6 +1437,30 @@ def expected_launches(cfg, schedule, layout, steps):
             "stochastic_round_bf16": 0}
 
 
+def zero_counters():
+    """Set every kernel wrapper's launch count to 0 (``launches_bf16`` of
+    the flash wrapper too) and return the wrappers, for
+    :func:`kernel_launches` after the run they count."""
+    from repro_torch.kernels.bucket_update import bucket_update_cuda
+    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    from repro_torch.kernels.quantize import (
+        dequantize_int8_cuda,
+        quantize_int8_cuda,
+        stochastic_round_bf16_cuda,
+    )
+    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
+
+    counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
+                dequantize_int8_cuda, stochastic_round_bf16_cuda,
+                rglru_fwd_cuda, rglru_bwd_cuda, rwkv6_fwd_cuda,
+                rwkv6_bwd_cuda)
+    for c in counters:
+        c.launches = 0
+    flash_fwd_cuda.launches_bf16 = 0
+    return counters
+
+
 def kernel_launches(counters):
     """Each kernel's launches from its wrapper's count; ``flash_fwd_cuda``
     counts both flash kernels, ``launches_bf16`` the tensor-core one's."""
@@ -1550,15 +1591,6 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     dict) receives the run's losses over and params after the first
     period; ``against`` = (name, stored run, bitwise) holds the run to one
     stored earlier (``held_to``)."""
-    from repro_torch.kernels.bucket_update import bucket_update_cuda
-    from repro_torch.kernels.flash_attention import flash_fwd_cuda
-    from repro_torch.kernels.quantize import (
-        dequantize_int8_cuda,
-        quantize_int8_cuda,
-        stochastic_round_bf16_cuda,
-    )
-    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
-    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
@@ -1624,14 +1656,8 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
             bucket_over_lr=[x[3] for x in per_bucket],
             bucket_sizes=[b.numel() for b in ref_params])
 
-    counters = (flash_fwd_cuda, rglru_fwd_cuda, rglru_bwd_cuda,
-                rwkv6_fwd_cuda, rwkv6_bwd_cuda, bucket_update_cuda,
-                quantize_int8_cuda, dequantize_int8_cuda,
-                stochastic_round_bf16_cuda)
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    flash_fwd_cuda.launches_bf16 = 0
+    counters = zero_counters()
     res = train(cfg, steps=steps, on_step=on_step,
                 log=lambda s: print("  " + s), **kw)
     launches = kernel_launches(counters)
@@ -1754,15 +1780,6 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     dequantize kernels too, as its values and scales are all-gathered;
     ``decoupled`` streams those gathers into the forward.  ``store`` and
     ``against`` are ``main_path``'s, over the comparison window."""
-    from repro_torch.kernels.bucket_update import bucket_update_cuda
-    from repro_torch.kernels.flash_attention import flash_fwd_cuda
-    from repro_torch.kernels.quantize import (
-        dequantize_int8_cuda,
-        quantize_int8_cuda,
-        stochastic_round_bf16_cuda,
-    )
-    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
-    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
@@ -1817,14 +1834,8 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
                                    in zip(per_bucket, ref_params)])
 
     steps = PREC_STEPS
-    counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
-                dequantize_int8_cuda, stochastic_round_bf16_cuda,
-                rglru_fwd_cuda, rglru_bwd_cuda, rwkv6_fwd_cuda,
-                rwkv6_bwd_cuda)
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    flash_fwd_cuda.launches_bf16 = 0
+    counters = zero_counters()
     res = train(cfg, steps=steps, on_step=on_step,
                 log=lambda s: print("  " + s), **kw)
     launches = kernel_launches(counters)
@@ -2240,15 +2251,6 @@ def adapt_path(torch, cfg, report, key, against, **kw):
     most one component (it moves one at a time)."""
     from repro_torch.adapt import AdaptConfig
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.kernels.bucket_update import bucket_update_cuda
-    from repro_torch.kernels.flash_attention import flash_fwd_cuda
-    from repro_torch.kernels.quantize import (
-        dequantize_int8_cuda,
-        quantize_int8_cuda,
-        stochastic_round_bf16_cuda,
-    )
-    from repro_torch.kernels.rglru import rglru_bwd_cuda, rglru_fwd_cuda
-    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_fwd_cuda
     from repro_torch.launch.train import build_schedule, train
     from repro_torch.models.model import init_params
     from repro_torch.obs import Tracer, wire_bytes_report
@@ -2307,17 +2309,11 @@ def adapt_path(torch, cfg, report, key, against, **kw):
                 enabled="all", context="alloc", stacks="python",
                 max_entries=200_000)
 
-    counters = (flash_fwd_cuda, bucket_update_cuda, quantize_int8_cuda,
-                dequantize_int8_cuda, stochastic_round_bf16_cuda,
-                rglru_fwd_cuda, rglru_bwd_cuda, rwkv6_fwd_cuda,
-                rwkv6_bwd_cuda)
     trace_path = (ROOT / "chiprun_out"
                   / f"{key.replace('_path', '')}_trace.json")
     trace_path.parent.mkdir(exist_ok=True)
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    flash_fwd_cuda.launches_bf16 = 0
+    counters = zero_counters()
     res = train(cfg, steps=steps, on_step=on_step, adapt=True,
                 adapt_config=AdaptConfig(
                     eta=1e-3, warmup_steps=2, check_every=2,
@@ -2505,6 +2501,281 @@ def adapt_path(torch, cfg, report, key, against, **kw):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# The elastic control plane: engine fallback and the emergency halt
+# ---------------------------------------------------------------------------
+ELASTIC_PERIODS_AFTER = 2      # periods on the replicated engine afterwards
+# the halt at smoke size: shard 0, the only one, drops at HALT_DROP_STEP
+# (after the monitor's 3 warm-up steps); the monitor declares it dead
+# after about 8 step walls of silence, and the run halts a step later.
+# The steps left after the drop leave room for a step EMA a slow step
+# inflated up to 4-fold
+HALT_STEPS, HALT_DROP_STEP = 40, 4
+
+
+def elastic_fallback_path(torch, cfg, report, key, holds, stored_peak_of,
+                          **kw):
+    """The degradation ladder's fallback rung on the card (JAX's
+    ``test_engine_fallback_migration_matches_reference`` at full width):
+    ``kw`` (``train``'s options) on the sharded engine at one shard with
+    the gather skip on, through ``train`` to the first cycle boundary
+    after one period and a step; ``migrate_state`` onto
+    ``spawn(fsdp=False)``, the replicated engine; then
+    ELASTIC_PERIODS_AFTER periods there.  The launch counters are zeroed
+    before ``train`` and read after the last replicated step.
+
+    Checks: the first period held to each of ``holds`` (name, stored run,
+    bitwise); each step's collectives as its engine's schedule says; each
+    kernel's launches as the layers, updates and syncs say; the wire
+    policy and master unchanged by the move (one layout, one bucket
+    count); the peak within ``stored_peak_of``'s plus one state component;
+    and every loss and param after the move bitwise a replicated
+    ``DeftRuntime`` rebuilt from the pre-move ``state_to_tree`` snapshot
+    by ``tree_to_state`` and run over the same steps."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.elastic import migrate_state
+    from repro_torch.launch.train import build_schedule, train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.runtime import DeftRuntime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(scheduler="deft", batch=BATCH, seq=SEQ, seed=0, device="cuda",
+              lr=LR, loss_chunk=LOSS_CHUNK, partition_elems=PARTITION_ELEMS,
+              fsdp=True, **kw)
+    wire = kw.get("wire_precision", "f32")
+    master = kw.get("master_dtype", "f32")
+    schedule = build_schedule(
+        init_params(cfg, device="meta"), cfg, dp=1, seq_len=SEQ,
+        per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+        coverage_rate=kw["coverage_rate"], wire_precision=wire,
+        master_dtype=master)[3].schedule
+    period = schedule.period
+    k = -(-(period + 1) // period) * period
+    losses, held = [], {}
+
+    def on_step(step, runtime, state, metrics):
+        losses.append(float(metrics["loss"]))
+        if step == period - 1:
+            check(runtime.fsdp and runtime.gather_skip,
+                  f"{key} is not the sharded engine with the gather skip")
+            for name, store, bitwise in holds:
+                held[name] = held_to(key, (name, store, bitwise), state,
+                                     losses)
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    res = train(cfg, steps=k, on_step=on_step,
+                log=lambda s: print("  " + s), **kw)
+    rt_a, state, layout = res["runtime"], res["state"], res["layout"]
+    check(res["schedule"] == schedule, f"{key}: train planned another "
+                                       f"schedule")
+    step_s = list(res["step_s"])
+    coll = list(res["collectives"])
+    wants = [rt_a.collectives_per_phase()[i % period] for i in range(k)]
+    policy = lambda rt: (rt.layout.precision.describe()
+                         if rt.layout.precision is not None else "f32") \
+        + f" master {rt.master_dtype}"
+    before = policy(rt_a)
+    del res
+    rss0 = host_rss()
+    snap = rt_a.state_to_tree(state)             # on the host
+    snap_bytes = host_rss() - rss0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt_b = rt_a.spawn(fsdp=False)
+    t1 = time.perf_counter()
+    state = migrate_state(rt_a, rt_b, state)
+    torch.cuda.synchronize()
+    repack_s = time.perf_counter() - t1
+    rt_b._load_kernels(rt_b.layout)
+    rt_b.reset_cycle(k)
+    migrate_s = time.perf_counter() - t0
+    after = policy(rt_b)
+    check(not rt_b.fsdp and rt_b.layout == layout and after == before
+          and "pgather" not in state,
+          f"{key}: the fallback changed the layout or its policy "
+          f"({before} -> {after}) or kept the gather cache")
+    del rt_a
+    steps_b = ELASTIC_PERIODS_AFTER * period
+    wants += [rt_b.collectives_per_phase()[i % period]
+              for i in range(steps_b)]
+    after_losses = []
+    for i in range(k, k + steps_b):
+        batch = make_batch(cfg, 0, i, BATCH, SEQ, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = rt_b.step(i, state, batch)
+        after_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        coll.append(rt_b.last_collectives)
+    launches = kernel_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + after_losses),
+          f"{key}: non-finite loss {losses + after_losses}")
+    for i, (got, want) in enumerate(zip(coll, wants)):
+        check(got == want, f"{key} step {i}: issued {got}, schedule says "
+                           f"{want}")
+    steps = k + steps_b
+    attn = sum(sp.kind in ("attn", "local_attn") for sp in cfg.layer_specs())
+    updated = layout.n_buckets * sum(schedule.phases[i % period].do_update
+                                     for i in range(steps))
+    bf16 = kw.get("compute_dtype") == "bf16" or master == "bf16sr"
+    synced = sum(c["reduce_scatter"] for c in coll[:k]) \
+        + sum(c["primary"] + c["secondary"] for c in coll[k:])
+    gathered = sum(c["param_gather"] for c in coll[:k]) // 2
+    int8, sr = wire == "int8", master == "bf16sr"
+    want = {"flash_fwd": 0 if bf16 else 2 * attn * steps,
+            "flash_fwd_sm90": 2 * attn * steps if bf16 else 0,
+            "bucket_update": updated,
+            "quantize_int8": synced + gathered if int8 else 0,
+            "dequantize_int8": synced + gathered if int8 else 0,
+            "stochastic_round_bf16": layout.n_buckets + updated if sr else 0,
+            "rglru_fwd": 0, "rglru_bwd": 0, "rwkv6_fwd": 0, "rwkv6_bwd": 0}
+    check(launches == want, f"{key} launches {launches}, expected {want}")
+    component = 4 * sum(layout.buf_sizes)
+    stored_peak = report[stored_peak_of]["peak_bytes"]
+    check(peak <= stored_peak + component,
+          f"{key}: peak {peak} beyond {stored_peak_of}'s {stored_peak} + "
+          f"one component {component}")
+    build = dict(loss_chunk=rt_b.loss_chunk, compute_dtype=rt_b.compute_dtype,
+                 master_dtype=rt_b.master_dtype)
+    stored = stored_run(state, after_losses)
+    del state, rt_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference: a replicated runtime rebuilt from the snapshot
+    ref = DeftRuntime(cfg, adamw(LR), schedule, layout, device="cuda",
+                      **build)
+    state = ref.tree_to_state(snap)
+    del snap
+    ref.reset_cycle(k)
+    ref_losses = []
+    for i in range(k, k + steps_b):
+        state, m = ref.step(i, state, make_batch(cfg, 0, i, BATCH, SEQ,
+                                                 device="cuda"))
+        ref_losses.append(float(m["loss"]))
+    vs_ref = held_to(key, ("its rebuilt reference", stored, True), state,
+                     ref_losses)
+    del ref, state, stored
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_s = statistics.median(step_s[1:k])
+    after_s = statistics.median(step_s[k + 1:])
+    report[key] = dict(
+        migrated_at=k, period=period, steps=steps, policy=before,
+        repack_s=repack_s, migrate_s=migrate_s, snapshot_host_bytes=snap_bytes,
+        peak_bytes=peak, stored_peak_bytes=stored_peak,
+        component_bytes=component, median_step_s_before=before_s,
+        median_step_s_after=after_s, step_s=step_s,
+        losses=losses + after_losses, launches=launches,
+        against={**held, "rebuilt reference": vs_ref})
+    print(f"{key} ({cfg.name}, {cfg.n_layers} layers, {steps} steps): "
+          f"sharded engine to step {k}, then migrate_state onto the "
+          f"replicated engine (spawn(fsdp=False)): repack_s "
+          f"{repack_s * 1e3:.1f} ms, migrate_s {migrate_s * 1e3:.1f} ms; "
+          f"policy {before} before, {after} after; median step "
+          f"{before_s:.3f} s before, {after_s:.3f} s after; peak "
+          f"{peak / 2**30:.2f} GiB against {stored_peak_of}'s "
+          f"{stored_peak / 2**30:.2f} GiB + one component "
+          f"{component / 2**30:.2f} GiB [{report['card']}]; launches "
+          f"{launches}; every loss and param after the move bitwise its "
+          f"rebuilt reference")
+    for name, store, bitwise in holds:
+        print_against(report, (name, store, bitwise), held[name])
+    return launches
+
+
+def elastic_halt_phase(torch, report):
+    """The ladder's bottom rung through the launcher at smoke size
+    (``reduce_for_smoke`` of the main path's arch, sharded, the gather skip
+    on): ``train(elastic=True, elastic_drop_step=HALT_DROP_STEP,
+    ckpt=...)`` at one rank drops shard 0, the only one; the monitor
+    declares it dead, no survivor is left, and the run halts with the
+    emergency checkpoint.  ``train(resume=True)`` then finishes the
+    HALT_STEPS steps, and every loss and the final params must be bitwise
+    an uninterrupted run's.  The counters count the halted and the
+    resumed runs (the uninterrupted one runs first).  Also times one more
+    emergency save of the halted state and one restore of it."""
+    from repro_torch.checkpoint import valid_steps
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.train import restore_runtime_state, train
+    from repro_torch.models.model import init_params
+
+    cfg = reduce_for_smoke(get_config(ARCH))
+    quiet = dict(device="cuda", batch=2, seq=64, fsdp=True, elastic=True,
+                 log=lambda s: None)
+    whole = train(cfg, steps=HALT_STEPS, **quiet)
+    whole_losses = whole["losses"]
+    whole_params = [b.to("cpu", copy=True) for b in whole["state"]["pbuf"]]
+    schedule, layout = whole["schedule"], whole["layout"]
+    del whole
+    counters = zero_counters()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        logs = []
+        first = train(cfg, steps=HALT_STEPS, ckpt=d,
+                      elastic_drop_step=HALT_DROP_STEP,
+                      **dict(quiet, log=logs.append))
+        coord = first["elastic"]
+        halt = coord.log[-1] if coord.log else {}
+        check(first["halted"] and halt.get("action") == "checkpoint-halt"
+              and halt.get("trigger") == "dead"
+              and valid_steps(d) == [halt["step"]]
+              and len(first["losses"]) == halt["step"],
+              f"the smoke run did not halt on its dropped shard: halted "
+              f"{first['halted']}, log {coord.log}, saved {valid_steps(d)}")
+        at = halt["step"]
+        # one more save of the halted state, and one restore of it, timed
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d2:
+            coord.checkpoint_dir = d2
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coord.emergency_checkpoint(at, first["state"])
+            save_s = time.perf_counter() - t0
+        rt = first["runtime"]
+        fresh = rt.spawn()
+        t0 = time.perf_counter()
+        got, start = restore_runtime_state(
+            fresh, d, init_params(cfg, device="meta"), log=lambda s: None)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(start == at, f"restored step {start}, halted at {at}")
+        del got, fresh, rt, first["state"], first["runtime"]
+        rest = train(cfg, steps=HALT_STEPS - at, ckpt=d, resume=True,
+                     **quiet)
+        check(rest["start_step"] == at
+              and first["losses"] + rest["losses"] == whole_losses
+              and all(torch.equal(a.cpu(), b) for a, b in
+                      zip(rest["state"]["pbuf"], whole_params)),
+              f"resumed at {rest['start_step']}: the halted and resumed "
+              f"losses {first['losses'] + rest['losses']} vs the "
+              f"uninterrupted {whole_losses}, or its params differ")
+        del rest
+    launches = kernel_launches(counters)
+    want = expected_launches(cfg, schedule, layout, HALT_STEPS)
+    check(launches == want, f"elastic_halt_phase launches {launches}, "
+                            f"expected {want}")
+    event = next(line for line in logs if "dead" in line)
+    report["elastic_halt"] = dict(
+        steps=HALT_STEPS, drop_step=HALT_DROP_STEP,
+        detected_step=halt["detected_step"], halted_at=at, save_s=save_s,
+        restore_s=restore_s, launches=launches, event=event)
+    print(f"elastic halt (smoke {ARCH}, sharded, {HALT_STEPS} steps): shard "
+          f"0 dropped at step {HALT_DROP_STEP}, declared dead at step "
+          f"{halt['detected_step']} ({event.strip()}), halted at step {at} "
+          f"with the emergency checkpoint; one more save of that state "
+          f"{save_s:.3f} s, its restore {restore_s:.3f} s "
+          f"[{report['card']}]; resumed at {at}: every loss and the final "
+          f"params bitwise the uninterrupted run's; launches {launches}")
+    return launches
+
+
 def run() -> int:
     # torch.compile (the flex_attention yardstick) caches inside the
     # checkout and compiles in this process, starting no worker pool
@@ -2670,6 +2941,17 @@ def run() -> int:
         torch, cfg, report, "adapt_precision_path", "sharded_precision_path",
         coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
         master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
+    launches["f32 sharded elastic fallback"] = elastic_fallback_path(
+        torch, cfg, report, "elastic_fallback_path",
+        (("main_path", replicated, False), ("sharded_path", sharded, True)),
+        "sharded_path", coverage_rate=COVERAGE_RATE)
+    launches[f"{WIRE}+{MASTER} sharded elastic fallback"] = \
+        elastic_fallback_path(
+            torch, cfg, report, "elastic_fallback_precision_path",
+            (("sharded_precision_path", sharded_prec, True),),
+            "sharded_precision_path", coverage_rate=DELAYED_COVERAGE_RATE,
+            wire_precision=WIRE, master_dtype=MASTER, compute_dtype="bf16")
+    launches["smoke elastic halt"] = elastic_halt_phase(torch, report)
     del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

@@ -1,12 +1,36 @@
-"""Per-link communication chains of the port (DESIGN.md §14).
+"""Per-link communication chains and the elastic group of the port
+(DESIGN.md §10, §14).
 
 Copies of ``ring_chain`` and ``link_chains`` from ``repro/launch/mesh.py``
 (that module builds JAX meshes, so the port takes these two functions and
 not the module).  A chain is a permutation of the positions of the
 'data' process group; ``train/chains.py`` runs the secondary link's
 reduce-scatter and all-gather as point-to-point rounds along it.
+``elastic_group`` is the process-group counterpart of the JAX module's
+``make_elastic_mesh``.
 """
 from __future__ import annotations
+
+from typing import Sequence
+
+import torch.distributed as dist
+
+
+def elastic_group(ranks: Sequence[int]):
+    """The process group of the surviving shards' global ``ranks``, in
+    origin order (ascending): the 'data' group an elastic migration
+    spawns its runtime over (``make_elastic_mesh`` builds a mesh of the
+    surviving data rows instead).  ``dist.new_group`` is collective over
+    the world, so every rank calls this with the same ``ranks`` in the
+    same order of calls; a rank outside them gets
+    ``GroupMember.NON_GROUP_MEMBER`` and must build no runtime over it.
+    The elastic coordinator builds one group per membership and reuses it
+    when that membership comes back."""
+    ranks = [int(r) for r in ranks]
+    if not ranks or ranks != sorted(set(ranks)):
+        raise ValueError(f"elastic_group needs ascending distinct ranks, "
+                         f"got {ranks}")
+    return dist.new_group(ranks)
 
 
 def ring_chain(n: int, link: int) -> tuple:

@@ -13,8 +13,13 @@ hierarchical, and checkpoints in the JAX package's format (``--ckpt``,
 exits cleanly, DESIGN.md §10), the online control plane (``--adapt``,
 ``--adapt-drop-step``, ``--adapt-drop-scale``, ``--adapt-repartition``:
 telemetry, drift detection, a Preserver-gated replan and a hot swap at a
-cycle boundary, DESIGN.md §7 and §9) and ``--trace OUT.json``, a Chrome
-trace of every step's spans.  Runs on the card unless ``--device
+cycle boundary, DESIGN.md §7 and §9), the elastic control plane
+(``--elastic``, ``--elastic-drop-step``, ``--elastic-drop-shards``,
+``--elastic-return-step``, ``--elastic-straggler-step``,
+``--elastic-straggler-shard``, ``--elastic-straggler-factor``: health
+monitoring, a scale-down or scale-up of the ranks at a cycle boundary and
+an emergency checkpoint when none survive, DESIGN.md §10) and ``--trace
+OUT.json``, a Chrome trace of every step's spans.  Runs on the card unless ``--device
 cpu``.  Under ``torchrun`` the process group comes from its environment;
 run alone it is a one-rank group (NCCL on the card, gloo on the CPU), so
 every gradient sum still goes through a real collective.
@@ -33,6 +38,10 @@ every gradient sum still goes through a real collective.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 16 --batch 2 --seq 32 --device cpu --adapt \
         --adapt-drop-step 4 --adapt-repartition --trace OUT.json
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-4b --smoke --steps 28 --batch 4 --seq 32 --device cpu \
+        --fsdp --coverage-rate 3.5 --elastic --elastic-drop-step 4 \
+        --elastic-drop-shards 2,3 --elastic-return-step 20
 """
 from __future__ import annotations
 
@@ -72,6 +81,16 @@ from repro_torch.core.deft import Planner, PlanRequest
 from repro_torch.core.preserver import WalkParams
 from repro_torch.core.profiler import HardwareModel
 from repro_torch.data.pipeline import make_batch
+from repro_torch.elastic import (
+    CapacityReturn,
+    DeviceDrop,
+    ElasticController,
+    ElasticCoordinator,
+    ElasticHalt,
+    FaultScenario,
+    HealthMonitor,
+    StragglerSlowdown,
+)
 from repro_torch.models.model import init_params
 from repro_torch.obs import Tracer, format_event
 from repro_torch.optim.optimizers import adamw
@@ -232,13 +251,19 @@ def save_checkpoint(ckpt_dir: str, step: int, runtime, state
                     ) -> Optional[str]:
     """Checkpoint ``state`` as step ``step`` (with the layout descriptor
     of a DeFT ``runtime``; ``None`` for the DDP baseline, whose state is
-    already a tree).  Every rank takes part in ``state_to_tree``, which
-    builds the tree on rank 0's host alone; rank 0 writes and the others
-    wait at a barrier until the sidecar is committed.  Returns the npz
-    path on rank 0."""
-    tree = runtime.state_to_tree(state) if runtime is not None else state
+    already a tree).  Every rank of the runtime takes part in
+    ``state_to_tree``, which builds the tree on its writer's host alone
+    (rank 0, or the lowest member after an elastic migration); the writer
+    writes and every rank of the world waits at a barrier until the
+    sidecar is committed (a parked rank of an elastic run, with neither
+    runtime nor state, only waits).  Returns the npz path on the
+    writer."""
+    if runtime is not None:
+        tree = runtime.state_to_tree(state)
+    else:
+        tree = state if dist.get_rank() == 0 else None
     path = None
-    if dist.get_rank() == 0:
+    if tree is not None:
         path = save(ckpt_dir, step, tree)
         if runtime is not None:
             save_layout_descriptor(
@@ -286,6 +311,11 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           adapt: bool = False, adapt_config: Optional[AdaptConfig] = None,
           adapt_drop_step: int = 0, adapt_drop_scale: float = 3.0,
           adapt_repartition: bool = False, trace: str = "",
+          elastic: bool = False, elastic_drop_step: int = 0,
+          elastic_drop_shards: Sequence[int] = (),
+          elastic_return_step: int = 0, elastic_straggler_step: int = 0,
+          elastic_straggler_shard: int = 0,
+          elastic_straggler_factor: float = 3.0,
           on_step: Optional[Callable] = None,
           log: Callable = print) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` steps on a global ``batch`` split over
@@ -328,9 +358,30 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     that every rank installs it at the same boundary.  ``trace`` is a path
     for the Chrome trace of every span (written by rank 0).
 
+    ``elastic`` attaches the elastic control plane (JAX's launcher wiring,
+    DESIGN.md §10): an ``ElasticCoordinator`` over the world, one origin
+    shard per rank, whose health monitor sees every step's wall (the
+    device synchronised, the host clock around the step, the largest over
+    the ranks; a parked rank's counts 0) under the injected faults: a
+    ``DeviceDrop`` of ``elastic_drop_shards`` (default: the last rank) at
+    ``elastic_drop_step``, their ``CapacityReturn`` at
+    ``elastic_return_step``, a ``StragglerSlowdown`` of
+    ``elastic_straggler_shard`` by ``elastic_straggler_factor`` from
+    ``elastic_straggler_step`` (0: none).  The monitor's clock advances by
+    the slowest live shard's wall, as JAX's does, and by the step's wall
+    when no shard is live (JAX's clock then stands still, so it never
+    declares the last shards dead; ROADMAP §3).  A migration re-forms the
+    group at a cycle boundary, the global batch staying whole (new
+    position ``j`` takes its ``j``-th slice); a parked rank skips its
+    steps.  A halt writes the emergency checkpoint (with ``ckpt``) and
+    ends the run cleanly, as a SIGTERM or SIGUSR1 does; the lowest member
+    rank logs.
+
     Returns the losses, per-step wall times (each step synchronised), the
-    schedule, the runtime, the final state, the first step run and the
-    adaptive controller (None without ``adapt``)."""
+    schedule, the runtime, the final state, the first step run, the
+    adaptive controller (None without ``adapt``) and the elastic
+    coordinator (None without ``elastic``); a parked rank ends with the
+    runtime and state None and records no loss for its skipped steps."""
     device = torch.device(device)
     init_distributed(device)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -345,6 +396,13 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     start_step = 0
     if fsdp is None:
         fsdp = needs_fsdp(cfg.name)
+    if elastic and adapt:
+        raise ValueError("elastic and adapt are mutually exclusive: the "
+                         "elastic controller owns replanning while it owns "
+                         "the ranks (DESIGN.md §10)")
+    if elastic and scheduler != "deft":
+        raise ValueError("elastic needs --scheduler deft (the migration path "
+                         "repacks the flat DeFT state)")
     if scheduler == "ddp":
         if fsdp:
             raise ValueError("the port's DDP baseline is replicated: fsdp "
@@ -479,11 +537,77 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         runtime.prepare_swap(event.schedule,
                              background=world == 1, layout=new_layout)
 
+    # the fault-tolerant elastic control plane
+    coord = scenario = None
+
+    def say(msg: str) -> None:
+        """An elastic run's log comes from its lowest member rank."""
+        if coord is None or coord.position == min(coord.members):
+            log(msg)
+
+    if elastic:
+        def model_for(width: int):
+            m = build_leaf_time_model(params_abs, cfg,
+                                      HardwareModel(dp_degree=width), seq,
+                                      max(batch // width, 1))
+            if coverage_rate > 0:
+                m = m.with_coverage_rate(bucket_of, nb, coverage_rate)
+            return m
+
+        walk = WalkParams(s0=4.0, eta=0.01, mu=1.0, sigma=40.0, batch=256)
+        coord = ElasticCoordinator(
+            runtime,
+            ElasticController(model_for, bucket_of, nb, walk=walk,
+                              scheduler_cfg=plan.scheduler_cfg),
+            HealthMonitor(world), params_abs=params_abs,
+            checkpoint_dir=ckpt, global_batch=batch)
+        faults = []
+        if elastic_drop_step > 0:
+            shards = tuple(int(x) for x in elastic_drop_shards) or (world - 1,)
+            faults.append(DeviceDrop(elastic_drop_step, shards))
+            if elastic_return_step > 0:
+                faults.append(CapacityReturn(elastic_return_step, shards))
+        if elastic_straggler_step > 0:
+            faults.append(StragglerSlowdown(elastic_straggler_step,
+                                            elastic_straggler_shard,
+                                            elastic_straggler_factor))
+        if faults:
+            scenario = FaultScenario(n_shards=world, events=tuple(faults))
+            say("elastic: injected faults: " + "; ".join(
+                f"{type(e).__name__}@{e.step}" for e in faults))
+
+    clock = 0.0                         # the health monitor's clock
+
+    def elastic_observe(step: int, wall: float) -> None:
+        """Feed one step's wall, agreed over the world, to the monitor
+        through the injected faults (JAX's launcher loop)."""
+        nonlocal clock
+        if world > 1:
+            w = torch.tensor([wall], dtype=torch.float64, device=device)
+            dist.all_reduce(w, op=dist.ReduceOp.MAX)
+            wall = float(w.item())
+        if scenario is not None:
+            obs = scenario.observe(step, wall)
+            if obs.notices:
+                for ev in coord.notice_preemption(step, obs.notices):
+                    say(format_event(ev))
+            if obs.returned:
+                coord.notice_capacity(step, obs.returned)
+                say(f"elastic: capacity returned: shards {obs.returned}")
+            walls = obs.walls
+        else:
+            walls = (wall,) * coord.n_origin
+        live = [walls[o] for o in coord.members if walls[o] is not None]
+        clock += max(live, default=wall)
+        for ev in coord.observe(step, walls, now=clock):
+            say(format_event(ev))
+
     # a preemption signal (what cluster managers send before reclaiming
     # the host) checkpoints and stops the run cleanly
     preempted: Dict[str, Any] = {"sig": None}
     previous = {}
-    if ckpt and threading.current_thread() is threading.main_thread():
+    if (ckpt or elastic) \
+            and threading.current_thread() is threading.main_thread():
         def on_preempt(signum, frame):
             preempted["sig"] = signum
 
@@ -493,48 +617,75 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     halted = False
     try:
         for step in range(start_step, start_step + steps):
-            if ckpt and _preempted(preempted, device):
-                log(f"preemption signal {preempted['sig']}: checkpointing "
+            if (ckpt or elastic) and _preempted(preempted, device):
+                say(f"preemption signal {preempted['sig']}: checkpointing "
                     f"and exiting cleanly")
-                path = save_checkpoint(ckpt, step, runtime, state)
-                log(f"checkpoint -> {path}")
+                if ckpt:
+                    path = (coord.emergency_checkpoint(step, state)
+                            if coord is not None else
+                            save_checkpoint(ckpt, step, runtime, state))
+                    say(f"checkpoint -> {path}")
                 halted = True
                 last_step = step - 1
                 break
-            # batches are keyed by the global step: a resumed run goes on
-            # with the stream where it left off
-            full = make_batch(cfg, seed, step, batch, seq, device=device)
-            local = {k: v[rank * per:(rank + 1) * per]
-                     for k, v in full.items()}
+            pos, n_pos = rank, world
+            if coord is not None:
+                try:
+                    state = coord.maybe_migrate(step, state)
+                except ElasticHalt as e:
+                    # the degradation ladder bottomed out; the emergency
+                    # checkpoint (with ckpt) is on disk — stop cleanly
+                    say(f"elastic: {e}")
+                    halted = True
+                    last_step = step - 1
+                    break
+                runtime = coord.runtime         # migrations swap it
+                pos = None if coord.parked else \
+                    coord.members.index(coord.position)
+                n_pos = len(coord.members)
+            m = None
+            if pos is not None:
+                # batches are keyed by the global step: a resumed run goes
+                # on with the stream where it left off; the global batch
+                # splits over the current members
+                per_now = batch // n_pos
+                full = make_batch(cfg, seed, step, batch, seq, device=device)
+                local = {k: v[pos * per_now:(pos + 1) * per_now]
+                         for k, v in full.items()}
             _sync(device)
             t0 = time.perf_counter()
-            if runtime is None:
+            if pos is not None and runtime is None:
                 state, m = step_fn(state, local)
-            else:
+            elif pos is not None:
                 state, m = runtime.step(step, state, local)
                 out["collectives"].append(runtime.last_collectives)
-            loss = float(m["loss"])          # waits for the step
-            _sync(device)
-            out["step_s"].append(time.perf_counter() - t0)
-            out["losses"].append(loss)
-            if tracer is not None:
-                tracer.add("step", f"step{step}", t0, tracer.now(),
-                           step=step)
+            if m is not None:
+                loss = float(m["loss"])      # waits for the step
+                _sync(device)
+                out["step_s"].append(time.perf_counter() - t0)
+                out["losses"].append(loss)
+                if tracer is not None:
+                    tracer.add("step", f"step{step}", t0, tracer.now(),
+                               step=step)
+            if coord is not None:
+                elastic_observe(step, out["step_s"][-1] if m is not None
+                                else 0.0)
             if controller is not None:
                 adapt_step(step, loss, out["step_s"][-1])
-            if on_step is not None:
+            if on_step is not None and m is not None:
                 on_step(step, runtime, state, m)
             if ckpt and ckpt_every > 0 \
                     and (step + 1 - start_step) % ckpt_every == 0:
                 save_checkpoint(ckpt, step + 1, runtime, state)
-            if (step - start_step) % max(steps // 10, 1) == 0 \
-                    or step == last_step:
-                log(f"step {step:4d} loss={loss:.4f} "
+            if m is not None and ((step - start_step) % max(steps // 10, 1)
+                                  == 0 or step == last_step):
+                say(f"step {step:4d} loss={loss:.4f} "
                     f"updated={bool(m['updated'])} "
                     f"({out['step_s'][-1]:.3f}s)")
         if ckpt and not halted:
             path = save_checkpoint(ckpt, last_step + 1, runtime, state)
-            log(f"checkpoint -> {path}")
+            if path is not None:
+                log(f"checkpoint -> {path}")
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
@@ -547,6 +698,13 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             log("  " + format_event(sw))
         for ev in controller.events:
             log("  " + format_event(ev))
+    if coord is not None:
+        st = coord.stats()
+        say(f"elastic: members={st['members']} spares={st['spares']} "
+            f"{len(st['migrations'])} migrations, "
+            f"{len(st['fault_events'])} fault events")
+        for mig in st["migrations"]:
+            say("  " + format_event(mig))
     if tracer is not None and rank == 0:
         tracer.export_chrome_trace(trace)
         ts = tracer.stats()
@@ -554,7 +712,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
                    if ts["dropped"] else "")
         log(f"trace -> {trace} ({ts['retained']} spans{dropped})")
     out.update(runtime=runtime, state=state, start_step=start_step,
-               halted=halted, controller=controller)
+               halted=halted, controller=controller, elastic=coord)
     return out
 
 
@@ -619,6 +777,24 @@ def main() -> None:
                     help="with --adapt: replans may change the bucket "
                          "partition itself — the runtime re-packs the "
                          "flat state at a cycle boundary, no restart")
+    ap.add_argument("--elastic", action="store_true",
+                    help="fault-tolerant control plane: per-shard health "
+                         "monitoring -> Preserver-gated scale-down/up of the "
+                         "ranks via a cycle-boundary repack, zero restart")
+    ap.add_argument("--elastic-drop-step", type=int, default=0,
+                    help="with --elastic: inject a device-drop fault at "
+                         "this step (0 = none)")
+    ap.add_argument("--elastic-drop-shards", default="",
+                    help="comma-separated origin shard ids (ranks) the "
+                         "injected drop kills (default: the last rank)")
+    ap.add_argument("--elastic-return-step", type=int, default=0,
+                    help="with --elastic: the dropped shards come back at "
+                         "this step (scale-up trigger; 0 = never)")
+    ap.add_argument("--elastic-straggler-step", type=int, default=0,
+                    help="with --elastic: one shard starts running slow "
+                         "at this step (0 = none)")
+    ap.add_argument("--elastic-straggler-shard", type=int, default=0)
+    ap.add_argument("--elastic-straggler-factor", type=float, default=3.0)
     ap.add_argument("--trace", default="", metavar="OUT.json",
                     help="record step/phase/collective/control-plane "
                          "spans and export a Chrome-trace (Perfetto-"
@@ -626,6 +802,13 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
+    if args.elastic and args.adapt:
+        ap.error("--elastic and --adapt are mutually exclusive: the "
+                 "elastic controller owns replanning while it owns the "
+                 "ranks (DESIGN.md §10)")
+    if args.elastic and args.scheduler != "deft":
+        ap.error("--elastic needs --scheduler deft (the migration path "
+                 "repacks the flat DeFT state)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -646,7 +829,15 @@ def main() -> None:
                 ckpt_every=args.ckpt_every, resume=args.resume,
                 adapt=args.adapt, adapt_drop_step=args.adapt_drop_step,
                 adapt_drop_scale=args.adapt_drop_scale,
-                adapt_repartition=args.adapt_repartition, trace=args.trace)
+                adapt_repartition=args.adapt_repartition, trace=args.trace,
+                elastic=args.elastic,
+                elastic_drop_step=args.elastic_drop_step,
+                elastic_drop_shards=tuple(
+                    int(x) for x in args.elastic_drop_shards.split(",") if x),
+                elastic_return_step=args.elastic_return_step,
+                elastic_straggler_step=args.elastic_straggler_step,
+                elastic_straggler_shard=args.elastic_straggler_shard,
+                elastic_straggler_factor=args.elastic_straggler_factor)
     dt = time.time() - t0
     n = len(res["losses"])
     print(f"{n} steps in {dt:.1f}s "

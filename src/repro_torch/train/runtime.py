@@ -565,6 +565,119 @@ def _grad_leaves(layout: BucketLayout, pbuf, gbuf) -> List[torch.Tensor]:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one side of a change of ranks keeps a flat train state: the
+    global ``ranks`` holding it, in position order, the process ``group``
+    over them (None: the world), the bucket ``layout`` and whether params
+    and moments are ``sharded`` over the ranks (position ``p`` holds span
+    ``p`` of each bucket, the layout having ``len(ranks)`` shards) or
+    whole on each rank."""
+
+    ranks: Tuple[int, ...]
+    group: Any
+    layout: BucketLayout
+    sharded: bool
+
+    def window(self, rank: int, b: int) -> Optional[Tuple[int, int]]:
+        """The element range of bucket ``b`` that global ``rank`` holds
+        (None when it holds none)."""
+        if rank not in self.ranks:
+            return None
+        if not self.sharded:
+            return 0, self.layout.buf_sizes[b]
+        n = self.layout.shard_sizes[b]
+        p = self.ranks.index(rank)
+        return p * n, (p + 1) * n
+
+
+def repack_placed(tr: LayoutTransition,
+                  bufs: Optional[Sequence[torch.Tensor]], src: Placement,
+                  dst: Placement, *, dtype: torch.dtype, device
+                  ) -> Optional[List[torch.Tensor]]:
+    """``repack_state``'s move of one state component (the param buffers
+    or a moment) across a change of the ranks that hold it: this rank's
+    buffers under ``dst`` (its span of each ``tr.dst`` bucket, or the
+    whole bucket) from its buffers ``bufs`` under ``src`` (None on a rank
+    outside ``src``); None on a rank outside ``dst``.  Every element lands
+    where ``tr`` puts it, bit for bit, and padded tails are zero.
+
+    Each src bucket some dst rank needs is made whole on the src ranks
+    (an all-gather over ``src.group`` when sharded over several ranks),
+    sent whole from src's first rank to each dst rank outside ``src``
+    (point to point), and each dst rank copies its pieces out of it; one
+    src bucket at a time, so a rank holds the component's two forms and
+    at most one whole src bucket.  A dst bucket identical to a src bucket
+    whose range this rank already holds is that tensor.  Collective over
+    the ranks of both sides, which call it with the same arguments;
+    other ranks need not."""
+    me = dist.get_rank()
+    nd = tr.dst.n_buckets
+
+    def plan(rank):
+        """(dst buckets ``rank`` keeps as they stand, per src bucket the
+        pieces it cuts: (dst bucket, copy, lo, hi) in dst offsets)."""
+        keep, cuts = set(), {}
+        for b in range(nd):
+            w = dst.window(rank, b)
+            if tr.identical[b] and \
+                    src.window(rank, tr.copies[b][0].src_bucket) == w:
+                keep.add(b)
+                continue
+            for c in tr.copies[b]:
+                lo, hi = max(c.dst_off, w[0]), min(c.dst_off + c.length, w[1])
+                if lo < hi:
+                    cuts.setdefault(c.src_bucket, []).append((b, c, lo, hi))
+        return keep, cuts
+
+    plans = {r: plan(r) for r in dst.ranks}
+    needed = sorted({sb for _, cuts in plans.values() for sb in cuts})
+    out = None
+    if me in plans:
+        keep, cuts = plans[me]
+        out = []
+        for b in range(nd):
+            lo, hi = dst.window(me, b)
+            if b in keep:
+                out.append(bufs[tr.copies[b][0].src_bucket])
+                continue
+            # each element written once: the pieces below, zeros where no
+            # piece lands (the padded tail)
+            t = torch.empty((hi - lo,), dtype=dtype, device=device)
+            at = lo
+            for plo, phi in sorted([(x[2], x[3]) for ps in cuts.values()
+                                    for x in ps if x[0] == b]) + [(hi, hi)]:
+                if at < plo:
+                    t[at - lo:plo - lo].zero_()
+                at = max(at, phi)
+            out.append(t)
+    for sb in needed:                  # the same order on every rank
+        full = None
+        if me in src.ranks:
+            if src.sharded and len(src.ranks) > 1:
+                full = torch.empty((tr.src.buf_sizes[sb],), dtype=dtype,
+                                   device=device)
+                dist.all_gather_into_tensor(full, bufs[sb], group=src.group)
+            else:
+                full = bufs[sb]
+        takers = [r for r in dst.ranks
+                  if r not in src.ranks and sb in plans[r][1]]
+        if me == src.ranks[0] and takers:
+            for w in [dist.isend(full, dst=r) for r in takers]:
+                w.wait()
+        elif me in takers:
+            full = torch.empty((tr.src.buf_sizes[sb],), dtype=dtype,
+                               device=device)
+            dist.recv(full, src=src.ranks[0])
+        for b, c, lo, hi in (plans[me][1].get(sb, ()) if me in plans
+                             else ()):
+            w0 = dst.window(me, b)[0]
+            at = c.src_off + lo - c.dst_off
+            out[b][lo - w0:hi - w0] = full[at:at + hi - lo]
+        del full
+    return out
+
+
 class DeftRuntime:
     """Runs one DeFT schedule on the flat-resident engine: replicated, or
     sharded over the ranks with ``fsdp=True``.
@@ -847,6 +960,15 @@ class DeftRuntime:
                 out.append({"step": sp.step, **sp.args})
         return out
 
+    def placement(self) -> Placement:
+        """Where this runtime keeps its state: the global ranks of its
+        'data' group (under a pod axis, this rank's pod's; each pod holds
+        the whole state)."""
+        g = self.dp.group
+        ranks = tuple(r if g is None else dist.get_global_rank(g, r)
+                      for r in range(self.dp.size))
+        return Placement(ranks, g, self.layout, self.fsdp)
+
     @property
     def accum_devices(self) -> int:
         """Rows of a checkpoint's accumulator stacks: every DP rank's."""
@@ -939,49 +1061,58 @@ class DeftRuntime:
                               unflatten_buckets(self.layout, pbuf))
 
     # ---- checkpoint form -----------------------------------------------
+    @property
+    def writer(self) -> int:
+        """The global rank that writes this runtime's checkpoints: the
+        lowest of its joint DP group (rank 0 over the world; the lowest
+        survivor after an elastic migration)."""
+        joint = self.dp.joint
+        return 0 if joint is None else dist.get_global_rank(joint, 0)
+
     def _to_writer(self, buf: torch.Tensor, group) -> Optional[torch.Tensor]:
         """Every rank of ``group``'s ``buf`` (one size on all of them) as
-        the rows of a host stack on global rank 0, the rank that writes
-        checkpoints; None elsewhere.  The rows arrive one rank at a time
-        through one device buffer of ``buf``'s size, so no device holds
-        more than one extra ``buf``; the other ranks send theirs (point to
-        point, uncounted), and a group without rank 0 moves nothing."""
+        the rows of a host stack on the :attr:`writer`; None elsewhere.
+        The rows arrive one rank at a time through one device buffer of
+        ``buf``'s size, so no device holds more than one extra ``buf``;
+        the other ranks send theirs (point to point, uncounted), and a
+        group without the writer moves nothing."""
         me, size = dist.get_rank(), dist.get_world_size(group)
         ranks = [r if group is None else dist.get_global_rank(group, r)
                  for r in range(size)]
-        if 0 not in ranks:
+        writer = self.writer
+        if writer not in ranks:
             return None
-        if me != 0:
-            dist.send(buf, dst=0, group=group)
+        if me != writer:
+            dist.send(buf, dst=writer, group=None)
             return None
         host = torch.empty((size, buf.numel()), dtype=buf.dtype)
         tmp = torch.empty_like(buf) if size > 1 else None
         for r, g in enumerate(ranks):
-            if g == 0:
+            if g == writer:
                 host[r].copy_(buf)
             else:
-                dist.recv(tmp, src=g, group=group)
+                dist.recv(tmp, src=g)
                 host[r].copy_(tmp)
         return host
 
     def state_to_tree(self, state: TrainState) -> Optional[TrainState]:
         """The JAX package's checkpoint form of a train state, on the host
-        of global rank 0 (the rank that writes checkpoints; None on the
-        others): ``{params, opt{step, m[, v]}, cur, fut[, pgather]}``.
+        of the :attr:`writer` (None on the other ranks): ``{params,
+        opt{step, m[, v]}, cur, fut[, pgather]}``.
         Params and moments are layout-free trees (at the master dtype and
         f32); ``cur``/``fut`` are ``(accum_devices, n)`` stacks of every DP
         rank's buffer, row ``r`` the joint ('pod', 'data') rank ``r``, and
         ``pgather`` one full buffer per bucket at the forward's dtype, all
         bound to this runtime's layout.
 
-        Collective: every rank calls it.  Rank 0 receives each bucket (the
-        sharded engine's spans, each accumulator row) one rank at a time
-        into a device buffer the size of the bucket's span or row, and
-        copies it to its host; the others only send.  So each device holds
-        at most one span or row more than its state, and only rank 0's
-        host holds the tree."""
+        Collective: every rank of the runtime calls it.  The writer
+        receives each bucket (the sharded engine's spans, each accumulator
+        row) one rank at a time into a device buffer the size of the
+        bucket's span or row, and copies it to its host; the others only
+        send.  So each device holds at most one span or row more than its
+        state, and only the writer's host holds the tree."""
         layout, dp = self.layout, self.dp
-        writer = dist.get_rank() == 0
+        writer = dist.get_rank() == self.writer
 
         def full(buf):
             if self.fsdp:
@@ -1135,12 +1266,7 @@ class DeftRuntime:
         if src_schedule is not None:
             self._hand_over_cur(state, src_schedule, self.schedule,
                                 transition)
-        tr0 = self.tracer.now()
-        out = self._repack(state, transition)
-        self.tracer.add("repack", "repack-state", tr0, self.tracer.now(),
-                        moved_elems=transition.moved_elems,
-                        n_buckets=transition.dst.n_buckets)
-        return out
+        return self._repack(state, transition)
 
     def _check_transition(self, transition: LayoutTransition) -> None:
         self._check_layout(transition.dst)
@@ -1179,56 +1305,60 @@ class DeftRuntime:
             elif have[sb] == "local" and want[b] == "summed":
                 dist.all_reduce(x, group=self.dp.joint)
 
-    def _repack(self, state: TrainState, tr: LayoutTransition) -> TrainState:
-        dst = tr.dst
+    def _repack(self, state: TrainState, tr: LayoutTransition,
+                src: Optional[Placement] = None,
+                dst: Optional[Placement] = None, *,
+                span: str = "repack-state", **args) -> Optional[TrainState]:
+        """Move ``state`` across ``tr`` from ``src`` to ``dst`` (this
+        runtime's placement under ``tr.src`` and ``tr.dst`` by default) and
+        finish it under ``tr.dst``; None on a rank outside ``dst``.
+
+        Component by component (``pbuf``, ``m``, ``v``, ``cur``, ``fut``)
+        through :func:`repack_placed`, each source tuple dropped before the
+        next is built; the accumulator rows are rank-local and already on
+        ``dst``'s ranks, so each is re-flattened where it lies.  Then the
+        derived buffers: ``gbuf`` zero under ``tr.dst``, the gather cache
+        cold (position 0 of a cycle always gathers), and a ``span`` span
+        of kind 'repack' carrying ``args``.  The shared tail of
+        :meth:`repack_state`, the staged swap's install and
+        :func:`~repro_torch.elastic.coordinator.migrate_state`; collective
+        over the ranks of both sides."""
+        if src is None:
+            here = self.placement()
+            src = dataclasses.replace(here, layout=tr.src)
+            dst = dataclasses.replace(here, layout=tr.dst)
+        tr0 = self.tracer.now()
         # the derived buffers go first: rebuilt, not moved
-        state["gbuf"] = None
+        state.pop("gbuf", None)
         state.pop("pgather", None)
         opt = state["opt"]
-        for holder, key in ((state, "pbuf"), (opt, "m"), (opt, "v"),
-                            (state, "cur"), (state, "fut")):
-            if key not in holder:
-                continue
-            src, holder[key] = holder[key], None   # the last reference
-            spans = self.fsdp and self.dp.size > 1 and key in ("pbuf", "m",
-                                                               "v")
-            holder[key] = tuple(self._repack_spans(tr, src) if spans
-                                else repack_buffers(tr, src))
-            del src
+        rows = (dataclasses.replace(dst, layout=tr.src, sharded=False),
+                dataclasses.replace(dst, sharded=False))
+        f32 = torch.float32
+        comps = [(state, "pbuf", self._master_torch_dtype(), (src, dst)),
+                 (opt, "m", f32, (src, dst))]
+        if self.opt_spec.name == "adamw":
+            comps.append((opt, "v", f32, (src, dst)))
+        comps += [(state, "cur", f32, rows), (state, "fut", f32, rows)]
+        for holder, key, dtype, (a, b) in comps:
+            bufs = holder.pop(key, None)               # the last reference
+            out = repack_placed(tr, bufs, a, b, dtype=dtype,
+                                device=self.device)
+            del bufs
+            if out is not None:
+                holder[key] = tuple(out)
+        if dist.get_rank() not in dst.ranks:
+            return None
         state["gbuf"] = tuple(torch.zeros((n,), dtype=torch.float32,
                                           device=self.device)
-                              for n in dst.buf_sizes)
+                              for n in tr.dst.buf_sizes)
         if self.gather_skip:
-            state["pgather"] = self._init_pgather(dst)
+            state["pgather"] = self._init_pgather(tr.dst)
+        self._sync_device()
+        self.tracer.add("repack", span, tr0, self.tracer.now(), **args,
+                        moved_elems=tr.moved_elems,
+                        n_buckets=tr.dst.n_buckets)
         return state
-
-    def _repack_spans(self, tr: LayoutTransition,
-                      spans: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """This rank's span of every dst bucket, from this rank's spans of
-        the src buckets (``repack_state`` at N ranks)."""
-        dst, rank = tr.dst, self.dp.rank
-        out = [spans[tr.copies[b][0].src_bucket] if tr.identical[b]
-               else torch.zeros((dst.shard_sizes[b],), dtype=spans[0].dtype,
-                                device=spans[0].device)
-               for b in range(dst.n_buckets)]
-        feeds: Dict[int, List[Tuple[int, Any]]] = {}
-        for b in range(dst.n_buckets):
-            if not tr.identical[b]:
-                for c in tr.copies[b]:
-                    feeds.setdefault(c.src_bucket, []).append((b, c))
-        for sb in sorted(feeds):           # the same order on every rank
-            full = torch.empty((tr.src.buf_sizes[sb],), dtype=spans[sb].dtype,
-                               device=spans[sb].device)
-            dist.all_gather_into_tensor(full, spans[sb], group=self.dp.group)
-            for b, c in feeds[sb]:
-                n = dst.shard_sizes[b]
-                lo = max(c.dst_off, rank * n)
-                hi = min(c.dst_off + c.length, (rank + 1) * n)
-                if lo < hi:
-                    at = c.src_off + lo - c.dst_off
-                    out[b][lo - rank * n:hi - rank * n] = full[at:at + hi - lo]
-            del full
-        return out
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -1382,14 +1512,9 @@ class DeftRuntime:
         if pending.layout is not None:
             self._sync_device()
             t0 = time.perf_counter()
-            tr0 = self.tracer.now()
-            state = self._repack(state, pending.transition)
-            self._sync_device()
+            state = self._repack(state, pending.transition,
+                                 span="swap-repack", step=i)
             repack_s = time.perf_counter() - t0
-            self.tracer.add(
-                "repack", "swap-repack", tr0, self.tracer.now(), step=i,
-                moved_elems=pending.transition.moved_elems,
-                n_buckets=pending.layout.n_buckets)
             self.layout = pending.layout
             self.segments = pending.segments
             self.layout_swaps += 1

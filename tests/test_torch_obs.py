@@ -18,7 +18,10 @@ against the JAX package's (DESIGN.md §11, §13-§14).
   synthetic walls and a hot swap, and writes a Chrome trace with phase,
   swap-install and repack spans.  The two launchers draw other batches,
   and JAX's may still be compiling its swap when it ends, so only the
-  lines the walls decide are compared.
+  lines the walls decide are compared.  JAX's launcher runs through
+  ``_JAX_LAUNCHER``, which joins that compile before the interpreter
+  exits: left running, it aborts or crashes the exit (SIGABRT or
+  SIGSEGV, more often under load; ROADMAP §3).
 """
 import dataclasses
 import json
@@ -144,6 +147,18 @@ ADAPT_ARGS = ["--arch", "qwen3-4b", "--smoke", "--steps", "16", "--batch",
               "--adapt-repartition"]
 
 
+# JAX's launcher, then a join of its background swap compile (the runtime
+# names the thread), so that the interpreter never exits with it running
+_JAX_LAUNCHER = """
+import runpy, sys, threading
+sys.argv[0] = "repro.launch.train"
+runpy.run_module("repro.launch.train", run_name="__main__", alter_sys=True)
+for t in threading.enumerate():
+    if t.name == "deft-swap-compile":
+        t.join()
+"""
+
+
 @pytest.fixture(scope="module", autouse=True)
 def launchers(tmp_path_factory):
     """Both packages' launchers under ``ADAPT_ARGS``, each writing its
@@ -153,9 +168,10 @@ def launchers(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                PYTHONUNBUFFERED="1")
     out = {pkg: d / f"{pkg}.json" for pkg in ("repro", "repro_torch")}
+    entry = {"repro": ["-c", _JAX_LAUNCHER],
+             "repro_torch": ["-m", "repro_torch.launch.train"]}
     procs = {pkg: subprocess.Popen(
-        [sys.executable, "-m", f"{pkg}.launch.train", *ADAPT_ARGS,
-         "--trace", str(out[pkg])]
+        [sys.executable, *entry[pkg], *ADAPT_ARGS, "--trace", str(out[pkg])]
         + (["--device", "cpu"] if pkg == "repro_torch" else []),
         cwd=d, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for pkg in out}
@@ -169,13 +185,9 @@ def launchers(tmp_path_factory):
 def test_launcher_adapt_and_trace(launchers):
     procs, out = launchers
     logs = {pkg: p.communicate(timeout=300)[0] for pkg, p in procs.items()}
-    assert procs["repro_torch"].returncode == 0, logs["repro_torch"][-3000:]
-    # JAX's launcher aborts at interpreter exit (SIGABRT) when its
-    # background swap compile is still running then (ROADMAP §3); its
-    # lines are all out by that point
-    assert procs["repro"].returncode == 0 or (
-        procs["repro"].returncode == -6
-        and f"trace -> {out['repro']}" in logs["repro"]), logs["repro"][-3000:]
+    for pkg, p in procs.items():
+        assert p.returncode == 0, logs[pkg][-3000:]
+    assert f"trace -> {out['repro']}" in logs["repro"]
 
     def replans(log):
         # the replan lines the synthetic walls decide, solve time aside

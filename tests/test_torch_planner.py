@@ -2,7 +2,8 @@
 control planes must stay the JAX package's.
 
 The port imports nothing of ``repro``, so it carries copies of
-``repro/core``, the configs it runs, ``repro/obs`` and ``repro/adapt``.
+``repro/core``, the configs it runs, ``repro/obs``, ``repro/adapt`` and
+``repro/elastic``'s health monitor, fault scenarios and controller.
 Each copied file must equal its original with only the package name in
 imports changed, the copied planner must return the same schedule and
 bucket times, and the port's per-leaf time model (the repartitioner's
@@ -38,6 +39,7 @@ COPIED = sorted(
        "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py"]
     + [f"{pkg}/{p.name}" for pkg in ("obs", "adapt")
        for p in (SRC / "repro" / pkg).glob("*.py")]
+    + ["elastic/health.py", "elastic/faults.py", "elastic/controller.py"]
 )
 
 

@@ -5,7 +5,9 @@ JAX package.
   and ``moved_elems`` (and its ``reverse``) between layouts of two
   partitions, shard counts 1, 2 and 4, and precision policies;
   ``repack_buffers`` equals JAX's bitwise on 1-D and ``(rows, n)``
-  buffers, an identical bucket being the source tensor itself.
+  buffers, an identical bucket being the source tensor itself; so does
+  ``repack_placed`` on one rank (whole buffers), its new buckets made
+  uninitialised as NaN, so that an element it leaves unwritten shows.
 * A checkpoint written under partition A restores into a runtime of
   partition B (``restore_runtime_state``): ``cur``/``fut`` equal
   unflatten-under-A then reflatten-under-B, params equal the
@@ -72,7 +74,7 @@ from repro_torch.train.bucketing import (
     repack_buffers,
     unflatten_buckets,
 )
-from repro_torch.train.runtime import DeftRuntime
+from repro_torch.train.runtime import DeftRuntime, Placement, repack_placed
 
 ARCH, B, S, LR = "qwen3-4b", 2, 32, 1e-3
 PARTS = (120_000, 250_000)
@@ -155,6 +157,35 @@ def test_layout_transition_matches_jax(trees, src, dst):
     # a bf16 buffer stays bf16 (the zero tail takes the source dtype)
     low = [torch.zeros(n, dtype=torch.bfloat16) for n in tsrc.buf_sizes]
     assert all(x.dtype == torch.bfloat16 for x in repack_buffers(tt, low))
+
+
+@pytest.mark.parametrize("src,dst", PAIRS)
+def test_repack_placed_matches_jax(group, trees, src, dst, monkeypatch):
+    """The repack every layout change runs, on one rank's whole buffers:
+    each element written once, the padded tail zero, identical buckets
+    passed through."""
+    jsrc, tsrc = _layouts(trees, *src)
+    jdst, tdst = _layouts(trees, *dst)
+    jt, tt = jax_transition(jsrc, jdst), build_layout_transition(tsrc, tdst)
+    rng = np.random.default_rng(7 + sum(src[:2]) + 10 * sum(dst[:2]))
+    bufs = []
+    for b, n in enumerate(tsrc.buf_sizes):
+        x = rng.standard_normal(n).astype(np.float32)
+        x[tsrc.sizes[b]:] = 0
+        bufs.append(x)
+    src_t = [torch.from_numpy(x) for x in bufs]
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).fill_(
+        float("nan")))
+    got = repack_placed(tt, src_t, Placement((0,), None, tsrc, False),
+                        Placement((0,), None, tdst, False),
+                        dtype=torch.float32, device="cpu")
+    want = jax_repack(jt, [jnp.asarray(x) for x in bufs])
+    assert len(got) == len(want) == tdst.n_buckets
+    for b, (g, w) in enumerate(zip(got, want)):
+        assert np.array_equal(g.numpy(), np.asarray(w)), b
+        if tt.identical[b]:
+            assert g is src_t[tt.copies[b][0].src_bucket]
 
 
 def test_layout_transition_needs_one_tree(trees):
