@@ -11,7 +11,11 @@
    128 and 256 with GQA (MQA 16:1 too), causal, window, softcap and a
    ragged length (out, lse and autograd gradients within 1e-4; its split
    pass's K/V hi + lo bitwise), then at the paths' shapes (gemma2-2b's
-   global and local layers, recurrentgemma-9b's MQA local layer), with its
+   global and local layers, recurrentgemma-9b's MQA local layer) and at
+   the encoder-decoder path's three D 64 shapes (the decoder's causal
+   self-attention [1, 4096, 16, 64], the encoder's bidirectional one over
+   1024 frames, the cross-attention of 4096 queries over 1024 frames;
+   gradients too), with its
    bound at the TF32 rate for the three products beside the CUDA-core
    bound and the kernel's registers and spills; the bucket
    update bitwise for AdamW and SGD, uniform and per-element, masked
@@ -123,7 +127,15 @@
    24 times and flash never.  Each path
    prints its parameter count as the sum of its leaves beside
    ``cfg.total_params()``'s formula (which undercounts rwkv6).
-7. Checkpoints and resumes mid-cycle (``checkpoint_path``,
+7. Drives seamless-m4t-large-v2 (``encdec_path``) the same way as 3, at
+   full width and full depth: 24 encoder and 24 decoder layers, d_model
+   1024, 16 heads of 64, d_ff 8192, vocab 256,206, tied embeddings,
+   layernorm, a plain GELU MLP; sequence 4096 over the config's 1024 stub
+   frames (``make_batch``'s memory), 2 x period + 2 steps, held to the
+   same limits against its plain run.  Per step it must launch flash 120
+   times: 4 in each decoder layer (self and cross, forward and remat
+   recompute) and 1 in each encoder layer (no remat).
+8. Checkpoints and resumes mid-cycle (``checkpoint_path``,
    ``checkpoint_precision_path``): the main path's configuration and the
    sharded delayed precision run's (int8 wires, bf16sr master, bf16
    compute, the gather skip) run through ``train`` up to cycle position 2
@@ -141,7 +153,7 @@
    bitwise the uninterrupted run's; and the host's
    ``np.savez_compressed`` rate on 50,000,000 random f32 values with
    the full-width disk save it implies.
-8. Drives the adaptive control plane on the card (``adapt_path``,
+9. Drives the adaptive control plane on the card (``adapt_path``,
    ``adapt_precision_path``): the main path's configuration and the
    sharded delayed precision run's through ``train(adapt=True)`` with the
    tracer on, the copied controller fed the synthetic walls of a 3x
@@ -163,7 +175,7 @@
    between two sibling runtimes).  Prints the replan and swap steps, the
    buckets, the elements moved, ``repack_s``, the step time on both sides
    and the peak.
-9. Drives the elastic control plane's bottom rungs on the card (one
+10. Drives the elastic control plane's bottom rungs on the card (one
    card is one rank, so scale-downs across ranks and straggler detection
    are held on CPU gloo ranks only): ``elastic_fallback_path`` and
    ``elastic_fallback_precision_path``, the sharded f32 run and the
@@ -180,7 +192,7 @@
    ckpt=...)``: the only shard drops, the run halts with the emergency
    checkpoint, and ``train(resume=True)`` finishes it bitwise an
    uninterrupted run; prints the save and restore times.
-10. Prints the kernels line, the card's name and power limit, and last the
+11. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -244,6 +256,20 @@ FLASH_PATH_SHAPES = {
     "global": (BATCH, SEQ, 8, 4, 256, 0, 50.0),
     "local": (BATCH, SEQ, 8, 4, 256, 4096, 50.0),
     "recurrentgemma": (BATCH, SEQ, 16, 1, 256, RG_WINDOW, 0.0),
+}
+# the encoder-decoder path: seamless-m4t-large-v2 at full width and full
+# depth (24 encoder and 24 decoder layers), sequence 4096 (the train_4k
+# length) over the config's 1024 stub frames; 2 x period + 2 steps.  Its
+# f32 flash shapes, all D 64 over 16 heads: the decoder's causal
+# self-attention, the encoder's bidirectional one and the decoder's
+# cross-attention (queries over the sequence, keys over the frames):
+# (B, Sq, Sk, H, KV, D, causal)
+ED_ARCH, ED_LAYERS, ED_ENC_LAYERS, ED_SEQ, ED_FRAMES = (
+    "seamless-m4t-large-v2", 24, 24, 4096, 1024)
+FLASH_ED_SHAPES = {
+    "encdec_self": (BATCH, ED_SEQ, ED_SEQ, 16, 16, 64, True),
+    "encdec_encoder": (BATCH, ED_FRAMES, ED_FRAMES, 16, 16, 64, False),
+    "encdec_cross": (BATCH, ED_SEQ, ED_FRAMES, 16, 16, 64, False),
 }
 # the RWKV-6 path: rwkv6-1.6b at full width and full depth (24 of 24 layers),
 # 8 steps (two DeFT schedule periods at coverage rate 1.8); its time-mix has
@@ -325,10 +351,11 @@ def kernel_ms(torch, fn, iters: int, match: str) -> dict:
     return per
 
 
-def flex_call(torch, q, k, v, window: int, cap: float):
+def flex_call(torch, q, k, v, window: int, cap: float, causal: bool = True):
     """One compiled ``flex_attention`` call computing the same function as
     the flash kernel: GQA, causal (and window) block mask, softcap
-    ``cap * tanh(s / cap)`` as ``score_mod``, scale 1/sqrt(D)."""
+    ``cap * tanh(s / cap)`` as ``score_mod``, scale 1/sqrt(D); without
+    ``causal`` no mask, over q's and k's own lengths."""
     from torch.nn.attention.flex_attention import (
         create_block_mask,
         flex_attention,
@@ -341,8 +368,10 @@ def flex_call(torch, q, k, v, window: int, cap: float):
         keep = qi >= ki
         return keep & (ki > qi - window) if window else keep
 
-    s = q.shape[1]
-    mask = create_block_mask(mask_mod, None, None, s, s, device=q.device)
+    mask = None
+    if causal:
+        s = q.shape[1]
+        mask = create_block_mask(mask_mod, None, None, s, s, device=q.device)
     # a fresh compile for each yardstick: a recompile for another cap would
     # otherwise turn the captured float dynamic, which flex cannot lower
     torch._dynamo.reset()
@@ -352,10 +381,12 @@ def flex_call(torch, q, k, v, window: int, cap: float):
                       block_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
-def visible_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a length-``s`` self-attention computes."""
+def visible_pairs(s: int, causal: bool, window: int,
+                  sk: int = 0) -> int:
+    """(query, key) pairs a length-``s`` self-attention computes (a
+    non-causal one over ``sk`` keys when given)."""
     if not causal:
-        return s * s
+        return s * (sk or s)
     if not window or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
@@ -390,6 +421,22 @@ def flash_phase(torch, report):
               f"flash split pass not bitwise equal to its plain version at "
               f"{what}")
 
+    def grad_err(q, k, v, kw, what):
+        """Max |diff| between the autograd gradients through the kernel and
+        through the plain version, held to FLASH_TOL."""
+        w = torch.randn(q.shape, device="cuda", generator=gen)
+        grads = []
+        for impl in ("cuda", "plain"):
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            torch.sum(flash_attention(*xs, impl=impl, **kw) * w).backward()
+            grads.append([x.grad for x in xs])
+        err = 0.0
+        for a, g in zip(*grads):
+            err = max(err, (a - g).abs().max().item())
+            check(torch.allclose(a, g, rtol=FLASH_TOL, atol=FLASH_TOL),
+                  f"flash gradients disagree at {what}")
+        return err
+
     max_err = 0.0
     for b, s, h, kvh, d, causal, window, cap in FLASH_CASES:
         kw = dict(causal=causal, window=window, softcap=cap)
@@ -407,25 +454,24 @@ def flash_phase(torch, report):
               and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
               f"flash kernel disagrees with plain at {b, s, h, kvh, d, kw}: "
               f"max err {err:.3g}")
-        w = torch.randn(q.shape, device="cuda", generator=gen)
-        grads = []
-        for impl in ("cuda", "plain"):
-            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            torch.sum(flash_attention(*xs, impl=impl, **kw) * w).backward()
-            grads.append([x.grad for x in xs])
-        for a, g in zip(*grads):
-            err = max(err, (a - g).abs().max().item())
-            check(torch.allclose(a, g, rtol=FLASH_TOL, atol=FLASH_TOL),
-                  f"flash gradients disagree at {b, s, h, kvh, d, kw}")
+        err = max(err, grad_err(q, k, v, kw, (b, s, h, kvh, d, kw)))
         max_err = max(max_err, err)
         print(f"flash D={d} S={s} H={h}/{kvh} {kw}: ok (max err {err:.3g})")
 
-    # the paths' shapes
+    # the paths' shapes, each against its plain version, its bound and
+    # compiled flex_attention; the encoder-decoder's D 64 shapes with
+    # their gradients too
     shapes = {}
-    for layer, (b, s, h, kvh, d, window, cap) in FLASH_PATH_SHAPES.items():
-        q, k, v = qkv(b, s, h, kvh, d)
-        kw = dict(causal=True, window=window, softcap=cap)
-        split = split_buffer(b, kvh, s, d, "cuda")
+    cases = [(layer, b, s, s, h, kvh, d, True, window, cap) for layer,
+             (b, s, h, kvh, d, window, cap) in FLASH_PATH_SHAPES.items()]
+    cases += [(layer, b, sq, sk, h, kvh, d, causal, 0, 0.0) for layer,
+              (b, sq, sk, h, kvh, d, causal) in FLASH_ED_SHAPES.items()]
+    for layer, b, sq, sk, h, kvh, d, causal, window, cap in cases:
+        q = torch.randn((b, sq, h, d), device="cuda", generator=gen)
+        k, v = (torch.randn((b, sk, kvh, d), device="cuda", generator=gen)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        split = split_buffer(b, kvh, sk, d, "cuda")
         out, lse = flash_fwd_cuda(q, k, v, split=split, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -433,15 +479,17 @@ def flash_phase(torch, report):
                   (lse - ref_lse).abs().max().item())
         check(torch.allclose(out, ref, rtol=FLASH_TOL, atol=FLASH_TOL)
               and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
-              f"flash kernel disagrees with plain at the {layer} layer's "
-              f"shape: max err {err:.3g}")
-        max_err = max(max_err, err)
+              f"flash kernel disagrees with plain at the {layer} shape: max "
+              f"err {err:.3g}")
         del out, lse, ref, ref_lse
-        split_bitwise(k, v, split, f"the {layer} layer's shape")
+        split_bitwise(k, v, split, f"the {layer} shape")
         del split
-        ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 5)
+        if layer in FLASH_ED_SHAPES:
+            err = max(err, grad_err(q, k, v, kw, f"the {layer} shape"))
+        max_err = max(max_err, err)
+        ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
-        lib = flex_call(torch, q, k, v, window, cap)
+        lib = flex_call(torch, q, k, v, window, cap, causal=causal)
         lib_err = (lib() - flash_fwd_cuda(q, k, v, **kw)[0]).abs().max().item()
         library_ms = time_ms(torch, lib, 3)
         del lib
@@ -449,11 +497,11 @@ def flash_phase(torch, report):
         # (the least the tensor cores can do it in); beside it the kernel's
         # own split-TF32 work (three products each) at that rate, and the
         # function at the f32 rate of the CUDA cores
-        flops = 4.0 * d * visible_pairs(s, True, window) * h * b
-        nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * s)
+        flops = 4.0 * d * visible_pairs(sq, causal, window, sk) * h * b
+        nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * sq)
         bound_ops = flops / TF32_FLOPS_PER_S * 1e3
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        shapes[layer] = dict(
+        shapes[layer] = sh = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(bound_ops, bound_bytes),
             bound_by="operations" if bound_ops >= bound_bytes else "bytes",
@@ -461,10 +509,11 @@ def flash_phase(torch, report):
             bound_f32_cuda_core_ms=max(flops / F32_FLOPS_PER_S * 1e3,
                                        bound_bytes),
             flops=flops, bytes=nbytes, max_abs_err=err,
-            library_max_abs_err=lib_err)
-        sh = shapes[layer]
-        print(f"flash {layer} layer (B={b} S={s} H={h}/{kvh} D={d} "
-              f"window={window} softcap={cap}): kernel {ms:.3f} ms, plain "
+            library_max_abs_err=lib_err,
+            shape=f"B={b} Sq={sq} Sk={sk} H={h} KV={kvh} D={d} "
+                  f"{'causal' if causal else 'non-causal'} window={window} "
+                  f"softcap={cap}")
+        print(f"flash {layer} ({sh['shape']}): kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, flex_attention {library_ms:.3f} ms (max "
               f"diff to the kernel {lib_err:.3g}), bound {sh['bound_ms']:.3f} "
               f"ms ({sh['bound_by']}, TF32), {sh['bound_ms'] / ms:.1%} of it; "
@@ -472,12 +521,16 @@ def flash_phase(torch, report):
               f"({sh['bound_split_tf32_ms'] / ms:.1%}); CUDA-core bound "
               f"{sh['bound_f32_cuda_core_ms']:.3f} ms; "
               f"{flops / ms / 1e9:.1f} TFLOP/s of the function's, "
-              f"{3 * flops / ms / 1e9:.1f} TF32 TFLOP/s issued")
+              f"{3 * flops / ms / 1e9:.1f} TF32 TFLOP/s issued; max err "
+              f"{err:.3g}" + (" (gradients included)"
+                              if layer in FLASH_ED_SHAPES else ""))
     ptxas = build.ptxas_report(build.build_log("flash_fwd"),
                                "flash_fwd_tf32_kernel<256>")
-    print("; ".join(ptxas))
+    ptxas_d64 = build.ptxas_report(build.build_log("flash_fwd"),
+                                   "flash_fwd_tf32_kernel<64>")
+    print("; ".join(ptxas + ptxas_d64))
     report["flash"] = dict(cases=len(FLASH_CASES), max_abs_err=max_err,
-                           ptxas_d256=ptxas, **shapes)
+                           ptxas_d256=ptxas, ptxas_d64=ptxas_d64, **shapes)
     torch.cuda.empty_cache()
     g = shapes["global"]
     return {
@@ -499,6 +552,8 @@ def flash_phase(torch, report):
         "rg_library_ms": shapes["recurrentgemma"]["library_ms"],
         "rg_shape": f"B=1 S=8192 H=16 KV=1 D=256 causal window={RG_WINDOW} "
                     f"(recurrentgemma-9b local layer)",
+        **{f"{layer}_{k}": shapes[layer][k] for layer in FLASH_ED_SHAPES
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
         "ptxas": ptxas,
         "note": "a split pass writes K and V as TF32 hi + lo; S = Q.K^T and "
                 "P.V each run as three TF32 wgmmas (hi.hi + hi.lo + lo.hi); "
@@ -1419,16 +1474,21 @@ def rwkv_grad_phase(torch, cfg, report):
 # the DeFT main path
 # ---------------------------------------------------------------------------
 def expected_launches(cfg, schedule, layout, steps):
-    """Launches of each f32-path kernel in ``steps`` steps: every layer runs
-    its forward twice (once more in the remat recompute) and its backward
-    once; every update launches the bucket update once per bucket."""
+    """Launches of each f32-path kernel in ``steps`` steps: every decoder
+    layer runs its forward twice (once more in the remat recompute) and
+    its backward once, an encoder layer its forward once (the encoder has
+    no remat); an encoder-decoder's ``cross_attn`` layer attends twice
+    (self and cross), a VLM's once; every update launches the bucket
+    update once per bucket."""
     kinds = [spec.kind for spec in cfg.layer_specs()]
     attn = sum(k in ("attn", "local_attn") for k in kinds)
+    attn += (2 if cfg.is_encoder_decoder else 1) * kinds.count("cross_attn")
     rec = kinds.count("rglru")
     rwkv = kinds.count("rwkv")
     updates = sum(schedule.phases[i % schedule.period].do_update
                   for i in range(steps))
-    return {"flash_fwd": 2 * attn * steps, "flash_fwd_sm90": 0,
+    flash = (2 * attn + cfg.n_encoder_layers) * steps
+    return {"flash_fwd": flash, "flash_fwd_sm90": 0,
             "rglru_fwd": 2 * rec * steps,
             "rglru_bwd": rec * steps, "rwkv6_fwd": 2 * rwkv * steps,
             "rwkv6_bwd": rwkv * steps,
@@ -1573,10 +1633,11 @@ def print_against(report, against, dist_):
 
 def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
               bucket_share=None, fsdp=False, decoupled=False, chain=False,
-              store=None, against=None):
-    """One f32 DeFT path: the first schedule period once with every plain
-    version forced, then ``steps`` steps with every launch counter set to 0
-    just before and read just after, held to the plain run.
+              store=None, against=None, seq=SEQ):
+    """One f32 DeFT path at sequence ``seq``: the first schedule period
+    once with every plain version forced, then ``steps`` steps with every
+    launch counter set to 0 just before and read just after, held to the
+    plain run.
 
     ``bucket_share`` replaces the element-count limit on the params by a
     share of each bucket's elements beyond 10 * PARAM_TOL, with every
@@ -1597,11 +1658,11 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     gc.collect()                 # an earlier path's state is gone first
     torch.cuda.empty_cache()
     period = schedule.period
-    kw = dict(scheduler="deft", batch=BATCH, seq=SEQ,
+    kw = dict(scheduler="deft", batch=BATCH, seq=seq,
               coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
-              seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK)
+              seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK, fsdp=fsdp)
     if fsdp:
-        kw.update(fsdp=True, decoupled=decoupled)
+        kw.update(decoupled=decoupled)
     if chain:
         kw.update(secondary_chain=(0,), reroute=route_all_secondary)
 
@@ -1717,7 +1778,7 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     out = dict(
         config=dict(arch=arch, n_layers=cfg.n_layers, of_layers=of_layers,
                     params=leaf_params(cfg),
-                    params_formula=cfg.total_params(), batch=BATCH, seq=SEQ,
+                    params_formula=cfg.total_params(), batch=BATCH, seq=seq,
                     coverage_rate=COVERAGE_RATE,
                     partition_elems=PARTITION_ELEMS, loss_chunk=LOSS_CHUNK),
         n_buckets=res["layout"].n_buckets, period=period,
@@ -1725,7 +1786,7 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
         batch_size_sequence=list(schedule.batch_size_sequence),
         steps=steps, losses=losses, ref_losses=ref_losses,
         loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
-        tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
+        tokens_per_s=BATCH * seq / step_s, peak_bytes=peak,
         launches=launches, collectives=res["collectives"], **agree)
     if fsdp:
         out.update(
@@ -1742,7 +1803,7 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     report[key] = out
     print(f"{key} ({arch}, {cfg.n_layers} of {of_layers} layers): {steps} "
           f"steps, median step {step_s:.3f} s, "
-          f"{BATCH * SEQ / step_s:.0f} tok/s, peak memory "
+          f"{BATCH * seq / step_s:.0f} tok/s, peak memory "
           f"{peak / 2**30:.2f} GiB [{report['card']}], launches {launches}, "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, vs plain: loss rel "
           f"{rel:.2g}, params max diff {agree['max_param_diff']:.3g} "
@@ -2877,6 +2938,31 @@ def run() -> int:
           f"{RWKV_ARCH}: degenerate schedule or {RWKV_STEPS} steps short of "
           f"two periods ({rw_schedule.period})")
 
+    ed_cfg = get_config(ED_ARCH)
+    check(ed_cfg.is_encoder_decoder and ed_cfg.n_layers == ED_LAYERS
+          and ed_cfg.n_encoder_layers == ED_ENC_LAYERS
+          and ed_cfg.n_modal_tokens == ED_FRAMES
+          and all((ed_cfg.n_heads, ed_cfg.n_kv_heads, ed_cfg.resolved_head_dim)
+                  == (sh[3], sh[4], sh[5]) for sh in FLASH_ED_SHAPES.values()),
+          f"{ED_ARCH}: {ed_cfg.n_encoder_layers} + {ed_cfg.n_layers} layers, "
+          f"{ed_cfg.n_modal_tokens} frames, {ed_cfg.n_heads} heads of "
+          f"{ed_cfg.resolved_head_dim}")
+    print(f"config: {ED_ARCH} at full width and full depth (d_model "
+          f"{ed_cfg.d_model}, {ed_cfg.n_heads} heads of "
+          f"{ed_cfg.resolved_head_dim}, d_ff {ed_cfg.d_ff}, vocab "
+          f"{ed_cfg.vocab_size}, {ED_ENC_LAYERS} encoder + {ED_LAYERS} "
+          f"decoder layers, {ED_FRAMES} stub frames, {ed_cfg.norm}, "
+          f"{ed_cfg.ffn_activation}, tied embeddings): "
+          f"{leaf_params(ed_cfg):,} params as leaves (formula "
+          f"{ed_cfg.total_params():,}, which counts one attention per "
+          f"decoder layer)")
+    ed_schedule = build_schedule(
+        init_params(ed_cfg, device="meta"), ed_cfg, dp=1, seq_len=ED_SEQ,
+        per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+        coverage_rate=COVERAGE_RATE)[3].schedule
+    check(any(ph.update_k > 1 or ph.rotate for ph in ed_schedule.phases),
+          f"{ED_ARCH}: degenerate schedule")
+
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
     sharded_update_phase(torch, meta, bucket_of, nb, report)
     entries += quantize_phase(torch, layout, report)
@@ -2925,6 +3011,9 @@ def run() -> int:
                                       "rwkv_path", RWKV_ARCH, RWKV_LAYERS,
                                       RWKV_STEPS,
                                       bucket_share=RWKV_BUCKET_SHARE),
+        f"{ED_ARCH} f32": main_path(torch, ed_cfg, ed_schedule, report,
+                                    "encdec_path", ED_ARCH, ED_LAYERS,
+                                    2 * ed_schedule.period + 2, seq=ED_SEQ),
     }
     checkpoint_path(torch, cfg, report, "checkpoint_path",
                     ("main_path", replicated, True),

@@ -1,8 +1,12 @@
-"""Architecture registry of the port: the two dense decoders of its main
-path (gemma2-2b, qwen3-4b), the Griffin hybrid recurrentgemma-9b, the
-RWKV-6 (Finch) model rwkv6-1.6b, plus ``reduce_for_smoke``.
+"""Architecture registry of the port: the dense decoders gemma2-2b,
+qwen3-4b (its main path), starcoder2-7b and deepseek-7b, the Griffin
+hybrid recurrentgemma-9b, the RWKV-6 (Finch) model rwkv6-1.6b, the
+encoder-decoder seamless-m4t-large-v2 and the VLM llama-3.2-vision-90b
+(gated cross-attention blocks), plus ``reduce_for_smoke``.  The MLA and
+MoE configs (deepseek-v2-236b, llama4-maverick-400b-a17b) wait for their
+blocks.
 
-``base.py`` and the four config modules are verbatim copies of the JAX
+``base.py`` and the eight config modules are verbatim copies of the JAX
 package's (imports renamed); ``tests/test_torch_planner.py`` holds them
 against the originals so the two cannot drift.
 """
@@ -12,16 +16,22 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs import (
+    deepseek_7b,
     gemma2_2b,
+    llama_3_2_vision_90b,
     qwen3_4b,
     recurrentgemma_9b,
     rwkv6_1_6b,
+    seamless_m4t_large_v2,
+    starcoder2_7b,
 )
 from repro_torch.configs.base import ArchConfig, LayerSpec, MLAConfig, MoEConfig
 
 _REGISTRY: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (gemma2_2b, qwen3_4b, recurrentgemma_9b,
-                              rwkv6_1_6b)
+                              rwkv6_1_6b, seamless_m4t_large_v2,
+                              llama_3_2_vision_90b, starcoder2_7b,
+                              deepseek_7b)
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

@@ -15,6 +15,11 @@ everything else) with the top kernels by name.  ``--wire-precision`` and
         --layers 6 --out chiprun_out/profile_recurrent.json
     python -m repro_torch.launch.profile_step --arch rwkv6-1.6b \
         --layers 24 --out chiprun_out/profile_rwkv6.json
+    python -m repro_torch.launch.profile_step --arch seamless-m4t-large-v2 \
+        --layers 24 --seq 4096 --out chiprun_out/profile_encdec.json
+
+``--layers`` sets the decoder's depth; an encoder-decoder keeps its
+config's encoder layers.
 """
 from __future__ import annotations
 

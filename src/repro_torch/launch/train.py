@@ -22,7 +22,10 @@ an emergency checkpoint when none survive, DESIGN.md §10) and ``--trace
 OUT.json``, a Chrome trace of every step's spans.  Runs on the card unless ``--device
 cpu``.  Under ``torchrun`` the process group comes from its environment;
 run alone it is a one-rank group (NCCL on the card, gloo on the CPU), so
-every gradient sum still goes through a real collective.
+every gradient sum still goes through a real collective.  ``--arch``
+takes every config of ``repro_torch.configs``; an audio or vision
+config's batches carry the stub frontend's memory, split over the ranks
+with the tokens.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --scheduler deft --steps 8 --batch 4 --seq 64 \
@@ -38,6 +41,9 @@ every gradient sum still goes through a real collective.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 16 --batch 2 --seq 32 --device cpu --adapt \
         --adapt-drop-step 4 --adapt-repartition --trace OUT.json
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch seamless-m4t-large-v2 --smoke --steps 6 --batch 2 --seq 32 \
+        --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen3-4b --smoke --steps 28 --batch 4 --seq 32 --device cpu \
         --fsdp --coverage-rate 3.5 --elastic --elastic-drop-step 4 \
@@ -326,9 +332,11 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     "plain" force the kernels' plain versions (a comparison knob).
     ``wire_precision`` ("auto", "f32", "bf16", "int8"), ``master_dtype``
     ("f32", "bf16sr") and ``compute_dtype`` ("f32", "bf16") are the DeFT
-    engine's precision (the DDP baseline takes none).  ``fsdp`` runs the
+    engine's precision (the DDP baseline takes none; an audio or vision
+    config takes the f32 master and compute only).  ``fsdp`` runs the
     sharded flat engine over a layout of one shard per rank (None: the
-    arch's default, ``needs_fsdp``); its gather skip is on where the
+    arch's default, ``needs_fsdp``, under DeFT; the DDP baseline is
+    replicated); its gather skip is on where the
     schedule can reuse a gather, and ``decoupled`` streams its param
     gathers into the forward.  ``pod`` lays the ranks out as ``pod x
     data`` (``pod_groups``): the sharded layout splits over 'data' and the
@@ -394,8 +402,14 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     tracer = Tracer() if trace else None
     runtime = None
     start_step = 0
-    if fsdp is None:
-        fsdp = needs_fsdp(cfg.name)
+    if fsdp is None:             # the DDP baseline is replicated only
+        fsdp = scheduler == "deft" and needs_fsdp(cfg.name)
+    if cfg.modality != "text" and (master_dtype, compute_dtype) != ("f32",
+                                                                   "f32"):
+        raise NotImplementedError(
+            f"{cfg.name}: the precision path of a config with a stub "
+            f"frontend's memory (a bf16sr master or bf16 compute) is not "
+            f"ported yet (see ROADMAP.md)")
     if elastic and adapt:
         raise ValueError("elastic and adapt are mutually exclusive: the "
                          "elastic controller owns replanning while it owns "

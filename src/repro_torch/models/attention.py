@@ -1,13 +1,19 @@
-"""GQA self-attention of the port (train/prefill, no cache).
+"""GQA self-attention and cross-attention of the port (train/prefill, no
+cache).
 
 Port of the no-cache branch of ``repro/models/attention.py::
 apply_self_attention``: q/k/v projections, optional per-head qk RMSNorm,
 RoPE at positions 0..S-1, then ``flash_attention`` with the layer's
-window and the config's logit softcap.  Layout [B, S, H, D] throughout.
+window and the config's logit softcap; and of its cross-attention
+(``init_cross_attention``, ``cross_kv``, ``apply_cross_attention``): the
+queries attend, without a mask and without RoPE, to K/V projected from a
+memory (the encoder's output or the stub frontend's embeddings), with an
+optional ``tanh(gate)`` on the output (the VLM's gated block).  Layout
+[B, S, H, D] throughout.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,3 +61,43 @@ def apply_self_attention(p: Dict, x: torch.Tensor, *, cfg, window: int = 0,
     att = flash_attention(q, k, v, causal=causal, window=window,
                           softcap=cfg.attn_logit_softcap, impl=attn_impl)
     return att.reshape(b, s, -1) @ p["wo"]
+
+
+def init_cross_attention(generator, cfg, *, lead: Sequence[int] = (),
+                         device="cuda", dtype=torch.float32) -> Dict:
+    """``init_attention``'s params plus the 0-d ``gate`` (0: closed)."""
+    p = init_attention(generator, cfg, lead=lead, device=device, dtype=dtype)
+    p["gate"] = torch.zeros(tuple(lead), dtype=dtype, device=device)
+    return p
+
+
+def cross_kv(p: Dict, memory: torch.Tensor, cfg
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """memory [B, M, d] -> K, V [B, M, KV, D] (K per-head normed with
+    ``use_qk_norm``)."""
+    b, m, _ = memory.shape
+    hd = cfg.resolved_head_dim
+    k = (memory @ p["wk"]).reshape(b, m, cfg.n_kv_heads, hd)
+    v = (memory @ p["wv"]).reshape(b, m, cfg.n_kv_heads, hd)
+    if cfg.use_qk_norm:
+        k = rms_norm_per_head(k, p["k_norm"])
+    return k, v
+
+
+def apply_cross_attention(p: Dict, x: torch.Tensor,
+                          kv: Tuple[torch.Tensor, torch.Tensor], *, cfg,
+                          gated: bool = False,
+                          attn_impl: Optional[str] = None) -> torch.Tensor:
+    """x [B, S, d] attends to ``kv`` (``cross_kv``) -> [B, S, d]."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    if cfg.use_qk_norm:
+        q = rms_norm_per_head(q, p["q_norm"])
+    k, v = kv
+    att = flash_attention(q, k, v, causal=False,
+                          softcap=cfg.attn_logit_softcap, impl=attn_impl)
+    out = att.reshape(b, s, -1) @ p["wo"]
+    if gated:
+        out = torch.tanh(p["gate"].float()).to(out.dtype) * out
+    return out

@@ -1,13 +1,17 @@
-"""Decoder block of the port: (norm -> sequence mixer -> residual) ->
-(norm -> FFN -> residual), with gemma2-style post-norms when
+"""Decoder and encoder block of the port: (norm -> sequence mixer ->
+residual) -> (norm -> FFN -> residual), with gemma2-style post-norms when
 ``cfg.post_block_norm``.
 
 Port of ``repro/models/blocks.py`` for the attention kinds (``attn``,
-``local_attn``) and the RG-LRU recurrent block (``rglru``), each with a
-dense FFN, and the RWKV-6 block (``rwkv``), whose mixer is the time-mix
-and whose FFN sublayer is the RWKV channel-mix (token-shifted
-squared-relu MLP).  The other mixers (MLA, cross-attention) and MoE are
-later slices and raise here.
+``local_attn``), the RG-LRU recurrent block (``rglru``) and the
+cross-attention kind (``cross_attn``), each with a dense FFN, and the
+RWKV-6 block (``rwkv``), whose mixer is the time-mix and whose FFN
+sublayer is the RWKV channel-mix (token-shifted squared-relu MLP).  A
+``cross_attn`` block is, in an encoder-decoder, causal self-attention,
+then a ``cross_norm`` -> cross-attention sublayer over the encoder's
+output, then the FFN; in a VLM, the gated cross-attention over the stub
+frontend's embeddings is its mixer.  MLA and MoE are later slices and
+raise here.
 """
 from __future__ import annotations
 
@@ -16,7 +20,13 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import LayerSpec
-from repro_torch.models.attention import apply_self_attention, init_attention
+from repro_torch.models.attention import (
+    apply_cross_attention,
+    apply_self_attention,
+    cross_kv,
+    init_attention,
+    init_cross_attention,
+)
 from repro_torch.models.common import apply_ffn, apply_norm, init_ffn, init_norm
 from repro_torch.models.recurrent import (
     apply_rglru,
@@ -27,14 +37,15 @@ from repro_torch.models.recurrent import (
     init_rwkv_timemix,
 )
 
-_KINDS = ("attn", "local_attn", "rglru", "rwkv")
+_KINDS = ("attn", "local_attn", "rglru", "rwkv", "cross_attn")
 
 
 def _check_spec(spec: LayerSpec) -> None:
     if spec.kind not in _KINDS or spec.ffn != "dense":
         raise NotImplementedError(
             f"layer {spec.kind}/{spec.ffn} is not ported yet (dense "
-            f"attn/local_attn/rglru/rwkv blocks only; see ROADMAP.md)"
+            f"{'/'.join(_KINDS)} blocks only; MLA and MoE are queued in "
+            f"ROADMAP.md)"
         )
 
 
@@ -50,6 +61,12 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
         p["mixer"] = init_rglru_block(generator, cfg, **kw)
     elif spec.kind == "rwkv":
         p["mixer"] = init_rwkv_timemix(generator, cfg, **kw)
+    elif spec.kind == "cross_attn" and cfg.is_encoder_decoder:
+        p["mixer"] = init_attention(generator, cfg, **kw)          # self
+        p["cross"] = init_cross_attention(generator, cfg, **kw)
+        p["cross_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
+    elif spec.kind == "cross_attn":          # VLM gated cross block
+        p["mixer"] = init_cross_attention(generator, cfg, **kw)
     else:
         p["mixer"] = init_attention(generator, cfg, **kw)
     p["ffn_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
@@ -61,9 +78,14 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
 
 
 def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
-                causal: bool = True, attn_impl: Optional[str] = None,
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
+                attn_impl: Optional[str] = None,
                 scan_impl: Optional[str] = None) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]; a ``cross_attn`` block attends to
+    ``memory`` [B, M, d]."""
     _check_spec(spec)
+    if spec.kind == "cross_attn" and memory is None:
+        raise ValueError("a cross_attn block needs the memory")
 
     def norm(name, h):
         return apply_norm(p[name], h, cfg.norm)
@@ -74,6 +96,10 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     elif spec.kind == "rwkv":
         out = apply_rwkv_timemix(p["mixer"], norm("pre_norm", x), cfg=cfg,
                                  scan_impl=scan_impl)
+    elif spec.kind == "cross_attn" and not cfg.is_encoder_decoder:
+        out = apply_cross_attention(
+            p["mixer"], norm("pre_norm", x), cross_kv(p["mixer"], memory, cfg),
+            cfg=cfg, gated=True, attn_impl=attn_impl)
     else:
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
@@ -82,6 +108,10 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     if cfg.post_block_norm:
         out = norm("post_mixer_norm", out)
     x = x + out
+    if spec.kind == "cross_attn" and cfg.is_encoder_decoder:
+        x = x + apply_cross_attention(
+            p["cross"], norm("cross_norm", x), cross_kv(p["cross"], memory, cfg),
+            cfg=cfg, attn_impl=attn_impl)
     if spec.kind == "rwkv":
         out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x))
     else:

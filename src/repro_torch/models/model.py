@@ -1,14 +1,18 @@
-"""Full model of the port: init / forward / loss over an ArchConfig whose
-blocks are ported (dense attention, RG-LRU and RWKV-6 kinds; tied or
-untied LM head, RMS or layer norm).
+"""Full model of the port: init / encode / forward / loss over an
+ArchConfig whose blocks are ported (dense attention, cross-attention,
+RG-LRU and RWKV-6 kinds; tied or untied LM head, RMS or layer norm).
 
 Port of ``repro/models/model.py`` (train path).  The parameter tree is the
-JAX package's: ``embed``, ``final_norm``, optional ``head``, and the
+JAX package's: ``embed``, ``final_norm``, optional ``head``, the
 ``prefix`` / ``stack`` / ``tail`` block tuples, with each ``stack`` entry
-holding one pattern position's weights stacked over the periods.  Where
-JAX scans the period body, the port loops over the periods (a stacked
-leaf is unbound once per forward, so its gradient comes back stacked);
-``jax.checkpoint`` remat becomes ``torch.utils.checkpoint``.
+holding one pattern position's weights stacked over the periods, and for
+an encoder-decoder the ``encoder`` (its blocks stacked over its layers,
+and its own ``final_norm``).  Where JAX scans the period body, the port
+loops over the periods (a stacked leaf is unbound once per forward, so
+its gradient comes back stacked); ``jax.checkpoint`` remat becomes
+``torch.utils.checkpoint``, which takes the cross-attention memory as an
+input of its own so its gradient reaches the encoder.  The encoder runs
+without remat, as JAX's ``encode`` scans without ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,10 @@ from repro_torch.models.common import (
     softcap,
 )
 from repro_torch.tree import tree_dense, tree_leaves, tree_unflatten
+
+
+# the encoder's blocks: bidirectional self-attention and a dense FFN
+_ENCODER_SPEC = LayerSpec("attn", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +95,12 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     )
     params["tail"] = tuple(init_block(gen, cfg, spec, **kw)
                            for spec in lay.tail_specs)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "stack": init_block(gen, cfg, _ENCODER_SPEC,
+                                lead=(cfg.n_encoder_layers,), **kw),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, **kw),
+        }
     return params
 
 
@@ -100,12 +114,28 @@ def _period_views(stacked, n_periods: int):
             for i in range(n_periods)]
 
 
+def encode(params, cfg: ArchConfig, modal_embeds: torch.Tensor, *,
+           attn_impl: Optional[str] = None) -> torch.Tensor:
+    """The bidirectional encoder over the stub frontend's embeddings
+    [B, M, d] -> its final-norm output [B, M, d] (no remat)."""
+    if not cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} has no encoder")
+    enc = params["encoder"]
+    x = modal_embeds
+    for p in _period_views(enc["stack"], cfg.n_encoder_layers):
+        x = apply_block(p, x, cfg=cfg, spec=_ENCODER_SPEC, causal=False,
+                        attn_impl=attn_impl)
+    return apply_norm(enc["final_norm"], x, cfg.norm)
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            remat: bool = True, head: bool = True,
-            attn_impl: Optional[str] = None,
+            memory: Optional[torch.Tensor] = None, remat: bool = True,
+            head: bool = True, attn_impl: Optional[str] = None,
             scan_impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux); with ``head=False`` the final-norm
-    hidden states [B,S,d] replace the logits."""
+    hidden states [B,S,d] replace the logits.  ``memory`` [B, M, d] is
+    what the cross-attention blocks attend to (the encoder's output, or
+    the stub frontend's embeddings)."""
     lay = stack_layout(cfg)
     x = params["embed"]["table"][tokens]
     if cfg.embedding_multiplier != 1.0:
@@ -113,15 +143,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run(p, x, spec):
-        fn = lambda p_, x_: apply_block(p_, x_, cfg=cfg, spec=spec,
-                                        attn_impl=attn_impl,
-                                        scan_impl=scan_impl)
+        fn = lambda p_, x_, m_: apply_block(p_, x_, cfg=cfg, spec=spec,
+                                            memory=m_, attn_impl=attn_impl,
+                                            scan_impl=scan_impl)
         if remat:
             # a lazy (streamed) block is materialized here, at the
-            # checkpoint boundary, so the recompute never gathers
-            return checkpoint(fn, tree_dense(p), x, use_reentrant=False,
-                              preserve_rng_state=False)
-        return fn(p, x)
+            # checkpoint boundary, so the recompute never gathers; the
+            # memory goes in as an input, so its gradient flows out
+            return checkpoint(fn, tree_dense(p), x, memory,
+                              use_reentrant=False, preserve_rng_state=False)
+        return fn(p, x, memory)
 
     for i, spec in enumerate(lay.prefix_specs):
         x = run(params["prefix"][i], x, dataclasses.replace(spec, ffn="dense"))
@@ -180,18 +211,24 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             attn_impl: Optional[str] = None, scan_impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy; ``loss_chunk > 0`` takes the chunked
-    LM-head path.  Returns (loss, {"ce", "aux"})."""
+    LM-head path.  ``batch`` holds tokens, labels and, for a non-text
+    modality, the stub frontend's ``memory`` (encoded first in an
+    encoder-decoder).  Returns (loss, {"ce", "aux"})."""
+    memory = batch.get("memory")
+    if cfg.is_encoder_decoder:
+        memory = encode(params, cfg, memory, attn_impl=attn_impl)
     if loss_chunk:
-        x, aux = forward(params, cfg, batch["tokens"], remat=remat,
-                         head=False, attn_impl=attn_impl,
+        x, aux = forward(params, cfg, batch["tokens"], memory=memory,
+                         remat=remat, head=False, attn_impl=attn_impl,
                          scan_impl=scan_impl)
         mask = batch.get("mask")
         loss = chunked_ce(params, cfg, x[:, :-1], batch["labels"][:, 1:],
                           mask[:, 1:] if mask is not None else None,
                           loss_chunk)
     else:
-        logits, aux = forward(params, cfg, batch["tokens"], remat=remat,
-                              attn_impl=attn_impl, scan_impl=scan_impl)
+        logits, aux = forward(params, cfg, batch["tokens"], memory=memory,
+                              remat=remat, attn_impl=attn_impl,
+                              scan_impl=scan_impl)
         loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
                                   batch.get("mask"))
     return loss + aux, {"ce": loss, "aux": aux}

@@ -1929,7 +1929,10 @@ def make_ddp_step(cfg: ArchConfig, opt_spec: OptimizerSpec, *, group=None,
         leaves = tree_leaves(params)
         loss, parts = loss_fn(params, cfg, batch, loss_chunk=loss_chunk,
                               attn_impl=attn_impl, scan_impl=scan_impl)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (an enc-dec block's ungated
+        # cross-attention gate) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         for g in grads:
             dp.primary(g)
         new_params, opt = apply_updates(

@@ -106,10 +106,10 @@ def _need_card():
         pytest.skip("needs a CUDA device (the kernels are built with nvcc there)")
 
 
-def _qkv(seed, b, s, h, kvh, d):
+def _qkv(seed, b, s, h, kvh, d, sk=None):
     g = torch.Generator().manual_seed(seed)
-    mk = lambda n: torch.randn((b, s, n, d), generator=g).cuda()
-    return mk(h), mk(kvh), mk(kvh)
+    mk = lambda n, s: torch.randn((b, s, n, d), generator=g).cuda()
+    return mk(h, s), mk(kvh, sk or s), mk(kvh, sk or s)
 
 
 @pytest.mark.gpu
@@ -120,10 +120,14 @@ def _qkv(seed, b, s, h, kvh, d):
     (256, 8, 4, 333, True, 100, 50.0),
     (256, 2, 1, 64, False, 0, 0.0),
     (256, 16, 1, 300, True, 64, 0.0),       # recurrentgemma: MQA 16:1
+    (64, 16, 16, (300, 77), False, 0, 0.0),  # cross-attention: Sq != Sk
+    (128, 36, 4, 333, True, 100, 0.0),      # starcoder2: 36 heads over 4
 ])
 def test_flash_kernel_matches_plain(d, h, kvh, s, causal, window, cap):
+    """``s`` is the length of q and k/v, or a pair (Sq, Sk)."""
     _need_card()
-    q, k, v = _qkv(5, 2, s, h, kvh, d)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    q, k, v = _qkv(5, 2, sq, h, kvh, d, sk)
     kw = dict(causal=causal, window=window, softcap=cap)
     out, lse = flash_fwd_cuda(q, k, v, **kw)
     ref, ref_lse = flash_fwd_plain(q, k, v, **kw)

@@ -36,7 +36,9 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = sorted(
     [f"core/{p.name}" for p in (SRC / "repro" / "core").glob("*.py")]
     + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py",
-       "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py"]
+       "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py",
+       "configs/seamless_m4t_large_v2.py", "configs/llama_3_2_vision_90b.py",
+       "configs/starcoder2_7b.py", "configs/deepseek_7b.py"]
     + [f"{pkg}/{p.name}" for pkg in ("obs", "adapt")
        for p in (SRC / "repro" / pkg).glob("*.py")]
     + ["elastic/health.py", "elastic/faults.py", "elastic/controller.py"]
@@ -52,9 +54,13 @@ def test_copied_module_is_verbatim(rel):
     assert (SRC / "repro_torch" / rel).read_text() == want
 
 
+ARCHS = ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b", "rwkv6-1.6b",
+         "seamless-m4t-large-v2", "llama-3.2-vision-90b", "starcoder2-7b",
+         "deepseek-7b"]
+
+
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b",
-                                  "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_leaf_time_model_matches_jax(arch, smoke):
     """The per-leaf atoms over a meta tree equal JAX's over its
     ``eval_shape`` tree, and so do the bucket times they price."""
@@ -74,8 +80,7 @@ def test_leaf_time_model_matches_jax(arch, smoke):
                             .bucket_times(bo, nb))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b",
-                                  "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match(arch):
     assert dataclasses.asdict(t_get_config(arch)) == \
         dataclasses.asdict(get_config(arch))
