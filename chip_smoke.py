@@ -15,7 +15,10 @@
    the encoder-decoder path's three D 64 shapes (the decoder's causal
    self-attention [1, 4096, 16, 64], the encoder's bidirectional one over
    1024 frames, the cross-attention of 4096 queries over 1024 frames;
-   gradients too), with its
+   gradients too) and at MLA's d_qk != d_v (deepseek-v2-236b's [1, 4096,
+   128] at 192 / 128, and the smoke config's [2, 64, 4] at 48 / 32, run
+   zero-padded at the instantiated 64 / 32; gradients and the split
+   bytes too), with its
    bound at the TF32 rate for the three products beside the CUDA-core
    bound and the kernel's registers and spills; the bucket
    update bitwise for AdamW and SGD, uniform and per-element, masked
@@ -135,6 +138,21 @@
    same limits against its plain run.  Per step it must launch flash 120
    times: 4 in each decoder layer (self and cross, forward and remat
    recompute) and 1 in each encoder layer (no remat).
+7a. Drives deepseek-v2-236b (``mla_path``) the same way as 3, on its
+   default sharded engine at one shard, at full width cut to its dense
+   layer 0: MLA (128 heads, q_lora 1536, kv_lora 512, d_qk 192 over d_v
+   128) and the 12288-wide SwiGLU, vocab 102,400 untied; sequence 4096,
+   MLA_STEPS steps, held to the same limits against its plain run, peak
+   under 80 GB, the flash twice a step.  Then ``moe_smoke_path``:
+   deepseek-v2-236b-smoke (MLA 48 / 32 + MoE, 4 experts top-2, 1 shared)
+   and llama4-maverick-400b-a17b-smoke (top-1 MoE) at smoke size on their
+   sharded engines, each run twice bitwise equal (losses, aux and params)
+   and held to its plain run; each step's aux loss is printed.  Then
+   ``moe_width_phase``: one deepseek-v2-236b MoE FFN at its published
+   widths (160 experts of 1536, top-6, 2 shared, d_model 5120; 3.8 B
+   params) over 4096 tokens, forward and backward twice bitwise equal and
+   within MOE_WIDTH_TOL of a float64 reference in out, aux and every
+   gradient, some queues overflowing; prints its ms and peak.
 8. Checkpoints and resumes mid-cycle (``checkpoint_path``,
    ``checkpoint_precision_path``): the main path's configuration and the
    sharded delayed precision run's (int8 wires, bf16sr master, bf16
@@ -271,6 +289,28 @@ FLASH_ED_SHAPES = {
     "encdec_encoder": (BATCH, ED_FRAMES, ED_FRAMES, 16, 16, 64, False),
     "encdec_cross": (BATCH, ED_SEQ, ED_FRAMES, 16, 16, 64, False),
 }
+# the MLA path: deepseek-v2-236b cut to its dense layer 0 (MLA + the
+# 12288-wide SwiGLU) at full width, sequence 4096 (train_4k), batch 1, on
+# its default sharded engine at one shard, MLA_STEPS steps (three periods).
+# Its f32 flash shape, causal, d_qk = qk_nope + qk_rope 192 over d_v 128,
+# 128 heads each with its own K and V; and the smoke config's 48 / 32 (run
+# zero-padded at 64 / 32) at moe_smoke_path's batch and sequence:
+# (B, S, H, D, DV)
+MLA_ARCH, MLA_LAYERS, MLA_OF_LAYERS, MLA_SEQ, MLA_STEPS = (
+    "deepseek-v2-236b", 1, 60, 4096, 12)
+MOE_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 64, 6
+# one deepseek-v2-236b MoE FFN at its published widths over the JAX
+# package's train_4k sequence, held against a float64 reference: each
+# tensor's max |diff| over its max |f64| element.  A token sent to a wrong
+# slot or weighted wrongly moves out and the expert gradients by a tenth
+# of that scale or more; f32 sums over d_model 5120 stay near 1e-6.
+MOE_WIDTH_SEQ = 4096
+MOE_WIDTH_TOL = 1e-4
+FLASH_MLA_SHAPES = {
+    "mla": (BATCH, MLA_SEQ, 128, 192, 128),
+    "mla_smoke": (MOE_BATCH, MOE_SEQ, 4, 48, 32),
+}
 # the RWKV-6 path: rwkv6-1.6b at full width and full depth (24 of 24 layers),
 # 8 steps (two DeFT schedule periods at coverage rate 1.8); its time-mix has
 # 32 heads of size 64.  The WKV kernels against the plain pair: both f32,
@@ -381,6 +421,16 @@ def flex_call(torch, q, k, v, window: int, cap: float, causal: bool = True):
                       block_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
+def sdpa_call(torch, q, k, v, causal: bool):
+    """One ``scaled_dot_product_attention`` call computing the same function
+    (GQA, scale 1/sqrt(D), causal or not, no window or softcap): the
+    yardstick where compiled ``flex_attention`` cannot take the shape (MLA's
+    d_qk 192 needs more shared memory than its kernels have)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+
 def visible_pairs(s: int, causal: bool, window: int,
                   sk: int = 0) -> int:
     """(query, key) pairs a length-``s`` self-attention computes (a
@@ -404,6 +454,7 @@ def flash_phase(torch, report):
     )
     from repro_torch.kernels.flash_attention.ops import (
         flash_split_plain,
+        kernel_dims,
         split_buffer,
     )
 
@@ -415,7 +466,11 @@ def flash_phase(torch, report):
         return mk(h), mk(kvh), mk(kvh)
 
     def split_bitwise(k, v, split, what):
-        want = flash_split_plain(k, v)
+        """The split scratch against the plain version of the (padded, at
+        ``kernel_dims``) K and V."""
+        dq, dv = kernel_dims(k.shape[-1], v.shape[-1])
+        pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+        want = flash_split_plain(pad(k, dq), pad(v, dv))
         torch.cuda.synchronize()
         check(torch.equal(split.view(torch.int32), want.view(torch.int32)),
               f"flash split pass not bitwise equal to its plain version at "
@@ -424,7 +479,8 @@ def flash_phase(torch, report):
     def grad_err(q, k, v, kw, what):
         """Max |diff| between the autograd gradients through the kernel and
         through the plain version, held to FLASH_TOL."""
-        w = torch.randn(q.shape, device="cuda", generator=gen)
+        w = torch.randn((*q.shape[:-1], v.shape[-1]), device="cuda",
+                        generator=gen)
         grads = []
         for impl in ("cuda", "plain"):
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -459,19 +515,23 @@ def flash_phase(torch, report):
         print(f"flash D={d} S={s} H={h}/{kvh} {kw}: ok (max err {err:.3g})")
 
     # the paths' shapes, each against its plain version, its bound and
-    # compiled flex_attention; the encoder-decoder's D 64 shapes with
-    # their gradients too
+    # compiled flex_attention; the encoder-decoder's D 64 shapes and MLA's
+    # d_v != d_qk ones with their gradients too
     shapes = {}
-    cases = [(layer, b, s, s, h, kvh, d, True, window, cap) for layer,
+    graded = (*FLASH_ED_SHAPES, *FLASH_MLA_SHAPES)
+    cases = [(layer, b, s, s, h, kvh, d, d, True, window, cap) for layer,
              (b, s, h, kvh, d, window, cap) in FLASH_PATH_SHAPES.items()]
-    cases += [(layer, b, sq, sk, h, kvh, d, causal, 0, 0.0) for layer,
+    cases += [(layer, b, sq, sk, h, kvh, d, d, causal, 0, 0.0) for layer,
               (b, sq, sk, h, kvh, d, causal) in FLASH_ED_SHAPES.items()]
-    for layer, b, sq, sk, h, kvh, d, causal, window, cap in cases:
+    cases += [(layer, b, s, s, h, h, d, dv, True, 0, 0.0) for layer,
+              (b, s, h, d, dv) in FLASH_MLA_SHAPES.items()]
+    for layer, b, sq, sk, h, kvh, d, dv, causal, window, cap in cases:
         q = torch.randn((b, sq, h, d), device="cuda", generator=gen)
-        k, v = (torch.randn((b, sk, kvh, d), device="cuda", generator=gen)
-                for _ in range(2))
+        k = torch.randn((b, sk, kvh, d), device="cuda", generator=gen)
+        v = torch.randn((b, sk, kvh, dv), device="cuda", generator=gen)
         kw = dict(causal=causal, window=window, softcap=cap)
-        split = split_buffer(b, kvh, sk, d, "cuda")
+        dq_k, dv_k = kernel_dims(d, dv)
+        split = split_buffer(b, kvh, sk, dq_k, "cuda", dv_k)
         out, lse = flash_fwd_cuda(q, k, v, split=split, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -484,21 +544,33 @@ def flash_phase(torch, report):
         del out, lse, ref, ref_lse
         split_bitwise(k, v, split, f"the {layer} shape")
         del split
-        if layer in FLASH_ED_SHAPES:
+        if layer in graded:
             err = max(err, grad_err(q, k, v, kw, f"the {layer} shape"))
         max_err = max(max_err, err)
         ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
-        lib = flex_call(torch, q, k, v, window, cap, causal=causal)
+        lib_name, lib_note = "flex_attention", None
+        try:
+            lib = flex_call(torch, q, k, v, window, cap, causal=causal)
+            lib()
+        except Exception as e:        # the yardstick only, never the port
+            lib_name = "scaled_dot_product_attention"
+            lib_note = (f"compiled flex_attention cannot run this shape "
+                        f"({type(e).__name__}: {str(e)[:200]}); "
+                        f"{lib_name} instead")
+            lib = sdpa_call(torch, q, k, v, causal)
         lib_err = (lib() - flash_fwd_cuda(q, k, v, **kw)[0]).abs().max().item()
         library_ms = time_ms(torch, lib, 3)
         del lib
-        # the function's 4 D flops a visible pair at the card's TF32 rate
-        # (the least the tensor cores can do it in); beside it the kernel's
-        # own split-TF32 work (three products each) at that rate, and the
-        # function at the f32 rate of the CUDA cores
-        flops = 4.0 * d * visible_pairs(sq, causal, window, sk) * h * b
-        nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * sq)
+        # the function's 2 (D + DV) flops a visible pair (S = Q.K^T and
+        # P.V) at the card's TF32 rate (the least the tensor cores can do
+        # it in); beside it the kernel's own split-TF32 work (three
+        # products each) at that rate, and the function at the f32 rate of
+        # the CUDA cores.  Bytes: q, k, v and lse read or written once, out
+        # [B, Sq, H, DV] written once
+        flops = 2.0 * (d + dv) * visible_pairs(sq, causal, window, sk) * h * b
+        nbytes = 4.0 * (q.numel() + b * sq * h * dv + k.numel() + v.numel()
+                        + b * h * sq)
         bound_ops = flops / TF32_FLOPS_PER_S * 1e3
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         shapes[layer] = sh = dict(
@@ -509,13 +581,16 @@ def flash_phase(torch, report):
             bound_f32_cuda_core_ms=max(flops / F32_FLOPS_PER_S * 1e3,
                                        bound_bytes),
             flops=flops, bytes=nbytes, max_abs_err=err,
-            library_max_abs_err=lib_err,
-            shape=f"B={b} Sq={sq} Sk={sk} H={h} KV={kvh} D={d} "
+            library=lib_name, library_max_abs_err=lib_err,
+            library_note=lib_note,
+            shape=f"B={b} Sq={sq} Sk={sk} H={h} KV={kvh} D={d} DV={dv} "
                   f"{'causal' if causal else 'non-causal'} window={window} "
-                  f"softcap={cap}")
+                  f"softcap={cap}" + (f" (run at {dq_k} / {dv_k})"
+                                      if (dq_k, dv_k) != (d, dv) else ""))
+        lib_text = (f"{lib_name} {library_ms:.3f} ms (max diff to the kernel "
+                    f"{lib_err:.3g})")
         print(f"flash {layer} ({sh['shape']}): kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, flex_attention {library_ms:.3f} ms (max "
-              f"diff to the kernel {lib_err:.3g}), bound {sh['bound_ms']:.3f} "
+              f"{plain_ms:.3f} ms, {lib_text}, bound {sh['bound_ms']:.3f} "
               f"ms ({sh['bound_by']}, TF32), {sh['bound_ms'] / ms:.1%} of it; "
               f"split-TF32 work {sh['bound_split_tf32_ms']:.3f} ms "
               f"({sh['bound_split_tf32_ms'] / ms:.1%}); CUDA-core bound "
@@ -523,14 +598,15 @@ def flash_phase(torch, report):
               f"{flops / ms / 1e9:.1f} TFLOP/s of the function's, "
               f"{3 * flops / ms / 1e9:.1f} TF32 TFLOP/s issued; max err "
               f"{err:.3g}" + (" (gradients included)"
-                              if layer in FLASH_ED_SHAPES else ""))
-    ptxas = build.ptxas_report(build.build_log("flash_fwd"),
-                               "flash_fwd_tf32_kernel<256>")
-    ptxas_d64 = build.ptxas_report(build.build_log("flash_fwd"),
-                                   "flash_fwd_tf32_kernel<64>")
-    print("; ".join(ptxas + ptxas_d64))
+                              if layer in graded else ""))
+    log = build.build_log("flash_fwd")
+    ptxas, ptxas_d64, ptxas_mla = (
+        build.ptxas_report(log, f"flash_fwd_tf32_kernel<{dims}>")
+        for dims in ("256,256", "64,64", "192,128"))
+    print("; ".join(ptxas + ptxas_d64 + ptxas_mla))
     report["flash"] = dict(cases=len(FLASH_CASES), max_abs_err=max_err,
-                           ptxas_d256=ptxas, ptxas_d64=ptxas_d64, **shapes)
+                           ptxas_d256=ptxas, ptxas_d64=ptxas_d64,
+                           ptxas_mla=ptxas_mla, **shapes)
     torch.cuda.empty_cache()
     g = shapes["global"]
     return {
@@ -552,15 +628,18 @@ def flash_phase(torch, report):
         "rg_library_ms": shapes["recurrentgemma"]["library_ms"],
         "rg_shape": f"B=1 S=8192 H=16 KV=1 D=256 causal window={RG_WINDOW} "
                     f"(recurrentgemma-9b local layer)",
-        **{f"{layer}_{k}": shapes[layer][k] for layer in FLASH_ED_SHAPES
+        **{f"{layer}_{k}": shapes[layer][k]
+           for layer in (*FLASH_ED_SHAPES, *FLASH_MLA_SHAPES)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
-        "ptxas": ptxas,
+        "ptxas": ptxas, "ptxas_mla": ptxas_mla,
         "note": "a split pass writes K and V as TF32 hi + lo; S = Q.K^T and "
                 "P.V each run as three TF32 wgmmas (hi.hi + hi.lo + lo.hi); "
-                "bound: 4 D flops a visible pair at 495 TFLOP/s TF32 (the "
-                "kernel's split-TF32 work, three times that, stands in "
+                "bound: 2 (D + DV) flops a visible pair at 495 TFLOP/s TF32 "
+                "(the kernel's split-TF32 work, three times that, stands in "
                 "bound_split_tf32_ms)",
-        "library_note": "compiled flex_attention, softcap score_mod",
+        "library_note": "compiled flex_attention, softcap score_mod; "
+                        "scaled_dot_product_attention where flex cannot run "
+                        "the shape (see each shape's library_note)",
     }
 
 
@@ -1475,13 +1554,14 @@ def rwkv_grad_phase(torch, cfg, report):
 # ---------------------------------------------------------------------------
 def expected_launches(cfg, schedule, layout, steps):
     """Launches of each f32-path kernel in ``steps`` steps: every decoder
-    layer runs its forward twice (once more in the remat recompute) and
+    layer (MLA ones with the attention ones) runs its forward twice (once
+    more in the remat recompute) and
     its backward once, an encoder layer its forward once (the encoder has
     no remat); an encoder-decoder's ``cross_attn`` layer attends twice
     (self and cross), a VLM's once; every update launches the bucket
     update once per bucket."""
     kinds = [spec.kind for spec in cfg.layer_specs()]
-    attn = sum(k in ("attn", "local_attn") for k in kinds)
+    attn = sum(k in ("attn", "local_attn", "mla") for k in kinds)
     attn += (2 if cfg.is_encoder_decoder else 1) * kinds.count("cross_attn")
     rec = kinds.count("rglru")
     rwkv = kinds.count("rwkv")
@@ -1541,18 +1621,19 @@ def leaf_params(cfg) -> int:
     return sum(x.numel() for x in tree_leaves(init_params(cfg, device="meta")))
 
 
-def sharded_collectives(schedule, layout, steps):
+def sharded_collectives(schedule, layout, steps, need_reuse=True):
     """What ``phase_collectives_sharded`` says each of ``steps`` steps of
     the sharded engine with the gather skip on issues: a position reuses
     its gather when it is not the first and the one before did not update;
-    AdamW's grad clipping is on."""
+    AdamW's grad clipping is on.  ``need_reuse``: the schedule must have
+    such a position (the gemma2 runs, which exercise the skip)."""
     from repro_torch.train.runtime import phase_collectives_sharded
 
     period = schedule.period
     reuse = [(t > 0 and not schedule.phases[t - 1].do_update,) * layout.n_buckets
              for t in range(period)]
-    check(any(any(r) for r in reuse), "the sharded path's schedule has no "
-                                      "position that reuses a gather")
+    check(not need_reuse or any(any(r) for r in reuse),
+          "the sharded path's schedule has no position that reuses a gather")
     return [phase_collectives_sharded(schedule.phases[i % period], layout,
                                       reuse[i % period], True)
             for i in range(steps)]
@@ -1633,7 +1714,7 @@ def print_against(report, against, dist_):
 
 def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
               bucket_share=None, fsdp=False, decoupled=False, chain=False,
-              store=None, against=None, seq=SEQ):
+              store=None, against=None, seq=SEQ, need_reuse=True):
     """One f32 DeFT path at sequence ``seq``: the first schedule period
     once with every plain version forced, then ``steps`` steps with every
     launch counter set to 0 just before and read just after, held to the
@@ -1644,7 +1725,8 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     param within RWKV_PARAM_MAX_DIFF (the rwkv path: see its limits).
 
     ``fsdp`` runs the sharded flat engine (one shard on the one card) with
-    the gather skip on; ``decoupled`` streams its param gathers into the
+    the gather skip on (``need_reuse``: its schedule must reuse a gather
+    somewhere); ``decoupled`` streams its param gathers into the
     forward (and prints the buckets' first-touch order and the gathers
     issued before the forward's first compute); ``chain`` routes every
     synced bucket and every param gather along the one-rank chain (0,)
@@ -1690,11 +1772,13 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
             return
         if fsdp:
             st = runtime.stats()
-            check(st["sharded_state"] and st["gather_skip"]
+            check(st["sharded_state"]
+                  and st["gather_skip"] == need_reuse
                   and st["decoupled"] == decoupled
                   and [b.numel() for b in state["pbuf"]]
                   == list(runtime.layout.shard_sizes),
-                  f"{key} is not the sharded engine with the gather skip"
+                  f"{key} is not the sharded engine with the gather skip "
+                  f"{'on' if need_reuse else 'off'}"
                   f"{' streamed' if decoupled else ''}")
         if store is not None:
             store.update(stored_run(state, run_losses))
@@ -1745,7 +1829,8 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
               f"{key}: {chained} chained collectives, {len(p2p)} P2P rounds "
               f"(one rank: the chain must route and move nothing)")
     elif fsdp:
-        wants = sharded_collectives(schedule, res["layout"], steps)
+        wants = sharded_collectives(schedule, res["layout"], steps,
+                                    need_reuse)
     else:
         wants = [phase_collectives(schedule.phases[i % period])
                  for i in range(steps)]
@@ -1826,6 +1911,250 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     del res
     torch.cuda.empty_cache()
     return launches
+
+
+def moe_smoke_path(torch, report):
+    """The MoE families at smoke size (``reduce_for_smoke``): deepseek-v2-
+    236b-smoke (a dense layer 0, then MLA at d_qk / d_v 48 / 32 with a MoE
+    of 4 experts, top-2, one shared) and llama4-maverick-400b-a17b-smoke
+    (attention with a dense FFN, then with a top-1 MoE), each through
+    ``train`` on its default sharded engine, MOE_STEPS steps: once with the
+    plain versions forced, then twice with the counters zeroed just before
+    and read just after each.  The two runs must be bitwise equal (every
+    loss and param: no float sum of the MoE routing depends on the order
+    of atomics), launch each kernel as ``expected_launches`` says, and
+    agree with the plain run (every loss within 1e-4 relative, params
+    within PARAM_MAX_DIFF with at most PARAM_MAX_OVER beyond PARAM_TOL).
+    Prints each step's aux loss.  Returns the two configs' launches summed
+    over their first runs."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.train import train
+
+    total = {}
+    report["moe_smoke_path"] = out = {}
+    for arch in MOE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = reduce_for_smoke(get_config(arch))
+        kw = dict(scheduler="deft", batch=MOE_BATCH, seq=MOE_SEQ,
+                  coverage_rate=COVERAGE_RATE,
+                  partition_elems=PARTITION_ELEMS, seed=0, device="cuda",
+                  lr=LR, log=lambda s: None)
+        ref = train(cfg, steps=MOE_STEPS, attn_impl="plain",
+                    update_impl="plain", **kw)
+        ref_losses = ref["losses"]
+        ref_params = [b.cpu() for b in ref["state"]["pbuf"]]
+        del ref
+        runs = []
+        for _ in range(2):
+            aux = []
+            counters = zero_counters()
+            res = train(cfg, steps=MOE_STEPS, on_step=lambda s, rt, st, m:
+                        aux.append(float(m["aux"])), **kw)
+            launches = kernel_launches(counters)
+            check(res["runtime"].stats()["sharded_state"],
+                  f"{cfg.name} did not run the sharded engine")
+            runs.append(dict(losses=res["losses"], launches=launches,
+                             aux=aux, schedule=res["schedule"],
+                             layout=res["layout"],
+                             params=[b.cpu() for b in res["state"]["pbuf"]]))
+            del res
+        a, b = runs
+        want = expected_launches(cfg, a["schedule"], a["layout"], MOE_STEPS)
+        check(a["schedule"].period * 2 <= MOE_STEPS,
+              f"{cfg.name}: {MOE_STEPS} steps short of two periods")
+        check(a["losses"] == b["losses"] and a["aux"] == b["aux"]
+              and all(torch.equal(x, y) for x, y in zip(a["params"],
+                                                        b["params"])),
+              f"{cfg.name}: two runs on the card differ: losses {a['losses']} "
+              f"vs {b['losses']}")
+        check(a["launches"] == b["launches"] == want,
+              f"{cfg.name} launches {a['launches']} / {b['launches']}, "
+              f"expected {want}")
+        check(all(math.isfinite(x) for x in a["losses"]) and min(a["aux"]) > 0,
+              f"{cfg.name}: losses {a['losses']}, aux {a['aux']}")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref_losses))
+        diffs = [(x - y).abs() for x, y in zip(a["params"], ref_params)]
+        max_diff = max(d.max().item() for d in diffs)
+        over = sum(int((d > PARAM_TOL).sum().item()) for d in diffs)
+        check(rel <= 1e-4 and max_diff <= PARAM_MAX_DIFF
+              and over <= PARAM_MAX_OVER,
+              f"{cfg.name} vs its plain run: loss rel {rel:.3g}, params max "
+              f"|diff| {max_diff:.3g}, {over} beyond {PARAM_TOL}")
+        for k_, n in a["launches"].items():
+            total[k_] = total.get(k_, 0) + n
+        out[cfg.name] = dict(
+            steps=MOE_STEPS, batch=MOE_BATCH, seq=MOE_SEQ,
+            n_buckets=a["layout"].n_buckets, period=a["schedule"].period,
+            losses=a["losses"], ref_losses=ref_losses, aux=a["aux"],
+            loss_rel_diff=rel, max_param_diff=max_diff,
+            n_params_over_tol=over, launches=a["launches"])
+        print(f"moe_smoke_path {cfg.name} (sharded, {MOE_STEPS} steps, batch "
+              f"{MOE_BATCH}, seq {MOE_SEQ}, {a['layout'].n_buckets} buckets, "
+              f"period {a['schedule'].period}): two runs bitwise equal; vs "
+              f"plain: loss rel {rel:.2g}, params max diff {max_diff:.3g} "
+              f"({over} over {PARAM_TOL}); launches {a['launches']}; loss "
+              f"{a['losses'][0]:.4f} -> {a['losses'][-1]:.4f}; aux by step "
+              f"{[round(x, 6) for x in a['aux']]} [{report['card']}]")
+    return total
+
+
+def moe_width_phase(torch, report):
+    """``apply_moe`` at deepseek-v2-236b's published widths (160 routed
+    experts of d_expert 1536, top-6, 2 shared, d_model 5120) on one
+    [1, MOE_WIDTH_SEQ, 5120] input: 24,576 (token, choice) pairs into 160
+    queues of capacity ceil(T k / E 1.25) = 192, some of which must
+    overflow.  Forward
+    and backward (loss sum(out * g) + aux, gradients of the input and
+    every weight) run twice and must be bitwise equal; the second is timed
+    with CUDA events and the first's peak memory read.  Then a float64
+    reference written apart from the module: the choices by a lexsort of
+    the f32 router probabilities (ties to the lower expert), the queues
+    filled by a loop over the pairs in token-major order, each expert's
+    SwiGLU on its kept tokens, the router, renormalisation, aux loss and
+    shared experts, all in float64 with autograd.  out, aux and every
+    gradient must be within MOE_WIDTH_TOL of it (max |diff| over the
+    reference's max |element|)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import apply_moe, init_moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MLA_ARCH)
+    me = cfg.moe
+    e, k, d, de = me.n_experts, me.experts_per_token, cfg.d_model, me.d_expert
+    t = MOE_WIDTH_SEQ
+    cap = math.ceil(t * k / e * 1.25)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    p = init_moe(gen, cfg, device="cuda")
+    # a direction shared by every token (0.1 of the noise's scale) skews
+    # the random router's load as a residual stream's mean does: about 20
+    # queues overflow, where iid inputs often fill none past capacity
+    x = torch.randn((1, t, d), device="cuda", generator=gen)
+    x += 0.1 * torch.randn((d,), device="cuda", generator=gen)
+    g = torch.randn((1, t, d), device="cuda", generator=gen)
+    names = ("x", "router", "experts/gate", "experts/up", "experts/down",
+             "shared/gate", "shared/up", "shared/down")
+    leaves = [x, p["router"], *(p["experts"][n] for n in ("gate", "up", "down")),
+              *(p["shared"][n] for n in ("gate", "up", "down"))]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    n_params = sum(leaf.numel() for leaf in leaves[1:])
+
+    def run():
+        y, aux = apply_moe(p, x, cfg=cfg)
+        grads = torch.autograd.grad(torch.sum(y * g) + aux, leaves)
+        return [y.detach(), aux.detach(), *grads]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    second = run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "apply_moe at deepseek-v2-236b's widths: two runs on the card "
+          "differ")
+    del second
+    y, aux, *grads = first
+
+    # the float64 reference
+    x64 = x.detach().reshape(t, d).double()
+    g64 = g.detach().reshape(t, d).double()
+    with torch.no_grad():
+        probs32 = torch.softmax(x.detach().reshape(t, d) @ p["router"].detach(),
+                                -1).cpu().numpy()
+    sel = np.lexsort((np.broadcast_to(np.arange(e), (t, e)), -probs32),
+                     axis=-1)[:, :k]
+    queues = [[] for _ in range(e)]
+    for i in range(t):
+        for j in range(k):
+            if len(queues[sel[i, j]]) < cap:
+                queues[sel[i, j]].append((i, j))
+    kept = sum(len(q) for q in queues)
+    check(kept < t * k, f"apply_moe at deepseek-v2-236b's widths: no queue "
+          f"overflowed (capacity {cap})")
+    sel_t = torch.from_numpy(np.ascontiguousarray(sel)).cuda()
+    xr = x64.clone().requires_grad_(True)
+    r64 = p["router"].detach().double().requires_grad_(True)
+    probs = torch.softmax(xr @ r64, -1)
+    top = probs.gather(1, sel_t)
+    w = top / top.sum(-1, keepdim=True)
+    density = F.one_hot(sel_t, e).sum(1).double().mean(0)
+    aux64 = me.router_aux_coef * e * torch.sum(density / k * probs.mean(0))
+    out64 = torch.zeros_like(x64)
+    dx64 = torch.zeros_like(x64)
+    dw64 = torch.zeros_like(w)
+    diff = {n: torch.zeros((), dtype=torch.float64, device="cuda")
+            for n in names[2:5]}
+    scale = dict(diff)
+
+    def swiglu(x_, wg, wu, wd):
+        return (F.silu(x_ @ wg) * (x_ @ wu)) @ wd
+
+    for ex in range(e):
+        ws = [p["experts"][n][ex].detach().double().requires_grad_(True)
+              for n in ("gate", "up", "down")]
+        if queues[ex]:
+            ti, tj = (torch.tensor(c, device="cuda")
+                      for c in zip(*queues[ex]))
+            xe = x64[ti].requires_grad_(True)
+            ye = swiglu(xe, *ws)
+            we = w.detach()[ti, tj][:, None]
+            out64.index_add_(0, ti, we * ye.detach())
+            dw64[ti, tj] = torch.sum(ye.detach() * g64[ti], -1)
+            gx, *gws = torch.autograd.grad(ye, (xe, *ws), g64[ti] * we)
+            dx64.index_add_(0, ti, gx)
+        else:
+            gws = [torch.zeros_like(w_) for w_ in ws]
+        for n, gw, mine in zip(names[2:5], gws, grads[2:5]):
+            diff[n] = torch.maximum(diff[n], (mine[ex].double() - gw).abs().max())
+            scale[n] = torch.maximum(scale[n], gw.abs().max())
+    dxr, dr = torch.autograd.grad(torch.sum(w * dw64) + aux64, (xr, r64))
+    xs = x64.clone().requires_grad_(True)
+    sh = [p["shared"][n].detach().double().requires_grad_(True)
+          for n in ("gate", "up", "down")]
+    ys = swiglu(xs, *sh)
+    gxs, *gsh = torch.autograd.grad(ys, (xs, *sh), g64)
+    out64 += ys.detach()
+    want = {"out": out64, "x": dx64 + dxr + gxs, "router": dr,
+            **dict(zip(names[5:], gsh))}
+    mine = {"out": y.reshape(t, d), "x": grads[0].reshape(t, d),
+            "router": grads[1], **dict(zip(names[5:], grads[5:]))}
+    errs = {n: ((mine[n].double() - want[n]).abs().max()
+                / want[n].abs().max()).item() for n in want}
+    errs.update({n: (diff[n] / scale[n]).item() for n in diff})
+    errs["aux"] = abs(aux.item() - aux64.item()) / aux64.item()
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= MOE_WIDTH_TOL,
+          f"apply_moe at deepseek-v2-236b's widths against float64: {worst} "
+          f"off by {errs[worst]:.3g} of its scale (limit {MOE_WIDTH_TOL})")
+    # the experts' three bmms, 2 E C d de flops each, backward twice that
+    flops = 18 * e * cap * d * de
+    report["moe_width"] = dict(
+        seq=t, n_experts=e, top_k=k, capacity=cap, kept=kept,
+        dropped=t * k - kept, n_params=n_params, ms=ms, peak_bytes=peak,
+        expert_tflops=flops / ms / 1e9, rel_err=errs)
+    print(f"moe_width {MLA_ARCH} MoE FFN (d_model {d}, {e} experts of "
+          f"{de} top-{k} + {me.n_shared_experts} shared, {n_params:,} params; "
+          f"1 x {t} tokens, capacity {cap}, {t * k - kept} of {t * k} choices "
+          f"dropped): forward + backward {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s in the experts' products), peak "
+          f"{peak / 2 ** 30:.2f} GiB; two runs bitwise equal; against float64 "
+          f"(max |diff| / max |f64|): "
+          f"{', '.join(f'{n} {v:.2g}' for n, v in errs.items())} "
+          f"[{report['card']}]")
+    del first, y, grads, p, leaves, x, g
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def precision_path(torch, cfg, report, key, coverage_rate, delayed,
@@ -2963,6 +3292,31 @@ def run() -> int:
     check(any(ph.update_k > 1 or ph.rotate for ph in ed_schedule.phases),
           f"{ED_ARCH}: degenerate schedule")
 
+    mla_cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    m = mla_cfg.mla
+    check((mla_cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim,
+           m.v_head_dim) == FLASH_MLA_SHAPES["mla"][2:]
+          and [s.ffn for s in mla_cfg.layer_specs()] == ["moe"]
+          and mla_cfg.moe.first_k_dense == 1,
+          f"{MLA_ARCH}: {mla_cfg.n_heads} heads, d_qk / d_v "
+          f"{m.qk_nope_head_dim + m.qk_rope_head_dim} / {m.v_head_dim}")
+    print(f"config: {MLA_ARCH} at full width cut to its dense layer 0 (MLA: "
+          f"d_model {mla_cfg.d_model}, {mla_cfg.n_heads} heads, q_lora "
+          f"{m.q_lora_rank}, kv_lora {m.kv_lora_rank}, d_qk / d_v "
+          f"{m.qk_nope_head_dim + m.qk_rope_head_dim} / {m.v_head_dim}; "
+          f"SwiGLU d_ff {mla_cfg.d_ff}; vocab {mla_cfg.vocab_size}, untied), "
+          f"{MLA_LAYERS} of {MLA_OF_LAYERS} layers: "
+          f"{leaf_params(mla_cfg):,} params as leaves (formula "
+          f"{mla_cfg.total_params():,})")
+    mla_schedule = build_schedule(
+        init_params(mla_cfg, device="meta"), mla_cfg, dp=1, seq_len=MLA_SEQ,
+        per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+        coverage_rate=COVERAGE_RATE)[3].schedule
+    check(any(ph.update_k > 1 or ph.rotate for ph in mla_schedule.phases)
+          and MLA_STEPS >= 2 * mla_schedule.period,
+          f"{MLA_ARCH}: degenerate schedule or {MLA_STEPS} steps short of two "
+          f"periods ({mla_schedule.period})")
+
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
     sharded_update_phase(torch, meta, bucket_of, nb, report)
     entries += quantize_phase(torch, layout, report)
@@ -3014,7 +3368,17 @@ def run() -> int:
         f"{ED_ARCH} f32": main_path(torch, ed_cfg, ed_schedule, report,
                                     "encdec_path", ED_ARCH, ED_LAYERS,
                                     2 * ed_schedule.period + 2, seq=ED_SEQ),
+        # the arch's default engine; its schedule updates at every position
+        # but the last, so no position reuses a gather within the cycle
+        f"{MLA_ARCH} f32 sharded": main_path(
+            torch, mla_cfg, mla_schedule, report, "mla_path", MLA_ARCH,
+            MLA_OF_LAYERS, MLA_STEPS, fsdp=True, seq=MLA_SEQ,
+            need_reuse=False),
     }
+    check(report["mla_path"]["peak_bytes"] < 80e9,
+          f"mla_path peak {report['mla_path']['peak_bytes']} bytes")
+    launches["moe smoke"] = moe_smoke_path(torch, report)
+    moe_width_phase(torch, report)
     checkpoint_path(torch, cfg, report, "checkpoint_path",
                     ("main_path", replicated, True),
                     coverage_rate=COVERAGE_RATE)

@@ -13,22 +13,29 @@ by side on one card.
   spills are printed.
 * Each build's out and lse are held against ``flash_fwd_plain`` within
   ``chip_smoke.FLASH_TOL`` at ``chip_smoke.py``'s five small f32 cases and
-  at its three path shapes (gemma2-2b's global and local layers,
-  recurrentgemma-9b's MQA layer).
+  at its path shapes (gemma2-2b's global and local layers,
+  recurrentgemma-9b's MQA layer, seamless-m4t-large-v2's three D 64
+  shapes, MLA's d_qk / d_v 192 / 128 and 48 / 32); a build whose entry
+  point takes no ``DV`` (an older source) skips the MLA shapes.
 * At the path shapes the builds are timed in turns (source, shipped,
-  shipped, source) with CUDA events, and the shipped build's kernels one
+  shipped, source, then the cuts forth and back, then source, shipped,
+  shipped, source again) with CUDA events, and the shipped build's kernels one
   by one with ``torch.profiler`` (ms a launch), beside the bytes of K and
   V hi + lo its main kernel streams through L2 and their rate.
-* ``--cuts`` also builds the shipped source four times more and times
-  each: ``cut_loads`` refills no ring stage after the first ones (the
+* ``--cuts`` also builds the shipped source once for each text cut and
+  times each (``--cut NAME``, repeatable, builds only those):
+  ``heads_first`` and ``query_first`` launch the grid in one order at
+  every shape, in place of the choice by kv heads against the CTAs in
+  flight (they compute the same, only their time differs); ``cut_loads`` refills no ring stage after
+  the first ones (the
   wgmmas run on stale tiles: the time without the L2 stream); ``cut_mma``
   issues no wgmma (the stream and the softmax alone); ``raw_split_consumers``
   and ``raw_split_producer`` bring each stage as half its bytes, as raw f32
   K and V would be, and split it into hi and lo in shared memory, by the
   consumer warpgroup before the stage's wgmmas or by the producer warp
   before it marks the stage full (in place: a raw V tile would also need
-  a transpose, so this is the least such a design could cost).  A cut
-  build computes garbage: only its time means something.
+  a transpose, so this is the least such a design could cost).  Those
+  four compute garbage: only their time means something.
 
 Each source is called through its own ``extern "C"`` signature
 (``build.c_params``), so revisions with other scratch arguments compare:
@@ -83,9 +90,9 @@ HALF_LOAD = (
     "C::HALF,\n", 1)
 PRODUCER = """    if (tid == NC) {
       const uint8_t* src = reinterpret_cast<const uint8_t*>(split) +
-                           ((int64_t)(b * KVH + kvh) * nkb + kb_lo) * 2 * NCH *
+                           ((int64_t)(b * KVH + kvh) * nkb + kb_lo) * C::NCH *
                                (int64_t)C::STAGE;
-      const int items = nblk * 2 * NCH;
+      const int items = nblk * C::NCH;
       for (int n = 0; n < items; ++n) {
         const int s = n % STAGES;
         if (n >= STAGES) mbar_wait(empty0 + 8 * s, (n / STAGES - 1) & 1);
@@ -101,9 +108,9 @@ PRODUCER = """    if (tid == NC) {
 PRODUCER_SPLITS = """    {
       const int lane = tid - NC;
       const uint8_t* src = reinterpret_cast<const uint8_t*>(split) +
-                           ((int64_t)(b * KVH + kvh) * nkb + kb_lo) * 2 * NCH *
+                           ((int64_t)(b * KVH + kvh) * nkb + kb_lo) * C::NCH *
                                (int64_t)C::STAGE;
-      const int items = nblk * 2 * NCH;
+      const int items = nblk * C::NCH;
       for (int n = 0; n < items; ++n) {
         const int s = n % STAGES;
         const uint32_t rawbar = empty0 + 8 * (STAGES + s);
@@ -122,6 +129,10 @@ PRODUCER_SPLITS = """    {
 
 # text cuts of the shipped source: {name: [(old, new, occurrences)]}
 CUTS = {
+    "heads_first": [("const int qfast = in_flight[device] < QFAST_SHARE * KVH;",
+                     "const int qfast = 0;", 1)],
+    "query_first": [("const int qfast = in_flight[device] < QFAST_SHARE * KVH;",
+                     "const int qfast = 1;", 1)],
     "cut_loads": [("        mbar_expect_tx(full0 + 8 * s, C::STAGE);\n",
                    "        if (n >= STAGES) {\n"
                    "          mbar_arrive(full0 + 8 * s);\n"
@@ -159,15 +170,15 @@ def cut(text: str, name: str) -> str:
     return text
 
 
-def streamed_bytes(b, s, h, d, window, bq=64, bk=64):
-    """Bytes of K and V hi + lo (16 B an element of K and of V) the main
-    kernel's CTAs of 64 query rows stream: every visible 64-key block."""
+def streamed_bytes(b, sq, sk, h, d, dv, causal, window, bq=64, bk=64):
+    """Bytes of K and V hi + lo (8 B an element of each) the main kernel's
+    CTAs of 64 query rows stream: every visible 64-key block."""
     blocks = 0
-    for q0 in range(0, s, bq):
+    for q0 in range(0, sq, bq):
         lo = max(0, q0 - window + 1) if window else 0
-        hi = min(s, q0 + bq)
+        hi = min(sk, q0 + bq) if causal else sk
         blocks += -(-hi // bk) - lo // bk
-    return blocks * b * h * bk * d * 16
+    return blocks * b * h * bk * (d + dv) * 8
 
 
 def build_all(variants):
@@ -191,6 +202,7 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--cuts", action="store_true")
+    ap.add_argument("--cut", action="append", default=[], choices=sorted(CUTS))
     args = ap.parse_args()
     import torch
 
@@ -199,8 +211,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (FLASH_CASES, FLASH_PATH_SHAPES, FLASH_TOL,
-                            card_line, kernel_ms, time_ms)
+    from chip_smoke import (FLASH_CASES, FLASH_ED_SHAPES, FLASH_MLA_SHAPES,
+                            FLASH_PATH_SHAPES, FLASH_TOL, card_line,
+                            kernel_ms, time_ms)
     from repro_torch.kernels.flash_attention import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -211,8 +224,8 @@ def main() -> int:
     variants = {"source": source}
     if shipped != source:
         variants["shipped"] = shipped
-    if args.cuts:
-        variants.update((n, cut(shipped, n)) for n in CUTS)
+    variants.update((n, cut(shipped, n)) for n in CUTS
+                    if args.cuts or n in args.cut)
     built = build_all(variants)
     report = {"card": card, "source": args.source, "builds": {}}
     for name, (_, params, ptxas) in built.items():
@@ -222,19 +235,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    def qkv(b, s, h, kvh, d):
-        mk = lambda n: torch.randn((b, s, n, d), device="cuda", generator=gen)
-        return mk(h), mk(kvh), mk(kvh)
+    def qkv(b, sq, sk, h, kvh, d, dv):
+        mk = lambda s, n, w: torch.randn((b, s, n, w), device="cuda",
+                                         generator=gen)
+        return mk(sq, h, d), mk(sk, kvh, d), mk(sk, kvh, dv)
 
     def caller(name, q, k, v, causal, window, cap):
         """A call of build ``name`` and its (out, lse)."""
         fn, params, _ = built[name]
         b, sq, h, d = q.shape
-        sk, kvh = k.shape[1], k.shape[2]
-        out = torch.empty_like(q)
+        sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+        out = torch.empty((b, sq, h, dv), device="cuda")
         lse = torch.empty((b, h, sq), device="cuda")
         given = dict(q=q, k=k, v=v, o=out, lse=lse)
-        scalars = dict(B=b, H=h, KVH=kvh, Sq=sq, Sk=sk, D=d,
+        scalars = dict(B=b, H=h, KVH=kvh, Sq=sq, Sk=sk, D=d, DV=dv,
                        causal=int(causal), window=window, softcap=cap,
                        sm_scale=1.0 / d ** 0.5, device=q.device.index)
         for x, pre in ((q, "q"), (k, "k"), (v, "v"), (out, "o")):
@@ -249,7 +263,7 @@ def main() -> int:
             elif p == "stream":
                 vals.append(torch.cuda.current_stream().cuda_stream)
             else:                          # a scratch buffer of the kernel
-                given[p] = ops.split_buffer(b, kvh, sk, d, q.device)
+                given[p] = ops.split_buffer(b, kvh, sk, d, q.device, dv)
                 vals.append(given[p].data_ptr())
 
         def call():
@@ -270,17 +284,30 @@ def main() -> int:
         return ok, (out - ref).abs().max().item(), \
             (lse - ref_lse).abs().max().item()
 
+    # the path shapes: (B, Sq, Sk, H, KV, D, DV, causal, window, softcap)
+    paths = {layer: (b, s, s, h, kvh, d, d, True, window, cap)
+             for layer, (b, s, h, kvh, d, window, cap)
+             in FLASH_PATH_SHAPES.items()}
+    paths.update((layer, (b, sq, sk, h, kvh, d, d, causal, 0, 0.0))
+                  for layer, (b, sq, sk, h, kvh, d, causal)
+                  in FLASH_ED_SHAPES.items())
+    # the kernel's own dims (kernel_dims pads the smoke 48 / 32 to 64 / 32)
+    paths.update((layer, (b, s, s, h, h, *ops.kernel_dims(d, dv), True, 0,
+                          0.0))
+                 for layer, (b, s, h, d, dv) in FLASH_MLA_SHAPES.items())
+    takes_dv = {n for n in built if "DV" in built[n][1]}
     names = [n for n in built if n not in CUTS]
     checks, failed = [], False
-    cases = [(f"{c[:5]} causal={c[5]} window={c[6]} softcap={c[7]}", c)
+    cases = [(f"{c[:5]} causal={c[5]} window={c[6]} softcap={c[7]}",
+              (c[0], c[1], c[1], c[2], c[3], c[4], c[4], *c[5:]))
              for c in FLASH_CASES]
-    cases += [(layer, (b, s, h, kvh, d, True, window, cap))
-              for layer, (b, s, h, kvh, d, window, cap)
-              in FLASH_PATH_SHAPES.items()]
-    for label, (b, s, h, kvh, d, causal, window, cap) in cases:
-        q, k, v = qkv(b, s, h, kvh, d)
+    cases += list(paths.items())
+    for label, (b, sq, sk, h, kvh, d, dv, causal, window, cap) in cases:
+        q, k, v = qkv(b, sq, sk, h, kvh, d, dv)
         row = {"case": label}
         for n in names:
+            if dv != d and n not in takes_dv:
+                continue
             ok, e_out, e_lse = err_vs_plain(n, q, k, v, causal, window, cap)
             row[n] = dict(ok=ok, out_err=e_out, lse_err=e_lse)
             failed |= not ok
@@ -294,15 +321,20 @@ def main() -> int:
              else ["source", "source"])
     ship = "shipped" if "shipped" in built else "source"
     report["ms"], report["shipped_per_kernel_ms"] = {}, {}
-    for layer, (b, s, h, kvh, d, window, cap) in FLASH_PATH_SHAPES.items():
-        q, k, v = qkv(b, s, h, kvh, d)
-        calls = {n: caller(n, q, k, v, True, window, cap)[0] for n in built}
+    for layer, (b, sq, sk, h, kvh, d, dv, causal, window, cap) in \
+            paths.items():
+        q, k, v = qkv(b, sq, sk, h, kvh, d, dv)
+        runs = [n for n in built if dv == d or n in takes_dv]
+        calls = {n: caller(n, q, k, v, causal, window, cap)[0] for n in runs}
         times = {}
-        for n in order + [n for n in built if n in CUTS]:
+        cuts = [n for n in runs if n in CUTS]
+        for n in [n for n in order if n in runs] + cuts + cuts[::-1] + [
+                n for n in order[::-1] if n in runs]:
             times.setdefault(n, []).append(
                 time_ms(torch, calls[n], args.iters))
         report["ms"][layer] = times
-        print(f"{layer} {(b, s, h, kvh, d)} window={window} softcap={cap}: "
+        print(f"{layer} {(b, sq, sk, h, kvh, d, dv)} causal={causal} "
+              f"window={window} softcap={cap}: "
               + ", ".join(f"{n} " + " / ".join(f"{t:.4f}" for t in ts)
                           for n, ts in times.items()) + " ms")
 
@@ -312,7 +344,7 @@ def main() -> int:
             print(f"  {ship} kernel {n}: {t:.4f} ms a launch")
         main_ms = [t for n, t in per.items() if "flash_fwd_tf32_kernel" in n]
         if main_ms:
-            nbytes = streamed_bytes(b, s, h, d, window)
+            nbytes = streamed_bytes(b, sq, sk, h, d, dv, causal, window)
             report.setdefault("streamed", {})[layer] = dict(
                 bytes=nbytes, main_ms=main_ms[0],
                 tb_per_s=nbytes / main_ms[0] / 1e9)

@@ -2,11 +2,11 @@
 qwen3-4b (its main path), starcoder2-7b and deepseek-7b, the Griffin
 hybrid recurrentgemma-9b, the RWKV-6 (Finch) model rwkv6-1.6b, the
 encoder-decoder seamless-m4t-large-v2 and the VLM llama-3.2-vision-90b
-(gated cross-attention blocks), plus ``reduce_for_smoke``.  The MLA and
-MoE configs (deepseek-v2-236b, llama4-maverick-400b-a17b) wait for their
-blocks.
+(gated cross-attention blocks), the MLA + MoE model deepseek-v2-236b
+and the interleaved dense / MoE llama4-maverick-400b-a17b, plus
+``reduce_for_smoke``.
 
-``base.py`` and the eight config modules are verbatim copies of the JAX
+``base.py`` and the ten config modules are verbatim copies of the JAX
 package's (imports renamed); ``tests/test_torch_planner.py`` holds them
 against the originals so the two cannot drift.
 """
@@ -17,7 +17,9 @@ from typing import Dict
 
 from repro_torch.configs import (
     deepseek_7b,
+    deepseek_v2_236b,
     gemma2_2b,
+    llama4_maverick_400b_a17b,
     llama_3_2_vision_90b,
     qwen3_4b,
     recurrentgemma_9b,
@@ -31,7 +33,8 @@ _REGISTRY: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (gemma2_2b, qwen3_4b, recurrentgemma_9b,
                               rwkv6_1_6b, seamless_m4t_large_v2,
                               llama_3_2_vision_90b, starcoder2_7b,
-                              deepseek_7b)
+                              deepseek_7b, deepseek_v2_236b,
+                              llama4_maverick_400b_a17b)
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

@@ -136,9 +136,10 @@ def build_sources(texts: Dict[str, str], lib: str,
 
 def _short_name(mangled: str) -> str:
     """``kernel<D>`` of a mangled entry function name: the last of its
-    length-prefixed names, and its first template argument if it is an
-    int (``_ZN12_GLOBAL__N_121flash_fwd_tf32_kernelILi256EEEv...`` ->
-    ``flash_fwd_tf32_kernel<256>``)."""
+    length-prefixed names, and its leading int template arguments
+    (``_ZN12_GLOBAL__N_121flash_fwd_tf32_kernelILi256EEEv...`` ->
+    ``flash_fwd_tf32_kernel<256>``, ``...ILi192ELi128EEEv...`` ->
+    ``flash_fwd_tf32_kernel<192,128>``)."""
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
     while True:
         m = re.match(r"\d+", mangled[i:])
@@ -146,8 +147,9 @@ def _short_name(mangled: str) -> str:
             break
         j = i + m.end()
         name, i = mangled[j:j + int(m.group())], j + int(m.group())
-    t = re.match(r"ILi(\d+)E", mangled[i:])
-    return name + (f"<{t.group(1)}>" if t else "")
+    t = re.match(r"I((?:Li\d+E)+)", mangled[i:])
+    args = re.findall(r"Li(\d+)E", t.group(1)) if t else []
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def ptxas_report(log: str, kernel: str = "") -> List[str]:

@@ -3,11 +3,14 @@
 // keeps f32 accuracy.  bf16 inputs go to flash_fwd_sm90.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
-// flash_attention_pallas (body _attn_kernel) for f32 q/k/v.  Same function:
+// flash_attention_pallas (body _attn_kernel) for f32 q/k/v, and computes at
+// a value head dim DV other than the query/key head dim DQK (MLA: 192 / 128)
+// what src/repro/kernels/flash_attention/flash.py::_global_fwd_impl computes,
+// which the Pallas kernel cannot.  Same function:
 // GQA through kv head h / (H / KVH), causal and sliding-window masks
 // (kp > qp - window) with the kv blocks wholly above the diagonal or left of
 // the window skipped by the loop bounds (kernel.py:53-59), logit softcap
-// c * tanh(s / c), q scaled by sm_scale = 1/sqrt(D) (kernel.py:63), masked
+// c * tanh(s / c), q scaled by sm_scale = 1/sqrt(DQK) (kernel.py:63), masked
 // scores -inf with the running max starting at the finite -1e30, and
 // out = acc / max(l, 1e-30).  It also writes lse = m + log(max(l, 1e-30))
 // per row in f32, which the recompute backward (ops.py) reads, and it masks
@@ -34,7 +37,7 @@
 // used.  PERF.md has the readings.
 //
 // What bounds it on the H100: arithmetic on the tensor cores.  The function
-// needs 4 * D flops per visible (query, key) pair, at 495 TFLOP/s TF32 the
+// needs 2 * (DQK + DV) flops per visible (query, key) pair (4 D when square), at 495 TFLOP/s TF32 the
 // bound chip_smoke.py reports; the split form issues three times as many,
 // so it cannot come nearer than a third of that bound.  Every 64-row
 // query block also reads the hi and lo of K and V from L2, 1 KiB * D per 64
@@ -52,7 +55,8 @@
 //   * a split pass (flash_split_kernel) writes, once per call, K and V as
 //     hi and lo into one scratch buffer, in 64-key blocks laid out exactly as
 //     the main kernel's shared-memory stages (128-byte swizzle), zero past
-//     Sk: K as [keys][D] (K-major, D contiguous), V transposed as [D][keys]
+//     Sk: K as [keys][DQK] (K-major, DQK contiguous), V transposed as
+//     [DV][keys]
 //     with the keys of each group of 8 stored as (0, 2, 4, 6, 1, 3, 5, 7).
 //     TF32 wgmma takes only K-major operands, so P.V needs V's keys
 //     contiguous; the permutation lets the S accumulator, whose thread holds
@@ -68,27 +72,39 @@
 //     consumers load Q, scale it, split it into hi and lo and store both in
 //     shared memory in the swizzle (128 KiB at D = 256).  The producer's lane
 //     0 streams the visible kv blocks' stages (a stage is the hi and lo of
-//     64 keys x 64 d-columns of K, or of 64 d-rows x 64 keys of V: 32 KiB)
+//     64 keys x DC d-columns of K, or of DC d-rows x 64 keys of V, DC =
+//     min(DQK, DV, 64): 32 KiB at DC 64; DQK / DC K stages and DV / DC V
+//     stages a kv block, so every stage of the ring has one size)
 //     into a ring with one bulk copy each (cp.async.bulk, completion on a
 //     full mbarrier), refilling a stage once the 128 consumers have arrived
 //     on its empty mbarrier;
-//   * per kv block the consumers run S = Q.K^T over D / 64 K stages
+//   * per kv block the consumers run S = Q.K^T over DQK / DC K stages
 //     (m64n64k8, both operands from shared memory), releasing each stage
 //     while the next one's wgmmas run; scale is already in Q; cap, mask (only
 //     on blocks that cut a mask edge) and the online softmax run on the
 //     registers (a row lives in a quad of threads); P = exp(S - m) is split
-//     into hi and lo in the register-A layout; then P.V over D / 64 V stages
+//     into hi and lo in the register-A layout; then P.V over DV / DC V stages
 //     (m64n32k8, A from registers, 32 d-rows at a time into a fresh
-//     accumulator that an fma adds to O * alpha), each stage giving 64 of
-//     O's D columns.  Registers: O takes D / 2, P's hi and lo 64, the fresh
+//     accumulator that an fma adds to O * alpha), each stage giving DC of
+//     O's DV columns.  Registers: O takes DV / 2, P's hi and lo 64, the fresh
 //     sum 16 (254 at D = 256, no spills; a second sum to overlap the fma with
 //     the next wgmmas spills);
 //   * grid (H, query blocks, B): the query heads of one kv head are adjacent
-//     in launch order, so K/V hit in L2, and the query blocks run last to
-//     first, heaviest causal blocks first.
-// Tiles (BQ = 64, BK = 64; a stage holds DC = min(D, 64) columns or rows):
-//   D = 256: Q 128 KiB + 3 stages of 32 KiB    D = 128: Q 64 KiB + 5 stages
-//   D =  64: Q 32 KiB + 6 stages               D =  32: Q 16 KiB + 13 stages of 16 KiB
+//     in launch order, and the query blocks run last to first, heaviest
+//     causal blocks first.  The CTAs in flight (one per SM) then cover
+//     about SMs / KVH query blocks of each kv head, and share its K/V
+//     through L2.  Where that is fewer than QFAST_SHARE (KVH > 33 on the
+//     H100's 132 SMs: MLA's 128 heads), nearly every CTA in flight has a kv
+//     head of its own and K/V stream from HBM once per query block (43.6 GB
+//     at MLA's [1, 4096, 128, 192 / 128]); there the grid is (query
+//     blocks, H, B), so the CTAs in flight share a few heads' K/V.  At 16
+//     kv heads (seamless-m4t) heads-first shares 8 ways and is the faster
+//     order (PERF.md).
+// Tiles (BQ = 64, BK = 64; a stage holds DC = min(DQK, DV, 64) columns or
+// rows), DQK / DV:
+//   256 / 256: Q 128 KiB + 3 stages of 32 KiB   128 / 128: Q 64 KiB + 5 stages
+//   192 / 128: Q 96 KiB + 4 stages of 32 KiB    64 / 64: Q 32 KiB + 6 stages
+//    64 /  32: Q 32 KiB + 12 stages of 16 KiB   32 / 32: Q 16 KiB + 13 of 16 KiB
 // Not here: overlap of the softmax with the tensor cores, TMA multicast of
 // a stage to the CTAs that share a kv head, a persistent scheduler.
 
@@ -106,18 +122,24 @@ constexpr int SMEM_MAX = 232448;    // dynamic shared memory a CTA may use
 constexpr int SLACK = 1024;         // to align the tiles to the swizzle atom
 constexpr int BAR_BYTES = 256;      // mbarriers after the tiles
 constexpr int SPLIT_NT = 256;       // threads of a split-pass CTA
+constexpr int QFAST_SHARE = 4;      // heads-first below this many CTAs a kv head
+constexpr int MAX_DEVICES = 64;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int DC = D < 64 ? D : 64;   // columns (K) / rows (V) of a stage
-  static constexpr int NCH = D / DC;           // K stages, and V stages, a kv block
+  static constexpr int DMIN = DQK < DV ? DQK : DV;
+  static constexpr int DC = DMIN < 64 ? DMIN : 64;  // columns (K) / rows (V) of a stage
+  static constexpr int NCHK = DQK / DC;        // K stages a kv block
+  static constexpr int NCHV = DV / DC;         // V stages a kv block
+  static constexpr int NCH = NCHK + NCHV;      // a kv block's stages, K's first
   static constexpr int HALF = BK * DC * 4;     // the hi (or lo) half of a stage
   static constexpr int STAGE = 2 * HALF;
-  static constexpr int Q_HALF = BQ * D * 4;
+  static constexpr int Q_HALF = BQ * DQK * 4;
   static constexpr int STAGES = (SMEM_MAX - SLACK - BAR_BYTES - 2 * Q_HALF) / STAGE;
   static constexpr int SMEM = SLACK + 2 * Q_HALF + STAGES * STAGE + BAR_BYTES;
+  static_assert(DC % 32 == 0 && DQK % DC == 0 && DV % DC == 0, "head dims");
   static_assert(STAGES >= 2 && 16 * STAGES <= BAR_BYTES, "tiles");
 };
 
@@ -144,47 +166,54 @@ __device__ __forceinline__ float4 load4(const float* p) {
 }
 
 // ---------------------------------------------------------------------------
-// the split pass: one CTA per (stage column/row chunk c, kv block, b * KVH)
+// the split pass: one CTA per (stage column/row chunk c, kv block, b * KVH);
+// chunk c writes K's stage c (c < NCHK) and V's stage c (c < NCHV)
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(SPLIT_NT) flash_split_kernel(
     const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ split, int KVH, int Sk, int nkb, int64_t ksb,
     int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   constexpr int DC = C::DC;
   __shared__ float vt[BK][DC + 1];     // V's tile, keys x d
   const int c = blockIdx.x, kb = blockIdx.y, bh = blockIdx.z;
   const int b = bh / KVH, kvh = bh % KVH;
   const int k0 = kb * BK;
-  // the kv block's stages: K's NCH, then V's NCH
-  float* kst = split + ((int64_t)bh * nkb + kb) * 2 * C::NCH * (C::STAGE / 4)
-               + c * (C::STAGE / 4);
-  float* vst = kst + C::NCH * (C::STAGE / 4);
-  const float* kb_ = k + b * ksb + kvh * ksh + c * DC;
-  const float* vb_ = v + b * vsb + kvh * vsh + c * DC;
+  // the kv block's stages: K's NCHK, then V's NCHV
+  float* blk = split + ((int64_t)bh * nkb + kb) * C::NCH * (C::STAGE / 4);
 
-  // K: four d-columns of one key a thread; V into shared memory
+  // K: four d-columns of one key a thread
+  if (c < C::NCHK) {
+    float* kst = blk + c * (C::STAGE / 4);
+    const float* kb_ = k + b * ksb + kvh * ksh + c * DC;
+    for (int i = threadIdx.x; i < BK * DC / 4; i += SPLIT_NT) {
+      const int r = i / (DC / 4), e4 = i % (DC / 4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < Sk) x = load4(kb_ + (int64_t)(k0 + r) * kss + 4 * e4);
+      float4 hi, lo;
+      split4(x, hi, lo);
+      const uint32_t off = ((e4 / 8) * BK * 128 + swz(r, e4 % 8)) / 4;
+      *reinterpret_cast<float4*>(kst + off) = hi;
+      *reinterpret_cast<float4*>(kst + C::HALF / 4 + off) = lo;
+    }
+  }
+  if (c >= C::NCHV) return;
+  // V into shared memory, then V^T: key positions 4u16 .. 4u16 + 3 of one
+  // d-row a thread; positions 0-3 of a group of 8 hold keys 0, 2, 4, 6 and
+  // positions 4-7 keys 1, 3, 5, 7
+  float* vst = blk + (C::NCHK + c) * (C::STAGE / 4);
+  const float* vb_ = v + b * vsb + kvh * vsh + c * DC;
   for (int i = threadIdx.x; i < BK * DC / 4; i += SPLIT_NT) {
     const int r = i / (DC / 4), e4 = i % (DC / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-    if (k0 + r < Sk) {
-      x = load4(kb_ + (int64_t)(k0 + r) * kss + 4 * e4);
-      y = load4(vb_ + (int64_t)(k0 + r) * vss + 4 * e4);
-    }
-    float4 hi, lo;
-    split4(x, hi, lo);
-    const uint32_t off = ((e4 / 8) * BK * 128 + swz(r, e4 % 8)) / 4;
-    *reinterpret_cast<float4*>(kst + off) = hi;
-    *reinterpret_cast<float4*>(kst + C::HALF / 4 + off) = lo;
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < Sk) y = load4(vb_ + (int64_t)(k0 + r) * vss + 4 * e4);
     vt[r][4 * e4] = y.x;
     vt[r][4 * e4 + 1] = y.y;
     vt[r][4 * e4 + 2] = y.z;
     vt[r][4 * e4 + 3] = y.w;
   }
   __syncthreads();
-  // V^T: key positions 4u16 .. 4u16 + 3 of one d-row a thread; positions
-  // 0-3 of a group of 8 hold keys 0, 2, 4, 6 and positions 4-7 keys 1, 3, 5, 7
   for (int i = threadIdx.x; i < DC * BK / 4; i += SPLIT_NT) {
     const int r = i / (BK / 4), u16 = i % (BK / 4);
     const int key = 8 * (u16 / 2) + (u16 % 2);
@@ -316,15 +345,16 @@ __device__ __forceinline__ void scores(float* sc, float& mx0, float& mx1,
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ split,
     float* __restrict__ o, float* __restrict__ lse, int H, int KVH, int Sq,
     int Sk, int nkb, int64_t qsb, int64_t qss, int64_t qsh, int64_t osb,
     int64_t oss, int64_t osh, int causal, int window, float softcap,
-    float inv_cap, float sm_scale) {
-  using C = Cfg<D>;
-  constexpr int DC = C::DC, NCH = C::NCH, STAGES = C::STAGES;
+    float inv_cap, float sm_scale, int qfast) {
+  using C = Cfg<DQK, DV>;
+  constexpr int DC = C::DC, NCHK = C::NCHK, NCHV = C::NCHV;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQh = (raw + SLACK - 1) & ~uint32_t(SLACK - 1);
@@ -335,8 +365,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
   uint8_t* const gQh = smem_raw + (sQh - raw);        // generic address of sQh
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int h = qfast ? blockIdx.y : blockIdx.x;
+  const int nqb = qfast ? gridDim.x : gridDim.y;
+  const int q0 = (nqb - 1 - (qfast ? blockIdx.x : blockIdx.y)) * BQ;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
 
@@ -359,13 +390,13 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
 
   if (tid >= NC) {
     // ---- producer: lane 0 streams the visible blocks' stages in order.
-    // A kv block's 2 * NCH stages are contiguous in the split buffer, and so
+    // A kv block's NCH stages are contiguous in the split buffer, and so
     // are consecutive blocks, so item n sits n stages past the first.
     if (tid == NC) {
       const uint8_t* src = reinterpret_cast<const uint8_t*>(split) +
-                           ((int64_t)(b * KVH + kvh) * nkb + kb_lo) * 2 * NCH *
+                           ((int64_t)(b * KVH + kvh) * nkb + kb_lo) * C::NCH *
                                (int64_t)C::STAGE;
-      const int items = nblk * 2 * NCH;
+      const int items = nblk * C::NCH;
       for (int n = 0; n < items; ++n) {
         const int s = n % STAGES;
         if (n >= STAGES) mbar_wait(empty0 + 8 * s, (n / STAGES - 1) & 1);
@@ -386,8 +417,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
   // Q, scaled, split into hi and lo, as column chunks of 32 in the swizzle
   {
     const float* qb = q + b * qsb + h * qsh;
-    for (int i = tid; i < BQ * D / 4; i += NC) {
-      const int r = i / (D / 4), e4 = i % (D / 4);
+    for (int i = tid; i < BQ * DQK / 4; i += NC) {
+      const int r = i / (DQK / 4), e4 = i % (DQK / 4);
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + r < Sq) {
         x = load4(qb + (int64_t)(q0 + r) * qss + 4 * e4);
@@ -404,9 +435,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
     asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
   }
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
   int s = 0;
   uint32_t ph = 0;                  // the ring's stage and its fill parity
@@ -427,7 +458,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
     // S = Q.K^T = Qh.Kh + (Qh.Kl + Ql.Kh), one K stage (64 d-columns) at a
     // time; the small terms (about 2^-11 of S) sum in an accumulator of
     // their own, so the tensor cores' truncating accumulation adds S's error
-    // over D / 8 steps, not 3 D / 8
+    // over DQK / 8 steps, not 3 DQK / 8
     float sc[BK / 2], sl[BK / 2];
 #pragma unroll
     for (int j = 0; j < BK / 2; ++j) {
@@ -439,7 +470,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
     wgmma_fence();
     int prev = 0;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < NCHK; ++c) {
       mbar_wait(full0 + 8 * s, ph);
       const uint32_t kh = sSt + s * C::STAGE, kl = kh + C::HALF;
 #pragma unroll
@@ -517,12 +548,12 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
 
-    // O = O * alpha + P.V, one V stage (64 d-rows) at a time: for each 32
+    // O = O * alpha + P.V, one V stage (DC d-rows) at a time: for each 32
     // of its d-rows P.V = Ph.Vh + Ph.Vl + Pl.Vh sums afresh (24 k8 steps of
     // m64n32k8) and joins O through one fma on the CUDA cores, so the
     // tensor cores' truncating accumulation never runs over O itself
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < NCHV; ++c) {
       mbar_wait(full0 + 8 * s, ph);
       const uint32_t vh = sSt + s * C::STAGE, vl = vh + C::HALF;
 #pragma unroll
@@ -577,13 +608,13 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(
     const float il = __fdividef(1.f, half ? l1 : l0);
     float* orow = ob + (int64_t)qp * oss;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(
           acc[4 * j + 2 * half] * il, acc[4 * j + 2 * half + 1] * il);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, float* split, int B, int H, int KVH, int Sq, int Sk,
            long long qsb, long long qss, long long qsh, long long ksb,
@@ -591,58 +622,82 @@ int launch(const float* q, const float* k, const float* v, float* o,
            long long vsh, long long osb, long long oss, long long osh,
            int causal, int window, float softcap, float sm_scale,
            cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   const int nkb = (Sk + BK - 1) / BK;
-  flash_split_kernel<D><<<dim3(C::NCH, nkb, B * KVH), SPLIT_NT, 0, stream>>>(
+  const int chunks = C::NCHK > C::NCHV ? C::NCHK : C::NCHV;
+  flash_split_kernel<DQK, DV><<<dim3(chunks, nkb, B * KVH), SPLIT_NT, 0,
+                                 stream>>>(
       k, v, split, KVH, Sk, nkb, ksb, kss, ksh, vsb, vss, vsh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_fwd_tf32_kernel<D>,
+  e = cudaFuncSetAttribute(flash_fwd_tf32_kernel<DQK, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(H, (Sq + BQ - 1) / BQ, B);
-  flash_fwd_tf32_kernel<D><<<grid, NT, C::SMEM, stream>>>(
+  // query blocks fastest where heads-first would give each kv head fewer
+  // than QFAST_SHARE of the CTAs in flight (see the grid note above); the
+  // CTAs a device holds at once are read on its first launch only, as the
+  // occupancy query is host time on the launch path of small shapes
+  static int in_flight[MAX_DEVICES];
+  int device = 0;
+  e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (in_flight[device] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_fwd_tf32_kernel<DQK, DV>, NT, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    in_flight[device] = sms * per_sm;
+  }
+  const int qfast = in_flight[device] < QFAST_SHARE * KVH;
+  const int nqb = (Sq + BQ - 1) / BQ;
+  const dim3 grid(qfast ? nqb : H, qfast ? H : nqb, B);
+  flash_fwd_tf32_kernel<DQK, DV><<<grid, NT, C::SMEM, stream>>>(
       q, split, o, lse, H, KVH, Sq, Sk, nkb, qsb, qss, qsh, osb, oss, osh,
-      causal, window, softcap, softcap > 0.f ? 1.f / softcap : 0.f, sm_scale);
+      causal, window, softcap, softcap > 0.f ? 1.f / softcap : 0.f, sm_scale,
+      qfast);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes) for f32 inputs: the split pass,
-// then the main kernel, on `stream` (a stream of `device`).  `split` is
-// scratch of B * KVH * ceil(Sk / 64) * 256 * D floats, 16-byte aligned (the
-// Python wrapper allocates it).  Strides are in elements; the head-dim
-// stride must be 1 and every row aligned to four elements (the wrapper
-// checks both); Sk must be at least 1.  Returns a cudaError_t, or -1 for an
-// unsupported head dim.
+// then the main kernel, on `stream` (a stream of `device`), at query/key
+// head dim D and value head dim DV.  `split` is scratch of B * KVH *
+// ceil(Sk / 64) * 128 * (D + DV) floats, 16-byte aligned (the Python wrapper
+// allocates it).  Strides are in elements; the head-dim stride must be 1 and
+// every row aligned to four elements (the wrapper checks both); Sk must be
+// at least 1.  Returns a cudaError_t, or -1 for a (D, DV) pair that is not
+// instantiated (the wrapper zero-pads to one that is).
 extern "C" int flash_fwd_f32(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    void* split, int B, int H, int KVH, int Sq, int Sk, int D, long long qsb,
-    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, long long osb, long long oss,
-    long long osh, int causal, int window, float softcap, float sm_scale,
-    int device, void* stream) {
+    void* split, int B, int H, int KVH, int Sq, int Sk, int D, int DV,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, long long osb,
+    long long oss, long long osh, int causal, int window, float softcap,
+    float sm_scale, int device, void* stream) {
   // this library carries its own (static) CUDA runtime: select the
   // tensors' device before touching the function attribute or launching
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define TF32_CASE(DD)                                                         \
-  case DD:                                                                    \
-    return launch<DD>(static_cast<const float*>(q),                           \
-                      static_cast<const float*>(k),                           \
-                      static_cast<const float*>(v), static_cast<float*>(o),   \
-                      lse, static_cast<float*>(split), B, H, KVH, Sq, Sk,     \
-                      qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss,  \
-                      osh, causal, window, softcap, sm_scale, st);
-  switch (D) {
-    TF32_CASE(32)
-    TF32_CASE(64)
-    TF32_CASE(128)
-    TF32_CASE(256)
-    default:
-      return -1;
-  }
+#define TF32_CASE(DQ, DVV)                                                    \
+  if (D == DQ && DV == DVV)                                                   \
+    return launch<DQ, DVV>(static_cast<const float*>(q),                      \
+                           static_cast<const float*>(k),                      \
+                           static_cast<const float*>(v),                      \
+                           static_cast<float*>(o), lse,                       \
+                           static_cast<float*>(split), B, H, KVH, Sq, Sk,     \
+                           qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb,  \
+                           oss, osh, causal, window, softcap, sm_scale, st);
+  TF32_CASE(32, 32)
+  TF32_CASE(64, 64)
+  TF32_CASE(128, 128)
+  TF32_CASE(256, 256)
+  TF32_CASE(192, 128)     // MLA: qk_nope + qk_rope over v_head_dim
+  TF32_CASE(64, 32)       // MLA at smoke size (48 / 32, padded)
+  return -1;
 #undef TF32_CASE
 }

@@ -2,7 +2,9 @@
 backward, as one ``torch.autograd.Function``.
 
 Layout (the JAX package's, kept at the public function): q [B, Sq, H, D],
-k/v [B, Sk, KV, D]; GQA maps head h to kv head h // (H // KV).
+k [B, Sk, KV, D], v [B, Sk, KV, DV] and out [B, Sq, H, DV]; GQA maps head h
+to kv head h // (H // KV).  DV may differ from D (MLA: d_qk 192 over d_v
+128); the scale is 1/sqrt(D) either way.
 
 * Forward on a CUDA tensor: ``flash_fwd_cuda`` launches a hand-written
   Hopper kernel replacing the Pallas ``flash_attention_pallas`` and
@@ -41,7 +43,22 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _BLOCK_Q = 512
+# the head dims each kernel instantiates: the bf16 kernel square ones, the
+# f32 kernel (d_qk, d_v) pairs, MLA's two among them
 _HEAD_DIMS = (32, 64, 128, 256)
+F32_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128), (64, 32))
+
+
+def kernel_dims(d: int, dv: int) -> Tuple[int, int]:
+    """The (d_qk, d_v) the f32 kernel runs a call of head dims (d, dv) at:
+    its own pair when instantiated, else the smallest instantiated pair
+    that holds it, which the call is zero-padded to (smoke-size MLA's 48 /
+    32 runs at 64 / 32)."""
+    fits = [p for p in F32_DIMS if p[0] >= d and p[1] >= dv]
+    if not fits:
+        raise ValueError(f"no f32 flash instantiation holds head dims "
+                         f"{d} / {dv} (instantiated: {F32_DIMS})")
+    return min(fits, key=lambda p: (p[0] + p[1], p))
 
 
 def _span(q0: int, q1: int, sk: int, causal: bool, window: int) -> Tuple[int, int]:
@@ -74,7 +91,7 @@ def _inv_sqrt(d: int, device) -> torch.Tensor:
 
 def flash_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, block_q: int = _BLOCK_Q):
-    """Plain PyTorch forward: (out [B,Sq,H,D], lse [B,H,Sq] f32)."""
+    """Plain PyTorch forward: (out [B,Sq,H,DV], lse [B,H,Sq] f32)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -144,13 +161,13 @@ def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
 
 # The f32 kernel's split pass (csrc/flash_fwd.cu, flash_split_kernel).  Its
 # scratch holds, for each (batch, kv head) and block of SPLIT_BK keys (zero
-# past Sk), K's D / dc stages then V's, each stage a hi half then a lo half of
-# SPLIT_BK * dc floats, dc = min(D, 64): K's stage c is keys x d-columns
-# [c dc, (c + 1) dc), V's is d-rows [c dc, (c + 1) dc) x keys, transposed, with
-# the keys of each group of 8 in the order SPLIT_KEY_ORDER.  A half is column
-# chunks of 32 floats (K: the stage's d-columns; V: its 64 key positions),
-# each chunk its rows of 128 bytes in the 128-byte swizzle: the 16-byte unit u
-# of row r sits at unit u ^ (r % 8).
+# past Sk), K's D / dc stages then V's DV / dc, each stage a hi half then a lo
+# half of SPLIT_BK * dc floats, dc = min(D, DV, 64): K's stage c is keys x
+# d-columns [c dc, (c + 1) dc), V's is d-rows [c dc, (c + 1) dc) x keys,
+# transposed, with the keys of each group of 8 in the order SPLIT_KEY_ORDER.
+# A half is column chunks of 32 floats (K: the stage's d-columns; V: its 64
+# key positions), each chunk its rows of 128 bytes in the 128-byte swizzle:
+# the 16-byte unit u of row r sits at unit u ^ (r % 8).
 SPLIT_BK = 64
 SPLIT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
@@ -162,15 +179,20 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def split_shape(b: int, kvh: int, sk: int, d: int) -> Tuple[int, ...]:
-    """[B * KVH, key blocks, (K, V), stages, (hi, lo), SPLIT_BK * dc]."""
-    dc = min(d, 64)
-    return (b * kvh, -(-sk // SPLIT_BK), 2, d // dc, 2, SPLIT_BK * dc)
+def split_shape(b: int, kvh: int, sk: int, d: int,
+                dv: Optional[int] = None) -> Tuple[int, ...]:
+    """[B * KVH, key blocks, K's stages then V's, (hi, lo), SPLIT_BK * dc]
+    (``dv`` None means DV = D)."""
+    dv = d if dv is None else dv
+    dc = min(d, dv, 64)
+    return (b * kvh, -(-sk // SPLIT_BK), d // dc + dv // dc, 2, SPLIT_BK * dc)
 
 
-def split_buffer(b: int, kvh: int, sk: int, d: int, device) -> torch.Tensor:
-    """Scratch for the f32 kernel's split pass."""
-    return torch.empty(split_shape(b, kvh, sk, d), dtype=torch.float32,
+def split_buffer(b: int, kvh: int, sk: int, d: int, device,
+                 dv: Optional[int] = None) -> torch.Tensor:
+    """Scratch for the f32 kernel's split pass (at the kernel's head dims,
+    ``kernel_dims``)."""
+    return torch.empty(split_shape(b, kvh, sk, d, dv), dtype=torch.float32,
                        device=device)
 
 
@@ -186,28 +208,29 @@ def _swizzled(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_split_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain version of the f32 kernel's split pass: K and V [B, Sk, KV, D]
-    -> the scratch ``split_shape`` describes, bit for bit."""
+    """Plain version of the f32 kernel's split pass: K [B, Sk, KV, D] and V
+    [B, Sk, KV, DV] -> the scratch ``split_shape`` describes, bit for bit."""
     b, sk, kvh, d = k.shape
-    _, nkb, _, nch, _, _ = split_shape(b, kvh, sk, d)
-    dc = d // nch
+    dv = v.shape[-1]
+    dc = min(d, dv, 64)
+    nkb = -(-sk // SPLIT_BK)
     pad = nkb * SPLIT_BK - sk
 
-    def blocks(x):                     # [B * KVH, key blocks, SPLIT_BK, D]
+    def blocks(x):                     # [B * KVH, key blocks, SPLIT_BK, width]
         x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
-        return x.permute(0, 2, 1, 3).reshape(b * kvh, nkb, SPLIT_BK, d)
+        return x.permute(0, 2, 1, 3).reshape(b * kvh, nkb, SPLIT_BK, -1)
 
     order = torch.tensor([8 * (i // 8) + SPLIT_KEY_ORDER[i % 8]
                           for i in range(SPLIT_BK)], device=k.device)
-    kt = blocks(k).reshape(b * kvh, nkb, SPLIT_BK, nch, dc).transpose(2, 3)
-    vt = blocks(v)[:, :, order].reshape(b * kvh, nkb, SPLIT_BK, nch, dc)
+    kt = blocks(k).reshape(b * kvh, nkb, SPLIT_BK, d // dc, dc).transpose(2, 3)
+    vt = blocks(v)[:, :, order].reshape(b * kvh, nkb, SPLIT_BK, dv // dc, dc)
     vt = vt.permute(0, 1, 3, 4, 2)     # [.., stage, d-row, key position]
     parts = []
     for t in (kt, vt):
         hi = tf32_round(t)
         lo = tf32_round(t - hi)
         parts.append(torch.stack([_swizzled(hi), _swizzled(lo)], dim=3))
-    return torch.stack(parts, dim=2)
+    return torch.cat(parts, dim=2)
 
 
 def _row_aligned(x: torch.Tensor) -> bool:
@@ -236,21 +259,30 @@ def _tma_aligned(x: torch.Tensor) -> bool:
 _ENTRY = {torch.float32: ("flash_fwd", "flash_fwd_f32"),
           torch.bfloat16: ("flash_fwd_sm90", "flash_fwd_sm90_bf16")}
 # the two entry points' parameters: q, k, v, o, lse (and the f32 kernel's
-# split scratch), B, H, KVH, Sq, Sk, D, the twelve strides, causal, window,
-# softcap, sm_scale, device, stream
-_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+# split scratch), B, H, KVH, Sq, Sk, D (and the f32 kernel's DV), the twelve
+# strides, causal, window, softcap, sm_scale, device, stream
+_TAIL = ([ctypes.c_longlong] * 12
          + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p])
-F32_ARGTYPES = [ctypes.c_void_p] * 6 + _TAIL
-BF16_ARGTYPES = [ctypes.c_void_p] * 5 + _TAIL
+F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + _TAIL
+BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + _TAIL
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                    softcap: float = 0.0, split: Optional[torch.Tensor] = None):
-    """Launch the Hopper forward kernel of q's dtype: (out [B,Sq,H,D],
-    lse [B,H,Sq]).  On f32 inputs ``split`` is the split pass's scratch
-    (``split_buffer``; allocated here when None): after the call it holds
-    what ``flash_split_plain(k, v)`` computes.  Needs at least one key."""
+    """Launch the Hopper forward kernel of q's dtype: (out [B,Sq,H,DV],
+    lse [B,H,Sq]).  Needs at least one key.
+
+    On f32 inputs a (D, DV) pair the kernel does not instantiate runs at
+    ``kernel_dims(D, DV)``: q and k are zero-padded to its d_qk and v to its
+    d_v, the scale stays 1/sqrt(D) of the unpadded D, and out comes back
+    sliced to DV.  The zero columns add exact zeros to every score (hi and
+    lo of 0 are 0) and fill only the discarded columns of out, so the
+    result is the unpadded call's.  ``split`` is the split pass's scratch
+    at the kernel's dims (``split_buffer(B, KV, Sk, dq, device, dv)`` with
+    ``dq, dv = kernel_dims(D, DV)``; allocated here when None): after the call it holds what
+    ``flash_split_plain`` computes of the (padded) k and v.  bf16 inputs
+    take a head dim of ``_HEAD_DIMS`` with DV = D."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_fwd_cuda needs CUDA tensors")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _ENTRY):
@@ -258,18 +290,33 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     b, sq, h, d = q.shape
     _, sk, kvh, dk = k.shape
-    if tuple(v.shape) != tuple(k.shape) or dk != d or k.shape[0] != b:
+    dv = v.shape[-1]
+    if (tuple(v.shape[:3]) != tuple(k.shape[:3]) or dk != d
+            or k.shape[0] != b):
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if d not in _HEAD_DIMS or h % kvh:
-        raise ValueError(f"unsupported head_dim={d} or heads {h}/{kvh}")
+    if h % kvh:
+        raise ValueError(f"heads {h} do not group over {kvh} kv heads")
     bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        if d not in _HEAD_DIMS or dv != d:
+            raise ValueError(f"the bf16 kernel takes head dims {_HEAD_DIMS} "
+                             f"with d_v = d_qk, got {d} / {dv}")
+        dq_k, dv_k = d, d
+    else:
+        dq_k, dv_k = kernel_dims(d, dv)
+        if dq_k != d:
+            pad = (0, dq_k - d)
+            q = torch.nn.functional.pad(q, pad)
+            k = torch.nn.functional.pad(k, pad)
+        if dv_k != dv:
+            v = torch.nn.functional.pad(v, (0, dv_k - dv))
     aligned = _tma_aligned if bf16 else _row_aligned
     q, k, v = (x if aligned(x) else x.contiguous() for x in (q, k, v))
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dv_k), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
-        return out, lse
+        return out[..., :dv], lse
     if sk == 0:
         raise ValueError("flash_fwd_cuda needs at least one key")
     lib_name, name = _ENTRY[q.dtype]
@@ -278,19 +325,21 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if bf16:
         fn.argtypes = BF16_ARGTYPES
         ptrs = (q, k, v, out, lse)
+        dims = (d,)
         strides = _tma_strides
     else:
         fn.argtypes = F32_ARGTYPES
+        want = split_shape(b, kvh, sk, dq_k, dv_k)
         if split is None:
-            split = split_buffer(b, kvh, sk, d, q.device)
-        elif (tuple(split.shape) != split_shape(b, kvh, sk, d)
-              or split.dtype != torch.float32 or not split.is_contiguous()
-              or split.device != q.device):
+            split = torch.empty(want, dtype=torch.float32, device=q.device)
+        elif (tuple(split.shape) != want or split.dtype != torch.float32
+              or not split.is_contiguous() or split.device != q.device):
             raise ValueError(f"split scratch must be a contiguous f32 "
-                             f"tensor of shape {split_shape(b, kvh, sk, d)}")
+                             f"tensor of shape {want}")
         ptrs = (q, k, v, out, lse, split)
+        dims = (dq_k, dv_k)
         strides = lambda x: x.stride()[:3]
-    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, d,
+    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, *dims,
              *strides(q), *strides(k), *strides(v),
              *out.stride()[:3], int(causal), int(window), float(softcap),
              1.0 / math.sqrt(d), q.device.index,
@@ -298,6 +347,8 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     build.check(err, name)
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.launches_bf16 += int(bf16)
+    if dv_k != dv:
+        out = out[..., :dv].contiguous()
     return out, lse
 
 
@@ -336,7 +387,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, impl: Optional[str] = None):
-    """Differentiable attention, [B,Sq,H,D] x [B,Sk,KV,D] -> [B,Sq,H,D].
+    """Differentiable attention, [B,Sq,H,D] x [B,Sk,KV,D] (k) x
+    [B,Sk,KV,DV] (v) -> [B,Sq,H,DV].
 
     ``impl`` None picks the CUDA kernel for CUDA tensors and the plain
     version for CPU tensors; ``"plain"`` forces the plain version (on

@@ -5,7 +5,9 @@ Builds the same run as ``launch.train.train`` (one rank), steps through
 JSON object: wall time, summed kernel time, the device's idle share, and
 kernel time by category (this port's kernels, matrix products,
 everything else) with the top kernels by name.  ``--wire-precision`` and
-``--master-dtype`` are ``launch.train``'s.
+``--master-dtype`` are ``launch.train``'s; the engine is the arch's
+default (the sharded flat engine, at one shard, where ``needs_fsdp``
+names the arch).
 
     python -m repro_torch.launch.profile_step --layers 8 --seq 8192 \
         --loss-chunk 1024 --out chiprun_out/profile_step.json
@@ -17,9 +19,11 @@ everything else) with the top kernels by name.  ``--wire-precision`` and
         --layers 24 --out chiprun_out/profile_rwkv6.json
     python -m repro_torch.launch.profile_step --arch seamless-m4t-large-v2 \
         --layers 24 --seq 4096 --out chiprun_out/profile_encdec.json
+    python -m repro_torch.launch.profile_step --arch deepseek-v2-236b \
+        --layers 1 --seq 4096 --out chiprun_out/profile_mla.json
 
-``--layers`` sets the decoder's depth; an encoder-decoder keeps its
-config's encoder layers.
+``--layers`` sets the decoder's depth (deepseek-v2-236b at 1: its dense
+layer 0); an encoder-decoder keeps its config's encoder layers.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.launch.train import build_schedule, init_distributed
 from repro_torch.models.model import init_params
 from repro_torch.optim.optimizers import adamw
+from repro_torch.sharding import needs_fsdp
 from repro_torch.train.bucketing import build_bucket_layout
 from repro_torch.train.runtime import DeftRuntime
 
@@ -103,7 +108,8 @@ def main() -> None:
     if plan.precision is not None:
         layout = layout.with_precision(plan.precision)
     rt = DeftRuntime(cfg, adamw(1e-3), plan.schedule, layout, device=dev,
-                     loss_chunk=args.loss_chunk, master_dtype=args.master_dtype)
+                     loss_chunk=args.loss_chunk, master_dtype=args.master_dtype,
+                     fsdp=needs_fsdp(cfg.name))
     state = rt.init_state(0)
     n_prof = args.profile_steps or rt.period
     batches = [make_batch(cfg, 0, i, args.batch, args.seq, device=dev)
@@ -133,7 +139,8 @@ def main() -> None:
         "config": dict(arch=args.arch, layers=args.layers, seq=args.seq,
                        batch=args.batch, loss_chunk=args.loss_chunk,
                        wire_precision=rt.stats()["wire_precision"],
-                       master_dtype=rt.master_dtype),
+                       master_dtype=rt.master_dtype,
+                       sharded=rt.stats()["sharded_state"]),
         "period": rt.period,
         "steps_profiled": n_prof,
         "wall_ms_per_step": wall * 1e3 / n_prof,

@@ -25,7 +25,7 @@ run alone it is a one-rank group (NCCL on the card, gloo on the CPU), so
 every gradient sum still goes through a real collective.  ``--arch``
 takes every config of ``repro_torch.configs``; an audio or vision
 config's batches carry the stub frontend's memory, split over the ranks
-with the tokens.
+with the tokens; a MoE config's log lines carry the aux loss.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --scheduler deft --steps 8 --batch 4 --seq 64 \
@@ -43,6 +43,9 @@ with the tokens.
         --adapt-drop-step 4 --adapt-repartition --trace OUT.json
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch seamless-m4t-large-v2 --smoke --steps 6 --batch 2 --seq 32 \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-236b --smoke --steps 6 --batch 2 --seq 32 \
         --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen3-4b --smoke --steps 28 --batch 4 --seq 32 --device cpu \
@@ -410,6 +413,15 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             f"{cfg.name}: the precision path of a config with a stub "
             f"frontend's memory (a bf16sr master or bf16 compute) is not "
             f"ported yet (see ROADMAP.md)")
+    if cfg.mla is not None and (master_dtype, compute_dtype) != ("f32",
+                                                                 "f32"):
+        raise NotImplementedError(
+            f"{cfg.name}: the precision path of an MLA config (a bf16sr "
+            f"master or bf16 compute) needs the bf16 flash at d_v != d_qk, "
+            f"which is not ported yet (see ROADMAP.md)")
+    # the log carries the aux loss where a MoE layer makes one
+    has_moe = cfg.moe is not None and any(
+        s.ffn == "moe" for s in cfg.layer_specs()[cfg.moe.first_k_dense:])
     if elastic and adapt:
         raise ValueError("elastic and adapt are mutually exclusive: the "
                          "elastic controller owns replanning while it owns "
@@ -693,7 +705,8 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
                 save_checkpoint(ckpt, step + 1, runtime, state)
             if m is not None and ((step - start_step) % max(steps // 10, 1)
                                   == 0 or step == last_step):
-                say(f"step {step:4d} loss={loss:.4f} "
+                aux = (f"aux={float(m['aux']):.5f} " if has_moe else "")
+                say(f"step {step:4d} loss={loss:.4f} {aux}"
                     f"updated={bool(m['updated'])} "
                     f"({out['step_s'][-1]:.3f}s)")
         if ckpt and not halted:

@@ -2,32 +2,38 @@
 residual) -> (norm -> FFN -> residual), with gemma2-style post-norms when
 ``cfg.post_block_norm``.
 
-Port of ``repro/models/blocks.py`` for the attention kinds (``attn``,
-``local_attn``), the RG-LRU recurrent block (``rglru``) and the
-cross-attention kind (``cross_attn``), each with a dense FFN, and the
-RWKV-6 block (``rwkv``), whose mixer is the time-mix and whose FFN
-sublayer is the RWKV channel-mix (token-shifted squared-relu MLP).  A
-``cross_attn`` block is, in an encoder-decoder, causal self-attention,
-then a ``cross_norm`` -> cross-attention sublayer over the encoder's
-output, then the FFN; in a VLM, the gated cross-attention over the stub
-frontend's embeddings is its mixer.  MLA and MoE are later slices and
-raise here.
+Port of ``repro/models/blocks.py`` (train path) for every kind: GQA
+self-attention (``attn``, ``local_attn`` with its window), DeepSeek-V2's
+latent attention (``mla``), the RG-LRU recurrent block (``rglru``), the
+cross-attention kind (``cross_attn``) and the RWKV-6 block (``rwkv``),
+whose mixer is the time-mix and whose FFN sublayer is the RWKV
+channel-mix (token-shifted squared-relu MLP).  A ``cross_attn`` block is,
+in an encoder-decoder, causal self-attention, then a ``cross_norm`` ->
+cross-attention sublayer over the encoder's output, then the FFN; in a
+VLM, the gated cross-attention over the stub frontend's embeddings is its
+mixer.  The FFN is dense (``cfg.d_ff`` wide) or, for ``ffn="moe"``, the
+capacity-dispatched MoE, whose load-balance aux loss ``apply_block``
+returns beside x (0 for a dense block, as JAX's ``(x, cache, aux)``
+gives).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import LayerSpec
 from repro_torch.models.attention import (
     apply_cross_attention,
+    apply_mla,
     apply_self_attention,
     cross_kv,
     init_attention,
     init_cross_attention,
+    init_mla,
 )
 from repro_torch.models.common import apply_ffn, apply_norm, init_ffn, init_norm
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.recurrent import (
     apply_rglru,
     apply_rwkv_channelmix,
@@ -37,16 +43,12 @@ from repro_torch.models.recurrent import (
     init_rwkv_timemix,
 )
 
-_KINDS = ("attn", "local_attn", "rglru", "rwkv", "cross_attn")
+_KINDS = ("attn", "local_attn", "mla", "rglru", "rwkv", "cross_attn")
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind not in _KINDS or spec.ffn != "dense":
-        raise NotImplementedError(
-            f"layer {spec.kind}/{spec.ffn} is not ported yet (dense "
-            f"{'/'.join(_KINDS)} blocks only; MLA and MoE are queued in "
-            f"ROADMAP.md)"
-        )
+    if spec.kind not in _KINDS or spec.ffn not in ("dense", "moe"):
+        raise ValueError(f"unknown layer {spec.kind}/{spec.ffn}")
 
 
 def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
@@ -61,6 +63,8 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
         p["mixer"] = init_rglru_block(generator, cfg, **kw)
     elif spec.kind == "rwkv":
         p["mixer"] = init_rwkv_timemix(generator, cfg, **kw)
+    elif spec.kind == "mla":
+        p["mixer"] = init_mla(generator, cfg, **kw)
     elif spec.kind == "cross_attn" and cfg.is_encoder_decoder:
         p["mixer"] = init_attention(generator, cfg, **kw)          # self
         p["cross"] = init_cross_attention(generator, cfg, **kw)
@@ -72,6 +76,8 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
     p["ffn_norm"] = init_norm(cfg.norm, cfg.d_model, **kw)
     if spec.kind == "rwkv":
         p["ffn"] = init_rwkv_channelmix(generator, cfg, **kw)
+    elif spec.ffn == "moe":
+        p["ffn"] = init_moe(generator, cfg, **kw)
     else:
         p["ffn"] = init_ffn(generator, cfg, **kw)
     return p
@@ -80,9 +86,10 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
 def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
                 memory: Optional[torch.Tensor] = None, causal: bool = True,
                 attn_impl: Optional[str] = None,
-                scan_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]; a ``cross_attn`` block attends to
-    ``memory`` [B, M, d]."""
+                scan_impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (x [B, S, d], the MoE aux loss, an f32 0-d tensor);
+    a ``cross_attn`` block attends to ``memory`` [B, M, d]."""
     _check_spec(spec)
     if spec.kind == "cross_attn" and memory is None:
         raise ValueError("a cross_attn block needs the memory")
@@ -96,6 +103,9 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     elif spec.kind == "rwkv":
         out = apply_rwkv_timemix(p["mixer"], norm("pre_norm", x), cfg=cfg,
                                  scan_impl=scan_impl)
+    elif spec.kind == "mla":
+        out = apply_mla(p["mixer"], norm("pre_norm", x), cfg=cfg,
+                        attn_impl=attn_impl)
     elif spec.kind == "cross_attn" and not cfg.is_encoder_decoder:
         out = apply_cross_attention(
             p["mixer"], norm("pre_norm", x), cross_kv(p["mixer"], memory, cfg),
@@ -112,10 +122,13 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
         x = x + apply_cross_attention(
             p["cross"], norm("cross_norm", x), cross_kv(p["cross"], memory, cfg),
             cfg=cfg, attn_impl=attn_impl)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "rwkv":
         out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x))
+    elif spec.ffn == "moe":
+        out, aux = apply_moe(p["ffn"], norm("ffn_norm", x), cfg=cfg)
     else:
         out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg)
     if cfg.post_block_norm:
         out = norm("post_ffn_norm", out)
-    return x + out
+    return x + out, aux

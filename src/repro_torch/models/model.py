@@ -1,6 +1,6 @@
-"""Full model of the port: init / encode / forward / loss over an
-ArchConfig whose blocks are ported (dense attention, cross-attention,
-RG-LRU and RWKV-6 kinds; tied or untied LM head, RMS or layer norm).
+"""Full model of the port: init / encode / forward / loss over any
+ArchConfig (attention, MLA, cross-attention, RG-LRU and RWKV-6 kinds,
+dense or MoE FFNs; tied or untied LM head, RMS or layer norm).
 
 Port of ``repro/models/model.py`` (train path).  The parameter tree is the
 JAX package's: ``embed``, ``final_norm``, optional ``head``, the
@@ -123,8 +123,8 @@ def encode(params, cfg: ArchConfig, modal_embeds: torch.Tensor, *,
     enc = params["encoder"]
     x = modal_embeds
     for p in _period_views(enc["stack"], cfg.n_encoder_layers):
-        x = apply_block(p, x, cfg=cfg, spec=_ENCODER_SPEC, causal=False,
-                        attn_impl=attn_impl)
+        x, _ = apply_block(p, x, cfg=cfg, spec=_ENCODER_SPEC, causal=False,
+                           attn_impl=attn_impl)
     return apply_norm(enc["final_norm"], x, cfg.norm)
 
 
@@ -132,7 +132,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             memory: Optional[torch.Tensor] = None, remat: bool = True,
             head: bool = True, attn_impl: Optional[str] = None,
             scan_impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B,S,V], aux); with ``head=False`` the final-norm
+    """Returns (logits [B,S,V], aux), aux the sum of the MoE blocks' load
+    balance losses (0 without MoE); with ``head=False`` the final-norm
     hidden states [B,S,d] replace the logits.  ``memory`` [B, M, d] is
     what the cross-attention blocks attend to (the encoder's output, or
     the stub frontend's embeddings)."""
@@ -149,21 +150,26 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         if remat:
             # a lazy (streamed) block is materialized here, at the
             # checkpoint boundary, so the recompute never gathers; the
-            # memory goes in as an input, so its gradient flows out
+            # memory goes in as an input, so its gradient flows out; the
+            # (x, aux) tuple comes out of the region with both gradients
             return checkpoint(fn, tree_dense(p), x, memory,
                               use_reentrant=False, preserve_rng_state=False)
         return fn(p, x, memory)
 
     for i, spec in enumerate(lay.prefix_specs):
-        x = run(params["prefix"][i], x, dataclasses.replace(spec, ffn="dense"))
+        x, a = run(params["prefix"][i], x,
+                   dataclasses.replace(spec, ffn="dense"))
+        aux = aux + a
     if lay.n_periods:
         views = [_period_views(params["stack"][j], lay.n_periods)
                  for j in range(lay.period)]
         for i in range(lay.n_periods):
             for j in range(lay.period):
-                x = run(views[j][i], x, cfg.layer_pattern[j])
+                x, a = run(views[j][i], x, cfg.layer_pattern[j])
+                aux = aux + a
     for i, spec in enumerate(lay.tail_specs):
-        x = run(params["tail"][i], x, spec)
+        x, a = run(params["tail"][i], x, spec)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if not head:
         return x, aux
@@ -210,10 +216,10 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True, loss_chunk: int = 0,
             attn_impl: Optional[str] = None, scan_impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross entropy; ``loss_chunk > 0`` takes the chunked
-    LM-head path.  ``batch`` holds tokens, labels and, for a non-text
-    modality, the stub frontend's ``memory`` (encoded first in an
-    encoder-decoder).  Returns (loss, {"ce", "aux"})."""
+    """Next-token cross entropy plus the MoE aux loss; ``loss_chunk > 0``
+    takes the chunked LM-head path.  ``batch`` holds tokens, labels and,
+    for a non-text modality, the stub frontend's ``memory`` (encoded first
+    in an encoder-decoder).  Returns (loss + aux, {"ce", "aux"})."""
     memory = batch.get("memory")
     if cfg.is_encoder_decoder:
         memory = encode(params, cfg, memory, attn_impl=attn_impl)

@@ -1,23 +1,30 @@
 """Shared by the control-surface tests (``test_torch_swap*.py``,
 ``test_torch_adapt.py``, ``test_torch_obs.py``): the tiny qwen3 of
 ``tests/test_repack.py`` and ``tests/test_adapt.py`` in both packages,
-the same JAX params and numpy batches, and the runs the tests compare.
+the same JAX params and numpy batches, and the runs the tests compare;
+and by ``test_torch_mla.py`` / ``test_torch_moe.py``: a smoke model's
+params drawn once a process by the port's init (``smoke_params``: numpy
+in the JAX package's tree, which a JAX draw of takes seconds), and its
+loss and every gradient leaf against JAX's (``loss_and_grads_match_jax``).
 The JAX package is imported inside the functions that use it, so that
 the spawned gloo ranks of ``test_torch_swap_ranks.py``, which import
 this module, start without JAX."""
 import dataclasses
+import functools
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config as t_get_config
-from repro_torch.convert import params_from_numpy
+from repro_torch.configs import reduce_for_smoke as t_reduce
+from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.bucket import BucketTimes
 from repro_torch.core.deft import feedback_solve
 from repro_torch.core.preserver import WalkParams
 from repro_torch.core.profiler import HardwareModel
-from repro_torch.models.model import init_params
+from repro_torch.data.pipeline import make_batch as t_make_batch
+from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim.optimizers import adamw
 from repro_torch.train.bucketing import (
     assign_buckets,
@@ -26,7 +33,7 @@ from repro_torch.train.bucketing import (
     leaf_bucket_times,
 )
 from repro_torch.train.runtime import DeftRuntime
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten_with_path, tree_leaves
 
 WALK = WalkParams(s0=4.0, eta=0.01, mu=1.0, sigma=40.0, batch=256)
 B, S, LR, ATOL = 4, 32, 1e-3, 1e-4
@@ -183,3 +190,55 @@ def span_rows(tracer, kinds=None):
              {k: (v is not None) if k in TIMED else v
               for k, v in sp.args.items()})
             for sp in tracer.spans(kinds)]
+
+
+@functools.lru_cache(maxsize=None)
+def smoke_params(arch: str):
+    """``arch``'s smoke config's params from the port's ``init_params``
+    (seed 0) as a numpy tree of the JAX package's structure; shared, so
+    never written to."""
+    return params_to_numpy(init_params(t_reduce(t_get_config(arch)), seed=0,
+                                       device="cpu"))
+
+
+def loss_and_grads_match_jax(arch, seq, loss_chunk, jparams,
+                             rtol=1e-4, atol=1e-5):
+    """``loss_fn`` and every gradient leaf of ``arch``'s smoke config at
+    JAX's params ``jparams`` against ``jax.value_and_grad`` of JAX's
+    ``loss_fn`` (no remat: the same gradients), on a batch of 2 x ``seq``
+    from the port's stream; the aux part nonzero and equal, the param
+    tree's shapes the port's own."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.models.model import loss_fn as jax_loss_fn
+
+    cfg = reduce_for_smoke(get_config(arch))
+    tcfg = t_reduce(t_get_config(arch))
+    data = {k: v.numpy() for k, v in
+            t_make_batch(tcfg, 0, 0, 2, seq, device="cpu").items()}
+    (jloss, jparts), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(p, cfg, {k: jnp.asarray(v.astype(np.int32))
+                                       for k, v in data.items()},
+                              loss_chunk=loss_chunk, remat=False),
+        has_aux=True))(jparams)
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    assert [tuple(x.shape) for x in tree_leaves(params)] == \
+        [tuple(x.shape) for x in tree_leaves(init_params(tcfg, device="meta"))]
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).long() for k, v in data.items()}
+    loss, parts = loss_fn(params, tcfg, batch, loss_chunk=loss_chunk)
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=rtol, atol=atol)
+    assert float(parts["aux"]) > 0
+    np.testing.assert_allclose(float(parts["aux"]), float(jparts["aux"]),
+                               rtol=rtol, atol=atol)
+    got = tree_flatten_with_path(params)
+    want = jax.tree.leaves(jgrads)
+    assert len(got) == len(want)
+    for (path, p), g in zip(got, want):
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), rtol=rtol,
+                                   atol=atol, err_msg="/".join(path))

@@ -14,8 +14,10 @@ lse within 1e-4, absolute and relative), and against the JAX package's
   split into hi + lo; O = O * alpha + Ph.Vh + Ph.Vl + Pl.Vh;
 * out = O / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
 
-One case shows that a single TF32 product (no lo terms) fails the same
-check, which is why the kernel splits.  The split pass's plain version
+The same at MLA's d_qk != d_v: 192 / 128, and the smoke config's 48 / 32
+as the kernel runs it, zero-padded to 64 / 32 with the scale of the
+unpadded 48, then sliced.  One case shows that a single TF32 product (no
+lo terms) fails the same check, which is why the kernel splits.  The split pass's plain version
 (``flash_split_plain``, held bitwise against the kernel on the card) is
 checked here against the layout the kernel reads, written out index by
 index.
@@ -64,18 +66,19 @@ def _products(a, b, eq, split):
                                            + torch.einsum(eq, a[1], b[0]))
 
 
-def emulate(q, k, v, *, causal, window, softcap, split=True):
-    """The kernel's rounding, vectorised over every query row."""
+def emulate(q, k, v, *, causal, window, softcap, split=True, scale_d=None):
+    """The kernel's rounding, vectorised over every query row; q is scaled
+    by 1/sqrt(``scale_d``) (default: q's head dim)."""
     b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kvh
-    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    scale = torch.tensor(1.0 / np.sqrt(scale_d or d), dtype=torch.float32)
     qs = _split(q.float().reshape(b, sq, kvh, g, d) * scale, split)
     inv_cap = torch.tensor(1.0 / softcap if softcap else 0.0,
                            dtype=torch.float32)
     m = torch.full((b, kvh, g, sq), NEG)
     l = torch.zeros((b, kvh, g, sq))
-    acc = torch.zeros((b, kvh, g, sq, d))
+    acc = torch.zeros((b, kvh, g, sq, dv))
     qp = torch.arange(sq)[:, None]
     for k0 in range(0, sk, SPLIT_BK):
         k1 = min(k0 + SPLIT_BK, sk)
@@ -99,7 +102,7 @@ def emulate(q, k, v, *, causal, window, softcap, split=True):
             _split(p, split), vs, "bhgqk,bkhd->bhgqd", split)
         m = m_new
     l = torch.clamp(l, min=1e-30)
-    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
     return out, (m + torch.log(l)).reshape(b, h, sq)
 
 
@@ -138,6 +141,33 @@ def test_split_tf32_emulation_matches_jax_flash(window, cap):
                                rtol=FLASH_TOL, atol=FLASH_TOL)
 
 
+# MLA: (d_qk, d_v, heads, kv heads, seq, causal)
+@pytest.mark.parametrize("d,dv,h,kvh,s,causal", [
+    (192, 128, 4, 4, 200, True),
+    (48, 32, 4, 4, 150, True),
+    (48, 32, 4, 2, 90, False),
+])
+def test_split_tf32_emulation_at_mla_dims(d, dv, h, kvh, s, causal):
+    """The kernel at d_v != d_qk, at the dims it runs (``kernel_dims``: 48 /
+    32 zero-padded to 64 / 32, scaled by the unpadded 48), against the
+    plain version and JAX's ``flash_global`` under the card's check."""
+    rng = np.random.default_rng(d + dv + s)
+    mk = lambda n, w: torch.from_numpy(
+        rng.standard_normal((1, s, n, w)).astype(np.float32))
+    q, k, v = mk(h, d), mk(kvh, d), mk(kvh, dv)
+    dq, dvk = ops.kernel_dims(d, dv)
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    out, lse = emulate(pad(q, dq), pad(k, dq), pad(v, dvk), causal=causal,
+                       window=0, softcap=0.0, scale_d=d)
+    out = out[..., :dv]
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    assert _agrees(out, lse, ref, ref_lse)
+    want = flash_global(*(jnp.asarray(x.numpy()) for x in (q, k, v)), causal,
+                        0.0, 0, 32)
+    torch.testing.assert_close(out, torch.from_numpy(np.array(want)),
+                               rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
 def test_single_tf32_fails_the_card_check():
     b, s, h, kvh, d, causal, window, cap = CASES[1]
     q, k, v = _qkv(s + d, b, s, h, kvh, d)
@@ -157,40 +187,53 @@ def test_tf32_round_is_cvt_rna():
     assert torch.equal(tf32_round(x), want)
 
 
-@pytest.mark.parametrize("d,sk", [(32, 100), (64, 64), (128, 1), (256, 130)])
-def test_split_pass_plain_version(d, sk):
+@pytest.mark.parametrize("d,dv,sk", [
+    pytest.param(32, 32, 100, id="32-100"),
+    pytest.param(64, 64, 64, id="64-64"),
+    pytest.param(128, 128, 1, id="128-1"),
+    pytest.param(256, 256, 130, id="256-130"),
+    pytest.param(192, 128, 70, id="192-128-70"),
+    pytest.param(64, 32, 100, id="64-32-100"),
+])
+def test_split_pass_plain_version(d, dv, sk):
     """hi and lo have 13 zero low bits, hi + lo is within 2^-22 of x, and
-    the kernel's stage layout, read back index by index, gives K and V."""
+    the kernel's stage layout, read back index by index, gives K and V:
+    K's d // dc stages, then V's dv // dc, dc = min(d, dv, 64)."""
     b, kvh = 2, 3
-    _, k, v = _qkv(d + sk, b, sk, kvh, kvh, d)
+    _, k, _ = _qkv(d + sk, b, sk, kvh, kvh, d)
+    v = _qkv(dv + sk + 1, b, sk, kvh, kvh, dv)[1]
     split = flash_split_plain(k, v)
-    assert tuple(split.shape) == split_shape(b, kvh, sk, d)
+    assert tuple(split.shape) == split_shape(b, kvh, sk, d, dv)
     bits = split.view(torch.int32)
     assert not (bits & 0x1FFF).any()
 
-    nkb, nch, dc = split.shape[1], split.shape[3], split.shape[5] // SPLIT_BK
-    key = np.arange(nkb * SPLIT_BK)[:, None]       # [keys, 1]
-    col = np.arange(d)[None, :]                    # [1, D]
-    blk, kp = key // SPLIT_BK, key % SPLIT_BK
-    stage, c = col // dc, col % dc
+    dc = min(d, dv, 64)
+    nkb = split.shape[1]
+    stages = split                 # [B * KVH, key blocks, stages, (hi, lo), ...]
 
     def swizzled(row, e):                          # a 32-column chunk's swizzle
         return row * 32 + ((e // 4) ^ (row % 8)) * 4 + e % 4
 
-    # K: stage = d-columns [stage dc, ..), chunk c // 32, row = key
-    k_pos = (c // 32) * SPLIT_BK * 32 + swizzled(kp, c % 32)
-    # V: stage = d-rows, row = c; key kp at position 8 (kp // 8) + slot
-    slot = np.argsort(SPLIT_KEY_ORDER)[kp % 8]
-    lp = 8 * (kp // 8) + slot
-    v_pos = (lp // 32) * dc * 32 + swizzled(c, lp % 32)
-    for which, x, pos in ((0, k, k_pos), (1, v, v_pos)):
-        flat = split[:, :, which].reshape(b * kvh, nkb, nch, 2, -1)
+    for x, first in ((k, 0), (v, d // dc)):
+        w = x.shape[-1]
+        key = np.arange(nkb * SPLIT_BK)[:, None]   # [keys, 1]
+        col = np.arange(w)[None, :]                # [1, width]
+        blk, kp = key // SPLIT_BK, key % SPLIT_BK
+        stage, c = first + col // dc, col % dc
+        if first == 0:
+            # K: stage = d-columns [stage dc, ..), chunk c // 32, row = key
+            pos = (c // 32) * SPLIT_BK * 32 + swizzled(kp, c % 32)
+        else:
+            # V: stage = d-rows, row = c; key kp at position 8 (kp // 8) + slot
+            slot = np.argsort(SPLIT_KEY_ORDER)[kp % 8]
+            lp = 8 * (kp // 8) + slot
+            pos = (lp // 32) * dc * 32 + swizzled(c, lp % 32)
         grid = lambda a: torch.from_numpy(
-            np.broadcast_to(a, (nkb * SPLIT_BK, d)).copy())
+            np.broadcast_to(a, (nkb * SPLIT_BK, w)).copy())
         idx, blk_i, st_i = grid(pos), grid(blk), grid(stage)
-        hi = flat[:, blk_i, st_i, 0, idx]          # [B * KVH, keys, D]
-        lo = flat[:, blk_i, st_i, 1, idx]
-        xs = x.permute(0, 2, 1, 3).reshape(b * kvh, sk, d)
+        hi = stages[:, blk_i, st_i, 0, idx]        # [B * KVH, keys, width]
+        lo = stages[:, blk_i, st_i, 1, idx]
+        xs = x.permute(0, 2, 1, 3).reshape(b * kvh, sk, w)
         assert not hi[:, sk:].any() and not lo[:, sk:].any()
         hi, lo = hi[:, :sk], lo[:, :sk]
         assert torch.equal(hi, tf32_round(xs))

@@ -18,7 +18,11 @@ kernels and the two RG-LRU scan kernels bitwise (each rounds every operation sep
 version's elementwise kernels do, and the hash is integer arithmetic); the
 RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o and
 every gradient (f32 on both sides, another summation order inside the small
-products), S_final, the chunk-start states and ds0 bitwise.  At one rank
+products), S_final, the chunk-start states and ds0 bitwise.  The f32
+flash at MLA's d_qk != d_v (192 / 128, and 48 / 32 zero-padded to the
+instantiated 64 / 32) under the same 1e-4, its split pass bitwise; the MoE
+FFN's forward and backward twice on the card, bitwise equal (no float sum
+in its routing depends on the order of atomics).  At one rank
 the chain collectives are the identity and issue no P2P op, and the
 decoupled sharded engine's streamed param gathers (f32 and int8 wires,
 also routed along the one-rank chain) train bitwise as the burst ones.  A
@@ -47,6 +51,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_attention.ops import (
     _tma_aligned,
     flash_split_plain,
+    kernel_dims,
     split_buffer,
 )
 from repro_torch.kernels.quantize import (
@@ -83,6 +88,7 @@ from repro_torch.launch.train import (
     train,
 )
 from repro_torch.models.model import init_params
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 from repro_torch.train.bucketing import (
     build_bucket_layout,
@@ -94,7 +100,7 @@ from repro_torch.train.chains import (
     chain_reduce_scatter,
 )
 from repro_torch.train.runtime import DeftRuntime
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 TOL = 1e-4
 BF16_OUT_RTOL = 2 ** -7
@@ -284,6 +290,66 @@ def test_flash_split_pass_bitwise(d, kvh, s):
     want = flash_split_plain(k, v)
     torch.cuda.synchronize()
     assert torch.equal(split.view(torch.int32), want.view(torch.int32))
+
+
+# MLA: d_v != d_qk; 48 / 32 runs zero-padded at the instantiated 64 / 32
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv,h,kvh,s,causal", [
+    (192, 128, 8, 8, 333, True),
+    (192, 128, 4, 4, 64, True),
+    (192, 128, 4, 2, (300, 77), False),
+    (48, 32, 4, 4, 200, True),
+    (48, 32, 4, 4, 1, True),
+    (64, 32, 4, 1, 130, False),
+])
+def test_flash_kernel_mla_dims_match_plain(d, dv, h, kvh, s, causal):
+    _need_card()
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    q, k, _ = _qkv(8, 2, sq, h, kvh, d, sk)
+    v = _qkv(9, 2, sk, kvh, kvh, dv)[0]
+    dq_k, dv_k = kernel_dims(d, dv)
+    split = split_buffer(2, kvh, sk, dq_k, "cuda", dv_k)
+    out, lse = flash_fwd_cuda(q, k, v, causal=causal, split=split)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    want = flash_split_plain(pad(k, dq_k), pad(v, dv_k))
+    torch.cuda.synchronize()
+    assert out.shape == (2, sq, h, dv)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    assert torch.equal(split.view(torch.int32), want.view(torch.int32))
+    w = torch.randn_like(ref)
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.sum(flash_attention(*xs, causal=causal, impl=impl) * w).backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_twice_on_the_card_is_bitwise(arch):
+    """Output, aux and every gradient of ``apply_moe`` (at a capacity factor
+    that drops tokens) are the same bits in two runs."""
+    _need_card()
+    cfg = reduce_for_smoke(get_config(arch))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = init_moe(gen, cfg, device="cuda")
+    x = torch.randn((2, 64, cfg.d_model), device="cuda", generator=gen)
+    w = torch.randn(x.shape, device="cuda", generator=gen)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for t in tree_leaves(p)]
+        y, aux = apply_moe(tree_unflatten(p, leaves[1:]), leaves[0],
+                           cfg=cfg, capacity_factor=0.75)
+        (torch.sum(y * w) + aux).backward()
+        runs.append([y.detach(), aux.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

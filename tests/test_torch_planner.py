@@ -38,7 +38,8 @@ COPIED = sorted(
     + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py",
        "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py",
        "configs/seamless_m4t_large_v2.py", "configs/llama_3_2_vision_90b.py",
-       "configs/starcoder2_7b.py", "configs/deepseek_7b.py"]
+       "configs/starcoder2_7b.py", "configs/deepseek_7b.py",
+       "configs/deepseek_v2_236b.py", "configs/llama4_maverick_400b_a17b.py"]
     + [f"{pkg}/{p.name}" for pkg in ("obs", "adapt")
        for p in (SRC / "repro" / pkg).glob("*.py")]
     + ["elastic/health.py", "elastic/faults.py", "elastic/controller.py"]
@@ -56,7 +57,7 @@ def test_copied_module_is_verbatim(rel):
 
 ARCHS = ["gemma2-2b", "qwen3-4b", "recurrentgemma-9b", "rwkv6-1.6b",
          "seamless-m4t-large-v2", "llama-3.2-vision-90b", "starcoder2-7b",
-         "deepseek-7b"]
+         "deepseek-7b", "deepseek-v2-236b", "llama4-maverick-400b-a17b"]
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
