@@ -18,7 +18,10 @@
    gradients too) and at MLA's d_qk != d_v (deepseek-v2-236b's [1, 4096,
    128] at 192 / 128, and the smoke config's [2, 64, 4] at 48 / 32, run
    zero-padded at the instantiated 64 / 32; gradients and the split
-   bytes too), with its
+   bytes too) and at one query (a decode step's cross-attention: 4 x 1
+   query over seamless's 1024 frames, 16 heads of 64, and over the VLM's
+   1601 patches, 64 heads over 8 of 128; timed against
+   ``scaled_dot_product_attention``), with its
    bound at the TF32 rate for the three products beside the CUDA-core
    bound and the kernel's registers and spills; the bucket
    update bitwise for AdamW and SGD, uniform and per-element, masked
@@ -35,8 +38,9 @@
    kernel; the kernel must not be slower), with its TFLOP/s and share of
    the bound; the RG-LRU scan's forward and reverse-scan backward kernels
    bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256), (3, 33, 100) and
-   (1, 1, 4096) with and without h0 and an h_final cotangent, and at the
-   recurrent path's [1, 8192, 4096]; the RWKV-6 WKV forward and backward
+   (1, 1, 4096) with and without h0 and an h_final cotangent (S 1 from h0
+   is a decode step's scan), at serve_path's [4, 1024, 4096] and [4, 1,
+   4096] from h0, and at the recurrent path's [1, 8192, 4096]; the RWKV-6 WKV forward and backward
    kernels within max |diff| / max |plain| <= 1e-4 on
    o, S_final and every gradient, the forward's S_final and chunk-start
    states and the backward's ds0 bitwise, at (B, S, H, D) (2, 64, 2, 32),
@@ -44,7 +48,8 @@
    5, 2, 64), (1, 1, 2, 64), (3, 70, 5, 32) and, for 1, 7, 8, 9 and 33
    chunks around the scans' 8-chunk look-ahead, (1, 32, 2, 64), (1, 224,
    2, 64), (1, 256, 2, 32), (1, 280, 2, 64), (2, 1056, 2, 64), with and
-   without s0 and a dS_final cotangent, and at the RWKV path's [1, 8192,
+   without s0 and a dS_final cotangent (S 1 from s0 is a decode step's
+   WKV, S 5 a ragged prefill), and at the RWKV path's [1, 8192,
    32, 64] (where each direction's own traffic is printed beside its
    bound's, and each launch of the two C calls is timed).  Times
    each kernel, its plain version and a PyTorch library call that
@@ -210,7 +215,39 @@
    ckpt=...)``: the only shard drops, the run halts with the emergency
    checkpoint, and ``train(resume=True)`` finishes it bitwise an
    uninterrupted run; prints the save and restore times.
-11. Prints the kernels line, the card's name and power limit, and last the
+11. Serves (``serve_path``) recurrentgemma-9b at full width and full
+   depth (38 layers: 26 RG-LRU, 12 local attention at window 2048, MQA 16
+   heads over 1 of 256; 8,578,199,552 params in f32) through
+   ``repro_torch.launch.serve.serve``: 4 requests of a 1024-token prompt, 64
+   greedy tokens each (one prefill, 63 decode steps), an f32 cache.  Every
+   served position's logits (the prefill's last, each decode step's)
+   against the training forward on the plain versions (no kernel) over
+   the prompt plus the generated tokens, the head applied to those
+   positions: max |diff| / max |ref| <= SERVE_BOUND, the bound of the JAX
+   package's decode-equivalence test.  During ``serve`` the RG-LRU scan
+   kernel launches 26 x 64 times (once a layer at the prefill and at each
+   decode step, from the carried h0) and no other kernel (the cached
+   attention is plain, as it is plain jnp in JAX); prints prefill ms,
+   decode ms a token, tokens/s and the peak beside the card, and a
+   profile of the prefill and of 8 decode steps (device ms by kernel
+   kind, the decode's idle share).  Then ``serve_smoke_path``: the seven
+   families of that test (qwen3-4b, gemma2-2b, deepseek-v2-236b with
+   MLA's absorbed decode and MoE, rwkv6-1.6b, recurrentgemma-9b,
+   seamless-m4t-large-v2, llama-3.2-vision-90b, and the VLM again at 5
+   layers, one gated cross block with its gate opened) at smoke size (B
+   2, S 24, prefill 16, capacity factor 16), each served through its
+   kernels (the WKV at S 16 and 1 from s0, the scan from h0, the flash in
+   the encoder and in each cross-attention, a decode step's one query
+   included) and held within the same bound of its forward and of the
+   same served run on the plain versions, then gemma2's ring cache
+   decoding 134 steps past its 64-token window.  The flash phase (2.)
+   holds the f32 kernel at that one query (seamless's and the VLM's
+   cross-attention at decode); the scan at S 1 with h0 and the WKV at S 1
+   with s0 are among the kernels' small cases there, and the scan phase
+   holds serve_path's own scans bitwise: the prefill's [4, 1024, 4096]
+   and a decode step's [4, 1, 4096], each from h0.  The cached attention's
+   price for a later decode kernel is ``scripts/serve_attention_price.py``.
+12. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -310,6 +347,33 @@ MOE_WIDTH_TOL = 1e-4
 FLASH_MLA_SHAPES = {
     "mla": (BATCH, MLA_SEQ, 128, 192, 128),
     "mla_smoke": (MOE_BATCH, MOE_SEQ, 4, 48, 32),
+}
+# serving: recurrentgemma-9b at full width and full depth (38 layers: 26
+# RG-LRU, 12 local attention), 4 requests of a 1024-token prompt, 64 tokens
+# generated greedily (one prefill, 63 decode steps), an f32 cache; each
+# served position's logits against the training forward's, max |diff| /
+# max |ref| <= SERVE_BOUND (the bound of the JAX package's
+# tests/test_decode_equivalence.py).  Then the seven families of that test at
+# smoke size (B 2, S 24, prefill 16, capacity factor 16) and gemma2's ring
+# decode past its smoke window (one prompt token, 2 x 64 + 6 decode steps).
+SERVE_ARCH, SERVE_LAYERS, SERVE_RGLRU = "recurrentgemma-9b", 38, 26
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
+SERVE_BOUND = 2e-4
+# (arch, smoke layers): at smoke size the VLM's 3 layers hold no gated cross
+# block, so it runs at 5 (one pattern period) with its gate opened to 0.5
+SERVE_FAMILIES = (("qwen3-4b", 2), ("gemma2-2b", 2), ("deepseek-v2-236b", 2),
+                  ("rwkv6-1.6b", 2), ("recurrentgemma-9b", 2),
+                  ("seamless-m4t-large-v2", 2), ("llama-3.2-vision-90b", 2),
+                  ("llama-3.2-vision-90b", 5))
+SERVE_GATE = 0.5
+SERVE_SMOKE = dict(batch=2, seq=24, prefill=16, capacity_factor=16.0)
+# the f32 flash at one query: the cross-attention of a decode step, over
+# seamless-m4t-large-v2's 1024 frames (16 heads of 64) and over
+# llama-3.2-vision-90b's 1601 patches (64 heads over 8 of 128), at
+# serve_path's batch: (B, Sq, Sk, H, KV, D, causal)
+FLASH_DECODE_SHAPES = {
+    "encdec_cross_decode": (SERVE_REQUESTS, 1, ED_FRAMES, 16, 16, 64, False),
+    "vlm_cross_decode": (SERVE_REQUESTS, 1, 1601, 64, 8, 128, False),
 }
 # the RWKV-6 path: rwkv6-1.6b at full width and full depth (24 of 24 layers),
 # 8 steps (two DeFT schedule periods at coverage rate 1.8); its time-mix has
@@ -525,6 +589,8 @@ def flash_phase(torch, report):
               (b, sq, sk, h, kvh, d, causal) in FLASH_ED_SHAPES.items()]
     cases += [(layer, b, s, s, h, h, d, dv, True, 0, 0.0) for layer,
               (b, s, h, d, dv) in FLASH_MLA_SHAPES.items()]
+    cases += [(layer, b, sq, sk, h, kvh, d, d, causal, 0, 0.0) for layer,
+              (b, sq, sk, h, kvh, d, causal) in FLASH_DECODE_SHAPES.items()]
     for layer, b, sq, sk, h, kvh, d, dv, causal, window, cap in cases:
         q = torch.randn((b, sq, h, d), device="cuda", generator=gen)
         k = torch.randn((b, sk, kvh, d), device="cuda", generator=gen)
@@ -550,15 +616,20 @@ def flash_phase(torch, report):
         ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
         lib_name, lib_note = "flex_attention", None
-        try:
-            lib = flex_call(torch, q, k, v, window, cap, causal=causal)
-            lib()
-        except Exception as e:        # the yardstick only, never the port
+        if layer in FLASH_DECODE_SHAPES:
+            # no mask and no softcap: one sdpa call computes it, uncompiled
             lib_name = "scaled_dot_product_attention"
-            lib_note = (f"compiled flex_attention cannot run this shape "
-                        f"({type(e).__name__}: {str(e)[:200]}); "
-                        f"{lib_name} instead")
             lib = sdpa_call(torch, q, k, v, causal)
+        else:
+            try:
+                lib = flex_call(torch, q, k, v, window, cap, causal=causal)
+                lib()
+            except Exception as e:    # the yardstick only, never the port
+                lib_name = "scaled_dot_product_attention"
+                lib_note = (f"compiled flex_attention cannot run this shape "
+                            f"({type(e).__name__}: {str(e)[:200]}); "
+                            f"{lib_name} instead")
+                lib = sdpa_call(torch, q, k, v, causal)
         lib_err = (lib() - flash_fwd_cuda(q, k, v, **kw)[0]).abs().max().item()
         library_ms = time_ms(torch, lib, 3)
         del lib
@@ -629,7 +700,8 @@ def flash_phase(torch, report):
         "rg_shape": f"B=1 S=8192 H=16 KV=1 D=256 causal window={RG_WINDOW} "
                     f"(recurrentgemma-9b local layer)",
         **{f"{layer}_{k}": shapes[layer][k]
-           for layer in (*FLASH_ED_SHAPES, *FLASH_MLA_SHAPES)
+           for layer in (*FLASH_ED_SHAPES, *FLASH_MLA_SHAPES,
+                         *FLASH_DECODE_SHAPES)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
         "ptxas": ptxas, "ptxas_mla": ptxas_mla,
         "note": "a split pass writes K and V as TF32 hi + lo; S = Q.K^T and "
@@ -1246,6 +1318,15 @@ def rglru_phase(torch, report):
                 n_cases += 1
     print(f"rglru kernels: {n_cases} small cases bitwise equal to the plain "
           f"versions")
+
+    # serve_path's scans, each from the carried h0: the prefill's and a
+    # decode step's
+    for shape in ((SERVE_REQUESTS, SERVE_PROMPT, RG_WIDTH),
+                  (SERVE_REQUESTS, 1, RG_WIDTH)):
+        b, a, h0, dh, _ = inputs(*shape)
+        compare(b, a, h0, dh, None, f"serve_path's shape {shape} from h0")
+    print("rglru kernels: serve_path's shapes from h0 bitwise equal to the "
+          "plain versions")
 
     # the recurrent path's shape: one RG-LRU layer's scan, B=1, S=8192,
     # W=4096; the path passes no h0 and no h_final cotangent
@@ -3165,6 +3246,266 @@ def elastic_halt_phase(torch, report):
           f"params bitwise the uninterrupted run's; launches {launches}")
     return launches
 
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+def served_error(got, ref) -> float:
+    """Decode equivalence: max |diff| / max |ref| over every served
+    position's logits."""
+    return ((got - ref).abs().max() / (ref.abs().max() + 1e-6)).item()
+
+
+def serve_path(torch, report):
+    """recurrentgemma-9b at full width and depth served through
+    ``launch/serve.py::serve``: 4 prompts of 1024 tokens, 64 greedy tokens
+    each.  Every served position's logits (the prefill's last, then each
+    decode step's) against the training forward over the prompt plus the
+    generated tokens on the plain versions, no kernel (the head applied to
+    those positions); the RG-LRU scan kernel launched once a layer at the
+    prefill and at each decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import forward, head_logits, init_params
+
+    cfg = get_config(SERVE_ARCH)
+    kinds = [sp.kind for sp in cfg.layer_specs()]
+    check(cfg.n_layers == SERVE_LAYERS and kinds.count("rglru") == SERVE_RGLRU
+          and kinds.count("local_attn") == SERVE_LAYERS - SERVE_RGLRU,
+          f"{SERVE_ARCH}: {cfg.n_layers} layers, "
+          f"{kinds.count('rglru')} RG-LRU")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = leaf_params(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    # a first, short call loads the kernels these shapes pick (its prefill
+    # is printed as the cold one); the counted call is warm
+    cold = serve(cfg, params, prompts, 2)
+    counters = zero_counters()
+    out = serve(cfg, params, prompts, SERVE_GEN)
+    launches = kernel_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["rglru_fwd"] = SERVE_RGLRU * SERVE_GEN
+    check(launches == want, f"serve_path launches {launches}, expected {want}")
+    check(out.tokens.shape == (SERVE_REQUESTS, SERVE_GEN)
+          and bool(torch.isfinite(out.logits).all()),
+          f"serve_path: tokens {tuple(out.tokens.shape)}, finite logits "
+          f"{bool(torch.isfinite(out.logits).all())}")
+    # the reference: the training forward over prompt + generated tokens,
+    # on the plain scan and attention
+    seq = torch.cat([prompts, out.tokens[:, :-1]], dim=1)
+    with torch.inference_mode():
+        x, _ = forward(params, cfg, seq, remat=False, head=False,
+                       attn_impl="plain", scan_impl="plain")
+        ref = head_logits(params, cfg, x[:, SERVE_PROMPT - 1:])
+    err = served_error(out.logits, ref)
+    check(err <= SERVE_BOUND, f"serve_path: served logits vs the plain "
+                              f"forward: max |diff| / max |ref| {err:.3g}")
+    profiled = serve_profile(torch, cfg, params, prompts, report)
+    decode_tokens = SERVE_REQUESTS * (SERVE_GEN - 1)
+    rep = report["serve_path"] = dict(
+        arch=SERVE_ARCH, layers=cfg.n_layers, params=n_params,
+        requests=SERVE_REQUESTS, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+        init_s=init_s, cold_prefill_ms=cold.prefill_s * 1e3,
+        prefill_ms=out.prefill_s * 1e3,
+        decode_ms_per_token=out.decode_s / (SERVE_GEN - 1) * 1e3,
+        decode_tokens_per_s=decode_tokens / out.decode_s,
+        prefill_tokens_per_s=SERVE_REQUESTS * SERVE_PROMPT / out.prefill_s,
+        peak_bytes=peak, max_rel_err=err, launches=launches,
+        first_tokens=out.tokens[0, :16].tolist(), card=report["card"],
+        **profiled)
+    print(f"serve_path: {SERVE_ARCH} at full width and depth ({cfg.n_layers} "
+          f"layers, {n_params:,} params as leaves, formula "
+          f"{cfg.total_params():,}, f32), {SERVE_REQUESTS} x "
+          f"{SERVE_PROMPT}-token prompts, {SERVE_GEN} greedy tokens: prefill "
+          f"{rep['prefill_ms']:.1f} ms (the first call's "
+          f"{rep['cold_prefill_ms']:.1f} ms), decode "
+          f"{rep['decode_ms_per_token']:.2f} ms/token "
+          f"({rep['decode_tokens_per_s']:.0f} tok/s), peak "
+          f"{peak / 2**30:.2f} GiB [{report['card']}]; every served "
+          f"position vs the plain forward: max |diff| / max |ref| {err:.3g} "
+          f"(bound {SERVE_BOUND}); launches {launches}")
+    del params, out, cold, x, ref, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_profile(torch, cfg, params, prompts, report):
+    """Where the served path's time goes: a profile of the prefill and of
+    8 decode steps, device ms by kernel kind and the decode's idle share
+    (its wall under the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import decode_step, init_cache, prefill
+
+    def kinds(prof):
+        """Device ms by kernel kind: cuBLAS products, the scan, the rest."""
+        out = {"products": 0.0, "rglru": 0.0, "other": 0.0}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            t = (e.cuda_time_total if t is None else t) / 1e3
+            if t <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy",
+                                           "Memset")):
+                continue
+            name = e.key.lower()
+            kind = ("rglru" if "rglru" in name else
+                    "products" if any(w in name for w in (
+                        "gemm", "gemv", "cutlass", "xmma", "dot_kernel"))
+                    else "other")
+            out[kind] += t
+        return out
+
+    b, p_len = prompts.shape
+    cache = init_cache(cfg, b, p_len + SERVE_GEN, device="cuda",
+                       prefill_chunk=p_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits = prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+    prefill_kinds = kinds(prof)
+    token = torch.argmax(logits, dim=-1)
+    n_steps = 8
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            token = torch.argmax(decode_step(params, cfg, token, cache,
+                                             p_len + i), dim=-1)
+        torch.cuda.synchronize()
+        decode_wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    decode_kinds = {k: v / n_steps for k, v in kinds(prof).items()}
+    decode_idle = 1.0 - sum(decode_kinds.values()) / decode_wall_ms
+    del cache, logits
+    print(f"serve_path profile [{report['card']}]: prefill device ms "
+          f"{ {k: round(v, 3) for k, v in prefill_kinds.items()} }, a decode "
+          f"step {({k: round(v, 3) for k, v in decode_kinds.items()})} in "
+          f"{decode_wall_ms:.2f} ms of wall (idle {decode_idle:.1%}, under "
+          f"the profiler)")
+    return dict(prefill_device_ms=prefill_kinds,
+                decode_step_device_ms=decode_kinds,
+                decode_step_wall_ms_profiled=decode_wall_ms,
+                decode_idle_share=decode_idle)
+
+
+def serve_smoke_path(torch, report):
+    """The seven families of the JAX package's decode-equivalence test at
+    smoke size on the card: prefill 16 tokens, decode 8 one by one, every
+    position's logits against the training forward and against the same
+    served run, both on the plain versions (no kernel); then gemma2's ring
+    cache decoding past its window.  Each family's kernels (flash for the
+    encoder and the cross-attention, the scan, the WKV) launch as its
+    layers say: once a layer and call, the encoder's layers once."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models.model import (
+        decode_step,
+        encode,
+        forward,
+        init_cache,
+        init_params,
+        prefill,
+    )
+    from repro_torch.tree import tree_flatten_with_path
+
+    b, s, n_pre, cap = (SERVE_SMOKE[k] for k in ("batch", "seq", "prefill",
+                                                 "capacity_factor"))
+
+    plain = dict(attn_impl="plain", scan_impl="plain")
+
+    def served(cfg, params, tokens, memory, n_prefill, cap, **impl):
+        cache = init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                           device="cuda", prefill_chunk=n_prefill)
+        got = [prefill(params, cfg, tokens[:, :n_prefill], cache,
+                       memory=memory, capacity_factor=cap, **impl)]
+        for i in range(n_prefill, tokens.shape[1]):
+            got.append(decode_step(params, cfg, tokens[:, i], cache, i,
+                                   capacity_factor=cap, **impl))
+        return torch.stack(got, dim=1)
+
+    def reference(cfg, params, tokens, memory, n_prefill, cap):
+        with torch.inference_mode():
+            if cfg.is_encoder_decoder:
+                memory = encode(params, cfg, memory, attn_impl="plain")
+            logits, _ = forward(params, cfg, tokens, memory=memory,
+                                capacity_factor=cap, remat=False, **plain)
+        return logits[:, n_prefill - 1:]
+
+    total = None
+    rows = {}
+    for i, (arch, n_layers) in enumerate(SERVE_FAMILIES):
+        cfg = reduce_for_smoke(get_config(arch), n_layers)
+        params = init_params(cfg, seed=i, device="cuda")
+        for path, leaf in tree_flatten_with_path(params):
+            if path[-1] == "gate":
+                leaf.fill_(SERVE_GATE)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + i)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device="cuda")
+        memory = None
+        if cfg.modality != "text":
+            memory = torch.randn((b, max(cfg.n_modal_tokens, 1), cfg.d_model),
+                                 generator=gen, device="cuda")
+        counters = zero_counters()
+        got = served(cfg, params, tokens, memory, n_pre, cap)
+        launches = kernel_launches(counters)
+        kinds = [sp.kind for sp in cfg.layer_specs()]
+        calls = 1 + s - n_pre
+        want = {name: 0 for name in launches}
+        want["rglru_fwd"] = kinds.count("rglru") * calls
+        want["rwkv6_fwd"] = kinds.count("rwkv") * calls
+        want["flash_fwd"] = (kinds.count("cross_attn") * calls
+                             + cfg.n_encoder_layers)
+        check(launches == want, f"serve_smoke_path {arch}: launches "
+                                f"{launches}, expected {want}")
+        err = served_error(got, reference(cfg, params, tokens, memory, n_pre,
+                                          cap))
+        err_plain = served_error(got, served(cfg, params, tokens, memory,
+                                             n_pre, cap, **plain))
+        check(err <= SERVE_BOUND and err_plain <= SERVE_BOUND,
+              f"serve_smoke_path {arch}: served logits vs the plain forward "
+              f"{err:.3g}, vs the plain served run {err_plain:.3g}")
+        rows[cfg.name if n_layers == 2 else f"{cfg.name}-{n_layers}"] = dict(
+            max_rel_err=err, max_rel_err_plain_served=err_plain,
+            launches=launches)
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        print(f"serve_smoke_path {cfg.name} ({n_layers} layers): prefill "
+              f"{n_pre} + {s - n_pre} "
+              f"decode steps, max |diff| / max |ref| {err:.3g} against the "
+              f"plain forward, {err_plain:.3g} against the plain served run; "
+              f"launches "
+              f"{ {k: n for k, n in launches.items() if n} }")
+
+    # gemma2's local layers past the smoke window: a ring of 64 slots
+    cfg = reduce_for_smoke(get_config("gemma2-2b"))
+    params = init_params(cfg, seed=99, device="cuda")
+    seq = 2 * cfg.sliding_window + 7
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device="cuda")
+    got = served(cfg, params, tokens, None, 1, 1.25)
+    err = served_error(got, reference(cfg, params, tokens, None, 1, 1.25))
+    check(err <= SERVE_BOUND, f"serve_smoke_path ring decode: {err:.3g}")
+    rows["gemma2-2b ring"] = dict(max_rel_err=err, positions=seq)
+    report["serve_smoke_path"] = rows
+    print(f"serve_smoke_path gemma2-2b-smoke ring (window "
+          f"{cfg.sliding_window}): 1 prompt token + {seq - 1} decode steps, "
+          f"max |diff| / max |ref| {err:.3g}")
+    for name in ("rglru_fwd", "rwkv6_fwd", "flash_fwd"):
+        check(total[name] > 0, f"serve_smoke_path never launched {name}")
+    return total
+
+
 
 def run() -> int:
     # torch.compile (the flex_attention yardstick) caches inside the
@@ -3405,6 +3746,8 @@ def run() -> int:
             "sharded_precision_path", coverage_rate=DELAYED_COVERAGE_RATE,
             wire_precision=WIRE, master_dtype=MASTER, compute_dtype="bf16")
     launches["smoke elastic halt"] = elastic_halt_phase(torch, report)
+    launches["serve"] = serve_path(torch, report)
+    launches["serve smoke"] = serve_smoke_path(torch, report)
     del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

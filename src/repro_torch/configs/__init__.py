@@ -4,11 +4,14 @@ hybrid recurrentgemma-9b, the RWKV-6 (Finch) model rwkv6-1.6b, the
 encoder-decoder seamless-m4t-large-v2 and the VLM llama-3.2-vision-90b
 (gated cross-attention blocks), the MLA + MoE model deepseek-v2-236b
 and the interleaved dense / MoE llama4-maverick-400b-a17b, plus
-``reduce_for_smoke``.
+``reduce_for_smoke``; gemma2-2b's all-local long-context variant
+(``gemma2-2b-longctx``, kept out of ``ARCH_NAMES``), which
+``config_for_shape`` substitutes for ``long_500k``; and the four input
+shapes of ``shapes.py``.
 
-``base.py`` and the ten config modules are verbatim copies of the JAX
-package's (imports renamed); ``tests/test_torch_planner.py`` holds them
-against the originals so the two cannot drift.
+``base.py``, ``shapes.py`` and the ten config modules are verbatim copies
+of the JAX package's (imports renamed); ``tests/test_torch_planner.py``
+holds them against the originals so the two cannot drift.
 """
 from __future__ import annotations
 
@@ -28,6 +31,16 @@ from repro_torch.configs import (
     starcoder2_7b,
 )
 from repro_torch.configs.base import ArchConfig, LayerSpec, MLAConfig, MoEConfig
+from repro_torch.configs.shapes import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
+    InputShape,
+    get_shape,
+)
 
 _REGISTRY: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (gemma2_2b, qwen3_4b, recurrentgemma_9b,
@@ -36,14 +49,27 @@ _REGISTRY: Dict[str, ArchConfig] = {
                               deepseek_7b, deepseek_v2_236b,
                               llama4_maverick_400b_a17b)
 }
+# gemma2 long-context variant (all-local) used only for long_500k.
+_REGISTRY[gemma2_2b.LONG_CONTEXT_CONFIG.name] = gemma2_2b.LONG_CONTEXT_CONFIG
 
-ARCH_NAMES = tuple(_REGISTRY)
+ARCH_NAMES = tuple(
+    n for n in _REGISTRY if not n.endswith("-longctx")
+)  # the 10 assigned ids
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def config_for_shape(name: str, shape_name: str) -> ArchConfig:
+    """Arch config to use for a given input shape (handles the gemma2
+    long-context sliding-window variant substitution)."""
+    cfg = get_config(name)
+    if shape_name == "long_500k" and name == "gemma2-2b":
+        return _REGISTRY["gemma2-2b-longctx"]
+    return cfg
 
 
 def reduce_for_smoke(cfg: ArchConfig, n_layers: int = 2) -> ArchConfig:
@@ -103,7 +129,16 @@ __all__ = [
     "LayerSpec",
     "MLAConfig",
     "MoEConfig",
+    "InputShape",
+    "SHAPES",
+    "SHAPES_BY_NAME",
+    "TRAIN_4K",
+    "PREFILL_32K",
+    "DECODE_32K",
+    "LONG_500K",
     "ARCH_NAMES",
     "get_config",
+    "get_shape",
+    "config_for_shape",
     "reduce_for_smoke",
 ]

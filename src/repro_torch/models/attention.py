@@ -1,10 +1,19 @@
 """GQA self-attention, cross-attention and Multi-head Latent Attention of
-the port (train/prefill, no cache).
+the port, with the decode caches.
 
-Port of the no-cache branch of ``repro/models/attention.py::
-apply_self_attention``: q/k/v projections, optional per-head qk RMSNorm,
-RoPE at positions 0..S-1, then ``flash_attention`` with the layer's
-window and the config's logit softcap; and of its cross-attention
+Port of ``repro/models/attention.py``.  ``apply_self_attention``: q/k/v
+projections, optional per-head qk RMSNorm, RoPE at absolute positions
+``pos + i``, then, without a cache, ``flash_attention`` with the layer's
+window and the config's logit softcap.  With a cache (``make_kv_cache``)
+the new K/V are written into it in place (the PyTorch counterpart of
+JAX's functional update with a donated cache): a local layer's ring
+buffer at ``(pos + i) % size`` (rounded to the ring's dtype, as JAX's
+scatter rounds), then ``attention_reference`` over the ring's slots at
+their absolute positions (JAX's ``_ring_attention``); a full cache at
+``pos`` (of the compute dtype only, as JAX's ``dynamic_update_slice``
+takes it), then ``attention_reference`` over the valid prefix
+``kv_length`` (``pos + S`` when not given).  Both are plain PyTorch, as
+both are plain jnp in JAX.  And of its cross-attention
 (``init_cross_attention``, ``cross_kv``, ``apply_cross_attention``): the
 queries attend, without a mask and without RoPE, to K/V projected from a
 memory (the encoder's output or the stub frontend's embeddings), with an
@@ -14,8 +23,11 @@ and ``apply_mla``'s expanded branch): q through a low-rank down / up
 projection with ``q_norm``, K and V expanded from the normed latent
 ``ckv``, RoPE on the q_rope half and on the one k_rope shared by every
 head, then ``flash_attention`` at d_qk = qk_nope + qk_rope over
-d_v = v_head_dim.  MLA's absorbed decode over the latent cache belongs to
-serving and is not ported.  Layout [B, S, H, D] throughout.
+d_v = v_head_dim; with a latent cache (``make_mla_cache``) the absorbed
+decode: ``ckv`` and the rotated ``k_rope`` written at ``pos``, ``W_uk``
+absorbed into q, the scores from the cached latent and rope key at scale
+1/sqrt(qk_nope + qk_rope), and ``W_uv`` applied after the softmax, never
+expanding K or V; one ``kv_length`` for the batch, as JAX's takes.  Layout [B, S, H, D] throughout.
 """
 from __future__ import annotations
 
@@ -23,7 +35,11 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    attention_reference,
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ops import NEG_INF
 from repro_torch.models.common import apply_rope, dense_init, rms_norm_per_head
 
 
@@ -55,17 +71,85 @@ def _project_qkv(p, x, cfg):
     return q, k, v
 
 
+def make_kv_cache(cfg, batch: int, max_len: int, window: int = 0, *,
+                  lead: Sequence[int] = (), device="cuda",
+                  dtype=torch.float32, prefill_chunk: int = 1) -> Dict:
+    """window > 0 -> ring buffer.  The ring must hold ``window +
+    prefill_chunk - 1`` positions so a chunked prefill never clobbers keys
+    still visible to queries in the same chunk; decode (chunk=1) needs
+    exactly ``window``.  Small contexts (max_len <= that) fall back to a
+    plain full cache."""
+    size = min(max_len, window + prefill_chunk - 1) if window else max_len
+    shape = (*lead, batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_at(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos:pos + S] = new``, refused across dtypes as JAX's
+    ``dynamic_update_slice`` refuses them (a ring's write rounds)."""
+    if cache.dtype != new.dtype:
+        raise TypeError(f"a cache write needs the cache's dtype: cache "
+                        f"{cache.dtype}, update {new.dtype}")
+    cache[:, pos:pos + new.shape[1]] = new
+
+
+def _full_length(kv_length: Optional[torch.Tensor], end: int, b: int,
+                 device) -> torch.Tensor:
+    """The valid key prefix [B]: ``kv_length``, else ``end`` for every row."""
+    if kv_length is not None:
+        return torch.broadcast_to(kv_length.to(device), (b,))
+    return torch.full((b,), end, dtype=torch.long, device=device)
+
+
+def ring_positions(pos: int, s: int, size: int, device
+                   ) -> Tuple[torch.Tensor, int]:
+    """After ``s`` positions from ``pos`` went into a ring of ``size``
+    slots: the absolute position each slot holds (the largest p <= the
+    newest with p % size == slot) and the oldest retained position."""
+    newest = pos + s - 1
+    slot = torch.arange(size, device=device)
+    return newest - ((newest - slot) % size), max(newest - size + 1, 0)
+
+
 def apply_self_attention(p: Dict, x: torch.Tensor, *, cfg, window: int = 0,
-                         causal: bool = True,
+                         causal: bool = True, pos: int = 0,
+                         cache: Optional[Dict] = None,
+                         kv_length: Optional[torch.Tensor] = None,
                          attn_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]."""
+    """x [B, S, d] at absolute positions ``pos``.. -> [B, S, d]; ``cache``
+    (``make_kv_cache``) is written in place."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
-    pos = torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    att = flash_attention(q, k, v, causal=causal, window=window,
-                          softcap=cfg.attn_logit_softcap, impl=attn_impl)
+    qpos = pos + torch.arange(s, device=x.device)
+    q = apply_rope(q, qpos, cfg.rope_theta)
+    k = apply_rope(k, qpos, cfg.rope_theta)
+    if cache is None:
+        att = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_logit_softcap, impl=attn_impl)
+        return att.reshape(b, s, -1) @ p["wo"]
+    ck, cv = cache["k"], cache["v"]
+    size = ck.shape[1]
+    if window:
+        if pos + s > size and size < window + s - 1:
+            raise ValueError(
+                f"ring cache ({size}) too small for window={window} with "
+                f"chunk={s}; init it with prefill_chunk>={s}")
+        # ring buffer write at pos % size
+        idx = qpos % size
+        ck.index_copy_(1, idx, k.to(ck.dtype))
+        cv.index_copy_(1, idx, v.to(cv.dtype))
+        slot_pos, oldest = ring_positions(pos, s, size, x.device)
+        att = attention_reference(
+            q, ck, cv, window=window, softcap=cfg.attn_logit_softcap,
+            q_offset=pos, k_pos=slot_pos, oldest=oldest)
+    else:
+        _write_at(ck, pos, k)
+        _write_at(cv, pos, v)
+        att = attention_reference(
+            q, ck, cv, causal=causal, softcap=cfg.attn_logit_softcap,
+            q_offset=pos,
+            kv_length=_full_length(kv_length, pos + s, b, x.device))
     return att.reshape(b, s, -1) @ p["wo"]
 
 
@@ -110,7 +194,7 @@ def apply_cross_attention(p: Dict, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Multi-head Latent Attention (DeepSeek-V2), train path
+# Multi-head Latent Attention (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 def init_mla(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
              dtype=torch.float32) -> Dict:
@@ -155,23 +239,69 @@ def _mla_latent(p, x, cfg, pos):
     return ckv, k_rope
 
 
-def apply_mla(p: Dict, x: torch.Tensor, *, cfg, cache=None,
+def make_mla_cache(cfg, batch: int, max_len: int, *,
+                   lead: Sequence[int] = (), device="cuda",
+                   dtype=torch.float32) -> Dict:
+    """The latent cache: ``ckv`` [B, S_max, kv_lora], ``krope`` [B, S_max,
+    qk_rope]."""
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((*lead, batch, max_len, m.kv_lora_rank),
+                           dtype=dtype, device=device),
+        "krope": torch.zeros((*lead, batch, max_len, m.qk_rope_head_dim),
+                             dtype=dtype, device=device),
+    }
+
+
+def apply_mla(p: Dict, x: torch.Tensor, *, cfg, pos: int = 0,
+              cache: Optional[Dict] = None,
+              kv_length: Optional[torch.Tensor] = None,
               attn_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d], causal, K/V expanded from the latent."""
-    if cache is not None:
-        raise NotImplementedError(
-            "MLA's absorbed decode over the latent cache belongs to serving, "
-            "which is not ported yet (see ROADMAP.md)")
+    """x [B, S, d] -> [B, S, d], causal.  Without a cache, K/V expanded from
+    the latent; with one (``make_mla_cache``, written in place), the
+    absorbed matmuls against it."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
-    pos = torch.arange(s, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg, pos)
-    ckv, k_rope = _mla_latent(p, x, cfg, pos)
-    k_nope = (ckv @ p["wuk"]).reshape(b, s, h, m.qk_nope_head_dim)
-    vv = (ckv @ p["wuv"]).reshape(b, s, h, m.v_head_dim)
-    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, h, m.qk_rope_head_dim)], dim=-1)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    att = flash_attention(q_full, k_full, vv, causal=True, impl=attn_impl)
+    qpos = pos + torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, qpos)
+    ckv, k_rope = _mla_latent(p, x, cfg, qpos)
+    if cache is None:
+        k_nope = (ckv @ p["wuk"]).reshape(b, s, h, m.qk_nope_head_dim)
+        vv = (ckv @ p["wuv"]).reshape(b, s, h, m.v_head_dim)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_head_dim)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        att = flash_attention(q_full, k_full, vv, causal=True, impl=attn_impl)
+        return att.reshape(b, s, -1) @ p["wo"]
+
+    # absorbed decode path
+    if kv_length is not None and kv_length.numel() > 1:
+        # JAX's masks with the lengths against the key axis, so a [B]
+        # kv_length at B > 1 fails there; the port takes one length too
+        raise ValueError(f"MLA's absorbed decode takes one kv_length for "
+                         f"the batch, got {tuple(kv_length.shape)}")
+    cckv, ckrope = cache["ckv"], cache["krope"]
+    _write_at(cckv, pos, ckv)
+    _write_at(ckrope, pos, k_rope)
+    length = _full_length(kv_length, pos + s, b, x.device)
+    smax = cckv.shape[1]
+    # absorb W_uk into q: q_lat [b, s, h, kv_lora]
+    wuk = p["wuk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, wuk)
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(m.qk_nope_head_dim + m.qk_rope_head_dim), dtype=torch.float32,
+        device=x.device))
+    scores = (
+        torch.einsum("bshl,bkl->bhsk", q_lat.float(), cckv.float())
+        + torch.einsum("bshd,bkd->bhsk", q_rope.float(), ckrope.float())
+    ) * scale
+    kpos_all = torch.arange(smax, device=x.device)
+    valid = ((kpos_all[None, None, :] <= qpos[None, :, None])
+             & (kpos_all[None, None, :] < length[:, None, None]))  # [B,S,K]
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhsk,bkl->bshl", probs, cckv.float())
+    wuv = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    att = torch.einsum("bshl,lhd->bshd", out_lat, wuv.float()).to(x.dtype)
     return att.reshape(b, s, -1) @ p["wo"]

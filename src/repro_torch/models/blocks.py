@@ -15,6 +15,16 @@ mixer.  The FFN is dense (``cfg.d_ff`` wide) or, for ``ffn="moe"``, the
 capacity-dispatched MoE, whose load-balance aux loss ``apply_block``
 returns beside x (0 for a dense block, as JAX's ``(x, cache, aux)``
 gives).
+
+Decode: ``init_block_cache`` builds a block's cache in JAX's tree (``kv``
+for the self-attention kinds, MLA's latent cache under ``kv`` too, an
+enc-dec decoder block's own ``kv`` beside its ``cross_k`` / ``cross_v``, a
+VLM block's ``cross_k`` / ``cross_v``, the recurrent kinds' ``state``),
+and ``apply_block`` given a cache, the absolute position ``pos`` and an
+optional ``kv_length`` threads it into the mixers, which write it in
+place.  A cross-attention's K/V come from the memory when one is given
+(stored into the cache with ``fill_cross_cache``, at prefill) and from
+the cache otherwise (decode).
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ from repro_torch.models.attention import (
     init_attention,
     init_cross_attention,
     init_mla,
+    make_kv_cache,
+    make_mla_cache,
 )
 from repro_torch.models.common import apply_ffn, apply_norm, init_ffn, init_norm
 from repro_torch.models.moe import apply_moe, init_moe
@@ -41,6 +53,8 @@ from repro_torch.models.recurrent import (
     init_rglru_block,
     init_rwkv_channelmix,
     init_rwkv_timemix,
+    make_rglru_state,
+    make_rwkv_state,
 )
 
 _KINDS = ("attn", "local_attn", "mla", "rglru", "rwkv", "cross_attn")
@@ -83,50 +97,99 @@ def init_block(generator, cfg, spec: LayerSpec, *, lead: Sequence[int] = (),
     return p
 
 
+def init_block_cache(cfg, spec: LayerSpec, batch: int, max_len: int, *,
+                     lead: Sequence[int] = (), device="cuda",
+                     dtype=torch.float32, prefill_chunk: int = 1) -> Dict:
+    _check_spec(spec)
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    c: Dict = {}
+    if spec.kind == "attn":
+        c["kv"] = make_kv_cache(cfg, batch, max_len, **kw)
+    elif spec.kind == "local_attn":
+        c["kv"] = make_kv_cache(cfg, batch, max_len,
+                                window=cfg.sliding_window,
+                                prefill_chunk=prefill_chunk, **kw)
+    elif spec.kind == "mla":
+        c["kv"] = make_mla_cache(cfg, batch, max_len, **kw)
+    elif spec.kind == "cross_attn":
+        if cfg.is_encoder_decoder:
+            c["kv"] = make_kv_cache(cfg, batch, max_len, **kw)
+        shape = (*lead, batch, max(cfg.n_modal_tokens, 1), cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        c["cross_k"] = torch.zeros(shape, device=device, dtype=dtype)
+        c["cross_v"] = torch.zeros(shape, device=device, dtype=dtype)
+    elif spec.kind == "rglru":
+        c["state"] = make_rglru_state(cfg, batch, **kw)
+    elif spec.kind == "rwkv":
+        c["state"] = make_rwkv_state(cfg, batch, **kw)
+    return c
+
+
 def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
                 memory: Optional[torch.Tensor] = None, causal: bool = True,
+                pos: int = 0, cache: Optional[Dict] = None,
+                kv_length: Optional[torch.Tensor] = None,
+                fill_cross_cache: bool = False,
+                capacity_factor: float = 1.25,
                 attn_impl: Optional[str] = None,
                 scan_impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (x [B, S, d], the MoE aux loss, an f32 0-d tensor);
-    a ``cross_attn`` block attends to ``memory`` [B, M, d]."""
+    a ``cross_attn`` block attends to ``memory`` [B, M, d] or, without
+    it, to the K/V its ``cache`` holds.  ``cache`` (``init_block_cache``)
+    is written in place."""
     _check_spec(spec)
-    if spec.kind == "cross_attn" and memory is None:
-        raise ValueError("a cross_attn block needs the memory")
+    if spec.kind == "cross_attn" and memory is None and cache is None:
+        raise ValueError("a cross_attn block needs the memory or a filled "
+                         "cache")
 
     def norm(name, h):
         return apply_norm(p[name], h, cfg.norm)
 
+    def cross(mixer_p):
+        """Cross-attention K/V: from the memory at train / prefill (stored
+        with ``fill_cross_cache``), from the cache at decode."""
+        if memory is not None:
+            k, v = cross_kv(mixer_p, memory, cfg)
+            if cache is not None and fill_cross_cache:
+                cache["cross_k"].copy_(k)
+                cache["cross_v"].copy_(v)
+            return k, v
+        return cache["cross_k"], cache["cross_v"]
+
+    attn_kw = dict(pos=pos, cache=cache.get("kv") if cache else None,
+                   kv_length=kv_length, attn_impl=attn_impl)
+    state = cache.get("state") if cache else None
     if spec.kind == "rglru":
         out = apply_rglru(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                          scan_impl=scan_impl)
+                          state=state, scan_impl=scan_impl)
     elif spec.kind == "rwkv":
         out = apply_rwkv_timemix(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                                 scan_impl=scan_impl)
+                                 state=state, scan_impl=scan_impl)
     elif spec.kind == "mla":
-        out = apply_mla(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                        attn_impl=attn_impl)
+        out = apply_mla(p["mixer"], norm("pre_norm", x), cfg=cfg, **attn_kw)
     elif spec.kind == "cross_attn" and not cfg.is_encoder_decoder:
         out = apply_cross_attention(
-            p["mixer"], norm("pre_norm", x), cross_kv(p["mixer"], memory, cfg),
-            cfg=cfg, gated=True, attn_impl=attn_impl)
+            p["mixer"], norm("pre_norm", x), cross(p["mixer"]), cfg=cfg,
+            gated=True, attn_impl=attn_impl)
     else:
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                                   window=window, causal=causal,
-                                   attn_impl=attn_impl)
+                                   window=window, causal=causal, **attn_kw)
     if cfg.post_block_norm:
         out = norm("post_mixer_norm", out)
     x = x + out
     if spec.kind == "cross_attn" and cfg.is_encoder_decoder:
         x = x + apply_cross_attention(
-            p["cross"], norm("cross_norm", x), cross_kv(p["cross"], memory, cfg),
-            cfg=cfg, attn_impl=attn_impl)
+            p["cross"], norm("cross_norm", x), cross(p["cross"]), cfg=cfg,
+            attn_impl=attn_impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "rwkv":
-        out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x))
+        out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x),
+                                    state=state)
     elif spec.ffn == "moe":
-        out, aux = apply_moe(p["ffn"], norm("ffn_norm", x), cfg=cfg)
+        out, aux = apply_moe(p["ffn"], norm("ffn_norm", x), cfg=cfg,
+                             capacity_factor=capacity_factor)
     else:
         out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg)
     if cfg.post_block_norm:

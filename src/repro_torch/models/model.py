@@ -2,7 +2,7 @@
 ArchConfig (attention, MLA, cross-attention, RG-LRU and RWKV-6 kinds,
 dense or MoE FFNs; tied or untied LM head, RMS or layer norm).
 
-Port of ``repro/models/model.py`` (train path).  The parameter tree is the
+Port of ``repro/models/model.py``.  The parameter tree is the
 JAX package's: ``embed``, ``final_norm``, optional ``head``, the
 ``prefix`` / ``stack`` / ``tail`` block tuples, with each ``stack`` entry
 holding one pattern position's weights stacked over the periods, and for
@@ -13,6 +13,16 @@ its gradient comes back stacked); ``jax.checkpoint`` remat becomes
 ``torch.utils.checkpoint``, which takes the cross-attention memory as an
 input of its own so its gradient reaches the encoder.  The encoder runs
 without remat, as JAX's ``encode`` scans without ``jax.checkpoint``.
+
+Serving: ``init_cache`` builds the decode cache in JAX's tree (the
+``prefix`` / ``stack`` / ``tail`` tuples of ``init_block_cache``'s, each
+``stack`` entry's leaves stacked over the periods), and ``forward`` given
+a ``cache`` runs at absolute position ``pos`` and writes it in place: the
+period loop takes each period's views of the stacked cache as it takes
+the params'.  ``prefill`` (encoding an enc-dec's memory first, storing
+the cross-attention K/V) returns the last position's logits, the LM head
+applied to that position alone; ``decode_step`` feeds one token a row.
+Both run under ``torch.inference_mode()`` without remat.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.models.blocks import apply_block, init_block
+from repro_torch.models.blocks import apply_block, init_block, init_block_cache
 from repro_torch.models.common import (
     apply_norm,
     cross_entropy_loss,
@@ -104,6 +114,27 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     return params
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
+               dtype=torch.float32, prefill_chunk: int = 1) -> Dict:
+    """The decode cache of ``batch`` rows of up to ``max_len`` positions
+    (a local layer's ring sized for chunks of ``prefill_chunk``)."""
+    kw = dict(device=device, dtype=dtype, prefill_chunk=prefill_chunk)
+    lay = stack_layout(cfg)
+    return {
+        "prefix": tuple(
+            init_block_cache(cfg, dataclasses.replace(s, ffn="dense"), batch,
+                             max_len, **kw)
+            for s in lay.prefix_specs),
+        "stack": tuple(
+            init_block_cache(cfg, cfg.layer_pattern[j], batch, max_len,
+                             lead=(lay.n_periods,), **kw)
+            if lay.n_periods else {}
+            for j in range(lay.period)),
+        "tail": tuple(init_block_cache(cfg, s, batch, max_len, **kw)
+                      for s in lay.tail_specs),
+    }
+
+
 def _period_views(stacked, n_periods: int):
     """Per-period trees of views into one stacked pattern position (every
     leaf of a lazy position materializes here, JAX's ``lax.scan``
@@ -129,24 +160,35 @@ def encode(params, cfg: ArchConfig, modal_embeds: torch.Tensor, *,
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            memory: Optional[torch.Tensor] = None, remat: bool = True,
-            head: bool = True, attn_impl: Optional[str] = None,
-            scan_impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            memory: Optional[torch.Tensor] = None,
+            cache: Optional[Dict] = None, pos: int = 0,
+            kv_length: Optional[torch.Tensor] = None,
+            fill_cross_cache: bool = False, capacity_factor: float = 1.25,
+            remat: bool = True, head: bool = True,
+            attn_impl: Optional[str] = None,
+            scan_impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux), aux the sum of the MoE blocks' load
     balance losses (0 without MoE); with ``head=False`` the final-norm
     hidden states [B,S,d] replace the logits.  ``memory`` [B, M, d] is
     what the cross-attention blocks attend to (the encoder's output, or
-    the stub frontend's embeddings)."""
+    the stub frontend's embeddings).  With a ``cache`` (``init_cache``)
+    ``tokens`` sit at absolute positions ``pos``.. and every block writes
+    its cache in place (``fill_cross_cache``: the cross-attention K/V of
+    ``memory`` too)."""
     lay = stack_layout(cfg)
     x = params["embed"]["table"][tokens]
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block_kw = dict(cfg=cfg, pos=pos, kv_length=kv_length,
+                    fill_cross_cache=fill_cross_cache,
+                    capacity_factor=capacity_factor, attn_impl=attn_impl,
+                    scan_impl=scan_impl)
 
-    def run(p, x, spec):
-        fn = lambda p_, x_, m_: apply_block(p_, x_, cfg=cfg, spec=spec,
-                                            memory=m_, attn_impl=attn_impl,
-                                            scan_impl=scan_impl)
+    def run(p, x, spec, c):
+        fn = lambda p_, x_, m_: apply_block(p_, x_, spec=spec, memory=m_,
+                                            cache=c, **block_kw)
         if remat:
             # a lazy (streamed) block is materialized here, at the
             # checkpoint boundary, so the recompute never gathers; the
@@ -156,19 +198,24 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                               use_reentrant=False, preserve_rng_state=False)
         return fn(p, x, memory)
 
+    caches = cache if cache is not None else {
+        "prefix": (None,) * len(lay.prefix_specs),
+        "stack": (None,) * lay.period, "tail": (None,) * len(lay.tail_specs)}
     for i, spec in enumerate(lay.prefix_specs):
         x, a = run(params["prefix"][i], x,
-                   dataclasses.replace(spec, ffn="dense"))
+                   dataclasses.replace(spec, ffn="dense"), caches["prefix"][i])
         aux = aux + a
     if lay.n_periods:
         views = [_period_views(params["stack"][j], lay.n_periods)
                  for j in range(lay.period)]
+        cviews = [_period_views(c, lay.n_periods) if c is not None
+                  else [None] * lay.n_periods for c in caches["stack"]]
         for i in range(lay.n_periods):
             for j in range(lay.period):
-                x, a = run(views[j][i], x, cfg.layer_pattern[j])
+                x, a = run(views[j][i], x, cfg.layer_pattern[j], cviews[j][i])
                 aux = aux + a
     for i, spec in enumerate(lay.tail_specs):
-        x, a = run(params["tail"][i], x, spec)
+        x, a = run(params["tail"][i], x, spec, caches["tail"][i])
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if not head:
@@ -238,3 +285,35 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
                                   batch.get("mask"))
     return loss + aux, {"ce": loss, "aux": aux}
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Dict, *,
+            memory: Optional[torch.Tensor] = None,
+            capacity_factor: float = 1.25,
+            attn_impl: Optional[str] = None,
+            scan_impl: Optional[str] = None) -> torch.Tensor:
+    """Fill ``cache`` (in place) with a prompt ``tokens`` [B, S]; returns the
+    last position's logits [B, V] (the LM head applied to it alone)."""
+    if cfg.is_encoder_decoder and memory is not None:
+        memory = encode(params, cfg, memory, attn_impl=attn_impl)
+    x, _ = forward(params, cfg, tokens, memory=memory, cache=cache, pos=0,
+                   fill_cross_cache=True, capacity_factor=capacity_factor,
+                   remat=False, head=False, attn_impl=attn_impl,
+                   scan_impl=scan_impl)
+    return head_logits(params, cfg, x[:, -1:])[:, 0]
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Dict,
+                pos: int, *, kv_length: Optional[torch.Tensor] = None,
+                capacity_factor: float = 1.25,
+                attn_impl: Optional[str] = None,
+                scan_impl: Optional[str] = None) -> torch.Tensor:
+    """One decode step: ``token`` [B] at absolute position ``pos`` (an int);
+    writes ``cache`` in place and returns the logits [B, V]."""
+    logits, _ = forward(params, cfg, token[:, None], cache=cache, pos=pos,
+                        kv_length=kv_length, capacity_factor=capacity_factor,
+                        remat=False, attn_impl=attn_impl,
+                        scan_impl=scan_impl)
+    return logits[:, 0]

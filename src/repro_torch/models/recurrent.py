@@ -1,9 +1,15 @@
-"""Recurrent sequence mixers of the port, train path: the RG-LRU block
-(Griffin / RecurrentGemma) and the RWKV-6 (Finch) time-mix and channel-mix.
+"""Recurrent sequence mixers of the port: the RG-LRU block (Griffin /
+RecurrentGemma) and the RWKV-6 (Finch) time-mix and channel-mix, with
+their decode state.
 
-Port of ``repro/models/recurrent.py`` without the decode state (the conv
-ring, the carried h, the RWKV state and token-shift buffers come with
-serving).
+Port of ``repro/models/recurrent.py``.  The decode state is O(1) a token:
+the RG-LRU's carried h [B, W] (f32) and the causal conv's last K-1 inputs
+[B, K-1, W] (``make_rglru_state``); RWKV-6's per-head matrix state
+[B, H, D, D] (f32) and the last token of the time-mix's and of the
+channel-mix's input (``make_rwkv_state``).  Given a state, each mixer
+starts from it (``h0`` into the scan, ``s0`` into the WKV, the carried
+inputs ahead of the conv and the token shift) and writes the new one into
+it in place.
 
 * RG-LRU: input and gate projections, a per-channel causal conv1d over zero
   history, block-diagonal recurrence and input gates, the decay
@@ -23,7 +29,7 @@ the stacked per-period axis.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,16 +83,34 @@ def init_rglru_block(generator, cfg, *, lead: Sequence[int] = (),
     }
 
 
+def make_rglru_state(cfg, batch: int, *, lead: Sequence[int] = (),
+                     device="cuda", dtype=torch.float32) -> Dict:
+    w = cfg.resolved_lru_width
+    return {
+        "h": torch.zeros((*lead, batch, w), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((*lead, batch, cfg.conv1d_width - 1, w),
+                            dtype=dtype, device=device),
+    }
+
+
 def _causal_conv1d(x: torch.Tensor, conv_w: torch.Tensor,
-                   conv_b: torch.Tensor) -> torch.Tensor:
-    """Per-channel causal conv over zero history. x [B,S,W]; conv_w [K,W]."""
+                   conv_b: torch.Tensor, state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel causal conv. x [B,S,W]; conv_w [K,W]. state: the last K-1
+    inputs from the previous call (decode) or None (train, zero history).
+    Returns (out, the new state: the last K-1 inputs of history + x)."""
     k = conv_w.shape[0]
-    hist = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                       device=x.device)
+    if state is None:
+        hist = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    else:
+        hist = state.to(x.dtype)
     xx = torch.cat([hist, x], dim=1)  # [B, S+K-1, W]
     out = sum(xx[:, i:i + x.shape[1]] * conv_w[i][None, None, :]
               for i in range(k))
-    return out + conv_b[None, None, :]
+    new_state = xx[:, xx.shape[1] - (k - 1):]
+    return out + conv_b[None, None, :], new_state
 
 
 def _block_diag_gate(y: torch.Tensor, w_gate: torch.Tensor,
@@ -99,11 +123,14 @@ def _block_diag_gate(y: torch.Tensor, w_gate: torch.Tensor,
 
 
 def apply_rglru(p: Dict, x: torch.Tensor, *, cfg,
+                state: Optional[Dict] = None,
                 scan_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]."""
+    """x [B, S, d] -> [B, S, d]; ``state`` (``make_rglru_state``) is read
+    and written in place."""
     heads = cfg.n_heads
     gate = F.gelu((x @ p["wgate"]).float(), approximate="tanh")
-    y = _causal_conv1d(x @ p["wx"], p["conv_w"], p["conv_b"])
+    y, new_conv = _causal_conv1d(x @ p["wx"], p["conv_w"], p["conv_b"],
+                                 state["conv"] if state else None)
     r = _block_diag_gate(y, p["w_rgate"], heads)          # recurrence gate
     i = _block_diag_gate(y, p["w_igate"], heads)          # input gate
     a_param = p["a_param"].float()
@@ -114,7 +141,11 @@ def apply_rglru(p: Dict, x: torch.Tensor, *, cfg,
     # sqrt(1 - a^2) normalizer, computed stably via log
     norm = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     bt = norm * (i * y.float())
-    h, _ = rglru_scan(bt, a, impl=scan_impl)
+    h, h_final = rglru_scan(bt, a, state["h"] if state else None,
+                            impl=scan_impl)
+    if state:
+        state["h"].copy_(h_final)
+        state["conv"].copy_(new_conv)
     return (h * gate).to(x.dtype) @ p["wo"]
 
 
@@ -155,9 +186,28 @@ def init_rwkv_timemix(generator, cfg, *, lead: Sequence[int] = (),
     }
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """The previous token's features, zeros at position 0: [B,S,d]."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def make_rwkv_state(cfg, batch: int, *, lead: Sequence[int] = (),
+                    device="cuda", dtype=torch.float32) -> Dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    return {
+        "s": torch.zeros((*lead, batch, h, hd, hd), dtype=torch.float32,
+                         device=device),
+        # the last token of the time mix's and of the channel mix's input
+        "shift_tm": torch.zeros((*lead, batch, d), dtype=dtype,
+                                device=device),
+        "shift_cm": torch.zeros((*lead, batch, d), dtype=dtype,
+                                device=device),
+    }
+
+
+def _token_shift(x: torch.Tensor,
+                 last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The previous token's features [B,S,d]: position 0 takes ``last``
+    (zeros when None)."""
+    first = torch.zeros_like(x[:, :1]) if last is None else last[:, None, :]
+    return torch.cat([first.to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _ddlerp(p: Dict, x: torch.Tensor, prev: torch.Tensor):
@@ -174,12 +224,15 @@ def _ddlerp(p: Dict, x: torch.Tensor, prev: torch.Tensor):
 
 
 def apply_rwkv_timemix(p: Dict, x: torch.Tensor, *, cfg,
+                       state: Optional[Dict] = None,
                        scan_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]."""
+    """x [B, S, d] -> [B, S, d]; ``state`` (``make_rwkv_state``): its
+    ``s`` and ``shift_tm`` are read and written in place."""
     b, s, d = x.shape
     h = cfg.n_heads
     hd = d // h
-    xr, xk, xv, xw, xg = _ddlerp(p, x, _token_shift(x))
+    prev = _token_shift(x, state["shift_tm"] if state else None)
+    xr, xk, xv, xw, xg = _ddlerp(p, x, prev)
     r = (xr @ p["wr"]).reshape(b, s, h, hd)
     k = (xk @ p["wk"]).reshape(b, s, h, hd)
     v = (xv @ p["wv"]).reshape(b, s, h, hd)
@@ -187,7 +240,11 @@ def apply_rwkv_timemix(p: Dict, x: torch.Tensor, *, cfg,
     w_log = p["w0"].float() + (
         torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
     w = torch.exp(-torch.exp(w_log)).reshape(b, s, h, hd)
-    o, _ = rwkv6_mix(r, k, v, w, p["u"].float(), impl=scan_impl)
+    o, s_final = rwkv6_mix(r, k, v, w, p["u"].float(),
+                           state["s"] if state else None, impl=scan_impl)
+    if state:
+        state["s"].copy_(s_final)
+        state["shift_tm"].copy_(x[:, -1, :])
     # per-head group norm (population variance, eps 64e-5)
     mean = torch.mean(o, dim=-1, keepdim=True)
     var = torch.var(o, dim=-1, keepdim=True, unbiased=False)
@@ -207,7 +264,13 @@ def init_rwkv_channelmix(generator, cfg, *, lead: Sequence[int] = (),
     }
 
 
-def apply_rwkv_channelmix(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Token-shifted squared-relu MLP: x [B, S, d] -> [B, S, d]."""
-    xk = x + (_token_shift(x) - x) * p["mu_k"][None, None]
-    return torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]
+def apply_rwkv_channelmix(p: Dict, x: torch.Tensor, *,
+                          state: Optional[Dict] = None) -> torch.Tensor:
+    """Token-shifted squared-relu MLP: x [B, S, d] -> [B, S, d];
+    ``state``'s ``shift_cm`` is read and written in place."""
+    prev = _token_shift(x, state["shift_cm"] if state else None)
+    xk = x + (prev - x) * p["mu_k"][None, None]
+    out = torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]
+    if state:
+        state["shift_cm"].copy_(x[:, -1, :])
+    return out

@@ -28,7 +28,14 @@ decoupled sharded engine's streamed param gathers (f32 and int8 wires,
 also routed along the one-rank chain) train bitwise as the burst ones.  A
 sharded bf16sr state (int8 wires, bf16 compute, the gather cache) goes
 through real checkpoint files and back onto the card bitwise, and a run
-resumed from them mid-cycle is bitwise the uninterrupted one.
+resumed from them mid-cycle is bitwise the uninterrupted one.  The
+served path: the f32 flash at one query (a decode step's cross-attention)
+under the same 1e-4; each family's prefill + decode through the kernels
+within max |diff| / max |ref| 2e-4 of the training forward (the bound of
+the JAX package's decode-equivalence test) and of the same served run on
+the plain versions, its kernels launched once a layer and call;
+``serve`` launching the scan once a layer at the prefill and at each
+decode step.
 """
 import dataclasses
 
@@ -87,7 +94,15 @@ from repro_torch.launch.train import (
     restore_runtime_state,
     train,
 )
-from repro_torch.models.model import init_params
+from repro_torch.launch.serve import serve
+from repro_torch.models.model import (
+    decode_step,
+    encode,
+    forward,
+    init_cache,
+    init_params,
+    prefill,
+)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.optim.optimizers import adamw, sgd_momentum
 from repro_torch.train.bucketing import (
@@ -100,7 +115,11 @@ from repro_torch.train.chains import (
     chain_reduce_scatter,
 )
 from repro_torch.train.runtime import DeftRuntime
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import (
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_unflatten,
+)
 
 TOL = 1e-4
 BF16_OUT_RTOL = 2 ** -7
@@ -741,3 +760,95 @@ def test_adapt_loop_on_the_card():
     assert res["losses"] == ref_losses
     for a, b in zip(res["state"]["pbuf"], ref_pbuf):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sk,h,kvh,d", [
+    (4, 1024, 16, 16, 64),      # seamless-m4t-large-v2's 1024 frames
+    (2, 1601, 64, 8, 128),      # llama-3.2-vision-90b's 1601 patches
+    (3, 17, 4, 1, 32),          # a smoke config's 16 + 1
+])
+def test_flash_kernel_at_one_query_matches_plain(b, sk, h, kvh, d):
+    """A decode step's cross-attention: one query over the memory's keys,
+    no mask."""
+    _need_card()
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn((b, 1, h, d), generator=g).cuda()
+    k, v = (torch.randn((b, sk, kvh, d), generator=g).cuda() for _ in "kv")
+    out, lse = flash_fwd_cuda(q, k, v, causal=False)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=False)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+
+
+SERVE_CASES = [("qwen3-4b", 2), ("gemma2-2b", 2), ("deepseek-v2-236b", 2),
+               ("rwkv6-1.6b", 2), ("recurrentgemma-9b", 2),
+               ("seamless-m4t-large-v2", 2), ("llama-3.2-vision-90b", 5)]
+SERVE_BOUND = 2e-4
+
+
+def _served(cfg, params, tokens, memory, n_prefill, **impl):
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device="cuda",
+                       prefill_chunk=n_prefill)
+    got = [prefill(params, cfg, tokens[:, :n_prefill], cache, memory=memory,
+                   capacity_factor=16.0, **impl)]
+    for i in range(n_prefill, tokens.shape[1]):
+        got.append(decode_step(params, cfg, tokens[:, i], cache, i,
+                               capacity_factor=16.0, **impl))
+    return torch.stack(got, dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n_layers", SERVE_CASES)
+def test_served_logits_match_the_forward_on_the_card(arch, n_layers):
+    """B 2, prefill 16, 8 decode steps through the kernels: against the
+    training forward and against the served run on the plain versions;
+    the scan, the WKV and the flash launched once a layer and call (the
+    encoder's layers once)."""
+    _need_card()
+    cfg = reduce_for_smoke(get_config(arch), n_layers)
+    params = init_params(cfg, seed=3, device="cuda")
+    for leaf_path, leaf in tree_flatten_with_path(params):
+        if leaf_path[-1] == "gate":
+            leaf.fill_(0.5)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                           device="cuda")
+    memory = None
+    if cfg.modality != "text":
+        memory = torch.randn((2, max(cfg.n_modal_tokens, 1), cfg.d_model),
+                             generator=g, device="cuda")
+    counters = (flash_fwd_cuda, rglru_fwd_cuda, rwkv6_fwd_cuda)
+    for c in counters:
+        c.launches = 0
+    got = _served(cfg, params, tokens, memory, 16)
+    launches = [c.launches for c in counters]
+    kinds = [sp.kind for sp in cfg.layer_specs()]
+    assert launches == [kinds.count("cross_attn") * 9 + cfg.n_encoder_layers,
+                        kinds.count("rglru") * 9, kinds.count("rwkv") * 9]
+    plain = _served(cfg, params, tokens, memory, 16, attn_impl="plain",
+                    scan_impl="plain")
+    with torch.inference_mode():
+        mem = encode(params, cfg, memory) if cfg.is_encoder_decoder else memory
+        ref = forward(params, cfg, tokens, memory=mem, capacity_factor=16.0,
+                      remat=False)[0][:, 15:]
+    assert _rel(got, ref) < SERVE_BOUND
+    assert _rel(got, plain) < SERVE_BOUND
+
+
+@pytest.mark.gpu
+def test_serve_launches_the_scan_each_step():
+    """``serve`` on recurrentgemma-9b-smoke: one prefill and ``gen - 1``
+    decode steps, each running the RG-LRU scan kernel once a layer."""
+    _need_card()
+    cfg = reduce_for_smoke(get_config("recurrentgemma-9b"))
+    params = init_params(cfg, seed=5, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(6))
+    rglru_fwd_cuda.launches = 0
+    out = serve(cfg, params, prompts, 6)
+    n_rglru = [sp.kind for sp in cfg.layer_specs()].count("rglru")
+    assert rglru_fwd_cuda.launches == n_rglru * 6
+    assert out.tokens.shape == (3, 6) and out.tokens.is_cuda
+    assert bool(torch.isfinite(out.logits).all())

@@ -8,7 +8,8 @@ and of the attention it runs at d_v != d_qk, against the JAX package.
   (f32 on the CPU, other summation orders).
 * ``apply_mla`` on deepseek-v2-236b-smoke's dims against JAX's: output
   and the gradients of x and of every param leaf, rtol 1e-4 / atol 1e-5;
-  a cache is refused (decode belongs to serving).
+  with a latent cache, the absorbed path (a 40-token prefill at position
+  0, then one token at 40): out and the cache, within the same limits.
 * ``DeftRuntime`` on deepseek-v2-236b-smoke (the dense layer 0 at d_ff
   512, then an MLA + MoE layer) over two periods of a delayed-update
   schedule against JAX's ``DeftRuntime`` on the same numpy params and
@@ -145,8 +146,21 @@ def test_apply_mla_matches_jax():
     for (path, p), g in zip(got, want):
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), rtol=RTOL,
                                    atol=ATOL, err_msg="/".join(path))
-    with pytest.raises(NotImplementedError, match="serving"):
-        tattn.apply_mla(params, tx, cfg=tcfg, cache={})
+    jc = jattn.make_mla_cache(cfg, 2, 48)
+    tc = tattn.make_mla_cache(tcfg, 2, 48, device="cpu")
+    x1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    with torch.inference_mode():
+        for xx, pos in ((x, 0), (x1, 40)):
+            jy, jc = jattn.apply_mla(jp, jnp.asarray(xx), cfg=cfg, pos=pos,
+                                     cache=jc)
+            y = tattn.apply_mla(params, torch.from_numpy(xx), cfg=tcfg,
+                                pos=pos, cache=tc)
+            np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=RTOL,
+                                       atol=ATOL)
+            for name in ("ckv", "krope"):
+                np.testing.assert_allclose(tc[name].numpy(),
+                                           np.asarray(jc[name]), rtol=RTOL,
+                                           atol=ATOL)
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,8 @@ The port imports nothing of ``repro``, so it carries copies of
 Each copied file must equal its original with only the package name in
 imports changed, the copied planner must return the same schedule and
 bucket times, and the port's per-leaf time model (the repartitioner's
-input) must equal JAX's.
+input) must equal JAX's, as must the registry's ids, its long-context
+variant and ``config_for_shape``.
 """
 import dataclasses
 import re
@@ -16,13 +17,17 @@ from pathlib import Path
 import jax
 import pytest
 
-from repro.configs import get_config, reduce_for_smoke
+from repro.configs import ARCH_NAMES, SHAPES, config_for_shape, get_config
+from repro.configs import reduce_for_smoke
 from repro.core.deft import Planner as JPlanner
 from repro.core.deft import PlanRequest as JPlanRequest
 from repro.core.profiler import HardwareModel as JHardwareModel
 from repro.launch.train import build_schedule as jax_build_schedule
 from repro.train.bucketing import build_leaf_time_model as jax_leaf_model
 from repro.models.model import init_params as jax_init_params
+from repro_torch.configs import ARCH_NAMES as T_ARCH_NAMES
+from repro_torch.configs import SHAPES as T_SHAPES
+from repro_torch.configs import config_for_shape as t_config_for_shape
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduce_for_smoke as t_reduce
 from repro_torch.core.deft import Planner, PlanRequest
@@ -35,7 +40,8 @@ from repro_torch.tree import tree_leaves
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = sorted(
     [f"core/{p.name}" for p in (SRC / "repro" / "core").glob("*.py")]
-    + ["configs/base.py", "configs/gemma2_2b.py", "configs/qwen3_4b.py",
+    + ["configs/base.py", "configs/shapes.py", "configs/gemma2_2b.py",
+       "configs/qwen3_4b.py",
        "configs/recurrentgemma_9b.py", "configs/rwkv6_1_6b.py",
        "configs/seamless_m4t_large_v2.py", "configs/llama_3_2_vision_90b.py",
        "configs/starcoder2_7b.py", "configs/deepseek_7b.py",
@@ -87,6 +93,22 @@ def test_configs_match(arch):
         dataclasses.asdict(get_config(arch))
     assert dataclasses.asdict(t_reduce(t_get_config(arch))) == \
         dataclasses.asdict(reduce_for_smoke(get_config(arch)))
+
+
+def test_registry_and_config_for_shape_match():
+    """The ten ids (the long-context variant kept out of them), the
+    ``gemma2-2b-longctx`` entry and every (arch, shape) substitution."""
+    assert sorted(T_ARCH_NAMES) == sorted(ARCH_NAMES) == sorted(ARCHS)
+    assert dataclasses.asdict(t_get_config("gemma2-2b-longctx")) == \
+        dataclasses.asdict(get_config("gemma2-2b-longctx"))
+    assert [dataclasses.astuple(s) for s in T_SHAPES] == \
+        [dataclasses.astuple(s) for s in SHAPES]
+    for arch in ARCHS:
+        for shape in SHAPES:
+            assert dataclasses.asdict(t_config_for_shape(arch, shape.name)) \
+                == dataclasses.asdict(config_for_shape(arch, shape.name))
+    assert t_config_for_shape("gemma2-2b", "long_500k").name == \
+        "gemma2-2b-longctx"
 
 
 def test_recurrentgemma_smoke_cut():
