@@ -36,7 +36,11 @@
    max|g| / 128 absolute), then at the main path's global and local
    shapes under the same checks, timed in turns with compiled flex_attention (kernel, flex,
    kernel; the kernel must not be slower), with its TFLOP/s and share of
-   the bound; the RG-LRU scan's forward and reverse-scan backward kernels
+   the bound, then at MLA's d_qk != d_v (its (192, 128) instantiation at
+   deepseek-v2-236b's [1, 4096, 128] causal, and the smoke 48 / 32 run
+   zero-padded at 64 / 32) under the same checks, timed in turns with one
+   ``scaled_dot_product_attention`` call on the same bf16 inputs, its
+   bound 2 (D + DV) flops a visible pair at the bf16 rate; the RG-LRU scan's forward and reverse-scan backward kernels
    bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256), (3, 33, 100) and
    (1, 1, 4096) with and without h0 and an h_final cotangent (S 1 from h0
    is a decode step's scan), at serve_path's [4, 1024, 4096] and [4, 1,
@@ -142,13 +146,28 @@
    frames (``make_batch``'s memory), 2 x period + 2 steps, held to the
    same limits against its plain run.  Per step it must launch flash 120
    times: 4 in each decoder layer (self and cross, forward and remat
-   recompute) and 1 in each encoder layer (no remat).
+   recompute) and 1 in each encoder layer (no remat).  Then
+   ``encdec_precision_path``: the same config on its default (replicated)
+   engine on the delayed precision path (int8 wires on every bucket, a
+   bf16sr master, bf16 compute, 4 x 1.8 coverage rate), held to the
+   precision limits against its plain run over PREC_REF_STEPS steps.  The
+   stub memory stays f32 as JAX's does, so jnp's promotion runs the
+   encoder and the cross-attention K/V in f32 beside the bf16 params: per
+   step the bf16 flash launches 48 times (the decoder's self-attention,
+   forward and recompute) and the f32 flash 72 (each cross-attention,
+   forward and recompute, and the encoder), and one forward records the
+   encoder's output and the cross K/V f32, each cross-attention's output
+   and the decoder's residual bf16.
 7a. Drives deepseek-v2-236b (``mla_path``) the same way as 3, on its
    default sharded engine at one shard, at full width cut to its dense
    layer 0: MLA (128 heads, q_lora 1536, kv_lora 512, d_qk 192 over d_v
    128) and the 12288-wide SwiGLU, vocab 102,400 untied; sequence 4096,
    MLA_STEPS steps, held to the same limits against its plain run, peak
-   under 80 GB, the flash twice a step.  Then ``moe_smoke_path``:
+   under 80 GB, the flash twice a step; then ``mla_precision_path``, the
+   same cut on the delayed precision path (as ``encdec_precision_path``)
+   on its sharded engine at one shard, held to the precision limits, peak
+   under 80 GB, the bf16 flash at its (192, 128) instantiation twice a
+   step and the f32 flash never.  Then ``moe_smoke_path``:
    deepseek-v2-236b-smoke (MLA 48 / 32 + MoE, 4 experts top-2, 1 shared)
    and llama4-maverick-400b-a17b-smoke (top-1 MoE) at smoke size on their
    sharded engines, each run twice bitwise equal (losses, aux and params)
@@ -1127,12 +1146,19 @@ def quantize_phase(torch, layout, report):
 def flash_bf16_phase(torch, report):
     """The bf16 tensor-core flash forward (flash_fwd_sm90.cu): the small
     cases, then the main path's shapes, timed in turns with compiled
-    ``flex_attention`` (kernel, flex, kernel)."""
+    ``flex_attention`` (kernel, flex, kernel), then MLA's d_qk != d_v
+    (``FLASH_MLA_SHAPES``: the (192, 128) instantiation at
+    deepseek-v2-236b's shape, and the smoke 48 / 32 zero-padded to 64 /
+    32), timed in turns with one ``scaled_dot_product_attention`` call on
+    the same bf16 inputs.  Returns the kernels line's two rows: the main
+    path's shapes and the (192, 128) instantiation."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_fwd_cuda,
         flash_fwd_plain,
     )
+    from repro_torch.kernels.flash_attention.ops import kernel_dims
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -1145,7 +1171,8 @@ def flash_bf16_phase(torch, report):
     def grad_rel(q, k, v, kw, what):
         """Autograd through the kernel against the plain forward (the
         backward is plain in both): the largest |diff| / max |g|."""
-        w = torch.randn(q.shape, device="cuda", generator=gen)
+        w = torch.randn((*q.shape[:-1], v.shape[-1]), device="cuda",
+                        generator=gen)
         grads = []
         for impl in ("cuda", "plain"):
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -1251,10 +1278,102 @@ def flash_bf16_phase(torch, report):
         check(ms <= library_ms,
               f"flash bf16 {layer}: kernel {ms:.3f} ms slower than "
               f"flex_attention {library_ms:.3f} ms")
-    report["flash_bf16"] = dict(cases=len(cases), **worst, **shapes)
+    # MLA: each head its own K and V, causal, at the (192, 128)
+    # instantiation and the smoke 48 / 32 (run zero-padded at 64 / 32)
+    for layer, (b, s, h, d, dv) in FLASH_MLA_SHAPES.items():
+        mk = lambda n: torch.randn((b, s, h, n), device="cuda",
+                                   generator=gen).bfloat16()
+        q, k, v = mk(d), mk(d), mk(dv)
+        kw = dict(causal=True)
+        out, lse = flash_fwd_cuda(q, k, v, **kw)
+        ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        l_err = (lse - ref_lse).abs().max().item()
+        check(out.shape == ref.shape
+              and torch.allclose(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
+                                 atol=1e-5)
+              and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
+              f"flash bf16 kernel disagrees with plain at the {layer} shape "
+              f"({d} / {dv}): out {err:.3g}, lse {l_err:.3g}")
+        del out, lse, ref, ref_lse
+        g_rel = grad_rel(q, k, v, kw, f"the {layer} shape")
+        worst = dict(out=max(worst["out"], err), lse=max(worst["lse"], l_err),
+                     grad_rel=max(worst["grad_rel"], g_rel))
+        torch.cuda.empty_cache()
+        kern = lambda: flash_fwd_cuda(q, k, v, **kw)
+        lib_note = None
+        try:                      # the yardstick only, never the port
+            lib = sdpa_call(torch, q, k, v, True)
+            lib_err = (lib().float() - kern()[0].float()).abs().max().item()
+        except Exception as e:
+            lib, lib_err = None, None
+            lib_note = (f"scaled_dot_product_attention cannot run this "
+                        f"shape ({type(e).__name__}: {str(e)[:200]})")
+        # in turns on one card: kernel, sdpa, kernel
+        ms_a = time_ms(torch, kern, 10)
+        library_ms = time_ms(torch, lib, 10) if lib is not None else None
+        ms_b = time_ms(torch, kern, 10)
+        ms = (ms_a + ms_b) / 2
+        plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
+        del lib
+        # the function's 2 (D + DV) flops a visible pair (S = Q.K^T and P.V);
+        # bytes: q, k, v and out (bf16) and lse (f32) once each
+        flops = 2.0 * (d + dv) * visible_pairs(s, True, 0) * h * b
+        nbytes = 2.0 * (q.numel() + k.numel() + 2 * v.numel()) + 4.0 * b * h * s
+        bound_ops = flops / BF16_FLOPS_PER_S * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(bound_ops, bound_bytes)
+        dq_k, dv_k = kernel_dims(d, dv)
+        shapes[layer] = dict(
+            ms=ms, ms_turns=[ms_a, ms_b], plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound,
+            bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+            flops=flops, tflops=flops / ms / 1e9, bound_share=bound / ms,
+            max_abs_err=err, lse_err=l_err, grad_rel=g_rel,
+            library="scaled_dot_product_attention",
+            library_max_abs_err=lib_err, library_note=lib_note,
+            shape=f"bf16 B={b} S={s} H={h} D={d} DV={dv} causal"
+                  + (f" (run at {dq_k} / {dv_k})" if (dq_k, dv_k) != (d, dv)
+                     else ""))
+        lib_text = (f"sdpa between them {library_ms:.3f} ms (max diff to the "
+                    f"kernel {lib_err:.3g})" if lib_note is None else lib_note)
+        print(f"flash bf16 {layer} ({shapes[layer]['shape']}): out {err:.3g}, "
+              f"lse {l_err:.3g}, grads {g_rel:.3g} of max |g|; kernel "
+              f"{ms_a:.3f} / {ms_b:.3f} ms ({lib_text}), plain "
+              f"{plain_ms:.3f} ms, bound {bound:.3f} ms "
+              f"({shapes[layer]['bound_by']}, bf16 tensor-core peak): "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound")
+        del q, k, v
+    ptxas_mla = build.ptxas_report(build.build_log("flash_fwd_sm90"),
+                                   "flash_fwd_sm90_kernel<192,128>")
+    print("flash bf16 (192, 128): " + "; ".join(ptxas_mla))
+    report["flash_bf16"] = dict(cases=len(cases), **worst, **shapes,
+                                ptxas_mla=ptxas_mla)
     torch.cuda.empty_cache()
     g, loc = shapes["global"], shapes["local"]
-    return {
+    mla, smoke = shapes["mla"], shapes["mla_smoke"]
+    source = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu"
+    mla_row = {
+        "name": "flash_fwd_sm90_mla", "route": "cuda", "source": source,
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
+        "launches": None, "max_abs_err": max(mla["max_abs_err"],
+                                             smoke["max_abs_err"]),
+        "ms": mla["ms"], "plain_ms": mla["plain_ms"],
+        "bound_ms": mla["bound_ms"], "bound_by": mla["bound_by"],
+        "library_ms": mla["library_ms"], "shape": mla["shape"]
+        + " (deepseek-v2-236b MLA, the (192, 128) instantiation)",
+        "tflops": mla["tflops"], "bound_share": mla["bound_share"],
+        "smoke_ms": smoke["ms"], "smoke_plain_ms": smoke["plain_ms"],
+        "smoke_bound_ms": smoke["bound_ms"],
+        "smoke_library_ms": smoke["library_ms"], "smoke_shape": smoke["shape"],
+        "grad_err_of_max": max(mla["grad_rel"], smoke["grad_rel"]),
+        "ptxas": ptxas_mla,
+        "library_note": mla["library_note"]
+        or "scaled_dot_product_attention on bf16 (compiled flex_attention "
+           "cannot take d_qk 192)",
+    }
+    return [{
         "name": "flash_fwd_sm90", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_fwd_sm90.cu",
@@ -1271,7 +1390,7 @@ def flash_bf16_phase(torch, report):
         "local_bound_share": loc["bound_share"],
         "lse_err": worst["lse"], "grad_err_of_max": worst["grad_rel"],
         "library_note": "compiled flex_attention on bf16, softcap score_mod",
-    }
+    }, mla_row]
 
 
 # ---------------------------------------------------------------------------
@@ -1649,7 +1768,7 @@ def expected_launches(cfg, schedule, layout, steps):
     updates = sum(schedule.phases[i % schedule.period].do_update
                   for i in range(steps))
     flash = (2 * attn + cfg.n_encoder_layers) * steps
-    return {"flash_fwd": flash, "flash_fwd_sm90": 0,
+    return {"flash_fwd": flash, "flash_fwd_sm90": 0, "flash_fwd_sm90_mla": 0,
             "rglru_fwd": 2 * rec * steps,
             "rglru_bwd": rec * steps, "rwkv6_fwd": 2 * rwkv * steps,
             "rwkv6_bwd": rwkv * steps,
@@ -1659,9 +1778,9 @@ def expected_launches(cfg, schedule, layout, steps):
 
 
 def zero_counters():
-    """Set every kernel wrapper's launch count to 0 (``launches_bf16`` of
-    the flash wrapper too) and return the wrappers, for
-    :func:`kernel_launches` after the run they count."""
+    """Set every kernel wrapper's launch count to 0 (``launches_bf16`` and
+    ``launches_bf16_dims`` of the flash wrapper too) and return the
+    wrappers, for :func:`kernel_launches` after the run they count."""
     from repro_torch.kernels.bucket_update import bucket_update_cuda
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     from repro_torch.kernels.quantize import (
@@ -1679,16 +1798,20 @@ def zero_counters():
     for c in counters:
         c.launches = 0
     flash_fwd_cuda.launches_bf16 = 0
+    flash_fwd_cuda.launches_bf16_dims.clear()
     return counters
 
 
 def kernel_launches(counters):
     """Each kernel's launches from its wrapper's count; ``flash_fwd_cuda``
-    counts both flash kernels, ``launches_bf16`` the tensor-core one's."""
+    counts both flash kernels, ``launches_bf16`` the tensor-core one's, of
+    which ``flash_fwd_sm90_mla`` are its (192, 128) instantiation's."""
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
 
     launches = {c.__name__.replace("_cuda", ""): c.launches for c in counters}
     launches["flash_fwd_sm90"] = flash_fwd_cuda.launches_bf16
+    launches["flash_fwd_sm90_mla"] = \
+        flash_fwd_cuda.launches_bf16_dims.get((192, 128), 0)
     launches["flash_fwd"] -= flash_fwd_cuda.launches_bf16
     return launches
 
@@ -2238,28 +2361,90 @@ def moe_width_phase(torch, report):
     torch.cuda.empty_cache()
 
 
+def promotion_dtypes(torch, cfg, params, seq):
+    """One forward of ``loss_fn`` (no gradient) on ``params`` over step 0's
+    batch, recording the dtypes at jnp's promotion points: the encoder's
+    output, the cross-attention K/V, each cross-attention's output and
+    each decoder block's residual stream.  Returns {point: sorted dtype
+    names}."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import blocks, model
+
+    seen = {"encoder": set(), "cross_kv": set(), "cross_out": set(),
+            "residual": set()}
+    orig = (model.encode, blocks.cross_kv, blocks.apply_cross_attention,
+            model.apply_block)
+
+    def encode(*a, **kw):
+        out = orig[0](*a, **kw)
+        seen["encoder"].add(out.dtype)
+        return out
+
+    def cross_kv(*a, **kw):
+        k, v = orig[1](*a, **kw)
+        seen["cross_kv"].update((k.dtype, v.dtype))
+        return k, v
+
+    def cross(*a, **kw):
+        out = orig[2](*a, **kw)
+        seen["cross_out"].add(out.dtype)
+        return out
+
+    def block(*a, **kw):
+        x, aux = orig[3](*a, **kw)
+        if "memory" in kw:           # a decoder block (the encoder's has none)
+            seen["residual"].add(x.dtype)
+        return x, aux
+
+    model.encode, blocks.cross_kv = encode, cross_kv
+    blocks.apply_cross_attention, model.apply_block = cross, block
+    try:
+        batch = make_batch(cfg, 0, 0, BATCH, seq, device="cuda")
+        with torch.no_grad():
+            model.loss_fn(params, cfg, batch, remat=False,
+                          loss_chunk=LOSS_CHUNK)
+    finally:
+        (model.encode, blocks.cross_kv, blocks.apply_cross_attention,
+         model.apply_block) = orig
+    return {k: sorted(str(d).replace("torch.", "") for d in v)
+            for k, v in seen.items()}
+
+
 def precision_path(torch, cfg, report, key, coverage_rate, delayed,
-                   fsdp=False, decoupled=False, store=None, against=None):
-    """DeFT's precision path at the main path's cut: int8 gradient wires
-    on every bucket and a bf16sr resident master (so the forward and
-    backward run in bf16 on the bf16 params).  ``delayed`` requires a
-    schedule that merges (update_k > 1) and rotates generations.
+                   fsdp=False, decoupled=False, store=None, against=None,
+                   seq=SEQ, compute_dtype=None, need_reuse=True,
+                   f32_key="main_path"):
+    """DeFT's precision path at ``cfg``'s cut and sequence ``seq`` (batch
+    BATCH): int8 gradient wires on every bucket and a bf16sr resident
+    master (so the forward and backward run in bf16 on the bf16 params),
+    ``compute_dtype`` when given.  ``delayed`` requires a schedule that
+    merges (update_k > 1) and rotates generations, with a merged update in
+    the comparison window.  Each flash call runs the kernel of the dtype
+    jnp's promotion gives it: every self-attention (and MLA's, at its
+    (192, 128) instantiation) the bf16 kernel, an encoder's attention and
+    each cross-attention to the f32 stub memory the f32 kernel; a config
+    with a stub memory also has its promotion points' dtypes recorded in
+    one forward (``promotion_dtypes``).
 
     ``fsdp`` runs it on the sharded flat engine (one shard) with the gather
-    skip on and bf16 compute (that engine reads params at the compute
-    dtype): each gathered bucket then runs int8 through the quantize and
-    dequantize kernels too, as its values and scales are all-gathered;
-    ``decoupled`` streams those gathers into the forward.  ``store`` and
-    ``against`` are ``main_path``'s, over the comparison window."""
+    skip on where the schedule reuses a gather (``need_reuse``) and bf16
+    compute (that engine reads params at the compute dtype): each gathered
+    bucket then runs int8 through the quantize and dequantize kernels too,
+    as its values and scales are all-gathered; ``decoupled`` streams those
+    gathers into the forward.  ``store`` and ``against`` are
+    ``main_path``'s, over the comparison window; ``f32_key`` names the
+    same config's f32 run it is printed beside."""
     from repro_torch.launch.train import train
     from repro_torch.train.runtime import phase_collectives
 
     gc.collect()                 # the f32 path's state is gone first
     torch.cuda.empty_cache()
-    kw = dict(scheduler="deft", batch=BATCH, seq=SEQ,
+    kw = dict(scheduler="deft", batch=BATCH, seq=seq,
               coverage_rate=coverage_rate, partition_elems=PARTITION_ELEMS,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK,
               wire_precision=WIRE, master_dtype=MASTER)
+    if compute_dtype is not None:
+        kw.update(compute_dtype=compute_dtype)
     if fsdp:
         kw.update(fsdp=True, compute_dtype="bf16", decoupled=decoupled)
     window = PREC_REF_STEPS
@@ -2325,11 +2510,14 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     check(not delayed or (any(ph.update_k > 1 for ph in schedule.phases)
                           and any(ph.rotate for ph in schedule.phases)),
           f"the {key} schedule neither merges updates nor rotates")
-    check(window <= steps and (not delayed or window == period),
-          f"the {key} comparison window {window} vs period {period}")
+    check(window <= steps and (not delayed or any(
+        ph.do_update and ph.update_k > 1
+        for ph in schedule.phases[:window])),
+          f"the {key} comparison window of {window} steps holds no merged "
+          f"update (period {period})")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     if fsdp:
-        wants = sharded_collectives(schedule, layout, steps)
+        wants = sharded_collectives(schedule, layout, steps, need_reuse)
     else:
         wants = [phase_collectives(schedule.phases[i % period])
                  for i in range(steps)]
@@ -2338,9 +2526,11 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     check(against is None or vs_stored,
           f"{key} was not held to {against and against[0]}")
     if fsdp:
-        check(rt.stats()["sharded_state"] and rt.stats()["gather_skip"]
+        check(rt.stats()["sharded_state"]
+              and rt.stats()["gather_skip"] == need_reuse
               and rt.stats()["decoupled"] == decoupled,
-              f"{key} is not the sharded engine with the gather skip"
+              f"{key} is not the sharded engine with the gather skip "
+              f"{'on' if need_reuse else 'off'}"
               f"{' streamed' if decoupled else ''}")
         synced = sum(c["reduce_scatter"] for c in res["collectives"])
         # an int8 param gather is two all-gathers: values and scales
@@ -2360,11 +2550,19 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
     check(launches["bucket_update"] == nb * updates,
           f"bucket update launches {launches['bucket_update']} != {nb} x "
           f"{updates}")
-    attn = sum(sp.kind in ("attn", "local_attn") for sp in cfg.layer_specs())
-    check(launches["flash_fwd"] == 0
-          and launches["flash_fwd_sm90"] == 2 * attn * steps,
-          f"flash launches: f32 kernel {launches['flash_fwd']}, bf16 kernel "
-          f"{launches['flash_fwd_sm90']}, expected 0 and {2 * attn * steps}")
+    # each decoder self-attention (forward and remat recompute) on bf16;
+    # an encoder layer (no remat) and each cross-attention (forward and
+    # recompute) over the f32 memory on f32
+    kinds = [sp.kind for sp in cfg.layer_specs()]
+    cross = kinds.count("cross_attn")
+    attn = sum(k in ("attn", "local_attn", "mla") for k in kinds)
+    attn += cross if cfg.is_encoder_decoder else 0
+    want_flash = {"flash_fwd": (2 * cross + cfg.n_encoder_layers) * steps,
+                  "flash_fwd_sm90": 2 * attn * steps,
+                  "flash_fwd_sm90_mla": 2 * attn * steps if cfg.mla else 0}
+    check(all(launches[k] == n for k, n in want_flash.items()),
+          f"flash launches {({k: launches[k] for k in want_flash})}, "
+          f"expected {want_flash}")
     check(launches["rglru_fwd"] == launches["rglru_bwd"] == 0
           and launches["rwkv6_fwd"] == launches["rwkv6_bwd"] == 0,
           f"recurrent-kernel launches {launches} on a model without "
@@ -2391,9 +2589,23 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
           f"{PREC_PARAM_MAX_DIFF} or {PREC_BUCKET_MAX_OVER:.0%} of their "
           f"elements beyond one bf16 ulp, "
           f"{agree['n_params_over_ulp']} elements beyond one bf16 ulp")
+    dtypes = None
+    if cfg.modality != "text":
+        # JAX never casts the memory: the encoder and the cross K/V run in
+        # f32, the cross-attention's output and the residual in bf16
+        f32, bf16 = ["float32"], ["bfloat16"]
+        params = rt.params_tree(state)
+        dtypes = promotion_dtypes(torch, cfg, params, seq)
+        del params
+        want = dict(encoder=f32 if cfg.is_encoder_decoder else [],
+                    cross_kv=f32, cross_out=bf16, residual=bf16)
+        check(dtypes == want, f"{key} dtypes at the promotion points "
+                              f"{dtypes}, expected {want}")
+        print(f"  promotion points in one forward: {dtypes}")
     step_s = statistics.median(res["step_s"][1:])
     gscratch = 2 * sum(layout.buf_sizes)
     out = dict(
+        arch=cfg.name, seq=seq, promotion_dtypes=dtypes,
         wire=WIRE, master=MASTER, coverage_rate=coverage_rate,
         n_buckets=nb, period=period,
         updates_per_period=schedule.updates_per_period,
@@ -2401,7 +2613,7 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
         steps=steps, updates=updates, synced_buckets=synced,
         gathered_buckets=gathered, losses=losses, ref_losses=ref_losses, ref_steps=window,
         loss_rel_diff=rel, step_s=res["step_s"], median_step_s=step_s,
-        tokens_per_s=BATCH * SEQ / step_s, peak_bytes=peak,
+        tokens_per_s=BATCH * seq / step_s, peak_bytes=peak,
         bf16_grad_scratch_bytes=gscratch, launches=launches,
         collectives=res["collectives"],
         stats={k: v for k, v in rt.stats().items() if k != "phases"},
@@ -2412,12 +2624,13 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
         out["stream"] = {k: list(v) if isinstance(v, tuple) else v
                          for k, v in stream.items()}
     report[key] = out
-    f32 = report["main_path"]
-    print(f"{key} ({WIRE} wires, {MASTER} master, coverage rate "
+    f32 = report[f32_key]
+    print(f"{key} ({cfg.name}, {WIRE} wires, {MASTER} master, compute "
+          f"{rt.stats()['compute_dtype']}, coverage rate "
           f"{coverage_rate}): {steps} steps, period {period}, "
           f"updates/period {schedule.updates_per_period}, batch-size seq "
           f"{tuple(schedule.batch_size_sequence)}, median step {step_s:.3f} s, "
-          f"{BATCH * SEQ / step_s:.0f} tok/s, peak memory "
+          f"{BATCH * seq / step_s:.0f} tok/s, peak memory "
           f"{peak / 2**30:.2f} GiB [{report['card']}] (bf16 gradient scratch "
           f"{gscratch / 2**30:.2f} GiB), launches {launches}, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; vs plain over {window} "
@@ -2425,10 +2638,10 @@ def precision_path(torch, cfg, report, key, coverage_rate, delayed,
           f"{agree['max_param_diff']:.3g}, {agree['n_params_over_ulp']} "
           f"beyond one bf16 ulp, {agree['n_params_differing']} differing "
           f"of {agree['n_params']}")
-    print(f"  beside the f32 path: median step {f32['median_step_s']:.3f} s, "
-          f"{f32['tokens_per_s']:.0f} tok/s, peak "
-          f"{f32['peak_bytes'] / 2**30:.2f} GiB")
-    if fsdp:
+    print(f"  beside {f32_key} (f32): median step "
+          f"{f32['median_step_s']:.3f} s, {f32['tokens_per_s']:.0f} tok/s, "
+          f"peak {f32['peak_bytes'] / 2**30:.2f} GiB")
+    if fsdp and f32_key == "main_path":
         rep = report["precision_path_delayed"]
         print(f"  beside the replicated engine's delayed run: median step "
               f"{rep['median_step_s']:.3f} s, {rep['tokens_per_s']:.0f} "
@@ -2839,7 +3052,7 @@ def adapt_path(torch, cfg, report, key, against, **kw):
     sr = precision["master_dtype"] == "bf16sr"
     want = {"flash_fwd": 0 if bf16 else 2 * attn * steps,
             "flash_fwd_sm90": 2 * attn * steps if bf16 else 0,
-            "bucket_update": updated,
+            "flash_fwd_sm90_mla": 0, "bucket_update": updated,
             "quantize_int8": synced + gathered if int8 else 0,
             "dequantize_int8": synced + gathered if int8 else 0,
             "stochastic_round_bf16": lay_a.n_buckets + updated if sr else 0,
@@ -3102,7 +3315,7 @@ def elastic_fallback_path(torch, cfg, report, key, holds, stored_peak_of,
     int8, sr = wire == "int8", master == "bf16sr"
     want = {"flash_fwd": 0 if bf16 else 2 * attn * steps,
             "flash_fwd_sm90": 2 * attn * steps if bf16 else 0,
-            "bucket_update": updated,
+            "flash_fwd_sm90_mla": 0, "bucket_update": updated,
             "quantize_int8": synced + gathered if int8 else 0,
             "dequantize_int8": synced + gathered if int8 else 0,
             "stochastic_round_bf16": layout.n_buckets + updated if sr else 0,
@@ -3661,7 +3874,7 @@ def run() -> int:
     entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
     sharded_update_phase(torch, meta, bucket_of, nb, report)
     entries += quantize_phase(torch, layout, report)
-    entries.append(flash_bf16_phase(torch, report))
+    entries += flash_bf16_phase(torch, report)
     entries += rglru_phase(torch, report)
     entries += rwkv6_phase(torch, report)
     rwkv_grad_phase(torch, rw_cfg, report)
@@ -3715,9 +3928,20 @@ def run() -> int:
             torch, mla_cfg, mla_schedule, report, "mla_path", MLA_ARCH,
             MLA_OF_LAYERS, MLA_STEPS, fsdp=True, seq=MLA_SEQ,
             need_reuse=False),
+        # the same two configs on the delayed precision path (int8 wires,
+        # bf16sr master, bf16 compute), each on its default engine
+        f"{ED_ARCH} {WIRE}+{MASTER}": precision_path(
+            torch, ed_cfg, report, "encdec_precision_path",
+            DELAYED_COVERAGE_RATE, delayed=True, seq=ED_SEQ,
+            compute_dtype="bf16", f32_key="encdec_path"),
+        f"{MLA_ARCH} {WIRE}+{MASTER} sharded": precision_path(
+            torch, mla_cfg, report, "mla_precision_path",
+            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True, seq=MLA_SEQ,
+            need_reuse=False, f32_key="mla_path"),
     }
-    check(report["mla_path"]["peak_bytes"] < 80e9,
-          f"mla_path peak {report['mla_path']['peak_bytes']} bytes")
+    for key in ("mla_path", "mla_precision_path"):
+        check(report[key]["peak_bytes"] < 80e9,
+              f"{key} peak {report[key]['peak_bytes']} bytes")
     launches["moe smoke"] = moe_smoke_path(torch, report)
     moe_width_phase(torch, report)
     checkpoint_path(torch, cfg, report, "checkpoint_path",

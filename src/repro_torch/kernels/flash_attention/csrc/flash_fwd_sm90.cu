@@ -4,8 +4,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _attn_kernel) for bf16 q/k/v; f32 inputs
-// keep the CUDA-core kernel in flash_fwd.cu.  Same function as that one:
-// GQA through kv head h / (H / KVH), causal and sliding-window masks
+// take the split-TF32 kernel in flash_fwd.cu.  Same function as that one,
+// at a query/key head dim D and a value head dim DV that may differ (MLA:
+// 192 / 128): GQA through kv head h / (H / KVH), causal and sliding-window
+// masks
 // (kp > qp - window) with the kv blocks wholly above the diagonal or left
 // of the window skipped by the loop bounds, logit softcap c * tanh(s / c),
 // out = acc / max(l, 1e-30) rounded to nearest-even bf16, and
@@ -15,8 +17,9 @@
 //
 // Numerics (the Pallas kernel and flash.py compute P.V in f32):
 //   * S = Q.K^T: bf16 x bf16 products are exact, accumulated in f32 by
-//     wgmma; sm_scale = 1/sqrt(D) multiplies the f32 scores after the
-//     product, so q stays bf16 in shared memory.
+//     wgmma; the caller's sm_scale (1/sqrt(D) of the unpadded D)
+//     multiplies the f32 scores after the product, so q stays bf16 in
+//     shared memory.
 //   * softcap as c * tanh(s / c) with tanh(x) = 1 - 2 / (1 + 2^(2x log2 e))
 //     (ex2, about 2^-22 relative; tanh.approx's 2^-11 would move scores by
 //     up to 0.02 at c = 50); masked scores are -inf and the running max
@@ -31,7 +34,7 @@
 //     That costs 1.5x the tensor-core operations of S + P.V.
 //
 // What bounds it on the H100: arithmetic on the tensor cores.  Per visible
-// (query, key) pair: 2*D flops for S and 4*D for the split P.V against
+// (query, key) pair: 2*D flops for S and 4*DV for the split P.V against
 // 989 TFLOP/s bf16; K/V bytes are re-read once per 128-row query block,
 // about 128 flops per byte of L2 traffic.  Design:
 //   * one CTA per (128 query rows, head, batch), 256 threads: two
@@ -48,11 +51,14 @@
 //     H100 SXM at 700 W, against 0.74 / 0.58 ms for this layout, which
 //     takes 216 registers and no spills; PERF.md);
 //   * the K/V ring has STAGES stages of BK keys;
-//   * tiles sit in shared memory in the TMA's 128-byte swizzle (64-byte at
-//     D = 32), as column chunks of 64 (32) elements, one TMA box each; the
-//     wgmma descriptors carry the same swizzle.  Q and K are K-major (D
-//     contiguous); V is the MN-major B operand of P.V (keys are the
-//     reduction, D contiguous), read with wgmma's transpose bit;
+//   * tiles sit in shared memory in the TMA's 128-byte swizzle (64-byte
+//     for a head dim of 32), as column chunks of 64 (32) elements, one TMA
+//     box each; the wgmma descriptors carry the same swizzle.  Q and K are
+//     K-major (D contiguous, D / 64 chunks: three at D = 192); V is the
+//     MN-major B operand of P.V (keys are the reduction, DV contiguous),
+//     read with wgmma's transpose bit, with a tensor map of its own at DV
+//     (its swizzle set by DV, so (64, 32) swizzles K by 128 bytes and V by
+//     64);
 //   * per kv block each warpgroup runs S = Q.K^T (m64nBKk16, both
 //     operands from shared memory), scales, caps and masks (the mask only
 //     on blocks that cut the diagonal, the window edge or Sk), does the
@@ -60,14 +66,19 @@
 //     shfl.xor per reduction; l stays per thread until the epilogue),
 //     converts the S accumulator in place into the bf16 A fragments hi and
 //     lo (the m64nN accumulator layout is the register-A layout of the
-//     next wgmma), runs O = O * alpha + hi.V + lo.V (m64nDk16, A from
-//     registers), and releases the stage;
+//     next wgmma), runs O = O * alpha + hi.V + lo.V (m64nDVk16, A from
+//     registers; O is DV / 2 f32 registers a thread), and releases the
+//     stage;
 //   * grid (H, query blocks, B): query heads of one kv head are adjacent
 //     in launch order, so K/V hit in L2, and the query blocks run last to
 //     first, heaviest causal blocks first.
-// Tiles (BQ = 128 everywhere; shared memory filled up to the 227 KB):
-//   D = 256: BK =  64, 2 stages, 193 KiB    D = 128: BK = 128, 3 stages, 225 KiB
-//   D =  64: BK = 128, 6 stages, 209 KiB    D =  32: BK = 128, 13 stages, 217 KiB
+// Tiles (BQ = 128 everywhere; shared memory filled up to the 227 KB; the
+// stages counted per (D, DV) pair, a stage holding K at D and V at DV):
+//   256 / 256: BK =  64, 2 stages, 193 KiB   128 / 128: BK = 128, 3 stages, 225 KiB
+//    64 /  64: BK = 128, 6 stages, 209 KiB    32 /  32: BK = 128, 13 stages, 217 KiB
+//   192 / 128: BK = 128, 2 stages, 209 KiB    64 /  32: BK = 128, 8 stages, 209 KiB
+// (192 / 128 is MLA's d_qk / d_v; 64 / 32 holds MLA at smoke size, 48 / 32
+// zero-padded by the Python wrapper.)
 // Not here: a persistent scheduler, ping-pong between the two warpgroups,
 // overlap of the softmax with the next S = Q.K^T.
 //
@@ -94,19 +105,25 @@ constexpr int BAR_BYTES = 256;      // mbarriers after the tiles
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV>
 struct Cfg {
   static constexpr int BK = D == 256 ? 64 : 128;     // keys per kv block
-  static constexpr int SW = D >= 64 ? 128 : 64;      // swizzle = bytes per chunk row
+  static constexpr int SW = D >= 64 ? 128 : 64;      // Q, K: bytes per chunk row
   static constexpr int CE = SW / 2;                  // elements per chunk row
   static constexpr int KPC = SW / 32;                // k16 steps per chunk
+  static constexpr int SWV = DV >= 64 ? 128 : 64;    // V: bytes per chunk row
+  static constexpr int CEV = SWV / 2;
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int T_BYTES = BK * D * 2;         // one K or V stage
+  static constexpr int K_BYTES = BK * D * 2;         // one K stage
+  static constexpr int V_BYTES = BK * DV * 2;        // one V stage
   static constexpr int STAGES =
-      (SMEM_MAX - SLACK - BAR_BYTES - Q_BYTES) / (2 * T_BYTES);
-  static constexpr int SMEM = SLACK + Q_BYTES + 2 * STAGES * T_BYTES + BAR_BYTES;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor swizzle
+      (SMEM_MAX - SLACK - BAR_BYTES - Q_BYTES) / (K_BYTES + V_BYTES);
+  static constexpr int SMEM =
+      SLACK + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + BAR_BYTES;
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;   // descriptor swizzle
+  static constexpr uint64_t LAYOUT_V = SWV == 128 ? 1 : 2;
   static_assert(STAGES >= 2 && 8 * (1 + 2 * STAGES) <= BAR_BYTES, "tiles");
+  static_assert(D % CE == 0 && DV % CEV == 0, "head dims");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -338,7 +355,7 @@ __device__ __forceinline__ void scores(float* sc, float& mx0, float& mx1,
     }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -346,13 +363,13 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     float* __restrict__ lse, int H, int KVH, int Sq, int Sk, int64_t osb,
     int64_t oss, int64_t osh, int causal, int window, float softcap,
     float inv_cap, float sm_scale) {
-  using C = Cfg<D>;
-  constexpr int BK = C::BK, SW = C::SW;
+  using C = Cfg<D, DV>;
+  constexpr int BK = C::BK, SW = C::SW, SWV = C::SWV;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + SLACK - 1) & ~uint32_t(SLACK - 1);
-  const uint32_t sK = sQ + C::Q_BYTES;               // stage s: + s * T_BYTES
-  const uint32_t sV = sK + C::STAGES * C::T_BYTES;
-  const uint32_t q_bar = sV + C::STAGES * C::T_BYTES;
+  const uint32_t sK = sQ + C::Q_BYTES;               // stage s: + s * K_BYTES
+  const uint32_t sV = sK + C::STAGES * C::K_BYTES;   // stage s: + s * V_BYTES
+  const uint32_t q_bar = sV + C::STAGES * C::V_BYTES;
   const uint32_t full0 = q_bar + 8;                  // full[s] = full0 + 8 s
   const uint32_t empty0 = full0 + 8 * C::STAGES;
 
@@ -375,13 +392,13 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
   auto load_block = [&](int i) {
     const int s = i % C::STAGES;
     const int k0 = (kb_lo + i) * BK;
-    mbar_expect_tx(full0 + 8 * s, 2 * C::T_BYTES);
-    for (int c = 0; c < D / C::CE; ++c) {
-      tma_load_4d(sK + s * C::T_BYTES + c * BK * SW, &tm_k, full0 + 8 * s,
+    mbar_expect_tx(full0 + 8 * s, C::K_BYTES + C::V_BYTES);
+    for (int c = 0; c < D / C::CE; ++c)
+      tma_load_4d(sK + s * C::K_BYTES + c * BK * SW, &tm_k, full0 + 8 * s,
                   c * C::CE, kvh, k0, b);
-      tma_load_4d(sV + s * C::T_BYTES + c * BK * SW, &tm_v, full0 + 8 * s,
-                  c * C::CE, kvh, k0, b);
-    }
+    for (int c = 0; c < DV / C::CEV; ++c)
+      tma_load_4d(sV + s * C::V_BYTES + c * BK * SWV, &tm_v, full0 + 8 * s,
+                  c * C::CEV, kvh, k0, b);
   };
   if (tid == 0) {
     mbar_init(q_bar, 1);
@@ -410,16 +427,16 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     const int qp0 = qa + r0;
     const uint32_t sQw = sQ + 64 * wg * SW;
 
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(q_bar, 0);
     for (int i = 0; i < nblk; ++i) {
       const int s = i % C::STAGES;
       const int k0 = (kb_lo + i) * BK;
-      const uint32_t sKs = sK + s * C::T_BYTES, sVs = sV + s * C::T_BYTES;
+      const uint32_t sKs = sK + s * C::K_BYTES, sVs = sV + s * C::V_BYTES;
       mbar_wait(full0 + 8 * s, (i / C::STAGES) & 1);
       // the Q descriptors are rebuilt from an opaque base each block: hoisted
       // out of the loop they would hold D / 8 registers for its whole length
@@ -497,22 +514,23 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
       l0 = l0 * al0 + ps0;
       l1 = l1 * al1 + ps1;
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
+      for (int j = 0; j < DV / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
 
       // O += hi.V + lo.V; V is the MN-major B operand (transpose bit)
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) pin(acc[j]);
+      for (int j = 0; j < DV / 2; ++j) pin(acc[j]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = desc(sVs + kk * 16 * SW, BK * SW, 8 * SW, C::LAYOUT);
-        wgmma_rs<D>(acc, ph + 4 * kk, dv);
-        wgmma_rs<D>(acc, pl + 4 * kk, dv);
+        const uint64_t dv =
+            desc(sVs + kk * 16 * SWV, BK * SWV, 8 * SWV, C::LAYOUT_V);
+        wgmma_rs<DV>(acc, ph + 4 * kk, dv);
+        wgmma_rs<DV>(acc, pl + 4 * kk, dv);
       }
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) pin(acc[j]);
+      for (int j = 0; j < DV / 2; ++j) pin(acc[j]);
 #pragma unroll
       for (int j = 0; j < BK / 4; ++j) {
         pin(ph[j]);
@@ -548,7 +566,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
       const float il = __fdividef(1.f, half ? l1 : l0);
       __nv_bfloat16* orow = ob + (int64_t)qp * oss;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
             acc[4 * j + 2 * half] * il, acc[4 * j + 2 * half + 1] * il);
     }
@@ -594,25 +612,25 @@ int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KVH, int Sq, int Sk, long long qsb, long long qss,
            long long qsh, long long ksb, long long kss, long long ksh,
            long long vsb, long long vss, long long vsh, long long osb,
            long long oss, long long osh, int causal, int window,
            float softcap, float sm_scale, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, D, H, Sq, B, qsh, qss, qsb, BQ, C::SW);
   if (!err) err = encode(&tk, k, D, KVH, Sk, B, ksh, kss, ksb, C::BK, C::SW);
-  if (!err) err = encode(&tv, v, D, KVH, Sk, B, vsh, vss, vsb, C::BK, C::SW);
+  if (!err) err = encode(&tv, v, DV, KVH, Sk, B, vsh, vss, vsb, C::BK, C::SWV);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      flash_fwd_sm90_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, (Sq + BQ - 1) / BQ, B);
-  flash_fwd_sm90_kernel<D><<<grid, NT, C::SMEM, stream>>>(
+  flash_fwd_sm90_kernel<D, DV><<<grid, NT, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KVH, Sq, Sk, osb,
       oss, osh, causal, window, softcap, softcap > 0.f ? 1.f / softcap : 0.f,
       sm_scale);
@@ -621,15 +639,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes), the same arguments as
-// flash_fwd.cu's.  Strides are in elements; the head-dim stride must be 1,
-// the bases 16-byte aligned and every other stride a multiple of 8
-// elements (the Python wrapper checks all three); `stream` is a stream of
-// `device`.  Returns a cudaError_t, -1 for an unsupported head dim, -2 if
-// libcuda has no cuTensorMapEncodeTiled, -3 if it refused a tensor map.
+// Plain C entry point (bound with ctypes), the arguments of flash_fwd.cu's
+// but its split scratch: query/key head dim D, value head dim DV.  Strides
+// are in elements; the head-dim stride must be 1, the bases 16-byte aligned
+// and every other stride a multiple of 8 elements (the Python wrapper
+// checks all three); `stream` is a stream of `device`.  Returns a
+// cudaError_t, -1 for a (D, DV) pair that is not instantiated (the wrapper
+// zero-pads to one that is), -2 if libcuda has no cuTensorMapEncodeTiled,
+// -3 if it refused a tensor map.
 extern "C" int flash_fwd_sm90_bf16(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
-    int H, int KVH, int Sq, int Sk, int D, long long qsb, long long qss,
+    int H, int KVH, int Sq, int Sk, int D, int DV, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss, long long osh,
     int causal, int window, float softcap, float sm_scale, int device,
@@ -639,18 +659,17 @@ extern "C" int flash_fwd_sm90_bf16(
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define SM90_CASE(DD)                                                         \
-  case DD:                                                                    \
-    return launch<DD>(q, k, v, o, lse, B, H, KVH, Sq, Sk, qsb, qss, qsh, ksb, \
-                      kss, ksh, vsb, vss, vsh, osb, oss, osh, causal, window, \
-                      softcap, sm_scale, st);
-  switch (D) {
-    SM90_CASE(32)
-    SM90_CASE(64)
-    SM90_CASE(128)
-    SM90_CASE(256)
-    default:
-      return -1;
-  }
+#define SM90_CASE(DQ, DVV)                                                    \
+  if (D == DQ && DV == DVV)                                                   \
+    return launch<DQ, DVV>(q, k, v, o, lse, B, H, KVH, Sq, Sk, qsb, qss, qsh, \
+                           ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,       \
+                           causal, window, softcap, sm_scale, st);
+  SM90_CASE(32, 32)
+  SM90_CASE(64, 64)
+  SM90_CASE(128, 128)
+  SM90_CASE(256, 256)
+  SM90_CASE(192, 128)     // MLA: qk_nope + qk_rope over v_head_dim
+  SM90_CASE(64, 32)       // MLA at smoke size (48 / 32, padded)
+  return -1;
 #undef SM90_CASE
 }

@@ -16,9 +16,14 @@ to kv head h // (H // KV).  DV may differ from D (MLA: d_qk 192 over d_v
   split into two bf16 terms).  On a CPU tensor the plain version
   ``flash_fwd_plain`` runs instead; on a CUDA tensor the plain version
   runs only when the caller asks for it by name (``impl="plain"``, used to
-  hold the kernels against it).  q/k/v are f32 or bf16 (all three alike):
-  every version accumulates in f32 and writes the output in q's dtype,
-  with lse in f32, as the Pallas kernel does.
+  hold the kernels against it).  q/k/v are f32 or bf16: every version
+  accumulates in f32 and writes the output in q's dtype, with lse in f32,
+  as the Pallas kernel does.  Both kernels take the (d_qk, d_v) pairs of
+  ``KERNEL_DIMS`` and zero-pad any other to one of them (``kernel_dims``).
+  ``flash_attention`` given mixed dtypes computes as JAX's promotion does:
+  all three in the widest dtype (a bf16 q over an f32 memory's K/V runs
+  the f32 kernel), the output back in q's dtype, and each gradient in its
+  input's dtype, through the casts' own backward.
 * Backward: ``flash_bwd_plain`` — the PyTorch counterpart of the JAX
   package's ``flash.py::_global_bwd`` / ``_local_bwd`` (the TPU kernel
   has no backward; JAX differentiates that plain-jnp code).  It
@@ -43,21 +48,21 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _BLOCK_Q = 512
-# the head dims each kernel instantiates: the bf16 kernel square ones, the
-# f32 kernel (d_qk, d_v) pairs, MLA's two among them
-_HEAD_DIMS = (32, 64, 128, 256)
-F32_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128), (64, 32))
+# the (d_qk, d_v) pairs both kernels instantiate: the square head dims and
+# MLA's two (192 / 128, and 64 / 32 for the smoke 48 / 32)
+KERNEL_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+               (64, 32))
 
 
 def kernel_dims(d: int, dv: int) -> Tuple[int, int]:
-    """The (d_qk, d_v) the f32 kernel runs a call of head dims (d, dv) at:
+    """The (d_qk, d_v) either kernel runs a call of head dims (d, dv) at:
     its own pair when instantiated, else the smallest instantiated pair
     that holds it, which the call is zero-padded to (smoke-size MLA's 48 /
     32 runs at 64 / 32)."""
-    fits = [p for p in F32_DIMS if p[0] >= d and p[1] >= dv]
+    fits = [p for p in KERNEL_DIMS if p[0] >= d and p[1] >= dv]
     if not fits:
-        raise ValueError(f"no f32 flash instantiation holds head dims "
-                         f"{d} / {dv} (instantiated: {F32_DIMS})")
+        raise ValueError(f"no flash instantiation holds head dims "
+                         f"{d} / {dv} (instantiated: {KERNEL_DIMS})")
     return min(fits, key=lambda p: (p[0] + p[1], p))
 
 
@@ -259,30 +264,31 @@ def _tma_aligned(x: torch.Tensor) -> bool:
 _ENTRY = {torch.float32: ("flash_fwd", "flash_fwd_f32"),
           torch.bfloat16: ("flash_fwd_sm90", "flash_fwd_sm90_bf16")}
 # the two entry points' parameters: q, k, v, o, lse (and the f32 kernel's
-# split scratch), B, H, KVH, Sq, Sk, D (and the f32 kernel's DV), the twelve
-# strides, causal, window, softcap, sm_scale, device, stream
+# split scratch), B, H, KVH, Sq, Sk, D, DV, the twelve strides, causal,
+# window, softcap, sm_scale, device, stream
 _TAIL = ([ctypes.c_longlong] * 12
          + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p])
 F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + _TAIL
-BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + _TAIL
+BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + _TAIL
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                    softcap: float = 0.0, split: Optional[torch.Tensor] = None):
     """Launch the Hopper forward kernel of q's dtype: (out [B,Sq,H,DV],
-    lse [B,H,Sq]).  Needs at least one key.
+    lse [B,H,Sq]).  q, k and v share one dtype (``flash_attention``
+    promotes mixed ones).  Needs at least one key.
 
-    On f32 inputs a (D, DV) pair the kernel does not instantiate runs at
+    A (D, DV) pair the kernel does not instantiate runs at
     ``kernel_dims(D, DV)``: q and k are zero-padded to its d_qk and v to its
     d_v, the scale stays 1/sqrt(D) of the unpadded D, and out comes back
-    sliced to DV.  The zero columns add exact zeros to every score (hi and
-    lo of 0 are 0) and fill only the discarded columns of out, so the
-    result is the unpadded call's.  ``split`` is the split pass's scratch
-    at the kernel's dims (``split_buffer(B, KV, Sk, dq, device, dv)`` with
-    ``dq, dv = kernel_dims(D, DV)``; allocated here when None): after the call it holds what
-    ``flash_split_plain`` computes of the (padded) k and v.  bf16 inputs
-    take a head dim of ``_HEAD_DIMS`` with DV = D."""
+    sliced to DV.  The zero columns add exact zeros to every score (bf16
+    and TF32 hi and lo of 0 are 0) and fill only the discarded columns of
+    out, so the result is the unpadded call's.  ``split`` is the f32
+    kernel's split-pass scratch at the kernel's dims (``split_buffer(B,
+    KV, Sk, dq, device, dv)`` with ``dq, dv = kernel_dims(D, DV)``;
+    allocated here when None): after the call it holds what
+    ``flash_split_plain`` computes of the (padded) k and v."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_fwd_cuda needs CUDA tensors")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _ENTRY):
@@ -298,19 +304,13 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if h % kvh:
         raise ValueError(f"heads {h} do not group over {kvh} kv heads")
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        if d not in _HEAD_DIMS or dv != d:
-            raise ValueError(f"the bf16 kernel takes head dims {_HEAD_DIMS} "
-                             f"with d_v = d_qk, got {d} / {dv}")
-        dq_k, dv_k = d, d
-    else:
-        dq_k, dv_k = kernel_dims(d, dv)
-        if dq_k != d:
-            pad = (0, dq_k - d)
-            q = torch.nn.functional.pad(q, pad)
-            k = torch.nn.functional.pad(k, pad)
-        if dv_k != dv:
-            v = torch.nn.functional.pad(v, (0, dv_k - dv))
+    dq_k, dv_k = kernel_dims(d, dv)
+    if dq_k != d:
+        pad = (0, dq_k - d)
+        q = torch.nn.functional.pad(q, pad)
+        k = torch.nn.functional.pad(k, pad)
+    if dv_k != dv:
+        v = torch.nn.functional.pad(v, (0, dv_k - dv))
     aligned = _tma_aligned if bf16 else _row_aligned
     q, k, v = (x if aligned(x) else x.contiguous() for x in (q, k, v))
     out = torch.empty((b, sq, h, dv_k), dtype=q.dtype, device=q.device)
@@ -325,7 +325,6 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if bf16:
         fn.argtypes = BF16_ARGTYPES
         ptrs = (q, k, v, out, lse)
-        dims = (d,)
         strides = _tma_strides
     else:
         fn.argtypes = F32_ARGTYPES
@@ -337,16 +336,18 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"split scratch must be a contiguous f32 "
                              f"tensor of shape {want}")
         ptrs = (q, k, v, out, lse, split)
-        dims = (dq_k, dv_k)
         strides = lambda x: x.stride()[:3]
-    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, *dims,
+    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, dq_k, dv_k,
              *strides(q), *strides(k), *strides(v),
              *out.stride()[:3], int(causal), int(window), float(softcap),
              1.0 / math.sqrt(d), q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     flash_fwd_cuda.launches += 1
-    flash_fwd_cuda.launches_bf16 += int(bf16)
+    if bf16:
+        flash_fwd_cuda.launches_bf16 += 1
+        dims = flash_fwd_cuda.launches_bf16_dims
+        dims[dq_k, dv_k] = dims.get((dq_k, dv_k), 0) + 1
     if dv_k != dv:
         out = out[..., :dv].contiguous()
     return out, lse
@@ -354,6 +355,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_fwd_cuda.launches = 0          # launches of either kernel
 flash_fwd_cuda.launches_bf16 = 0     # of those, the bf16 tensor-core kernel's
+flash_fwd_cuda.launches_bf16_dims = {}   # ... by its (d_qk, d_v) instantiation
 
 
 def _resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
@@ -388,11 +390,18 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, impl: Optional[str] = None):
     """Differentiable attention, [B,Sq,H,D] x [B,Sk,KV,D] (k) x
-    [B,Sk,KV,DV] (v) -> [B,Sq,H,DV].
+    [B,Sk,KV,DV] (v) -> [B,Sq,H,DV] in q's dtype.
 
     ``impl`` None picks the CUDA kernel for CUDA tensors and the plain
     version for CPU tensors; ``"plain"`` forces the plain version (on
-    either device) — the comparison runs use it."""
+    either device) — the comparison runs use it.  Mixed dtypes (a bf16 q
+    beside an f32 memory's K/V) run in the widest of the three, as jnp's
+    promotion runs them: the f32 kernel, its output cast to q's dtype, and
+    each gradient back in its input's dtype."""
     impl = _resolve_impl(impl, q)
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
-                                 float(softcap), impl)
+    args = (bool(causal), int(window), float(softcap), impl)
+    if q.dtype == k.dtype == v.dtype:
+        return _FlashAttention.apply(q, k, v, *args)
+    wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    out = _FlashAttention.apply(q.to(wide), k.to(wide), v.to(wide), *args)
+    return out.to(q.dtype)

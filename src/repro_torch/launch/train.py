@@ -335,8 +335,10 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     "plain" force the kernels' plain versions (a comparison knob).
     ``wire_precision`` ("auto", "f32", "bf16", "int8"), ``master_dtype``
     ("f32", "bf16sr") and ``compute_dtype`` ("f32", "bf16") are the DeFT
-    engine's precision (the DDP baseline takes none; an audio or vision
-    config takes the f32 master and compute only).  ``fsdp`` runs the
+    engine's precision (the DDP baseline takes none), on every config: an
+    audio or vision config's f32 stub memory is never cast, so its encoder
+    and cross-attention K/V run in f32 beside bf16 params, as JAX's
+    promotion runs them.  ``fsdp`` runs the
     sharded flat engine over a layout of one shard per rank (None: the
     arch's default, ``needs_fsdp``, under DeFT; the DDP baseline is
     replicated); its gather skip is on where the
@@ -407,18 +409,6 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     start_step = 0
     if fsdp is None:             # the DDP baseline is replicated only
         fsdp = scheduler == "deft" and needs_fsdp(cfg.name)
-    if cfg.modality != "text" and (master_dtype, compute_dtype) != ("f32",
-                                                                   "f32"):
-        raise NotImplementedError(
-            f"{cfg.name}: the precision path of a config with a stub "
-            f"frontend's memory (a bf16sr master or bf16 compute) is not "
-            f"ported yet (see ROADMAP.md)")
-    if cfg.mla is not None and (master_dtype, compute_dtype) != ("f32",
-                                                                 "f32"):
-        raise NotImplementedError(
-            f"{cfg.name}: the precision path of an MLA config (a bf16sr "
-            f"master or bf16 compute) needs the bf16 flash at d_v != d_qk, "
-            f"which is not ported yet (see ROADMAP.md)")
     # the log carries the aux loss where a MoE layer makes one
     has_moe = cfg.moe is not None and any(
         s.ffn == "moe" for s in cfg.layer_specs()[cfg.moe.first_k_dense:])

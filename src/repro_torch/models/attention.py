@@ -40,7 +40,12 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ops import NEG_INF
-from repro_torch.models.common import apply_rope, dense_init, rms_norm_per_head
+from repro_torch.models.common import (
+    apply_rope,
+    dense_init,
+    matmul,
+    rms_norm_per_head,
+)
 
 
 def init_attention(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
@@ -62,9 +67,9 @@ def init_attention(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
 def _project_qkv(p, x, cfg):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = matmul(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = matmul(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         q = rms_norm_per_head(q, p["q_norm"])
         k = rms_norm_per_head(k, p["k_norm"])
@@ -127,7 +132,7 @@ def apply_self_attention(p: Dict, x: torch.Tensor, *, cfg, window: int = 0,
     if cache is None:
         att = flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_logit_softcap, impl=attn_impl)
-        return att.reshape(b, s, -1) @ p["wo"]
+        return matmul(att.reshape(b, s, -1), p["wo"])
     ck, cv = cache["k"], cache["v"]
     size = ck.shape[1]
     if window:
@@ -150,7 +155,7 @@ def apply_self_attention(p: Dict, x: torch.Tensor, *, cfg, window: int = 0,
             q, ck, cv, causal=causal, softcap=cfg.attn_logit_softcap,
             q_offset=pos,
             kv_length=_full_length(kv_length, pos + s, b, x.device))
-    return att.reshape(b, s, -1) @ p["wo"]
+    return matmul(att.reshape(b, s, -1), p["wo"])
 
 
 def init_cross_attention(generator, cfg, *, lead: Sequence[int] = (),
@@ -164,11 +169,13 @@ def init_cross_attention(generator, cfg, *, lead: Sequence[int] = (),
 def cross_kv(p: Dict, memory: torch.Tensor, cfg
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """memory [B, M, d] -> K, V [B, M, KV, D] (K per-head normed with
-    ``use_qk_norm``)."""
+    ``use_qk_norm``), in the promoted dtype of the memory and the weights:
+    f32 for the f32 stub memory (or an encoder's output over it) under
+    bf16 params, as JAX never casts the memory."""
     b, m, _ = memory.shape
     hd = cfg.resolved_head_dim
-    k = (memory @ p["wk"]).reshape(b, m, cfg.n_kv_heads, hd)
-    v = (memory @ p["wv"]).reshape(b, m, cfg.n_kv_heads, hd)
+    k = matmul(memory, p["wk"]).reshape(b, m, cfg.n_kv_heads, hd)
+    v = matmul(memory, p["wv"]).reshape(b, m, cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         k = rms_norm_per_head(k, p["k_norm"])
     return k, v
@@ -178,16 +185,18 @@ def apply_cross_attention(p: Dict, x: torch.Tensor,
                           kv: Tuple[torch.Tensor, torch.Tensor], *, cfg,
                           gated: bool = False,
                           attn_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] attends to ``kv`` (``cross_kv``) -> [B, S, d]."""
+    """x [B, S, d] attends to ``kv`` (``cross_kv``) -> [B, S, d] in x's
+    promoted dtype: a bf16 decoder's queries over f32 K/V attend in f32
+    and come back bf16 (``flash_attention``'s promotion), as in JAX."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
     if cfg.use_qk_norm:
         q = rms_norm_per_head(q, p["q_norm"])
     k, v = kv
     att = flash_attention(q, k, v, causal=False,
                           softcap=cfg.attn_logit_softcap, impl=attn_impl)
-    out = att.reshape(b, s, -1) @ p["wo"]
+    out = matmul(att.reshape(b, s, -1), p["wo"])
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out

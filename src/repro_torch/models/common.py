@@ -4,7 +4,8 @@ Port of ``repro/models/common.py``: plain functions over explicit
 parameter dicts of torch tensors, computing in f32 in the same order as
 the JAX package.  Initializers draw from a ``torch.Generator`` (the
 numbers differ from ``jax.random``; parity tests carry JAX params across
-with ``repro_torch.convert``).
+with ``repro_torch.convert``).  ``matmul`` is ``@`` with jnp's dtype
+promotion, which PyTorch's products lack.
 """
 from __future__ import annotations
 
@@ -103,6 +104,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 # Misc
 # ---------------------------------------------------------------------------
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype jnp promotes the pair to: an f32 activation
+    beside a bf16 weight (an encoder over the f32 stub memory, the
+    cross-attention K/V of it, under bf16 params) multiplies in f32, where
+    PyTorch would raise; a pair of one dtype multiplies as it is."""
+    if x.dtype == w.dtype:
+        return x @ w
+    dt = torch.result_type(x, w)
+    return x.to(dt) @ w.to(dt)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
@@ -135,10 +147,11 @@ def init_ffn(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
 
 def apply_ffn(p, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.ffn_activation in ("silu", "gelu"):
-        h = gated_act(cfg.ffn_activation, x @ p["gate"], x @ p["up"])
+        h = gated_act(cfg.ffn_activation, matmul(x, p["gate"]),
+                      matmul(x, p["up"]))
     else:  # plain (non-gated) GELU MLP
-        h = F.gelu(x @ p["up"], approximate="tanh")
-    return h @ p["down"]
+        h = F.gelu(matmul(x, p["up"]), approximate="tanh")
+    return matmul(h, p["down"])
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -332,6 +332,64 @@ def _cur_reading(schedule: DeftSchedule) -> List[Optional[str]]:
     return out
 
 
+def _generation_steps(schedule: DeftSchedule, start: Tuple[int, int] = (0, 0),
+                      cycles: int = 1
+                      ) -> Tuple[Tuple[int, int], List[Optional[int]]]:
+    """Walk ``cycles`` cycles of ``schedule`` from ``start`` = (the steps
+    whose gradients ``cur`` holds, those ``fut`` holds), by
+    ``_route_and_sync``'s and the update's rules.  Returns the counts the
+    walk ends at and, for each step, how many steps' gradients its update
+    applies (None where it applies none)."""
+    cur, fut = start
+    applied: List[Optional[int]] = []
+    for ph in schedule.phases * cycles:
+        gen = None
+        if ph.rotate:
+            gen, fut = fut + 1, 0
+        else:
+            fut += 1
+        if ph.do_update:
+            applied.append(cur if ph.update_source == "cur" else gen)
+            cur = gen if gen is not None and ph.update_source == "cur" else 0
+        else:
+            applied.append(None)
+            if gen is not None:
+                cur = gen
+    return (cur, fut), applied
+
+
+def _steady_counts(schedule: DeftSchedule) -> Tuple[int, int]:
+    """(``cur``, ``fut``) step counts at a cycle boundary of ``schedule``'s
+    steady state, walked from zero accumulators."""
+    seen, at = [], (0, 0)
+    while at not in seen:
+        seen.append(at)
+        at = _generation_steps(schedule, at)[0]
+    return at
+
+
+def handover_divisors(src: DeftSchedule, dst: DeftSchedule
+                      ) -> List[Optional[int]]:
+    """After a swap from ``src`` to ``dst`` at a cycle boundary: for each
+    step from the boundary until ``dst``'s accumulators hold what its own
+    cycle leaves them, the number of steps in the generation that step's
+    update applies where it is not the phase's ``update_k`` (and not an
+    empty generation), else None.  ``update_k`` counts the steps ``dst``'s
+    steady state merges; the generations ``src`` handed over may hold
+    another number (a one-step generation meeting an update of k 2), and
+    the update divides by what it applies, so that it applies their
+    mean."""
+    at, want = _steady_counts(src), _steady_counts(dst)
+    out: List[Optional[int]] = []
+    for _ in range(4):         # dst's own warm-up from zero takes fewer
+        if at == want:
+            break
+        at, applied = _generation_steps(dst, at)
+        out += [n if n and n != ph.update_k else None
+                for ph, n in zip(dst.phases, applied)]
+    return out
+
+
 def _fused_metrics(loss, parts, phase: PhaseSpec, n_dp: int,
                    dp: DataParallel) -> Dict[str, Any]:
     """Loss and aux parts ride ONE all-reduce, stacked to a vector."""
@@ -805,6 +863,9 @@ class DeftRuntime:
         self.last_p2p: List[Tuple[Tuple[int, int], ...]] = []
         self._wire_count = [0, 0]          # this step's (primary, secondary)
         self._cycle_base = 0               # step at which the cycle restarts
+        # after a hand-over, each coming step's update divisor where it is
+        # not its phase's update_k (``handover_divisors``)
+        self._divisors: List[Optional[int]] = []
         # per (layout, PhaseSpec, gather mask, AG-link mask) ever installed,
         # its dispatch statistics: JAX's phase cache, kept across swaps
         self._entries: Dict[Tuple, PhaseStats] = {}
@@ -1260,13 +1321,26 @@ class DeftRuntime:
 
         ``src_schedule``, the schedule ``state`` was stepped under to a
         cycle boundary, hands its accumulators over to this runtime's
-        schedule first (:meth:`_hand_over_cur`), as the staged swap
-        does."""
+        schedule first (:meth:`hand_over`), as the staged swap does."""
         self._check_transition(transition)
         if src_schedule is not None:
-            self._hand_over_cur(state, src_schedule, self.schedule,
-                                transition)
+            self.hand_over(state, src_schedule, transition)
         return self._repack(state, transition)
+
+    def hand_over(self, state: TrainState, src_schedule: DeftSchedule,
+                  transition: Optional[LayoutTransition] = None) -> None:
+        """Hand ``state``'s accumulators, as ``src_schedule`` left them at a
+        cycle boundary under the layout in force (``transition.src``),
+        over to this runtime's schedule, whose cycle this runtime then
+        steps from position 0: the updates until its own generations
+        stand divide by the steps their generations hold
+        (``handover_divisors``), and ``cur``'s sync state is made what
+        this schedule's first cycle expects (:meth:`_hand_over_cur`).  The
+        staged swap's install does it; so does ``repack_state`` given
+        ``src_schedule``, and a reference that switches schedules by hand
+        without a layout change calls it itself."""
+        self._divisors = handover_divisors(src_schedule, self.schedule)
+        self._hand_over_cur(state, src_schedule, self.schedule, transition)
 
     def _check_transition(self, transition: LayoutTransition) -> None:
         self._check_layout(transition.dst)
@@ -1508,6 +1582,7 @@ class DeftRuntime:
             return state
         self._hand_over_cur(state, self.schedule, pending.schedule,
                             pending.transition)
+        self._divisors = handover_divisors(self.schedule, pending.schedule)
         repack_s = None
         if pending.layout is not None:
             self._sync_device()
@@ -1577,6 +1652,8 @@ class DeftRuntime:
             state = self._install_pending(i, state)
         off = self.phase_in_cycle(i)
         phase = self.schedule.phases[off]
+        k = (self._divisors.pop(0) if self._divisors else None) \
+            or phase.update_k
         self.last_phase = off
         entry = self._unique[self.phase_of_step[off]]
         # a phase's first dispatch carries one-off work (kernel loads,
@@ -1589,10 +1666,10 @@ class DeftRuntime:
         self._wire_count = [0, 0]
         if self.fsdp:
             new_state, loss, parts = self._step_sharded(off, phase, state,
-                                                        batch)
+                                                        batch, k)
         else:
             new_state, loss, parts = self._step_replicated(phase, state,
-                                                           batch)
+                                                           batch, k)
         metrics = _fused_metrics(loss, parts, phase, self.dp.n_dp, self.dp)
         t1 = clock()
         entry.dispatches += 1
@@ -1663,7 +1740,11 @@ class DeftRuntime:
                 g.copy_(lo)
         return loss, parts
 
-    def _step_replicated(self, phase: PhaseSpec, state: TrainState, batch):
+    def _step_replicated(self, phase: PhaseSpec, state: TrainState, batch,
+                         k: int):
+        """One phase of the replicated flat engine; its update divides the
+        generation it applies by ``k`` steps (the phase's ``update_k`` but
+        after a hand-over)."""
         layout = self.layout
         n_dp = self.dp.n_dp
         # differentiate w.r.t. the params at the leaf dtype
@@ -1687,7 +1768,7 @@ class DeftRuntime:
             zero_grads = (phase.update_source == "new") or (gen is None)
             apply_bucket_updates(
                 self.opt_spec, self.segments, state["pbuf"], src,
-                state["opt"], grad_scale=1.0 / (n_dp * phase.update_k),
+                state["opt"], grad_scale=1.0 / (n_dp * k),
                 zero_grads=zero_grads, impl=self.update_impl,
                 master_dtype=self.master_dtype,
                 quantize_impl=self.quantize_impl)
@@ -1713,7 +1794,7 @@ class DeftRuntime:
         }, loss, parts
 
     def _step_sharded(self, off: int, phase: PhaseSpec, state: TrainState,
-                      batch):
+                      batch, k: int):
         """One phase of the sharded flat engine (``_deft_body_flat_rs``),
         on the same three full buffers per bucket as the replicated
         engine: the gradient buffer, ``cur`` and ``fut``.  The param
@@ -1725,7 +1806,7 @@ class DeftRuntime:
         secondary bucket's reduce-scatter and trailing all-gather, and a
         param gather the AG plan put on the secondary link, run along the
         ring chain when one is set; the pod all-reduce stays on its own
-        group."""
+        group.  The update divides by ``k``, as the replicated body's."""
         layout, dp = self.layout, self.dp
         nb, rank = layout.n_buckets, dp.rank
         spans = layout.shard_sizes
@@ -1813,7 +1894,7 @@ class DeftRuntime:
                       for b, y in enumerate(src_sh)]
             apply_bucket_updates(
                 self.opt_spec, self.segments, state["pbuf"], src_sh,
-                state["opt"], grad_scale=1.0 / (dp.n_dp * phase.update_k),
+                state["opt"], grad_scale=1.0 / (dp.n_dp * k),
                 impl=self.update_impl, shard_id=rank,
                 norm_psum=dp.norm if self.opt_spec.grad_clip else None,
                 master_dtype=self.master_dtype,

@@ -9,6 +9,7 @@ loss and every gradient leaf against JAX's (``loss_and_grads_match_jax``).
 The JAX package is imported inside the functions that use it, so that
 the spawned gloo ranks of ``test_torch_swap_ranks.py``, which import
 this module, start without JAX."""
+import contextlib
 import dataclasses
 import functools
 from types import SimpleNamespace
@@ -144,8 +145,9 @@ def jax_run(t, rt, n_steps, single_mesh, hook=None):
 
 def reference(t, sched_a, lay_a, sched_b, lay_b, swap_step, n_steps,
                fsdp=False):
-    """The explicit reference: layout A to the swap step, ``repack_state``
-    (when the layout changes), then a fresh runtime built for B."""
+    """The explicit reference: layout A to the swap step, the hand-over to
+    B (through ``repack_state`` when the layout changes), then a fresh
+    runtime built for B."""
     rt_a = DeftRuntime(t.tcfg, adamw(LR), sched_a, lay_a, device="cpu",
                        fsdp=fsdp)
     rt_b = DeftRuntime(t.tcfg, adamw(LR), sched_b, lay_b, device="cpu",
@@ -157,10 +159,28 @@ def reference(t, sched_a, lay_a, sched_b, lay_b, swap_step, n_steps,
             state = rt_b.repack_state(state,
                                       build_layout_transition(lay_a, lay_b),
                                       src_schedule=sched_a)
+        elif i == swap_step:
+            rt_b.hand_over(state, sched_a)
         rt, at = (rt_a, i) if i < swap_step else (rt_b, i - swap_step)
         state, m = rt.step(at, state, tb(t, i))
         losses.append(float(m["loss"]))
     return rt_b, state, losses
+
+
+@contextlib.contextmanager
+def jax_divisors():
+    """The JAX package's hand-over inside: every update divides by its
+    phase's ``update_k``, also where the generation a swap handed over
+    holds another number of steps (ROADMAP §3); the port's runs in it are
+    the ones JAX's swapped runs are held to."""
+    from repro_torch.train import runtime as trt
+
+    saved = trt.handover_divisors
+    trt.handover_divisors = lambda src, dst: []
+    try:
+        yield
+    finally:
+        trt.handover_divisors = saved
 
 
 def bitwise(run, ref):

@@ -7,9 +7,11 @@ the same tiny qwen3, JAX params and numpy batches (``tests/_torch_tiny.py``).
 A 3x synthetic bandwidth drop at step 4 drives the copied controller
 (timing trigger only): it replans at JAX's step onto JAX's schedule (and,
 with a repartitioner, JAX's partition and bucket count), the runtime
-swaps at JAX's step with JAX's ``info``, the params end within atol 1e-4
-of JAX's run and bitwise the port's explicit reference, and re-staging
-the schedule is a pure phase-table hit (``new_phases == 0``).
+swaps at JAX's step with JAX's ``info``, the params end bitwise the
+port's explicit reference and, run with JAX's hand-over
+(``_torch_tiny.jax_divisors``: every update divided by its phase's
+update_k, ROADMAP §3), within atol 1e-4 of JAX's run, and re-staging the
+schedule is a pure phase-table hit (``new_phases == 0``).
 """
 import jax
 import numpy as np
@@ -114,9 +116,9 @@ def test_adaptive_loop_hot_swap_matches_jax(group, tiny, single_mesh,
     jctrl = JController(jtimes, jsched, jscfg, walk=T.WALK,
                         cfg=JAdaptConfig(**T.CTRL), repartitioner=jrp,
                         bucket_of=bo if repartition else None)
-    ctrl = AdaptiveController(times, schedule, scfg, walk=T.WALK,
-                              cfg=AdaptConfig(**T.CTRL), repartitioner=rp,
-                              bucket_of=bo if repartition else None)
+    make_ctrl = lambda: AdaptiveController(
+        times, schedule, scfg, walk=T.WALK, cfg=AdaptConfig(**T.CTRL),
+        repartitioner=rp, bucket_of=bo if repartition else None)
 
     def new_layout(ev, pkg_layout, params):
         if not ev.partition_changed:
@@ -136,16 +138,21 @@ def test_adaptive_loop_hot_swap_matches_jax(group, tiny, single_mesh,
             jrp and (lambda ev: jrp.base_times_for(ev.partition)))
         jfinal = jax.tree.map(np.asarray, jrt.params_tree(jstate))
 
-    rt = DeftRuntime(tiny.tcfg, adamw(T.LR), schedule, lay, device="cpu")
-    infos = []
-    state, losses, events = _adaptive_loop(
-        tiny, rt, ctrl,
-        SyntheticTelemetrySource(times, BandwidthDrop(step=4, comm_scale=3.0)),
-        n_steps, lambda i: T.tb(tiny, i),
-        lambda ev, st, bt: infos.append(rt.prepare_swap(
-            ev.schedule,
-            layout=new_layout(ev, build_bucket_layout, tiny.meta))),
-        rp and (lambda ev: rp.base_times_for(ev.partition)))
+    def port_loop():
+        rt = DeftRuntime(tiny.tcfg, adamw(T.LR), schedule, lay, device="cpu")
+        infos = []
+        out = _adaptive_loop(
+            tiny, rt, make_ctrl(),
+            SyntheticTelemetrySource(times,
+                                     BandwidthDrop(step=4, comm_scale=3.0)),
+            n_steps, lambda i: T.tb(tiny, i),
+            lambda ev, st, bt: infos.append(rt.prepare_swap(
+                ev.schedule,
+                layout=new_layout(ev, build_bucket_layout, tiny.meta))),
+            rp and (lambda ev: rp.base_times_for(ev.partition)))
+        return (rt, infos, *out)
+
+    rt, infos, state, losses, events = port_loop()
 
     # one replan, at JAX's step, onto JAX's schedule and partition
     assert len(events) == len(jevents) == 1
@@ -166,7 +173,9 @@ def test_adaptive_loop_hot_swap_matches_jax(group, tiny, single_mesh,
     assert swap["n_buckets"] == (ev.new_n_buckets if repartition else nb)
     assert rt.period == ev.schedule.period
     assert st["steps_dispatched"] == n_steps and st["steps_per_s"] > 0
-    T.near_jax(rt, state, jfinal)
+    with T.jax_divisors():
+        rt_j, _, state_j, _, _ = port_loop()
+    T.near_jax(rt_j, state_j, jfinal)
 
     lay_b = new_layout(ev, build_bucket_layout, tiny.meta) or lay
     T.bitwise((rt, state, losses),

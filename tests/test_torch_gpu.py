@@ -12,7 +12,9 @@ relative, summed in another order than the plain version's matmuls), its
 f32 split pass bitwise (rounding and data movement only); on bf16 inputs lse keeps 1e-4, out (bf16)
 rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
 atol max|g| / 128 (the plain backward reads the kernel's rounded output);
-the bucket update (on whole buffers, and on the four spans of a sharded
+the bf16 kernel at MLA's 192 / 128 and at 48 / 32 zero-padded to 64 / 32
+under the same bf16 limits, and a bf16 q over f32 K/V launching the f32
+kernel (jnp's promotion); the bucket update (on whole buffers, and on the four spans of a sharded
 layout reassembled against the full-buffer apply), the three quantize
 kernels and the two RG-LRU scan kernels bitwise (each rounds every operation separately, as the plain
 version's elementwise kernels do, and the hash is integer arithmetic); the
@@ -435,8 +437,79 @@ def test_flash_kernel_bf16_copies_strides_tma_cannot_take():
     want = flash_fwd_cuda(*(x.contiguous() for x in (qs, ks, vs)), causal=True)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    with pytest.raises(ValueError):       # a head dim the kernel has no tile for
-        flash_fwd_cuda(*(x[..., :48] for x in (q, k, v)))
+    # a head dim without a tile of its own runs zero-padded to one (48 at
+    # 64); one wider than every tile is refused
+    got = flash_fwd_cuda(*(x[..., :48] for x in (q, k, v)))
+    want = flash_fwd_plain(*(x[..., :48] for x in (q, k, v)))
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               rtol=BF16_OUT_RTOL, atol=1e-5)
+    with pytest.raises(ValueError):
+        flash_fwd_cuda(*(torch.cat([x, x, x], -1) for x in (q, k, v)))
+
+
+# MLA's d_qk != d_v on bf16: the (192, 128) instantiation, and 48 / 32
+# zero-padded to the instantiated 64 / 32
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv,h,kvh,s,causal", [
+    (192, 128, 4, 4, 200, True),
+    (192, 128, 4, 2, (300, 77), False),
+    (192, 128, 8, 8, 40, True),             # S < key block
+    (48, 32, 4, 4, 200, True),
+    (48, 32, 4, 4, 1, True),
+    (64, 32, 4, 1, 130, False),
+])
+def test_flash_kernel_bf16_mla_dims_match_plain(d, dv, h, kvh, s, causal):
+    _need_card()
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    q, k, _ = (x.bfloat16() for x in _qkv(10, 2, sq, h, kvh, d, sk))
+    v = _qkv(11, 2, sk, kvh, kvh, dv)[0].bfloat16()
+    before = dict(flash_fwd_cuda.launches_bf16_dims)
+    out, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    at = kernel_dims(d, dv)
+    assert flash_fwd_cuda.launches_bf16_dims[at] == before.get(at, 0) + 1
+    assert out.shape == (2, sq, h, dv) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    w = torch.randn(ref.shape, device="cuda")
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.sum(flash_attention(*xs, causal=causal, impl=impl).float()
+                  * w).backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=BF16_GRAD_RTOL,
+            atol=b.float().abs().max().item() / 128)
+
+
+@pytest.mark.gpu
+def test_flash_mixed_dtypes_launch_the_f32_kernel():
+    """A bf16 q over f32 K/V (a bf16 decoder's cross-attention to the f32
+    memory) runs the f32 kernel on the promoted q: out in q's dtype, each
+    gradient in its input's, and no bf16 launch."""
+    _need_card()
+    q, k, v = _qkv(12, 2, 96, 4, 4, 64, 40)
+    q = q.bfloat16()
+    n, n_bf16 = flash_fwd_cuda.launches, flash_fwd_cuda.launches_bf16
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*xs, causal=False)
+    assert flash_fwd_cuda.launches == n + 1
+    assert flash_fwd_cuda.launches_bf16 == n_bf16
+    ref, _ = flash_fwd_plain(q.float(), k, v, causal=False)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref, rtol=BF16_OUT_RTOL,
+                               atol=1e-5)
+    torch.sum(out.float() * torch.randn(out.shape, device="cuda")).backward()
+    assert [x.grad.dtype for x in xs] == [torch.bfloat16, torch.float32,
+                                          torch.float32]
 
 
 def _hostile(n, n_valid, seed):
@@ -664,7 +737,8 @@ def _replay_swap(cfg, rt, sched_a, lay_a, swap_step, n_steps, batch, seq,
     """The explicit reference of a hot-swapped run of ``rt``: a sibling of
     schedule ``sched_a`` and layout ``lay_a`` to the swap step, then
     ``repack_state`` onto a sibling built for ``rt``'s installed schedule
-    and layout.  Returns (losses, param buffers)."""
+    and layout, handing the accumulators over from ``sched_a`` as the
+    staged swap does.  Returns (losses, param buffers)."""
     ref = rt.spawn(schedule=sched_a, layout=lay_a)
     state = ref.init_state(seed, dtype=rt.compute_dtype or torch.float32)
     losses = []
@@ -672,7 +746,8 @@ def _replay_swap(cfg, rt, sched_a, lay_a, swap_step, n_steps, batch, seq,
         if i == swap_step:
             ref = ref.spawn(schedule=rt.schedule, layout=rt.layout)
             state = ref.repack_state(
-                state, build_layout_transition(lay_a, rt.layout))
+                state, build_layout_transition(lay_a, rt.layout),
+                src_schedule=sched_a)
         state, m = ref.step(i - swap_step if i >= swap_step else i, state,
                             make_batch(cfg, seed, i, batch, seq,
                                        device="cuda"))

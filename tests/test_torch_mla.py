@@ -19,7 +19,9 @@ and of the attention it runs at d_v != d_qk, against the JAX package.
   ``jax.value_and_grad`` of JAX's (rtol 1e-4, atol 1e-5).
 * The launcher at smoke size on the CPU: ``--arch deepseek-v2-236b
   --smoke`` trains on the sharded engine (``needs_fsdp``) and logs the aux
-  loss; a bf16sr master or bf16 compute on an MLA config is refused.
+  loss, also on the precision path (a bf16sr master, and bf16 compute
+  with int8 wires): finite losses, a bf16 master where it is bf16sr, and
+  seamless-m4t-large-v2-smoke the same.
 * ``kernel_dims``: the instantiated (d_qk, d_v) pair a call runs at.
 """
 import jax
@@ -109,7 +111,7 @@ def test_kernel_dims():
     assert kernel_dims(48, 32) == (64, 32)
     assert kernel_dims(128, 128) == (128, 128)
     assert kernel_dims(100, 100) == (128, 128)
-    with pytest.raises(ValueError, match="no f32 flash instantiation"):
+    with pytest.raises(ValueError, match="no flash instantiation"):
         kernel_dims(320, 128)
 
 
@@ -225,17 +227,32 @@ def test_mla_runtime_matches_jax_over_two_periods(group, single_mesh,
         np.testing.assert_allclose(a.numpy(), b, atol=PARAM_ATOL, rtol=0)
 
 
-def test_launcher_smoke_and_bf16_refusal(group):
-    cfg = t_reduce(t_get_config(ARCH))
+@pytest.mark.parametrize("arch", [ARCH, "seamless-m4t-large-v2"])
+def test_launcher_smoke_and_bf16_refusal(group, arch):
+    """The launcher trains the MLA config on the f32 path and on the
+    precision path, which it refused before the bf16 flash took d_v !=
+    d_qk; an encoder-decoder's precision path likewise (the test keeps its
+    name from the refusal it replaced)."""
+    cfg = t_reduce(t_get_config(arch))
     lines = []
-    res = train(cfg, steps=3, batch=2, seq=32, device="cpu",
-                partition_elems=PART, log=lines.append)
-    assert all(np.isfinite(res["losses"]))
-    assert res["runtime"].stats()["sharded_state"]       # needs_fsdp
-    assert any("aux=" in ln for ln in lines)
-    for prec in (dict(master_dtype="bf16sr"), dict(compute_dtype="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(cfg, steps=1, batch=2, seq=32, device="cpu", **prec)
+    if arch == ARCH:
+        res = train(cfg, steps=3, batch=2, seq=32, device="cpu",
+                    partition_elems=PART, log=lines.append)
+        assert all(np.isfinite(res["losses"]))
+        assert res["runtime"].stats()["sharded_state"]       # needs_fsdp
+        assert any("aux=" in ln for ln in lines)
+    for prec in (dict(master_dtype="bf16sr"),
+                 dict(compute_dtype="bf16", wire_precision="int8")):
+        res = train(cfg, steps=2, batch=2, seq=32, device="cpu",
+                    partition_elems=PART, log=lines.append, **prec)
+        assert all(np.isfinite(res["losses"]))
+        st = res["runtime"].stats()
+        assert st["sharded_state"] == (arch == ARCH)
+        master = torch.bfloat16 if "master_dtype" in prec else torch.float32
+        assert all(p.dtype == master for p in res["state"]["pbuf"])
+        if "compute_dtype" in prec:
+            assert st["compute_dtype"] == "bfloat16"
+            assert set(res["layout"].precision.wire) == {"int8"}
 
 
 def test_mla_flash_autograd_takes_dv():

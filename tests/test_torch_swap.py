@@ -7,9 +7,16 @@
 * A partition hot swap (``prepare_swap(layout=)``) on both engines lands
   at the step JAX's lands, with JAX's ``info``; the run is bitwise the
   port's explicit reference (layout A to the swap step, ``repack_state``,
-  a fresh runtime of layout B), its params are within
-  ``tests/test_torch_runtime.py``'s atol 1e-4 of JAX's same run, and its
-  trace holds JAX's spans (kind, name, step, phase, args; times aside).
+  a fresh runtime of layout B), and its trace holds JAX's spans (kind,
+  name, step, phase, args; times aside).  JAX's same run is within
+  ``tests/test_torch_runtime.py``'s atol 1e-4 of the port's run with
+  JAX's hand-over (``_torch_tiny.jax_divisors``), not of the port's own:
+* After the swap, schedule B's first update (update_k 2) meets the
+  one-step generation schedule A (period 1) handed over.  Dividing it by
+  2 moves the params; the port divides it by the steps it holds
+  (``handover_divisors``), which is bitwise the run that rebuilds B from
+  the same state with that generation counted twice, and JAX, which
+  divides by 2, is held to the port run that does so too.
 * A precision-only layout change re-packs by aliasing: every destination
   bucket is its source tensor.
 * ``background=True`` arms only once built; a failing build is logged
@@ -23,6 +30,8 @@ across gloo ranks in ``tests/test_torch_swap_ranks.py``.
 """
 import threading
 
+import jax
+import numpy as np
 import pytest
 import torch
 
@@ -38,7 +47,8 @@ from repro_torch.train.bucketing import (
     build_bucket_layout,
     build_layout_transition,
 )
-from repro_torch.train.runtime import DeftRuntime
+from repro_torch.tree import tree_leaves
+from repro_torch.train.runtime import DeftRuntime, handover_divisors
 
 
 @pytest.fixture(scope="module")
@@ -76,14 +86,17 @@ def test_partition_hot_swap_bitwise(group, tiny, single_mesh, fsdp):
                                           layout=jl_b))
     jfinal = T.jax_run(tiny, jrt, n_steps, single_mesh, jhook)
 
-    rt = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_a, lay_a, device="cpu",
-                     fsdp=fsdp, tracer=Tracer())
-    info = {}
+    def port_swap():
+        rt = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_a, lay_a,
+                         device="cpu", fsdp=fsdp, tracer=Tracer())
+        info = {}
 
-    def hook(i, state):
-        if i == at - 1:
-            info.update(rt.prepare_swap(sched_b, layout=lay_b))
-    state, losses = T.port_run(tiny, rt, n_steps, hook)
+        def hook(i, state):
+            if i == at - 1:
+                info.update(rt.prepare_swap(sched_b, layout=lay_b))
+        return (rt, info, *T.port_run(tiny, rt, n_steps, hook))
+
+    rt, info, state, losses = port_swap()
     assert {k: info[k] for k in INFO_KEYS} == {k: jinfo[k] for k in INFO_KEYS}
     assert rt.layout_swaps == 1 and rt.layout == lay_b
     swap = rt.swap_log[0]
@@ -92,12 +105,75 @@ def test_partition_hot_swap_bitwise(group, tiny, single_mesh, fsdp):
     assert swap["repack_s"] is not None and swap["repack_s"] > 0
     assert [k for k in state] == [k for k in rt.state_from_params(
         tiny.params)]
-    T.near_jax(rt, state, jfinal)
+    with T.jax_divisors():
+        rt_j, _, state_j, _ = port_swap()
+    T.near_jax(rt_j, state_j, jfinal)
     # every step's and every control-plane span, as JAX records them
     assert T.span_rows(rt.tracer) == T.span_rows(jrt.tracer)
     T.bitwise((rt, state, losses),
              T.reference(tiny, sched_a, lay_a, sched_b, lay_b, swap["step"],
                         n_steps, fsdp))
+
+
+def test_swap_first_update_applies_the_generation_mean(group, tiny,
+                                                       single_mesh):
+    bo_a, nb_a, _, sched_a, _ = T.plan(tiny, 20_000)
+    bo_b, nb_b, _, sched_b, _ = T.plan(tiny, 60_000)
+    jl_a, lay_a = T.layouts(tiny, bo_a, nb_a)
+    jl_b, lay_b = T.layouts(tiny, bo_b, nb_b)
+    # A updates every step from the one-step generation before it; B's
+    # first update (its position 1) applies cur with update_k 2, and cur
+    # holds the one-step generation A left at the boundary
+    assert sched_a.period == 1 and sched_a.phases[0].update_k == 1
+    upd = sched_b.phases[1]
+    assert sched_b.period == 2 and not sched_b.phases[0].do_update
+    assert upd.do_update and upd.update_source == "cur" and upd.update_k == 2
+    assert handover_divisors(sched_a, sched_b) == [None, 1]
+    swap, n_steps = 2, 2 + 2 * sched_b.period
+
+    def port_swap():
+        rt = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_a, lay_a,
+                         device="cpu")
+
+        def hook(i, state):
+            if i == swap - 1:
+                rt.prepare_swap(sched_b, layout=lay_b)
+        state, _ = T.port_run(tiny, rt, n_steps, hook)
+        assert rt.swap_log[0]["step"] == swap
+        return [p.clone() for p in tree_leaves(rt.params_tree(state))]
+
+    got = port_swap()
+    with T.jax_divisors():
+        halved = port_swap()
+    # the run rebuilt on B from the same state, the handed-over generation
+    # counted as B's two steps: B's own update then applies its mean
+    rt_a = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_a, lay_a, device="cpu")
+    rt_b = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_b, lay_b, device="cpu")
+    state = rt_a.state_from_params(tiny.params)
+    for i in range(n_steps):
+        if i == swap:
+            state = rt_b.repack_state(state,
+                                      build_layout_transition(lay_a, lay_b))
+            for c in state["cur"]:
+                c.mul_(2.0)
+        rt, at = (rt_a, i) if i < swap else (rt_b, i - swap)
+        state, _ = rt.step(at, state, T.tb(tiny, i))
+    rebuilt = tree_leaves(rt_b.params_tree(state))
+    assert all(torch.equal(a, b) for a, b in zip(got, rebuilt))
+    moved = max((a - b).abs().max().item() for a, b in zip(got, halved))
+    assert moved > 1e-5, moved
+
+    # JAX divides by update_k: its run is the halved one, not the port's
+    jrt = JRuntime(tiny.cfg, jax_adamw(T.LR), sched_a, jl_a, single_mesh)
+
+    def jhook(i, state, m):
+        if i == swap - 1:
+            jrt.prepare_swap(sched_b, state, T.jb(tiny, 0), layout=jl_b)
+    jfinal = jax.tree.leaves(T.jax_run(tiny, jrt, n_steps, single_mesh,
+                                       jhook))
+    near = lambda ours: max(float(np.abs(a.numpy() - b).max())
+                            for a, b in zip(ours, jfinal))
+    assert near(halved) <= T.ATOL < near(got), (near(halved), near(got))
 
 
 def test_precision_only_swap_aliases(group, tiny):
