@@ -38,9 +38,12 @@
    kernel; the kernel must not be slower), with its TFLOP/s and share of
    the bound, then at MLA's d_qk != d_v (its (192, 128) instantiation at
    deepseek-v2-236b's [1, 4096, 128] causal, and the smoke 48 / 32 run
-   zero-padded at 64 / 32) under the same checks, timed in turns with one
-   ``scaled_dot_product_attention`` call on the same bf16 inputs, its
-   bound 2 (D + DV) flops a visible pair at the bf16 rate; the RG-LRU scan's forward and reverse-scan backward kernels
+   by the 64 / 32 instantiation with q and k read at 48) under the same
+   checks, timed in turns with one ``scaled_dot_product_attention`` call
+   on the same bf16 inputs, its bound 2 (D + DV) flops a visible pair at
+   the bf16 rate and the split work's (2 D + 4 DV) beside it; the small
+   cases include (192, 128) and one square case at KV = H >= 40, where
+   the grid runs query blocks first; the RG-LRU scan's forward and reverse-scan backward kernels
    bitwise, at (B, S, W) (2, 64, 128), (1, 128, 256), (3, 33, 100) and
    (1, 1, 4096) with and without h0 and an h_final cotangent (S 1 from h0
    is a decode step's scan), at serve_path's [4, 1024, 4096] and [4, 1,
@@ -322,6 +325,32 @@ FLASH_CASES = [
     (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
     (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
     (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
+]
+# the bf16 flash forward's small cases: key blocks of 64 at D = 256, of
+# 128 below; 128 query rows per CTA;
+# (B, S, H, KV, D, causal, window, softcap[, DV])
+FLASH_BF16_CASES = [
+    (2, 333, 8, 4, 256, True, 100, 50.0),   # ragged S, window, softcap
+    (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
+    (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
+    (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
+    (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
+    (2, 128, 4, 2, 32, True, 0, 0.0),       # D 32: 64-byte swizzle
+    (2, 300, 4, 1, 32, True, 90, 30.0),     # window < key block
+    (2, 100, 4, 4, 64, False, 0, 0.0),      # S < key block
+    (2, 257, 8, 2, 64, True, 77, 50.0),     # window < key block, ragged
+    (2, 40, 8, 8, 128, True, 0, 50.0),      # S < key block, softcap
+    (2, 150, 8, 4, 256, True, 37, 0.0),     # window < key block
+    # KV = H >= 40: more kv heads than 132 CTAs in flight share four
+    # ways, so the grid runs query blocks first; MLA's (192, 128) with
+    # its 2 stages of 128 keys, and one square case
+    (1, 333, 40, 40, 192, True, 0, 0.0, 128),    # ragged S
+    (2, 100, 48, 48, 192, False, 0, 0.0, 128),   # S < key block
+    (1, 256, 40, 40, 192, True, 0, 0.0, 128),    # blocks = stages
+    (2, 200, 40, 40, 192, False, 0, 0.0, 128),   # blocks = stages, ragged
+    (1, 520, 40, 40, 192, True, 77, 0.0, 128),   # window < key block
+    (1, 300, 40, 40, 192, True, 0, 50.0, 128),   # softcap
+    (1, 300, 40, 40, 128, True, 100, 50.0),      # square, query first
 ]
 # the paths' attention shapes, all causal: (B, S, H, KV, D, window, softcap)
 # for gemma2-2b's global and local layers (8 heads over 4, softcap 50) and
@@ -1148,8 +1177,8 @@ def flash_bf16_phase(torch, report):
     cases, then the main path's shapes, timed in turns with compiled
     ``flex_attention`` (kernel, flex, kernel), then MLA's d_qk != d_v
     (``FLASH_MLA_SHAPES``: the (192, 128) instantiation at
-    deepseek-v2-236b's shape, and the smoke 48 / 32 zero-padded to 64 /
-    32), timed in turns with one ``scaled_dot_product_attention`` call on
+    deepseek-v2-236b's shape, and the smoke 48 / 32 run at 64 / 32 with q
+    and k read at 48), timed in turns with one ``scaled_dot_product_attention`` call on
     the same bf16 inputs.  Returns the kernels line's two rows: the main
     path's shapes and the (192, 128) instantiation."""
     from repro_torch.kernels import build
@@ -1163,10 +1192,10 @@ def flash_bf16_phase(torch, report):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
 
-    def qkv(b, s, h, kvh, d):
-        mk = lambda n: torch.randn((b, s, n, d), device="cuda",
-                                   generator=gen).bfloat16()
-        return mk(h), mk(kvh), mk(kvh)
+    def qkv(b, s, h, kvh, d, dv=None):
+        mk = lambda n, w: torch.randn((b, s, n, w), device="cuda",
+                                      generator=gen).bfloat16()
+        return mk(h, d), mk(kvh, d), mk(kvh, dv or d)
 
     def grad_rel(q, k, v, kw, what):
         """Autograd through the kernel against the plain forward (the
@@ -1191,23 +1220,10 @@ def flash_bf16_phase(torch, report):
         return rel
 
     worst = dict(out=0.0, lse=0.0, grad_rel=0.0)
-    # key blocks of 64 at D = 256, of 128 below; 128 query rows per CTA
-    cases = [
-        (2, 333, 8, 4, 256, True, 100, 50.0),   # ragged S, window, softcap
-        (1, 520, 8, 4, 256, True, 0, 50.0),     # gemma2 global layer
-        (2, 200, 8, 2, 128, True, 0, 0.0),      # qwen3 head dim, GQA 4:1
-        (2, 130, 4, 4, 128, False, 0, 0.0),     # bidirectional, ragged
-        (1, 300, 16, 1, 256, True, 64, 0.0),    # recurrentgemma MQA 16:1
-        (2, 128, 4, 2, 32, True, 0, 0.0),       # D 32: 64-byte swizzle
-        (2, 300, 4, 1, 32, True, 90, 30.0),     # window < key block
-        (2, 100, 4, 4, 64, False, 0, 0.0),      # S < key block
-        (2, 257, 8, 2, 64, True, 77, 50.0),     # window < key block, ragged
-        (2, 40, 8, 8, 128, True, 0, 50.0),      # S < key block, softcap
-        (2, 150, 8, 4, 256, True, 37, 0.0),     # window < key block
-    ]
-    for b, s, h, kvh, d, causal, window, cap in cases:
+    cases = FLASH_BF16_CASES
+    for b, s, h, kvh, d, causal, window, cap, *dv in cases:
         kw = dict(causal=causal, window=window, softcap=cap)
-        q, k, v = qkv(b, s, h, kvh, d)
+        q, k, v = qkv(b, s, h, kvh, d, *dv)
         out, lse = flash_fwd_cuda(q, k, v, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1223,7 +1239,8 @@ def flash_bf16_phase(torch, report):
         g_rel = grad_rel(q, k, v, kw, (b, s, h, kvh, d, kw))
         worst = dict(out=max(worst["out"], o_err), lse=max(worst["lse"], l_err),
                      grad_rel=max(worst["grad_rel"], g_rel))
-        print(f"flash bf16 D={d} S={s} H={h}/{kvh} {kw}: ok (out {o_err:.3g}, "
+        print(f"flash bf16 D={d}{'/' + str(dv[0]) if dv else ''} S={s} "
+              f"H={h}/{kvh} {kw}: ok (out {o_err:.3g}, "
               f"lse {l_err:.3g}, grads {g_rel:.3g} of max |g|)")
 
     b, s, h, kvh, d = BATCH, SEQ, 8, 4, 256
@@ -1279,7 +1296,8 @@ def flash_bf16_phase(torch, report):
               f"flash bf16 {layer}: kernel {ms:.3f} ms slower than "
               f"flex_attention {library_ms:.3f} ms")
     # MLA: each head its own K and V, causal, at the (192, 128)
-    # instantiation and the smoke 48 / 32 (run zero-padded at 64 / 32)
+    # instantiation and the smoke 48 / 32 (run at 64 / 32, q and k read at
+    # 48 by their tensor maps)
     for layer, (b, s, h, d, dv) in FLASH_MLA_SHAPES.items():
         mk = lambda n: torch.randn((b, s, h, n), device="cuda",
                                    generator=gen).bfloat16()
@@ -1325,11 +1343,17 @@ def flash_bf16_phase(torch, report):
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(bound_ops, bound_bytes)
         dq_k, dv_k = kernel_dims(d, dv)
+        # the kernel's own work: S at its d_qk and P.V twice (P's bf16 hi
+        # and lo), 2 d_qk + 4 d_v flops a visible pair
+        split_flops = (2.0 * dq_k + 4.0 * dv_k) * visible_pairs(s, True, 0) \
+            * h * b
+        split_bound = max(split_flops / BF16_FLOPS_PER_S * 1e3, bound_bytes)
         shapes[layer] = dict(
             ms=ms, ms_turns=[ms_a, ms_b], plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound,
             bound_by="operations" if bound_ops >= bound_bytes else "bytes",
             flops=flops, tflops=flops / ms / 1e9, bound_share=bound / ms,
+            split_bound_ms=split_bound, split_tflops=split_flops / ms / 1e9,
             max_abs_err=err, lse_err=l_err, grad_rel=g_rel,
             library="scaled_dot_product_attention",
             library_max_abs_err=lib_err, library_note=lib_note,
@@ -1343,7 +1367,9 @@ def flash_bf16_phase(torch, report):
               f"{ms_a:.3f} / {ms_b:.3f} ms ({lib_text}), plain "
               f"{plain_ms:.3f} ms, bound {bound:.3f} ms "
               f"({shapes[layer]['bound_by']}, bf16 tensor-core peak): "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound")
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound; "
+              f"the split work's bound {split_bound:.3f} ms, "
+              f"{split_flops / ms / 1e9:.1f} TFLOP/s of it")
         del q, k, v
     ptxas_mla = build.ptxas_report(build.build_log("flash_fwd_sm90"),
                                    "flash_fwd_sm90_kernel<192,128>")
@@ -1364,6 +1390,8 @@ def flash_bf16_phase(torch, report):
         "library_ms": mla["library_ms"], "shape": mla["shape"]
         + " (deepseek-v2-236b MLA, the (192, 128) instantiation)",
         "tflops": mla["tflops"], "bound_share": mla["bound_share"],
+        "split_bound_ms": mla["split_bound_ms"],
+        "split_tflops": mla["split_tflops"],
         "smoke_ms": smoke["ms"], "smoke_plain_ms": smoke["plain_ms"],
         "smoke_bound_ms": smoke["bound_ms"],
         "smoke_library_ms": smoke["library_ms"], "smoke_shape": smoke["shape"],

@@ -30,7 +30,7 @@ import shutil
 import tempfile
 import zipfile
 from collections.abc import Mapping
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -231,10 +231,15 @@ def schedule_digest(schedule) -> str:
 
 
 def save_layout_descriptor(directory: str, step: int, layout,
-                           next_phase: int = 0, digest: str = "") -> None:
+                           next_phase: int = 0, digest: str = "",
+                           divisors: Sequence[Optional[int]] = ()) -> None:
     """``layout_{step}.json``: the BucketLayout checkpoint ``step`` was
     written under (partition, shard count, precision), the cycle position
-    the next step would run and the schedule's digest."""
+    the next step would run and the schedule's digest.  ``divisors``, the
+    update divisors a hot swap's hand-over still owes the coming steps
+    (``DeftRuntime.pending_divisors``), go in as ``handover_divisors``
+    only when there are any, so an ordinary sidecar is the JAX package's
+    byte for byte (its loader reads the keys it knows)."""
     path = os.path.join(directory, f"layout_{step:08d}.json")
     doc = {"bucket_of": list(layout.bucket_of_leaf),
            "n_buckets": layout.n_buckets,
@@ -244,22 +249,26 @@ def save_layout_descriptor(directory: str, step: int, layout,
     if layout.precision is not None:
         doc["precision"] = {"wire": list(layout.precision.wire),
                             "master": layout.precision.master}
+    if divisors:
+        doc["handover_divisors"] = list(divisors)
     with open(path + ".tmp", "w") as f:
         json.dump(doc, f)
     os.replace(path + ".tmp", path)
 
 
 def load_layout_descriptor(directory: str, step: int, params_abs
-                           ) -> Tuple[Any, int, str]:
-    """(layout, next_phase, digest) of checkpoint ``step``, the layout
-    rebuilt over ``params_abs`` (meta tensors work); (None, 0, "") when
-    the checkpoint has no descriptor."""
+                           ) -> Tuple[Any, int, str, List[Optional[int]]]:
+    """(layout, next_phase, digest, divisors) of checkpoint ``step``, the
+    layout rebuilt over ``params_abs`` (meta tensors work) and
+    ``divisors`` the hand-over's pending update divisors ([] when none
+    were saved); (None, 0, "", []) when the checkpoint has no
+    descriptor."""
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.train.bucketing import build_bucket_layout
 
     path = os.path.join(directory, f"layout_{step:08d}.json")
     if not os.path.exists(path):
-        return None, 0, ""
+        return None, 0, "", []
     with open(path) as f:
         d = json.load(f)
     layout = build_bucket_layout(params_abs, tuple(d["bucket_of"]),
@@ -269,4 +278,5 @@ def load_layout_descriptor(directory: str, step: int, params_abs
             wire=tuple(d["precision"]["wire"]),
             master=d["precision"]["master"]))
     return layout, int(d.get("next_phase", 0)), \
-        str(d.get("schedule_digest", ""))
+        str(d.get("schedule_digest", "")), \
+        list(d.get("handover_divisors", []))

@@ -525,6 +525,7 @@ class ElasticCoordinator:
                 self.checkpoint_dir, step, rt.layout,
                 next_phase=rt.phase_in_cycle(step),
                 digest=schedule_digest(rt.schedule),
+                divisors=rt.pending_divisors,
             )
         del tree
         if dist.get_world_size() > 1:

@@ -1,19 +1,18 @@
 // Online-softmax attention forward on bf16 inputs for Hopper (sm_90a):
-// TMA loads into a shared-memory ring and two warpgroups running wgmma on
-// the tensor cores.
+// TMA loads into shared-memory rings and two warpgroups taking turns at
+// the tensor cores with wgmma.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _attn_kernel) for bf16 q/k/v; f32 inputs
 // take the split-TF32 kernel in flash_fwd.cu.  Same function as that one,
 // at a query/key head dim D and a value head dim DV that may differ (MLA:
 // 192 / 128): GQA through kv head h / (H / KVH), causal and sliding-window
-// masks
-// (kp > qp - window) with the kv blocks wholly above the diagonal or left
-// of the window skipped by the loop bounds, logit softcap c * tanh(s / c),
-// out = acc / max(l, 1e-30) rounded to nearest-even bf16, and
-// lse = m + log(max(l, 1e-30)) in f32 (natural log) for the recompute
-// backward.  Ragged Sq and Sk are masked (TMA fills rows past the end
-// with zeros), not asserted.
+// masks (kp > qp - window) with the kv blocks wholly above the diagonal or
+// left of the window skipped by the loop bounds, logit softcap
+// c * tanh(s / c), out = acc / max(l, 1e-30) rounded to nearest-even bf16,
+// and lse = m + log(max(l, 1e-30)) in f32 (natural log) for the recompute
+// backward.  Ragged Sq and Sk are masked (TMA fills rows past the end with
+// zeros), not asserted; so is a D below the instantiated one (columns).
 //
 // Numerics (the Pallas kernel and flash.py compute P.V in f32):
 //   * S = Q.K^T: bf16 x bf16 products are exact, accumulated in f32 by
@@ -31,26 +30,56 @@
 //     the bf16 output check (out within one bf16 step, 2^-7 relative).  P
 //     is split into hi = bf16_rn(p) and lo = bf16_rn(p - hi), and two
 //     wgmmas accumulate hi.V + lo.V into the same f32 O (p to about 2^-17).
-//     That costs 1.5x the tensor-core operations of S + P.V.
+//     That costs 2 D + 4 DV flops a visible pair against the function's
+//     2 (D + DV): 896 against 640 at (192, 128).
 //
-// What bounds it on the H100: arithmetic on the tensor cores.  Per visible
-// (query, key) pair: 2*D flops for S and 4*DV for the split P.V against
-// 989 TFLOP/s bf16; K/V bytes are re-read once per 128-row query block,
-// about 128 flops per byte of L2 traffic.  Design:
+// What bounds it on the H100: the tensor cores, at the clock the card
+// holds under load.  At MLA's [1, 4096, 128] causal (192, 128) the function's
+// bound is 0.695 ms at 989 TFLOP/s and the split work's 0.973 ms; K/V must
+// then come from L2 (the grid order below), about 184 flops a byte of it
+// at BK = 128.  Under that load the SM clock falls from 1980 MHz (to
+// 1635-1755 MHz at the lowest samples of scripts/flash_sm90_layouts.py on
+// an H100 SXM at 700 W), so the split work is paid for in clock as well
+// as in time; the kernel reaches about 600 TFLOP/s of it (PERF.md).
+// Design:
 //   * one CTA per (128 query rows, head, batch), 256 threads: two
-//     warpgroups of 64 query rows each, and no producer warpgroup.  One
-//     thread (tid 0) issues every TMA load: Q once, the first STAGES kv
-//     blocks up front, then block i + STAGES into stage i % STAGES as soon
-//     as both warpgroups have released block i (an empty mbarrier counting
-//     all 256 threads; a full mbarrier with the TMA's byte count per
-//     stage).  Why not a producer warpgroup with setmaxnreg: with 12 (or
-//     9) warps, three share an SM sub-partition's 16384 registers, so ptxas
-//     caps every thread at 168 and, setmaxnreg.inc 240 notwithstanding,
-//     kept the D = 256 consumer under 184: 400 bytes of spills and every
-//     wgmma serialised (1.25 / 0.96 ms at the main-path shapes on an
-//     H100 SXM at 700 W, against 0.74 / 0.58 ms for this layout, which
-//     takes 216 registers and no spills; PERF.md);
-//   * the K/V ring has STAGES stages of BK keys;
+//     warpgroups of 64 query rows each and no producer warp.  A ninth
+//     warp (or a producer warpgroup with setmaxnreg) shares an SM
+//     sub-partition's 16384 registers three ways, so ptxas caps every
+//     thread at 168: 400 bytes of spills at D = 256 and every wgmma
+//     serialised (1.25 / 0.96 ms against 0.74 / 0.58 ms at gemma2's
+//     shapes on an H100 SXM at 700 W; PERF.md);
+//   * K and V have rings of their own, STAGES stages of BK keys each, and
+//     an mbarrier pair per stage (full: the TMA's bytes; empty: all 256
+//     threads).  Thread 0 loads Q and the first STAGES blocks; every
+//     refill is issued by warpgroup 1's first thread, after its own
+//     warpgroup released the stage: warpgroup 1 trails warpgroup 0 at the
+//     tensor cores (below), so warpgroup 0 has released it by then and no
+//     thread of the leading warpgroup ever waits on a refill.  A K stage
+//     goes back as soon as its S = Q.K^T is done, a V stage when its P.V
+//     is; both are refilled once the warpgroup's P.V is done, where no
+//     wgmma is in flight (a branch while one is makes ptxas serialise
+//     every wgmma: C7520), and then have about one and a half kv blocks of
+//     compute to land;
+//   * per kv block i each warpgroup, in its turn (named barriers 1 and 2,
+//     256 threads: bar.sync on its own, bar.arrive on the other's once
+//     issued), issues S_i = Q.K_i^T (m64nBKk16, both operands from shared
+//     memory) and then block i - 1's O += hi.V + lo.V (m64nDVk16, A from
+//     registers: the m64nN accumulator layout is the register-A layout of
+//     the next wgmma), two commit groups.  It waits for S_i alone, scales,
+//     caps and masks it (the mask only on blocks that cut the diagonal, the
+//     window edge or Sk), runs the online softmax in registers (a row
+//     lives in a quad of threads: two shfl.xor per reduction; l stays per
+//     thread until the epilogue) and exponentiates in place, while the
+//     tensor cores run its P.V and the other warpgroup's S and P.V; then it
+//     waits for its P.V, rescales O (skipped where no row of the warp
+//     raised its max: a multiply by 1 is exact) and splits p into P's bf16
+//     hi and lo.  Each warpgroup's softmax thus overlaps the other's
+//     products and its own P.V, and O, the scores and P (DV / 2 + BK / 2 +
+//     BK / 2 registers) are live together, as in the serial kernel's
+//     conversion: 253 registers at (192, 128), no spills.  The first block
+//     (no P.V before it) is peeled, so that no wgmma is issued under a
+//     branch;
 //   * tiles sit in shared memory in the TMA's 128-byte swizzle (64-byte
 //     for a head dim of 32), as column chunks of 64 (32) elements, one TMA
 //     box each; the wgmma descriptors carry the same swizzle.  Q and K are
@@ -59,28 +88,26 @@
 //     read with wgmma's transpose bit, with a tensor map of its own at DV
 //     (its swizzle set by DV, so (64, 32) swizzles K by 128 bytes and V by
 //     64);
-//   * per kv block each warpgroup runs S = Q.K^T (m64nBKk16, both
-//     operands from shared memory), scales, caps and masks (the mask only
-//     on blocks that cut the diagonal, the window edge or Sk), does the
-//     online softmax in registers (a row lives in a quad of threads: two
-//     shfl.xor per reduction; l stays per thread until the epilogue),
-//     converts the S accumulator in place into the bf16 A fragments hi and
-//     lo (the m64nN accumulator layout is the register-A layout of the
-//     next wgmma), runs O = O * alpha + hi.V + lo.V (m64nDVk16, A from
-//     registers; O is DV / 2 f32 registers a thread), and releases the
-//     stage;
-//   * grid (H, query blocks, B): query heads of one kv head are adjacent
-//     in launch order, so K/V hit in L2, and the query blocks run last to
-//     first, heaviest causal blocks first.
+//   * grid: heads first, (H, query blocks, B), puts the query heads of one
+//     kv head side by side in launch order, so about SMs / KVH query blocks
+//     of each kv head are in flight and share its K/V through L2.  Where
+//     that is fewer than QFAST_SHARE (KVH > 33 on the H100's 132 SMs: MLA's
+//     128 heads, each with its own K/V) nearly every CTA in flight has a kv
+//     head of its own and K/V stream from HBM once per query block (5.54 GB
+//     at MLA's [1, 4096, 128]); there the grid is (query blocks, H, B), the
+//     CTAs in flight share about four heads' K/V (10.5 MB of the 50 MB L2)
+//     and HBM sees K/V once, 0.67 GB with Q and O.  Either way the query
+//     blocks run last to first, heaviest causal blocks first.
 // Tiles (BQ = 128 everywhere; shared memory filled up to the 227 KB; the
 // stages counted per (D, DV) pair, a stage holding K at D and V at DV):
 //   256 / 256: BK =  64, 2 stages, 193 KiB   128 / 128: BK = 128, 3 stages, 225 KiB
 //    64 /  64: BK = 128, 6 stages, 209 KiB    32 /  32: BK = 128, 13 stages, 217 KiB
 //   192 / 128: BK = 128, 2 stages, 209 KiB    64 /  32: BK = 128, 8 stages, 209 KiB
 // (192 / 128 is MLA's d_qk / d_v; 64 / 32 holds MLA at smoke size, 48 / 32
-// zero-padded by the Python wrapper.)
-// Not here: a persistent scheduler, ping-pong between the two warpgroups,
-// overlap of the softmax with the next S = Q.K^T.
+// read at 48.  At 192 / 128, 64 keys with 4 stages is slower than 128 with
+// 2: scripts/flash_sm90_layouts.py's mla_bk64 cut, PERF.md.)
+// Not here: a persistent scheduler, TMA multicast of K/V to the CTAs that
+// share a kv head, more than 128 query rows a CTA.
 //
 // The tensor maps are encoded per call on the host from the tensors'
 // strides (cuTensorMapEncodeTiled, looked up in the loaded libcuda with
@@ -95,13 +122,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BQ = 128;             // query rows per CTA
 constexpr int NT = 256;             // two warpgroups of 64 query rows
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory a CTA may use
 constexpr int SLACK = 1024;         // to align the tiles to the swizzle atom
-constexpr int BAR_BYTES = 256;      // mbarriers after the tiles
+constexpr int BAR_BYTES = 512;      // mbarriers after the tiles
+constexpr int QFAST_SHARE = 4;      // heads-first below this many CTAs a kv head
+constexpr int MAX_DEVICES = 64;
+// the two warpgroups take turns at the tensor cores (named barriers 1 and
+// 2); false lets them issue at will (scripts/flash_sm90_layouts.py's
+// no_pingpong cut)
+constexpr bool PINGPONG = true;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -122,7 +157,7 @@ struct Cfg {
       SLACK + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + BAR_BYTES;
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;   // descriptor swizzle
   static constexpr uint64_t LAYOUT_V = SWV == 128 ? 1 : 2;
-  static_assert(STAGES >= 2 && 8 * (1 + 2 * STAGES) <= BAR_BYTES, "tiles");
+  static_assert(STAGES >= 2 && 8 * (1 + 4 * STAGES) <= BAR_BYTES, "tiles");
   static_assert(D % CE == 0 && DV % CEV == 0, "head dims");
 };
 
@@ -183,8 +218,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N of this warpgroup's commit groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // pin registers an async wgmma reads or writes across its issue and wait
 __device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)::"memory"); }
@@ -355,6 +392,42 @@ __device__ __forceinline__ void scores(float* sc, float& mx0, float& mx1,
     }
 }
 
+// named barrier `id` over both warpgroups: the caller's warpgroup waits for
+// the other's bar_arrive (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(NT) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(NT) : "memory");
+}
+
+// O += hi.V + lo.V over the V stage at sVs, one commit group; V is the
+// MN-major B operand of P.V (keys are the reduction: transpose bit)
+template <int D, int DV>
+__device__ __forceinline__ void pv(float* acc, const uint32_t* ph,
+                                   const uint32_t* pl, uint32_t sVs) {
+  using C = Cfg<D, DV>;
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk) {
+    const uint64_t dv =
+        desc(sVs + kk * 16 * C::SWV, C::BK * C::SWV, 8 * C::SWV, C::LAYOUT_V);
+    wgmma_rs<DV>(acc, ph + 4 * kk, dv);
+    wgmma_rs<DV>(acc, pl + 4 * kk, dv);
+  }
+  wgmma_commit();
+}
+template <int BK, int DV>
+__device__ __forceinline__ void pin_pv(float* acc, uint32_t* ph,
+                                       uint32_t* pl) {
+#pragma unroll
+  for (int j = 0; j < DV / 2; ++j) pin(acc[j]);
+#pragma unroll
+  for (int j = 0; j < BK / 4; ++j) {
+    pin(ph[j]);
+    pin(pl[j]);
+  }
+}
+
 template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -362,20 +435,23 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int H, int KVH, int Sq, int Sk, int64_t osb,
     int64_t oss, int64_t osh, int causal, int window, float softcap,
-    float inv_cap, float sm_scale) {
+    float inv_cap, float sm_scale, int qfast) {
   using C = Cfg<D, DV>;
-  constexpr int BK = C::BK, SW = C::SW, SWV = C::SWV;
+  constexpr int BK = C::BK, SW = C::SW, SWV = C::SWV, ST = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + SLACK - 1) & ~uint32_t(SLACK - 1);
   const uint32_t sK = sQ + C::Q_BYTES;               // stage s: + s * K_BYTES
-  const uint32_t sV = sK + C::STAGES * C::K_BYTES;   // stage s: + s * V_BYTES
-  const uint32_t q_bar = sV + C::STAGES * C::V_BYTES;
-  const uint32_t full0 = q_bar + 8;                  // full[s] = full0 + 8 s
-  const uint32_t empty0 = full0 + 8 * C::STAGES;
+  const uint32_t sV = sK + ST * C::K_BYTES;          // stage s: + s * V_BYTES
+  const uint32_t q_bar = sV + ST * C::V_BYTES;
+  const uint32_t full_k = q_bar + 8;                 // full_k[s] = + 8 s
+  const uint32_t full_v = full_k + 8 * ST;
+  const uint32_t empty_k = full_v + 8 * ST;
+  const uint32_t empty_v = empty_k + 8 * ST;
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int nqb = qfast ? gridDim.x : gridDim.y;
+  const int h = qfast ? blockIdx.y : blockIdx.x;
+  const int q0 = (nqb - 1 - (qfast ? blockIdx.x : blockIdx.y)) * BQ;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
 
@@ -387,24 +463,28 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
   const int kb_lo = k_lo / BK;
   const int nblk = max(0, (k_hi + BK - 1) / BK - kb_lo);
 
-  // one thread (tid 0) issues every TMA load: K and V of kv block i go to
-  // stage i % STAGES once both warpgroups have released its previous block
-  auto load_block = [&](int i) {
-    const int s = i % C::STAGES;
-    const int k0 = (kb_lo + i) * BK;
-    mbar_expect_tx(full0 + 8 * s, C::K_BYTES + C::V_BYTES);
+  // K and V of kv block i go to stage i % ST of their own rings
+  auto load_k = [&](int i) {
+    const int s = i % ST;
+    mbar_expect_tx(full_k + 8 * s, C::K_BYTES);
     for (int c = 0; c < D / C::CE; ++c)
-      tma_load_4d(sK + s * C::K_BYTES + c * BK * SW, &tm_k, full0 + 8 * s,
-                  c * C::CE, kvh, k0, b);
+      tma_load_4d(sK + s * C::K_BYTES + c * BK * SW, &tm_k, full_k + 8 * s,
+                  c * C::CE, kvh, (kb_lo + i) * BK, b);
+  };
+  auto load_v = [&](int i) {
+    const int s = i % ST;
+    mbar_expect_tx(full_v + 8 * s, C::V_BYTES);
     for (int c = 0; c < DV / C::CEV; ++c)
-      tma_load_4d(sV + s * C::V_BYTES + c * BK * SWV, &tm_v, full0 + 8 * s,
-                  c * C::CEV, kvh, k0, b);
+      tma_load_4d(sV + s * C::V_BYTES + c * BK * SWV, &tm_v, full_v + 8 * s,
+                  c * C::CEV, kvh, (kb_lo + i) * BK, b);
   };
   if (tid == 0) {
     mbar_init(q_bar, 1);
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, NT);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, NT);
+      mbar_init(empty_v + 8 * s, NT);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -413,7 +493,10 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     mbar_expect_tx(q_bar, C::Q_BYTES);
     for (int c = 0; c < D / C::CE; ++c)
       tma_load_4d(sQ + c * BQ * SW, &tm_q, q_bar, c * C::CE, h, q0, b);
-    for (int i = 0; i < min(nblk, C::STAGES); ++i) load_block(i);
+    for (int i = 0; i < min(nblk, ST); ++i) {
+      load_k(i);
+      load_v(i);
+    }
   }
 
   {
@@ -426,30 +509,43 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
     const int qa = q0 + 64 * wg;                // this warpgroup's first row
     const int qp0 = qa + r0;
     const uint32_t sQw = sQ + 64 * wg * SW;
+    // warpgroup 1 trails warpgroup 0 at the tensor cores, so the refills
+    // are its first thread's: the other warpgroup has released the stage
+    // by the time it asks
+    const bool loader = tid == 128;
 
     float acc[DV / 2];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+    float sc[BK / 2];                 // block i's scores, then its p
+    uint32_t ph[BK / 4], pl[BK / 4];  // block i - 1's P as bf16 hi and lo
 
     mbar_wait(q_bar, 0);
-    for (int i = 0; i < nblk; ++i) {
-      const int s = i % C::STAGES;
+    if (PINGPONG && wg == 1 && nblk > 0) bar_arrive(1);   // 0 goes first
+    // kv block i: in this warpgroup's turn S_i = Q.K_i^T and block i - 1's
+    // P.V, then S_i's softmax while the tensor cores run both and the other
+    // warpgroup's; the first block has no P.V before it (peeled, so that
+    // no wgmma is issued or waited for under a branch)
+    auto step = [&](auto first, int i) {
+      constexpr bool FIRST = decltype(first)::value;
+      const int s = i % ST, sp = (i + ST - 1) % ST;   // sp: block i - 1's
       const int k0 = (kb_lo + i) * BK;
-      const uint32_t sKs = sK + s * C::K_BYTES, sVs = sV + s * C::V_BYTES;
-      mbar_wait(full0 + 8 * s, (i / C::STAGES) & 1);
+      const uint32_t sKs = sK + s * C::K_BYTES;
+      mbar_wait(full_k + 8 * s, (i / ST) & 1);
+      if (!FIRST) mbar_wait(full_v + 8 * sp, ((i - 1) / ST) & 1);
       // the Q descriptors are rebuilt from an opaque base each block: hoisted
       // out of the loop they would hold D / 8 registers for its whole length
       uint32_t sQb;
       asm volatile("mov.b32 %0, %1;\n" : "=r"(sQb) : "r"(sQw));
-
-      // S = Q.K^T, both K-major in shared memory
-      float sc[BK / 2];
 #pragma unroll
       for (int j = 0; j < BK / 2; ++j) {
         sc[j] = 0.f;
         pin(sc[j]);
       }
+
+      // S = Q.K^T, both K-major in shared memory, then block i - 1's P.V
+      if (PINGPONG) bar_sync(1 + wg);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -462,9 +558,12 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
                      kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      if (!FIRST) pv<D, DV>(acc, ph, pl, sV + sp * C::V_BYTES);
+      if (PINGPONG) bar_arrive(2 - wg);        // the other warpgroup's turn
+      wgmma_wait<FIRST ? 0 : 1>();
 #pragma unroll
       for (int j = 0; j < BK / 2; ++j) pin(sc[j]);
+      mbar_arrive(empty_k + 8 * s);
 
       // scale, cap, mask (only where the block cuts a mask edge)
       float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -492,9 +591,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
       m1 = mn1;
       const float ml0 = mn0 * LOG2E, ml1 = mn1 * LOG2E;
 
-      // P = exp(S - m) split into bf16 hi + lo, in the register-A layout:
-      // k16 step kk takes fragments 4kk .. 4kk + 3
-      uint32_t ph[BK / 4], pl[BK / 4];
+      // p = exp(S - m), in place
       float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -505,43 +602,62 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
           const float pb = exp2f(fmaf(sc[4 * j + e + 1], LOG2E, -ml));
           if (e == 0) ps0 += pa + pb;
           else ps1 += pa + pb;
+          sc[4 * j + e] = pa;
+          sc[4 * j + e + 1] = pb;
+        }
+
+      // block i - 1's P.V is done: the refills (the loader's, after the
+      // other warpgroup released the stages too), O rescaled, P split into
+      // bf16 hi + lo in the register-A layout (k16 step kk takes fragments
+      // 4kk .. 4kk + 3)
+      wgmma_wait<0>();
+      pin_pv<BK, DV>(acc, ph, pl);
+      if (!FIRST) mbar_arrive(empty_v + 8 * sp);
+      if (loader) {
+        if (i + ST < nblk) {
+          mbar_wait(empty_k + 8 * s, (i / ST) & 1);
+          load_k(i + ST);
+        }
+        if (!FIRST && i - 1 + ST < nblk) {
+          mbar_wait(empty_v + 8 * sp, ((i - 1) / ST) & 1);
+          load_v(i - 1 + ST);
+        }
+      }
+      __syncwarp();
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+      // O rescaled unless no row of the warp raised its max (alpha 1: the
+      // multiply is exact, and DV / 2 of them are the softmax's largest
+      // single cost at DV = 256)
+      if (!__all_sync(0xffffffffu, al0 == 1.f && al1 == 1.f)) {
+#pragma unroll
+        for (int j = 0; j < DV / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const float pa = sc[4 * j + e], pb = sc[4 * j + e + 1];
           const __nv_bfloat162 hi = __floats2bfloat162_rn(pa, pb);
           const float2 hf = __bfloat1622float2(hi);
           ph[2 * j + e / 2] = bf16x2_bits(hi);
           pl[2 * j + e / 2] =
               bf16x2_bits(__floats2bfloat162_rn(pa - hf.x, pb - hf.y));
         }
-      l0 = l0 * al0 + ps0;
-      l1 = l1 * al1 + ps1;
-#pragma unroll
-      for (int j = 0; j < DV / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
+    };
 
-      // O += hi.V + lo.V; V is the MN-major B operand (transpose bit)
-#pragma unroll
-      for (int j = 0; j < DV / 2; ++j) pin(acc[j]);
+    if (nblk > 0) {
+      step(std::true_type{}, 0);
+      for (int i = 1; i < nblk; ++i) step(std::false_type{}, i);
+      // the last block's P.V, in this warpgroup's turn
+      const int sl = (nblk - 1) % ST;
+      mbar_wait(full_v + 8 * sl, ((nblk - 1) / ST) & 1);
+      if (PINGPONG) bar_sync(1 + wg);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv =
-            desc(sVs + kk * 16 * SWV, BK * SWV, 8 * SWV, C::LAYOUT_V);
-        wgmma_rs<DV>(acc, ph + 4 * kk, dv);
-        wgmma_rs<DV>(acc, pl + 4 * kk, dv);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int j = 0; j < DV / 2; ++j) pin(acc[j]);
-#pragma unroll
-      for (int j = 0; j < BK / 4; ++j) {
-        pin(ph[j]);
-        pin(pl[j]);
-      }
-      mbar_arrive(empty0 + 8 * s);
-      if (tid == 0 && i + C::STAGES < nblk) {
-        mbar_wait(empty0 + 8 * s, (i / C::STAGES) & 1);
-        load_block(i + C::STAGES);
-      }
-      __syncwarp();
+      pv<D, DV>(acc, ph, pl, sV + sl * C::V_BYTES);
+      if (PINGPONG) bar_arrive(2 - wg);
+      wgmma_wait<0>();
+      pin_pv<BK, DV>(acc, ph, pl);
     }
 
     // epilogue: out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)).
@@ -570,6 +686,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_sm90_kernel(
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
             acc[4 * j + 2 * half] * il, acc[4 * j + 2 * half + 1] * il);
     }
+    // warpgroup 1's last turn handed one back that warpgroup 0 takes here
+    if (PINGPONG && wg == 0 && nblk > 0) bar_sync(1);
   }
 }
 
@@ -614,39 +732,63 @@ int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int KVH, int Sq, int Sk, long long qsb, long long qss,
-           long long qsh, long long ksb, long long kss, long long ksh,
-           long long vsb, long long vss, long long vsh, long long osb,
-           long long oss, long long osh, int causal, int window,
-           float softcap, float sm_scale, cudaStream_t stream) {
+           int B, int H, int KVH, int Sq, int Sk, int d, long long qsb,
+           long long qss, long long qsh, long long ksb, long long kss,
+           long long ksh, long long vsb, long long vss, long long vsh,
+           long long osb, long long oss, long long osh, int causal,
+           int window, float softcap, float sm_scale, cudaStream_t stream) {
   using C = Cfg<D, DV>;
+  // Q and K at their own head dim d <= D: TMA fills the box's columns past
+  // it with zeros, which add exact zeros to every score
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, D, H, Sq, B, qsh, qss, qsb, BQ, C::SW);
-  if (!err) err = encode(&tk, k, D, KVH, Sk, B, ksh, kss, ksb, C::BK, C::SW);
+  int err = encode(&tq, q, d, H, Sq, B, qsh, qss, qsb, BQ, C::SW);
+  if (!err) err = encode(&tk, k, d, KVH, Sk, B, ksh, kss, ksb, C::BK, C::SW);
   if (!err) err = encode(&tv, v, DV, KVH, Sk, B, vsh, vss, vsb, C::BK, C::SWV);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(H, (Sq + BQ - 1) / BQ, B);
+  // query blocks fastest where heads-first would give each kv head fewer
+  // than QFAST_SHARE of the CTAs in flight (the grid note above); the CTAs
+  // a device holds at once are read on its first launch only, as the
+  // occupancy query is host time on the launch path of small shapes
+  static int in_flight[MAX_DEVICES];
+  int device = 0;
+  e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (in_flight[device] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_fwd_sm90_kernel<D, DV>, NT, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    in_flight[device] = sms * per_sm;
+  }
+  const int qfast = in_flight[device] < QFAST_SHARE * KVH;
+  const int nqb = (Sq + BQ - 1) / BQ;
+  const dim3 grid(qfast ? nqb : H, qfast ? H : nqb, B);
   flash_fwd_sm90_kernel<D, DV><<<grid, NT, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KVH, Sq, Sk, osb,
       oss, osh, causal, window, softcap, softcap > 0.f ? 1.f / softcap : 0.f,
-      sm_scale);
+      sm_scale, qfast);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes), the arguments of flash_fwd.cu's
-// but its split scratch: query/key head dim D, value head dim DV.  Strides
-// are in elements; the head-dim stride must be 1, the bases 16-byte aligned
-// and every other stride a multiple of 8 elements (the Python wrapper
-// checks all three); `stream` is a stream of `device`.  Returns a
-// cudaError_t, -1 for a (D, DV) pair that is not instantiated (the wrapper
-// zero-pads to one that is), -2 if libcuda has no cuTensorMapEncodeTiled,
-// -3 if it refused a tensor map.
+// but its split scratch: query/key head dim D, value head dim DV.  The
+// kernel runs at the first instantiated pair below with DV its own and D
+// no wider than its d_qk (the Python wrapper's ``kernel_dims``, V padded to
+// that d_v), Q and K read at D.  Strides are in elements; the head-dim
+// stride must be 1, the bases 16-byte aligned and every other stride a
+// multiple of 8 elements (the Python wrapper checks all three); `stream`
+// is a stream of `device`.  Returns a cudaError_t, -1 for a (D, DV) pair
+// no instantiation holds, -2 if libcuda has no cuTensorMapEncodeTiled, -3
+// if it refused a tensor map.
 extern "C" int flash_fwd_sm90_bf16(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
     int H, int KVH, int Sq, int Sk, int D, int DV, long long qsb, long long qss,
@@ -659,17 +801,18 @@ extern "C" int flash_fwd_sm90_bf16(
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D < 1) return -1;
 #define SM90_CASE(DQ, DVV)                                                    \
-  if (D == DQ && DV == DVV)                                                   \
-    return launch<DQ, DVV>(q, k, v, o, lse, B, H, KVH, Sq, Sk, qsb, qss, qsh, \
-                           ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,       \
+  if (D <= DQ && DV == DVV)                                                   \
+    return launch<DQ, DVV>(q, k, v, o, lse, B, H, KVH, Sq, Sk, D, qsb, qss,  \
+                           qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,  \
                            causal, window, softcap, sm_scale, st);
   SM90_CASE(32, 32)
+  SM90_CASE(64, 32)       // MLA at smoke size (48 / 32)
   SM90_CASE(64, 64)
   SM90_CASE(128, 128)
-  SM90_CASE(256, 256)
   SM90_CASE(192, 128)     // MLA: qk_nope + qk_rope over v_head_dim
-  SM90_CASE(64, 32)       // MLA at smoke size (48 / 32, padded)
+  SM90_CASE(256, 256)
   return -1;
 #undef SM90_CASE
 }

@@ -261,6 +261,15 @@ def _tma_aligned(x: torch.Tensor) -> bool:
             and all(st % 8 == 0 for st in _tma_strides(x)))
 
 
+def bf16_reads_unpadded(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the bf16 kernel reads q and k at their own head dim: both
+    bf16 with strides TMA can take, so a head dim below the instantiated
+    one needs no zero-padded copies (its tensor maps fill the rest of each
+    tile with zeros)."""
+    return (q.dtype == k.dtype == torch.bfloat16 and _tma_aligned(q)
+            and _tma_aligned(k))
+
+
 _ENTRY = {torch.float32: ("flash_fwd", "flash_fwd_f32"),
           torch.bfloat16: ("flash_fwd_sm90", "flash_fwd_sm90_bf16")}
 # the two entry points' parameters: q, k, v, o, lse (and the f32 kernel's
@@ -280,11 +289,14 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     promotes mixed ones).  Needs at least one key.
 
     A (D, DV) pair the kernel does not instantiate runs at
-    ``kernel_dims(D, DV)``: q and k are zero-padded to its d_qk and v to its
-    d_v, the scale stays 1/sqrt(D) of the unpadded D, and out comes back
-    sliced to DV.  The zero columns add exact zeros to every score (bf16
-    and TF32 hi and lo of 0 are 0) and fill only the discarded columns of
-    out, so the result is the unpadded call's.  ``split`` is the f32
+    ``kernel_dims(D, DV)``: v is zero-padded to its d_v and out comes back
+    sliced to DV; q and k are zero-padded to its d_qk, except on bf16
+    where their strides suit TMA (rows of whole 16 bytes: the smoke 48 /
+    32), whose tensor maps read them at D and fill the rest of the tile
+    with zeros.  The scale stays 1/sqrt(D) of the unpadded D.  The zero
+    columns add exact zeros to every score (bf16 and TF32 hi and lo of 0
+    are 0) and fill only the discarded columns of out, so the result is
+    the unpadded call's.  ``split`` is the f32
     kernel's split-pass scratch at the kernel's dims (``split_buffer(B,
     KV, Sk, dq, device, dv)`` with ``dq, dv = kernel_dims(D, DV)``;
     allocated here when None): after the call it holds what
@@ -305,14 +317,15 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"heads {h} do not group over {kvh} kv heads")
     bf16 = q.dtype == torch.bfloat16
     dq_k, dv_k = kernel_dims(d, dv)
-    if dq_k != d:
-        pad = (0, dq_k - d)
-        q = torch.nn.functional.pad(q, pad)
-        k = torch.nn.functional.pad(k, pad)
     if dv_k != dv:
         v = torch.nn.functional.pad(v, (0, dv_k - dv))
     aligned = _tma_aligned if bf16 else _row_aligned
     q, k, v = (x if aligned(x) else x.contiguous() for x in (q, k, v))
+    d_run = d if bf16_reads_unpadded(q, k) else dq_k
+    if d_run != d:
+        pad = (0, dq_k - d)
+        q = torch.nn.functional.pad(q, pad)
+        k = torch.nn.functional.pad(k, pad)
     out = torch.empty((b, sq, h, dv_k), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
@@ -337,7 +350,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                              f"tensor of shape {want}")
         ptrs = (q, k, v, out, lse, split)
         strides = lambda x: x.stride()[:3]
-    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, dq_k, dv_k,
+    err = fn(*(x.data_ptr() for x in ptrs), b, h, kvh, sq, sk, d_run, dv_k,
              *strides(q), *strides(k), *strides(v),
              *out.stride()[:3], int(causal), int(window), float(softcap),
              1.0 / math.sqrt(d), q.device.index,

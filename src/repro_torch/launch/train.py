@@ -198,6 +198,10 @@ def restore_runtime_state(runtime, ckpt_dir: str, params_abs,
       and layout, and, on a gather-skip runtime, only if the gather cache
       was saved; otherwise the cycle restarts at the checkpoint step, and
       a digest mismatch drops the gather cache with a warning.
+    * A checkpoint saved inside the first cycle after a hot swap carries
+      the update divisors the hand-over still owed
+      (``handover_divisors``); a mid-cycle resume installs them, a
+      restarted cycle does not.
     * A restarted cycle on a checkpoint saved mid-cycle with live
       accumulators restores as JAX's does, with a warning the JAX package
       does not print: the partial generation is not synced as the saved
@@ -209,10 +213,10 @@ def restore_runtime_state(runtime, ckpt_dir: str, params_abs,
     run_digest = schedule_digest(runtime.schedule)
     for last in reversed(valid_steps(ckpt_dir)):
         try:
-            src_layout, next_phase, src_digest = \
+            src_layout, next_phase, src_digest, divisors = \
                 load_layout_descriptor(ckpt_dir, last, params_abs)
             if src_layout is None:
-                src_layout, next_phase, src_digest = layout, 0, ""
+                src_layout = layout
             digest_ok = (not src_digest) or src_digest == run_digest
             # read the gather cache only if the checkpoint has one and the
             # layout and schedule both match
@@ -235,6 +239,7 @@ def restore_runtime_state(runtime, ckpt_dir: str, params_abs,
         same_cycle = (src_layout == layout and src_digest == run_digest
                       and (not runtime.gather_skip or has_pg))
         runtime.reset_cycle(last - next_phase if same_cycle else last)
+        runtime.pending_divisors = divisors if same_cycle else []
         if src_digest and not digest_ok:
             log(f"resume: WARNING schedule digest mismatch at step {last} "
                 f"(saved {src_digest}, running {run_digest}) — gather cache "
@@ -278,7 +283,8 @@ def save_checkpoint(ckpt_dir: str, step: int, runtime, state
             save_layout_descriptor(
                 ckpt_dir, step, runtime.layout,
                 next_phase=runtime.phase_in_cycle(step),
-                digest=schedule_digest(runtime.schedule))
+                digest=schedule_digest(runtime.schedule),
+                divisors=runtime.pending_divisors)
     del tree
     dist.barrier()
     return path

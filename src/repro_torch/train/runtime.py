@@ -1041,6 +1041,18 @@ class DeftRuntime:
         which always gathers)."""
         self._cycle_base = step
 
+    @property
+    def pending_divisors(self) -> List[Optional[int]]:
+        """The update divisors a hot swap's hand-over still owes the coming
+        steps, first the next step's (``handover_divisors``); a checkpoint
+        taken inside that window carries them, and a mid-cycle resume
+        sets them back."""
+        return list(self._divisors)
+
+    @pending_divisors.setter
+    def pending_divisors(self, divisors) -> None:
+        self._divisors = list(divisors)
+
     def phase_in_cycle(self, i: int) -> int:
         """The cycle position step ``i`` dispatches."""
         return (i - self._cycle_base) % self.period

@@ -437,8 +437,8 @@ def test_flash_kernel_bf16_copies_strides_tma_cannot_take():
     want = flash_fwd_cuda(*(x.contiguous() for x in (qs, ks, vs)), causal=True)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    # a head dim without a tile of its own runs zero-padded to one (48 at
-    # 64); one wider than every tile is refused
+    # a head dim without a tile of its own runs at one that holds it (48
+    # at 64, read at 48 once copied); one wider than every tile is refused
     got = flash_fwd_cuda(*(x[..., :48] for x in (q, k, v)))
     want = flash_fwd_plain(*(x[..., :48] for x in (q, k, v)))
     torch.cuda.synchronize()
@@ -450,24 +450,36 @@ def test_flash_kernel_bf16_copies_strides_tma_cannot_take():
 
 
 # MLA's d_qk != d_v on bf16: the (192, 128) instantiation, and 48 / 32
-# zero-padded to the instantiated 64 / 32
+# read at 48 by the instantiated 64 / 32; from 40 kv heads on, more than
+# the 132 CTAs in flight can share four ways, the grid runs query blocks
+# first (two stages of 128 keys at (192, 128))
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,dv,h,kvh,s,causal", [
-    (192, 128, 4, 4, 200, True),
-    (192, 128, 4, 2, (300, 77), False),
-    (192, 128, 8, 8, 40, True),             # S < key block
-    (48, 32, 4, 4, 200, True),
-    (48, 32, 4, 4, 1, True),
-    (64, 32, 4, 1, 130, False),
+@pytest.mark.parametrize("d,dv,h,kvh,s,causal,window,cap", [
+    (192, 128, 4, 4, 200, True, 0, 0.0),
+    (192, 128, 4, 2, (300, 77), False, 0, 0.0),
+    (192, 128, 8, 8, 40, True, 0, 0.0),             # S < key block
+    (48, 32, 4, 4, 200, True, 0, 0.0),
+    (48, 32, 4, 4, 1, True, 0, 0.0),
+    (64, 32, 4, 1, 130, False, 0, 0.0),
+    (192, 128, 40, 40, 333, True, 0, 0.0),          # query first, ragged
+    (192, 128, 48, 48, 100, False, 0, 0.0),         # S < key block
+    (192, 128, 40, 40, 256, True, 0, 0.0),          # blocks = stages
+    (192, 128, 40, 40, (200, 130), False, 0, 0.0),  # Sq != Sk, ragged
+    (192, 128, 40, 40, 520, True, 77, 0.0),         # window < key block
+    (192, 128, 40, 40, 300, True, 0, 50.0),         # softcap
+    (128, 128, 40, 40, 300, True, 100, 50.0),       # square, query first
+    (48, 32, 40, 40, 300, True, 0, 0.0),            # read at 48, query first
 ])
-def test_flash_kernel_bf16_mla_dims_match_plain(d, dv, h, kvh, s, causal):
+def test_flash_kernel_bf16_mla_dims_match_plain(d, dv, h, kvh, s, causal,
+                                                window, cap):
     _need_card()
     sq, sk = s if isinstance(s, tuple) else (s, s)
     q, k, _ = (x.bfloat16() for x in _qkv(10, 2, sq, h, kvh, d, sk))
     v = _qkv(11, 2, sk, kvh, kvh, dv)[0].bfloat16()
     before = dict(flash_fwd_cuda.launches_bf16_dims)
-    out, lse = flash_fwd_cuda(q, k, v, causal=causal)
-    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = flash_fwd_cuda(q, k, v, **kw)
+    ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     at = kernel_dims(d, dv)
     assert flash_fwd_cuda.launches_bf16_dims[at] == before.get(at, 0) + 1
@@ -479,7 +491,7 @@ def test_flash_kernel_bf16_mla_dims_match_plain(d, dv, h, kvh, s, causal):
     grads = []
     for impl in ("cuda", "plain"):
         xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        torch.sum(flash_attention(*xs, causal=causal, impl=impl).float()
+        torch.sum(flash_attention(*xs, impl=impl, **kw).float()
                   * w).backward()
         grads.append([x.grad for x in xs])
     for a, b in zip(*grads):

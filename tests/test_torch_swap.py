@@ -28,6 +28,8 @@
 The adaptive loops are in ``tests/test_torch_adapt.py``, the sharded swap
 across gloo ranks in ``tests/test_torch_swap_ranks.py``.
 """
+import json
+import shutil
 import threading
 
 import jax
@@ -40,7 +42,11 @@ from repro.obs import Tracer as JTracer
 from repro.optim.optimizers import adamw as jax_adamw
 from repro.train import DeftRuntime as JRuntime
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.launch.train import init_distributed
+from repro_torch.launch.train import (
+    init_distributed,
+    restore_runtime_state,
+    save_checkpoint,
+)
 from repro_torch.obs import Tracer
 from repro_torch.optim.optimizers import adamw
 from repro_torch.train.bucketing import (
@@ -174,6 +180,55 @@ def test_swap_first_update_applies_the_generation_mean(group, tiny,
     near = lambda ours: max(float(np.abs(a.numpy() - b).max())
                             for a, b in zip(ours, jfinal))
     assert near(halved) <= T.ATOL < near(got), (near(halved), near(got))
+
+
+def test_resume_inside_the_handover_keeps_its_divisors(group, tiny,
+                                                       tmp_path):
+    """A checkpoint taken inside B's first cycle after the swap, while the
+    hand-over still owes B's first update its divisor 1, carries it in the
+    sidecar; a runtime built on B and resumed there mid-cycle is bitwise
+    the uninterrupted run.  Without the key its first update divides by
+    update_k 2 and the run departs."""
+    bo_a, nb_a, _, sched_a, _ = T.plan(tiny, 20_000)
+    bo_b, nb_b, _, sched_b, _ = T.plan(tiny, 60_000)
+    _, lay_a = T.layouts(tiny, bo_a, nb_a)
+    _, lay_b = T.layouts(tiny, bo_b, nb_b)
+    swap, save_at, n_steps = 2, 3, 2 + 2 * sched_b.period
+    ckpt = tmp_path / "ckpt"
+    rt = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_a, lay_a, device="cpu")
+
+    def hook(i, state):
+        if i == swap - 1:
+            rt.prepare_swap(sched_b, layout=lay_b)
+        if i + 1 == save_at:
+            assert rt.pending_divisors == [1]
+            save_checkpoint(str(ckpt), save_at, rt, state)
+    state, _ = T.port_run(tiny, rt, n_steps, hook)
+    whole = tree_leaves(rt.params_tree(state))
+    with open(ckpt / f"layout_{save_at:08d}.json") as f:
+        side = json.load(f)
+    assert side["handover_divisors"] == [1]
+    assert side["next_phase"] == 1
+
+    def resumed(directory):
+        rt_b = DeftRuntime(tiny.tcfg, adamw(T.LR), sched_b, lay_b,
+                           device="cpu")
+        st, start = restore_runtime_state(rt_b, str(directory), tiny.meta,
+                                          log=lambda s: None)
+        assert start == save_at and rt_b.phase_in_cycle(start) == 1
+        for i in range(start, n_steps):
+            st, _ = rt_b.step(i, st, T.tb(tiny, i))
+        return tree_leaves(rt_b.params_tree(st))
+
+    assert all(torch.equal(a, b) for a, b in zip(resumed(ckpt), whole))
+    # the same checkpoint without the key: B's first update halves the
+    # handed-over generation
+    bare = tmp_path / "bare"
+    shutil.copytree(ckpt, bare)
+    del side["handover_divisors"]
+    with open(bare / f"layout_{save_at:08d}.json", "w") as f:
+        json.dump(side, f)
+    assert not all(torch.equal(a, b) for a, b in zip(resumed(bare), whole))
 
 
 def test_precision_only_swap_aliases(group, tiny):
