@@ -103,6 +103,18 @@
    unrouted run, with its collectives chained and no P2P round (one rank:
    the chain is the identity).  Each of these runs has its own plain run,
    launch counts and collectives checked as above.
+3a. Drives the two baseline engines on the main path's configuration
+   (``baselines_path``, after the paths of 3-7a): the per-leaf steps
+   (``make_deft_step_fns``) for two schedule periods, then the tree-state
+   engine (``DeftRuntime(flat_state=False)``) for two, each from the
+   seed-0 params over the main path's batches and held to the main path's
+   stored run (the step-0 loss equal, the params after the first period
+   within the limits above, whether bitwise anyway printed), with the
+   counters zeroed just before: 16 f32 flash launches a step and no
+   bucket update (both update through ``apply_updates_``), the per-leaf
+   steps issuing one collective a synced leaf and one a metric (the loss,
+   ce and aux), the tree engine the flat engine's; each prints its median
+   step, tokens/s, peak and collectives per phase beside the main path's.
 4. Drives DeFT's precision path the same way, with int8 gradient wires on
    every bucket and a bf16sr resident master (forward and backward in
    bf16): its first steps once with every plain version forced, then the
@@ -1780,14 +1792,16 @@ def rwkv_grad_phase(torch, cfg, report):
 # ---------------------------------------------------------------------------
 # the DeFT main path
 # ---------------------------------------------------------------------------
-def expected_launches(cfg, schedule, layout, steps):
+def expected_launches(cfg, schedule, layout, steps, bucket_update=True):
     """Launches of each f32-path kernel in ``steps`` steps: every decoder
     layer (MLA ones with the attention ones) runs its forward twice (once
     more in the remat recompute) and
     its backward once, an encoder layer its forward once (the encoder has
     no remat); an encoder-decoder's ``cross_attn`` layer attends twice
     (self and cross), a VLM's once; every update launches the bucket
-    update once per bucket."""
+    update once per bucket, unless ``bucket_update`` is False (the
+    baseline engines update with ``apply_updates_``, as JAX's tree and
+    per-leaf engines never reach the Pallas update)."""
     kinds = [spec.kind for spec in cfg.layer_specs()]
     attn = sum(k in ("attn", "local_attn", "mla") for k in kinds)
     attn += (2 if cfg.is_encoder_decoder else 1) * kinds.count("cross_attn")
@@ -1800,7 +1814,8 @@ def expected_launches(cfg, schedule, layout, steps):
             "rglru_fwd": 2 * rec * steps,
             "rglru_bwd": rec * steps, "rwkv6_fwd": 2 * rwkv * steps,
             "rwkv6_bwd": rwkv * steps,
-            "bucket_update": layout.n_buckets * updates,
+            "bucket_update": layout.n_buckets * updates if bucket_update
+            else 0,
             "quantize_int8": 0, "dequantize_int8": 0,
             "stochastic_round_bf16": 0}
 
@@ -1898,22 +1913,28 @@ def held_to(key, against, state, losses):
     """Hold a run to ``against`` = (name, stored run, bitwise): every
     stored loss and every param buffer equal, or (not bitwise) the step-0
     loss equal and the params within PARAM_MAX_DIFF with at most
-    PARAM_MAX_OVER elements beyond PARAM_TOL.  Returns the distances."""
+    PARAM_MAX_OVER elements beyond PARAM_TOL.  ``state["pbuf"]`` may make
+    each bucket as it is read (a tree state's params flattened one bucket
+    at a time, ``tree_buckets``).  Returns the distances, with whether
+    the run came out bitwise anyway."""
     name, want, bitwise = against
     n = len(want["losses"])
     got = dict(against=name, bitwise=bitwise, max_param_diff=0.0,
                n_params_over_tol=0, n_params_differing=0)
+    same_dtypes = True
     for buf, w in zip(state["pbuf"], want["params"]):
         # one bucket at a time, so the check adds one bucket to the peak
         d = (buf.float() - w.cuda().float()).abs()
         got["max_param_diff"] = max(got["max_param_diff"], d.max().item())
         got["n_params_over_tol"] += int((d > PARAM_TOL).sum().item())
         got["n_params_differing"] += int((d > 0).sum().item())
-        del d
+        same_dtypes &= buf.dtype == w.dtype
+        del d, buf
+    got["came_out_bitwise"] = (losses[:n] == want["losses"]
+                               and got["n_params_differing"] == 0
+                               and same_dtypes)
     if bitwise:
-        check(losses[:n] == want["losses"] and got["n_params_differing"] == 0
-              and all(b.dtype == w.dtype for b, w in zip(state["pbuf"],
-                                                         want["params"])),
+        check(got["came_out_bitwise"],
               f"{key} is not bitwise {name}: losses {losses[:n]} vs "
               f"{want['losses']}, {got['n_params_differing']} params differ "
               f"(max |diff| {got['max_param_diff']:.3g})")
@@ -2143,6 +2164,119 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     del res
     torch.cuda.empty_cache()
     return launches
+
+
+def tree_buckets(layout, params):
+    """The param buffers ``held_to`` reads, made from a tree state's
+    params one bucket at a time (``flatten_bucket``)."""
+    from repro_torch.train.bucketing import flatten_bucket
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    return (flatten_bucket(layout, leaves, b) for b in range(layout.n_buckets))
+
+
+def baselines_path(torch, cfg, schedule, bucket_of, layout, report, against):
+    """The two baseline engines on the main path's configuration, each for
+    two schedule periods from the seed-0 params over the main path's
+    batches, with every launch counter set to 0 just before and read just
+    after: the per-leaf steps (``make_deft_step_fns``: one collective a
+    synced leaf, one all-reduce a metric), then the tree-state engine
+    (``DeftRuntime(flat_state=False)``: the flat engine's collectives).
+    Each is held to the main path's stored run (``against``, not bitwise:
+    the step-0 loss equal, the params after the first period within
+    PARAM_MAX_DIFF / PARAM_MAX_OVER; whether they came out bitwise anyway
+    is printed), launches the f32 flash 16 times a step and the bucket
+    update never (``apply_updates_`` takes its place, as JAX's tree and
+    per-leaf engines never reach the Pallas update), and prints its median
+    step, tokens/s, peak and collectives per phase beside the main
+    path's."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.runtime import DeftRuntime, phase_collectives
+    from repro_torch.train.steps import (
+        init_train_state,
+        make_deft_step_fns,
+        phase_collectives_per_leaf,
+    )
+
+    period = schedule.period
+    steps = 2 * period
+    out = report.setdefault("baselines_path", {})
+    all_launches = {}
+    for engine in ("per_leaf", "tree"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        key = f"baselines_path {engine}"
+        if engine == "per_leaf":
+            fns = make_deft_step_fns(cfg, adamw(LR), schedule, bucket_of,
+                                     loss_chunk=LOSS_CHUNK)
+            state = init_train_state(cfg, adamw(LR), deft=True, seed=0,
+                                     device="cuda")
+            wants = [phase_collectives_per_leaf(ph, bucket_of, 2)
+                     for ph in schedule.phases]
+        else:
+            rt = DeftRuntime(cfg, adamw(LR), schedule, layout, device="cuda",
+                             loss_chunk=LOSS_CHUNK, flat_state=False)
+            state = rt.init_state(0)
+            wants = [phase_collectives(ph) for ph in schedule.phases]
+            check(rt.collectives_per_phase() == wants,
+                  f"{key}: not the flat engine's collectives")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = zero_counters()
+        losses, step_s, colls, vs = [], [], [], {}
+        for i in range(steps):
+            batch = make_batch(cfg, 0, i, BATCH, SEQ, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if engine == "per_leaf":
+                fn = fns[i % period]
+                state, m = fn(state, batch)
+                colls.append(fn.last_collectives)
+            else:
+                state, m = rt.step(i, state, batch)
+                colls.append(rt.last_collectives)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            del batch
+            if i == period - 1:
+                vs = held_to(key, against, {"pbuf": tree_buckets(
+                    layout, state["params"])}, losses)
+        launches = kernel_launches(counters)
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_launches(cfg, schedule, layout, steps,
+                                 bucket_update=False)
+        check(launches == want, f"{key} launches {launches}, expected {want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{key}: non-finite loss {losses}")
+        for i, c in enumerate(colls):
+            check(c == wants[i % period],
+                  f"{key} step {i}: issued {c}, schedule says "
+                  f"{wants[i % period]}")
+        med = statistics.median(step_s[1:])
+        out[engine] = dict(
+            steps=steps, losses=losses, step_s=step_s, median_step_s=med,
+            tokens_per_s=BATCH * SEQ / med, peak_bytes=peak,
+            launches=launches, collectives_per_phase=wants, against=vs)
+        print(f"{key} ({ARCH}, {cfg.n_layers} of 26 layers): {steps} steps, "
+              f"median step {med:.3f} s, {BATCH * SEQ / med:.0f} tok/s, peak "
+              f"memory {peak / 2**30:.2f} GiB [{report['card']}], launches "
+              f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"collectives per phase {wants}; params after the first "
+              f"period {'bitwise' if vs['came_out_bitwise'] else 'not bitwise'}"
+              f" the stored run's")
+        print_against(report, against, vs)
+        all_launches[engine] = launches
+        del state, m
+        if engine == "per_leaf":
+            del fns
+        else:
+            del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return all_launches
 
 
 def moe_smoke_path(torch, report):
@@ -3967,6 +4101,10 @@ def run() -> int:
             DELAYED_COVERAGE_RATE, delayed=True, fsdp=True, seq=MLA_SEQ,
             need_reuse=False, f32_key="mla_path"),
     }
+    for engine, n in baselines_path(torch, cfg, schedule, bucket_of, layout,
+                                    report,
+                                    ("main_path", replicated, False)).items():
+        launches[f"f32 {engine.replace('_', '-')}"] = n
     for key in ("mla_path", "mla_precision_path"):
         check(report[key]["peak_bytes"] < 80e9,
               f"{key} peak {report[key]['peak_bytes']} bytes")

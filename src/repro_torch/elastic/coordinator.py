@@ -193,6 +193,10 @@ def migrate_state(old_rt, new_rt, state, *, old: Optional[Placement] = None,
       at position 0, which always gathers), as ``repack_state`` finishes
       a state (``DeftRuntime._repack``, which does the moves too).
 
+    A tree state (``flat_state=False``) moves its layout-free params and
+    moments whole: kept where they are, sent to a rank new to the state
+    (``DeftRuntime._move_trees``).
+
     JAX's ``migrate_state`` folds, ``device_put``s onto the new mesh and
     runs ``repack_state``; here the element-axis repack and the move
     between ranks are one pass, since a layout of one shard count cannot
@@ -246,6 +250,10 @@ class ElasticCoordinator:
         tracer: Optional[Tracer] = None,
         global_batch: int = 0,
     ):
+        if not getattr(runtime, "flat_state", True):
+            raise ValueError(
+                "elastic execution needs a flat-state runtime — the "
+                "migration path repacks flat buffers (DESIGN.md §10)")
         if runtime.dp.outer is not None:
             raise ValueError(
                 "elastic execution supports one 'data' group; fold the pod "

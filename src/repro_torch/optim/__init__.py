@@ -3,6 +3,7 @@ from repro_torch.optim.optimizers import (
     SegmentHParams,
     adamw,
     apply_updates,
+    apply_updates_,
     init_opt_state,
     leaf_hparams,
     sgd_momentum,
@@ -10,5 +11,5 @@ from repro_torch.optim.optimizers import (
 
 __all__ = [
     "OptimizerSpec", "SegmentHParams", "adamw", "apply_updates",
-    "init_opt_state", "leaf_hparams", "sgd_momentum",
+    "apply_updates_", "init_opt_state", "leaf_hparams", "sgd_momentum",
 ]

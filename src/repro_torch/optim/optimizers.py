@@ -7,7 +7,9 @@ update (``kernels/bucket_update``) is tested against ``apply_updates``.
 
 DeFT's update with a merged gradient of k batches is gradient
 accumulation: ``apply_updates(..., grad_scale=1/(n_dp*k))``; the step
-counter advances once per applied update.
+counter advances once per applied update.  A param leaf keeps its dtype:
+the update runs in f32 and casts back, as JAX's does for non-f32 resident
+params.  ``apply_updates_`` is its in-place twin, bitwise equal.
 """
 from __future__ import annotations
 
@@ -131,8 +133,8 @@ def apply_updates(
         for p_, m_, v_, hp in zip(p, m, v, hps):
             u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + spec.eps)
             if hp.weight_decay:
-                u = u + hp.weight_decay * p_
-            new_p.append(p_ - (lr * hp.lr_scale) * u)
+                u = u + hp.weight_decay * p_.float()
+            new_p.append((p_.float() - (lr * hp.lr_scale) * u).to(p_.dtype))
         return tree_unflatten(params, new_p), {
             "step": step,
             "m": tree_unflatten(params, m),
@@ -145,10 +147,63 @@ def apply_updates(
         for p_, m_, hp in zip(p, m, hps):
             u = m_
             if hp.weight_decay:
-                u = u + hp.weight_decay * p_
-            new_p.append(p_ - (lr * hp.lr_scale) * u)
+                u = u + hp.weight_decay * p_.float()
+            new_p.append((p_.float() - (lr * hp.lr_scale) * u).to(p_.dtype))
         return tree_unflatten(params, new_p), {
             "step": step, "m": tree_unflatten(params, m),
         }
+
+    raise ValueError(spec.name)
+
+
+def apply_updates_(
+    spec: OptimizerSpec,
+    params,
+    grads,
+    state: Dict[str, Any],
+    *,
+    grad_scale=1.0,
+    lr_scale=1.0,
+) -> Tuple[Any, Dict[str, Any]]:
+    """:func:`apply_updates` in place, bitwise equal to it: every new
+    param and moment is computed by the same expressions, one leaf at a
+    time, and copied into the tensor it replaces, so the update holds one
+    leaf's temporaries instead of a second copy of the params and
+    moments.  Consumes ``grads``: an f32 gradient leaf is scaled and
+    clipped in place.  Returns ``params`` and a state holding the same
+    moment tensors and the next step."""
+    g = [x.float().mul_(grad_scale) for x in tree_leaves(grads)]
+    if spec.grad_clip:
+        clip = clip_factor(spec, global_norm(g))
+        for x in g:
+            x.mul_(clip)
+    step = state["step"] + 1
+    lr = spec.lr * lr_scale
+    p = tree_leaves(params)
+    hps = leaf_hparams(spec, p)
+
+    if spec.name == "adamw":
+        b1, b2 = spec.beta1, spec.beta2
+        sf = step.float()
+        bc1 = 1 - b1 ** sf
+        bc2 = 1 - b2 ** sf
+        for p_, m_, v_, g_, hp in zip(p, tree_leaves(state["m"]),
+                                      tree_leaves(state["v"]), g, hps):
+            m_.copy_(b1 * m_ + (1 - b1) * g_)
+            v_.copy_(b2 * v_ + (1 - b2) * g_ * g_)
+            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + spec.eps)
+            if hp.weight_decay:
+                u = u + hp.weight_decay * p_.float()
+            p_.copy_((p_.float() - (lr * hp.lr_scale) * u).to(p_.dtype))
+        return params, {"step": step, "m": state["m"], "v": state["v"]}
+
+    if spec.name == "sgd":
+        for p_, m_, g_, hp in zip(p, tree_leaves(state["m"]), g, hps):
+            m_.copy_(spec.momentum * m_ + g_)
+            u = m_
+            if hp.weight_decay:
+                u = u + hp.weight_decay * p_.float()
+            p_.copy_((p_.float() - (lr * hp.lr_scale) * u).to(p_.dtype))
+        return params, {"step": step, "m": state["m"]}
 
     raise ValueError(spec.name)

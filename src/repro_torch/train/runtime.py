@@ -71,6 +71,20 @@ recorded into an ``obs.Tracer``.  A staged build derives the new segments,
 masks and phase table and loads the kernel libraries the staged layout
 runs, so no compiler runs on the hot path after the swap.
 
+With ``flat_state=False`` it is the tree-state engine instead (port of
+``_deft_body_fused``, which the JAX package keeps as a benchmark
+baseline): params and moments stay trees; the gradients are flattened
+into fresh per-bucket f32 buffers (``flatten_buckets``), routed and
+synced bucket by bucket as on the flat engine (``_route_and_sync``), and
+an update applies the merged generation through its leaf views with
+``optim.apply_updates_`` (the in-place twin of ``apply_updates``, bitwise
+equal to it, as JAX's donated executable updates in place) instead of
+the bucket-update kernel.  It runs f32 wires at the params' own
+resident dtype (no ``compute_dtype``, no bf16sr master), as JAX's
+``RuntimeConfig.validate`` requires; a tree state over sharded params
+(JAX's ``deft_rs_phase_step_fused``) waits for the port's sharding
+rules, ROADMAP item 8.
+
 A checkpoint holds JAX's tree form of the state (``state_to_tree``):
 layout-free param and moment trees, the ``cur``/``fut`` accumulators as
 ``(accum_devices, n)`` stacks of every DP rank's buffer, and the gather
@@ -81,6 +95,7 @@ at the saved cycle position.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 import time
@@ -106,12 +121,17 @@ from repro_torch.kernels.quantize import (
 )
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.obs.trace import Tracer
-from repro_torch.optim.optimizers import OptimizerSpec, apply_updates, init_opt_state
+from repro_torch.optim.optimizers import (
+    OptimizerSpec,
+    apply_updates_,
+    init_opt_state,
+)
 from repro_torch.train.bucketing import (
     BucketLayout,
     LayoutTransition,
     build_layout_transition,
     flatten_bucket,
+    flatten_buckets,
     repack_buffers,
     unflatten_buckets,
 )
@@ -764,6 +784,10 @@ class DeftRuntime:
     engine's param gathers it puts on link 1 (without a chain the plan
     routes nothing, as in JAX).
 
+    ``flat_state=False`` (None: the flat engine) selects the tree-state
+    engine: replicated, f32 wires, params resident at their own dtype,
+    per-leaf updates (``update_impl`` "per-leaf" in :meth:`stats`).
+
     ``tracer`` (an ``obs.Tracer``) turns on the per-step spans: ``phase``,
     ``collective-group`` (with the bytes the phase's syncs put on each
     link), ``update-apply`` and ``gather-skip``, named and tagged as
@@ -785,16 +809,23 @@ class DeftRuntime:
                  decoupled: bool = False,
                  secondary_chain: Optional[Sequence[int]] = None,
                  ag_plan: Any = None,
-                 tracer: Optional[Tracer] = None):
-        if gather_skip and not fsdp:
+                 tracer: Optional[Tracer] = None,
+                 flat_state: Optional[bool] = None):
+        self.flat_state = True if flat_state is None else bool(flat_state)
+        sharded_flat = fsdp and self.flat_state
+        if gather_skip and not sharded_flat:
             raise ValueError(
                 "gather_skip only applies to the sharded flat engine "
-                "(fsdp=True): the replicated engine never all-gathers params")
-        if decoupled and not fsdp:
+                "(fsdp=True, flat_state=True): the other engines never "
+                "all-gather params")
+        if decoupled and not sharded_flat:
             raise ValueError(
                 "decoupled AG streaming only applies to the sharded flat "
-                "engine (fsdp=True): the replicated engine has no per-bucket "
-                "param all-gather to stream (DESIGN.md §12)")
+                "engine (fsdp=True, flat_state=True): the other engines have "
+                "no per-bucket param all-gather to stream (DESIGN.md §12)")
+        if not self.flat_state:
+            self._refuse_tree_state(fsdp, compute_dtype, update_impl,
+                                    master_dtype, layout)
         chain = None
         if secondary_chain is not None:
             chain = tuple(int(p) for p in secondary_chain)
@@ -852,7 +883,8 @@ class DeftRuntime:
             self._leaf_dtype = compute_dtype or torch.bfloat16
         self._structure = init_params(cfg, device="meta")
         self._check_layout(layout)
-        self.segments = build_segments(layout, opt_spec)
+        self.segments = (build_segments(layout, opt_spec) if self.flat_state
+                         else None)
         self.gather_skip = bool(
             gather_skip if gather_skip is not None
             else self.fsdp and any(any(m) for m in
@@ -886,6 +918,41 @@ class DeftRuntime:
         self.last_dispatch_first = False   # last dispatch was an entry's first
         self._swap_lock = threading.Lock()
         self._install(schedule, self._schedule_keys(schedule, layout))
+
+    @staticmethod
+    def _refuse_tree_state(fsdp, compute_dtype, update_impl, master_dtype,
+                           layout: BucketLayout) -> None:
+        """What ``flat_state=False`` cannot run: JAX's
+        ``RuntimeConfig.validate`` and precision checks, and sharded params
+        (JAX's tree-state RS engine, ROADMAP item 8)."""
+        if fsdp:
+            raise ValueError(
+                "fsdp=True with flat_state=False is JAX's tree-state RS "
+                "engine (deft_rs_phase_step_fused: manual over 'pod', params "
+                "FSDP-sharded over 'data' by logical sharding rules), which "
+                "waits for the port's sharding rules, ROADMAP item 8: use the "
+                "sharded flat engine (flat_state=True)")
+        if compute_dtype is not None:
+            raise ValueError(
+                "compute_dtype (mixed precision) needs the flat engine: "
+                "tree-state params are resident at their init dtype — drop "
+                "flat_state=False or drop compute_dtype (DESIGN.md §8)")
+        if update_impl is not None:
+            raise ValueError(
+                "update_impl selects a fused bucket-update kernel — only the "
+                "flat engine runs those; flat_state=False applies per-leaf "
+                "updates")
+        if master_dtype == "bf16sr":
+            raise ValueError(
+                "master_dtype='bf16sr' needs the flat engine: the "
+                "stochastic-rounding write-back rides the fused bucket-update "
+                "kernels (DESIGN.md §13)")
+        p = layout.precision
+        if p is not None and not p.all_f32:
+            raise ValueError(
+                "a non-f32 PrecisionPolicy needs the flat engines: the "
+                "tree-state path has no per-bucket wire edges (DESIGN.md "
+                "§13) — drop flat_state=False")
 
     def _check_layout(self, layout: BucketLayout) -> None:
         """Refuse a layout this runtime cannot run: another parameter
@@ -1065,7 +1132,12 @@ class DeftRuntime:
         b + 1 as JAX's ``_round_master``, over the whole buffer.  The
         sharded engine keeps this rank's span of each rounded buffer and
         allocates its moments at span length (1/N residency); ``cur``,
-        ``fut`` and the gradient buffers are full length on every rank."""
+        ``fut`` and the gradient buffers are full length on every rank.
+        The tree-state engine keeps a copy of ``params`` on the device, at
+        their own dtype, beside f32 moment trees."""
+        if not self.flat_state:
+            return self._tree_state(tree_map(
+                lambda p: p.detach().to(self.device, copy=True), params))
         leaves = [p.to(self.device) for p in tree_leaves(params)]
         layout = self.layout
         pbuf = []
@@ -1096,6 +1168,12 @@ class DeftRuntime:
             state["pgather"] = self._init_pgather(self.layout)
         return state
 
+    def _tree_state(self, params) -> TrainState:
+        """The tree-state engine's state around ``params`` (its own
+        tensors, on the device): ``{params, opt, cur, fut}``."""
+        return {"params": params, "opt": init_opt_state(self.opt_spec, params),
+                **init_fused_accumulators(self.layout, self.device)}
+
     def _master_torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.master_dtype == "bf16sr" \
             else torch.float32
@@ -1114,7 +1192,11 @@ class DeftRuntime:
                    dtype: torch.dtype = torch.float32) -> TrainState:
         """Fresh state from params drawn at ``dtype`` (the compute dtype
         of a mixed-precision run: the init rounding), promoted into the
-        master."""
+        master.  The tree-state engine keeps them resident at ``dtype``,
+        any dtype."""
+        if not self.flat_state:
+            return self._tree_state(init_params(
+                self.cfg, seed=seed, device=self.device, dtype=dtype))
         if dtype != torch.float32 and dtype != self.compute_dtype:
             raise ValueError(
                 f"the master is promoted from params drawn at {dtype}; that "
@@ -1126,7 +1208,10 @@ class DeftRuntime:
     def params_tree(self, state: TrainState):
         """Parameter tree of views into the param buffers.  On the sharded
         engine the spans are all-gathered into new full buffers first: a
-        collective, which every rank must call."""
+        collective, which every rank must call.  A tree state's params
+        are the tree itself."""
+        if not self.flat_state:
+            return state["params"]
         pbuf = state["pbuf"]
         if self.fsdp:
             pbuf = [self.dp.all_gather(p) for p in pbuf]
@@ -1183,9 +1268,19 @@ class DeftRuntime:
         row) one rank at a time into a device buffer the size of the
         bucket's span or row, and copies it to its host; the others only
         send.  So each device holds at most one span or row more than its
-        state, and only the writer's host holds the tree."""
+        state, and only the writer's host holds the tree.  A tree state
+        gives host copies of its own params and moments (JAX's tree form is
+        the state itself)."""
         layout, dp = self.layout, self.dp
         writer = dist.get_rank() == self.writer
+        if not self.flat_state:
+            acc = {k: tuple(self._to_writer(c, dp.joint) for c in state[k])
+                   for k in ("cur", "fut")}
+            if not writer:
+                return None
+            host = lambda t: tree_map(lambda x: x.to("cpu", copy=True), t)
+            return {"params": host(state["params"]),
+                    "opt": host(state["opt"]), **acc}
 
         def full(buf):
             if self.fsdp:
@@ -1236,7 +1331,8 @@ class DeftRuntime:
         ``src_layout`` (the layout the checkpoint was written under)
         differs from this runtime's; a cross-layout restore starts the gather
         cache cold.  ``gbuf`` is zero, as the engines leave the retired
-        generation between steps."""
+        generation between steps.  A tree state takes the params at their
+        saved dtype and the moments as trees."""
         layout, dp = self.layout, self.dp
         dev = lambda x, dt=None: x.to(device=self.device,
                                       dtype=dt or x.dtype, copy=True)
@@ -1247,6 +1343,15 @@ class DeftRuntime:
         if cross:
             tr = build_layout_transition(src_layout, layout)
             cur, fut = repack_buffers(tr, cur), repack_buffers(tr, fut)
+        f32 = torch.float32
+        if not self.flat_state:
+            on_dev = lambda t, dt=None: tree_map(lambda x: dev(x, dt), t)
+            opt = {k: (on_dev(v, torch.int32) if k == "step"
+                       else on_dev(v, f32))
+                   for k, v in tree_state["opt"].items()}
+            return {"params": on_dev(tree_state["params"]), "opt": opt,
+                    "cur": tuple(dev(c, f32) for c in cur),
+                    "fut": tuple(dev(f, f32) for f in fut)}
 
         def bufs_of(tree, dtype):
             leaves = tree_leaves(tree)
@@ -1259,7 +1364,6 @@ class DeftRuntime:
                 out.append(dev(buf, dtype))
             return tuple(out)
 
-        f32 = torch.float32
         opt = {"step": dev(tree_state["opt"]["step"], torch.int32),
                "m": bufs_of(tree_state["opt"]["m"], f32)}
         if "v" in tree_state["opt"]:
@@ -1286,7 +1390,15 @@ class DeftRuntime:
         under ``src_layout`` (default: this runtime's layout): the ``like``
         of ``checkpoint.restore``.  ``with_pgather`` says whether the
         checkpoint carries the gather cache; by default only a same-layout
-        restore on a gather-skip runtime reads it."""
+        restore on a gather-skip runtime reads it.  Refused on the
+        tree-state engine, as JAX's is: its checkpoint form is its state,
+        whose params keep the dtype they were drawn at, so a
+        ``state_to_tree`` of a fresh state is the ``like``."""
+        if not self.flat_state:
+            raise ValueError(
+                "checkpoint_struct needs a flat-state runtime: a tree state "
+                "is its own checkpoint form — restore with like=state_to_tree"
+                "(init_state()) of this runtime")
         lay = src_layout or self.layout
         if with_pgather is None:
             with_pgather = self.gather_skip and lay == self.layout
@@ -1408,7 +1520,9 @@ class DeftRuntime:
         of kind 'repack' carrying ``args``.  The shared tail of
         :meth:`repack_state`, the staged swap's install and
         :func:`~repro_torch.elastic.coordinator.migrate_state`; collective
-        over the ranks of both sides."""
+        over the ranks of both sides.  A tree state re-flattens only its
+        accumulators: its params and moments are layout-free trees, passed
+        through (``_move_trees`` across a change of ranks)."""
         if src is None:
             here = self.placement()
             src = dataclasses.replace(here, layout=tr.src)
@@ -1421,10 +1535,14 @@ class DeftRuntime:
         rows = (dataclasses.replace(dst, layout=tr.src, sharded=False),
                 dataclasses.replace(dst, sharded=False))
         f32 = torch.float32
-        comps = [(state, "pbuf", self._master_torch_dtype(), (src, dst)),
-                 (opt, "m", f32, (src, dst))]
-        if self.opt_spec.name == "adamw":
-            comps.append((opt, "v", f32, (src, dst)))
+        comps = []
+        if self.flat_state:
+            comps += [(state, "pbuf", self._master_torch_dtype(), (src, dst)),
+                      (opt, "m", f32, (src, dst))]
+            if self.opt_spec.name == "adamw":
+                comps.append((opt, "v", f32, (src, dst)))
+        else:
+            self._move_trees(state, src, dst)
         comps += [(state, "cur", f32, rows), (state, "fut", f32, rows)]
         for holder, key, dtype, (a, b) in comps:
             bufs = holder.pop(key, None)               # the last reference
@@ -1435,9 +1553,10 @@ class DeftRuntime:
                 holder[key] = tuple(out)
         if dist.get_rank() not in dst.ranks:
             return None
-        state["gbuf"] = tuple(torch.zeros((n,), dtype=torch.float32,
-                                          device=self.device)
-                              for n in tr.dst.buf_sizes)
+        if self.flat_state:
+            state["gbuf"] = tuple(torch.zeros((n,), dtype=torch.float32,
+                                              device=self.device)
+                                  for n in tr.dst.buf_sizes)
         if self.gather_skip:
             state["pgather"] = self._init_pgather(tr.dst)
         self._sync_device()
@@ -1445,6 +1564,47 @@ class DeftRuntime:
                         moved_elems=tr.moved_elems,
                         n_buckets=tr.dst.n_buckets)
         return state
+
+    def _move_trees(self, state: TrainState, src: Placement,
+                    dst: Placement) -> None:
+        """A tree state's params and moments across a change of ranks, in
+        place: whole on every rank, so a rank new to the state receives
+        each leaf from ``src``'s first rank (point to point, the params'
+        dtype first), and a rank outside ``dst`` drops them.  Collective
+        over the ranks of both sides, in leaf order."""
+        me = dist.get_rank()
+        takers = [r for r in dst.ranks if r not in src.ranks]
+        if takers and (me == src.ranks[0] or me in takers):
+            names = ("m", "v") if self.opt_spec.name == "adamw" else ("m",)
+            dtypes = (torch.float32, torch.bfloat16, torch.float16)
+            code = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            if me == src.ranks[0]:
+                code[0] = dtypes.index(
+                    tree_leaves(state["params"])[0].dtype)
+                trees = [state["params"]] + [state["opt"][k] for k in names]
+                sends = [dist.isend(code, dst=r) for r in takers]
+                sends += [dist.isend(x, dst=r) for t in trees
+                          for x in tree_leaves(t) for r in takers]
+                for w in sends:
+                    w.wait()
+            else:
+                dist.recv(code, src=src.ranks[0])
+
+                def receive(dtype):
+                    leaves = []
+                    for x in tree_leaves(self._structure):
+                        t = torch.empty(x.shape, dtype=dtype,
+                                        device=self.device)
+                        dist.recv(t, src=src.ranks[0])
+                        leaves.append(t)
+                    return tree_unflatten(self._structure, leaves)
+                state["params"] = receive(dtypes[int(code[0])])
+                for k in names:
+                    state["opt"][k] = receive(torch.float32)
+        if me not in dst.ranks:
+            state.pop("params", None)
+            for k in ("m", "v"):
+                state["opt"].pop(k, None)
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -1456,7 +1616,7 @@ class DeftRuntime:
         bucket update and, for an int8 wire or a bf16sr master, the
         quantize library.  Nothing on the CPU, where the plain versions
         run."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.flat_state:
             return
         from repro_torch.kernels import build
 
@@ -1479,7 +1639,7 @@ class DeftRuntime:
             schedule=schedule, keys=self._schedule_keys(schedule, target),
             layout=layout, transition=transition,
             segments=(build_segments(layout, self.opt_spec)
-                      if layout is not None else None))
+                      if layout is not None and self.flat_state else None))
 
     def prepare_swap(self, schedule: DeftSchedule, *,
                      background: bool = False,
@@ -1626,7 +1786,8 @@ class DeftRuntime:
               tracer: Optional[Tracer] = None) -> "DeftRuntime":
         """A sibling runtime: this one's arch, optimizer, device, kernels
         and precision, with the named knobs overridden (``group`` /
-        ``outer_group`` / ``secondary_chain`` in place of JAX's mesh).  An
+        ``outer_group`` / ``secondary_chain`` in place of JAX's mesh) and
+        the state form (``flat_state``) kept.  An
         inherited ``decoupled`` dies with the sharded engine; the sibling
         re-resolves its gather skip against its own schedule unless
         pinned, and shares this tracer when per-step tracing is on.  An
@@ -1651,7 +1812,8 @@ class DeftRuntime:
             secondary_chain=keep(secondary_chain, self.secondary_chain),
             ag_plan=self._ag_plan,
             tracer=(tracer if tracer is not None
-                    else self.tracer if self.trace_steps else None))
+                    else self.tracer if self.trace_steps else None),
+            flat_state=self.flat_state)
 
     # ---- one phase ---------------------------------------------------------
     def step(self, i: int, state: TrainState, batch
@@ -1676,7 +1838,9 @@ class DeftRuntime:
         t0 = clock()
         self.dp.reset()
         self._wire_count = [0, 0]
-        if self.fsdp:
+        if not self.flat_state:
+            new_state, loss, parts = self._step_tree(phase, state, batch, k)
+        elif self.fsdp:
             new_state, loss, parts = self._step_sharded(off, phase, state,
                                                         batch, k)
         else:
@@ -1804,6 +1968,55 @@ class DeftRuntime:
             "fut": tuple(new_fut),
             "gbuf": tuple(dead),
         }, loss, parts
+
+    def _step_tree(self, phase: PhaseSpec, state: TrainState, batch,
+                   k: int):
+        """One phase of the tree-state engine (``_deft_body_fused``): the
+        gradient tree from ``autograd.grad`` (zeros for a leaf the loss
+        never reads, as ``jax.grad`` gives it) flattened into fresh f32
+        bucket buffers, the flat engine's routing and syncs on them, and
+        an update through the merged generation's leaf views, divided by
+        ``k`` steps as the flat engines' are.  The generation that dies is
+        dropped, or zeroed in place where it stays ``cur``."""
+        layout = self.layout
+        params = tree_map(lambda p: p.detach().requires_grad_(True),
+                          state["params"])
+        leaves = tree_leaves(params)
+        loss, parts = loss_fn(params, self.cfg, batch,
+                              loss_chunk=self.loss_chunk,
+                              attn_impl=self.attn_impl,
+                              scan_impl=self.scan_impl)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        del params, leaves
+        g_flat = flatten_buckets(layout, grads)
+        del grads
+
+        def sync(x: torch.Tensor, b: int) -> torch.Tensor:
+            self._count_wire(phase, b, x)
+            return (self.dp.secondary if phase.secondary[b]
+                    else self.dp.primary)(x)
+
+        gen, new_fut, cur_synced = _route_and_sync(
+            phase, g_flat, list(state["cur"]), list(state["fut"]), sync)
+        params, opt = state["params"], state["opt"]
+        if phase.do_update:
+            src = cur_synced if phase.update_source == "cur" else gen
+            params, opt = apply_updates_(
+                self.opt_spec, params,
+                tree_unflatten(self._structure,
+                               unflatten_buckets(layout, src)),
+                opt, grad_scale=1.0 / (self.dp.n_dp * k))
+            if phase.update_source == "cur" and gen is not None:
+                new_cur = gen
+            else:
+                new_cur = [c.zero_() for c in cur_synced]
+        elif phase.rotate:
+            new_cur = gen
+        else:
+            new_cur = cur_synced
+        return {"params": params, "opt": opt, "cur": tuple(new_cur),
+                "fut": tuple(new_fut)}, loss, parts
 
     def _step_sharded(self, off: int, phase: PhaseSpec, state: TrainState,
                       batch, k: int):
@@ -1969,7 +2182,12 @@ class DeftRuntime:
             "n_leaves": self.layout.n_leaves,
             "dp": self.dp.n_dp,
             "pod": self.dp.n_outer,
+            "flat_state": self.flat_state,
             "sharded_state": self.fsdp,
+            "update_impl": (
+                (self.update_impl or ("cuda" if self.device.type == "cuda"
+                                      else "plain"))
+                if self.flat_state else "per-leaf"),
             "decoupled": self.decoupled,
             "secondary_chain": self.secondary_chain,
             "shards": self.layout.shards,
@@ -2011,33 +2229,15 @@ def init_ddp_state(cfg: ArchConfig, opt_spec: OptimizerSpec, *, seed: int = 0,
 
 def make_ddp_step(cfg: ArchConfig, opt_spec: OptimizerSpec, *, group=None,
                   loss_chunk: int = 0, attn_impl: Optional[str] = None,
-                  scan_impl: Optional[str] = None) -> Callable:
+                  scan_impl: Optional[str] = None,
+                  microbatch: int = 0) -> Callable:
     """DDP baseline step ``(state, batch) -> (state, metrics)``: one
-    all-reduce per gradient leaf, the per-leaf optimizer every step."""
-    dp = DataParallel(group)
+    all-reduce per gradient leaf, the per-leaf optimizer every step
+    (``train/steps.py::ddp_train_step``; ``microbatch = M > 1`` runs the
+    batch as M sequential micro-batches)."""
+    from repro_torch.train.steps import ddp_train_step
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        params = tree_map(lambda p: p.detach().requires_grad_(True),
-                          state["params"])
-        leaves = tree_leaves(params)
-        loss, parts = loss_fn(params, cfg, batch, loss_chunk=loss_chunk,
-                              attn_impl=attn_impl, scan_impl=scan_impl)
-        # a leaf the loss never reads (an enc-dec block's ungated
-        # cross-attention gate) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        for g in grads:
-            dp.primary(g)
-        new_params, opt = apply_updates(
-            opt_spec, tree_map(lambda p: p.detach(), params),
-            tree_unflatten(params, list(grads)), state["opt"],
-            grad_scale=1.0 / dp.size)
-        keys = sorted(parts)
-        stacked = dp.metrics(torch.stack(
-            [loss.detach()] + [parts[k].detach() for k in keys])) / dp.size
-        metrics = {"loss": stacked[0],
-                   **{k: stacked[1 + j] for j, k in enumerate(keys)},
-                   "updated": True}
-        return {"params": new_params, "opt": opt}, metrics
-
-    return step
+    return functools.partial(
+        ddp_train_step, cfg=cfg, opt_spec=opt_spec, dp=DataParallel(group),
+        loss_chunk=loss_chunk, attn_impl=attn_impl, scan_impl=scan_impl,
+        microbatch=microbatch)

@@ -1,7 +1,9 @@
 """Shared by the control-surface tests (``test_torch_swap*.py``,
 ``test_torch_adapt.py``, ``test_torch_obs.py``): the tiny qwen3 of
 ``tests/test_repack.py`` and ``tests/test_adapt.py`` in both packages,
-the same JAX params and numpy batches, and the runs the tests compare;
+the same JAX params and numpy batches, and the runs the tests compare
+(``drawn_tiny``: the port's params and batches instead, for the baseline
+engines' tests, which draw and trace nothing in JAX);
 and by ``test_torch_mla.py`` / ``test_torch_moe.py``: a smoke model's
 params drawn once a process by the port's init (``smoke_params``: numpy
 in the JAX package's tree, which a JAX draw of takes seconds), and its
@@ -34,7 +36,7 @@ from repro_torch.train.bucketing import (
     leaf_bucket_times,
 )
 from repro_torch.train.runtime import DeftRuntime
-from repro_torch.tree import tree_flatten_with_path, tree_leaves
+from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 WALK = WalkParams(s0=4.0, eta=0.01, mu=1.0, sigma=40.0, batch=256)
 B, S, LR, ATOL = 4, 32, 1e-3, 1e-4
@@ -62,6 +64,26 @@ def make_tiny():
         params=params_from_numpy(jax.tree.map(np.asarray, jparams),
                                  device="cpu"),
         meta=init_params(port_cfg(), device="meta"), batches={})
+
+
+def drawn_tiny(n_steps: int):
+    """``make_tiny``'s namespace without a JAX draw or trace: the port's
+    params at seed 0 (``jparams`` their numpy copy in JAX's tree, ``key``
+    None) and the port's batches of steps ``0..n_steps-1`` as numpy, which
+    ``jb`` / ``tb`` then hand to either package."""
+    from repro.configs import get_config
+
+    params = init_params(port_cfg(), seed=0, device="cpu")
+    t = SimpleNamespace(
+        cfg=dataclasses.replace(get_config("qwen3-4b"), **TINY),
+        tcfg=port_cfg(), key=None,
+        jparams=tree_map(np.copy, params_to_numpy(params)),
+        params=params, meta=init_params(port_cfg(), device="meta"),
+        batches={})
+    for i in range(n_steps):
+        t.batches[i] = {k: v.numpy() for k, v in
+                        t_make_batch(t.tcfg, 0, i, B, S, device="cpu").items()}
+    return t
 
 
 def jb(t, step):

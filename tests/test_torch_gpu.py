@@ -939,3 +939,58 @@ def test_serve_launches_the_scan_each_step():
     assert rglru_fwd_cuda.launches == n_rglru * 6
     assert out.tokens.shape == (3, 6) and out.tokens.is_cuda
     assert bool(torch.isfinite(out.logits).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["per_leaf", "tree"])
+def test_baseline_engines_on_the_card_match_their_cpu_runs(engine):
+    """Smoke qwen3-4b over two periods on the per-leaf steps and on the
+    tree-state engine, on the card and on the CPU from the same params and
+    batches: the losses within 1e-4 relative, every param within 1e-4 (the
+    card's flash is split-TF32, the CPU's plain); the card launching the
+    f32 flash twice an attention layer and step and the bucket update
+    never.  The CPU run syncs over a gloo group (NCCL takes card tensors
+    only)."""
+    from repro_torch.train.steps import init_train_state, make_deft_step_fns
+
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    groups = {"cpu": torch.distributed.new_group(backend="gloo"),
+              "cuda": None}
+    cfg = reduce_for_smoke(get_config("qwen3-4b"))
+    meta = init_params(cfg, device="meta")
+    bucket_of, nb, _, plan = build_schedule(
+        meta, cfg, dp=1, seq_len=32, per_device_batch=2,
+        partition_elems=250_000, coverage_rate=1.8)
+    sched = plan.schedule
+    layout = build_bucket_layout(meta, bucket_of, nb)
+    params = init_params(cfg, seed=0, device="cpu")
+    n = 2 * sched.period
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        if engine == "per_leaf":
+            fns = make_deft_step_fns(cfg, adamw(1e-3), sched, bucket_of,
+                                     group=groups[dev])
+            state = init_train_state(cfg, adamw(1e-3), deft=True,
+                                     params=params, device=dev)
+        else:
+            rt = DeftRuntime(cfg, adamw(1e-3), sched, layout, device=dev,
+                             group=groups[dev], flat_state=False)
+            state = rt.state_from_params(params)
+        flash_fwd_cuda.launches = bucket_update_cuda.launches = 0
+        losses = []
+        for i in range(n):
+            batch = make_batch(cfg, 0, i, 2, 32, device=dev)
+            if engine == "per_leaf":
+                state, m = fns[i % sched.period](state, batch)
+            else:
+                state, m = rt.step(i, state, batch)
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, [p.cpu() for p in tree_leaves(state["params"])],
+                     flash_fwd_cuda.launches, bucket_update_cuda.launches)
+    n_attn = sum(s.kind in ("attn", "local_attn") for s in cfg.layer_specs())
+    assert runs["cuda"][2:] == (2 * n_attn * n, 0)
+    assert runs["cpu"][2:] == (0, 0)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=TOL)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=0)
