@@ -281,6 +281,19 @@
    holds serve_path's own scans bitwise: the prefill's [4, 1024, 4096]
    and a decode step's [4, 1, 4096], each from h0.  The cached attention's
    price for a later decode kernel is ``scripts/serve_attention_price.py``.
+11a. Drives the main path's configuration at data 1 x model 2
+   (``tp_path``): this process becomes rank 0 of a gloo group (its NCCL
+   group destroyed) and spawns rank 1, both on the one card; each holds
+   its shards of the leaves the port's ``spec_tree`` splits over 'model'
+   and trains one period of the main path's schedule through
+   ``train(data=1, model=2)``, tensor-parallel: the f32 flash on its
+   heads 16 times a step and the bucket update on buckets of its shards
+   as often as the main path, every launch counter zeroed just before.
+   The params gathered over 'model' after the period are held to the main
+   path's stored run within the limits of 3 and each loss within 1e-4
+   relative (another order of the row-parallel sums); each rank's peak,
+   the median step and the share of the steps in the 'model' all-reduces
+   are printed.
 12. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
@@ -315,6 +328,8 @@ BF16_GRAD_RTOL = 1.6e-2       # bf16 grads, with atol max|g| / 128
 PARAM_TOL = 1e-5              # per-element agreement after an update
 PARAM_MAX_DIFF = 1e-4         # no param may differ more than this ...
 PARAM_MAX_OVER = 1000         # ... and at most this many beyond PARAM_TOL
+TP_MODEL = 2                  # tp_path: the 'model' axis, two ranks on the card
+TP_TIMEOUT_S = 180            # its gloo collectives' and its rank 1's limit
 ARCH, N_LAYERS, SEQ, BATCH = "gemma2-2b", 8, 8192, 1
 COVERAGE_RATE, PARTITION_ELEMS, LOSS_CHUNK, LR = 1.8, 200_000, 1024, 1e-3
 # the precision path: int8 wires, bf16sr master, its steps and the window
@@ -3881,6 +3896,183 @@ def serve_smoke_path(torch, report):
     return total
 
 
+def tp_train(rank: int, port: int, steps: int, ref_layout=None) -> dict:
+    """One model rank of ``tp_path``: the main path's configuration through
+    ``train(data=1, model=TP_MODEL)`` over a gloo process group of the two
+    ranks (NCCL refuses two ranks on one device; gloo all-reduces the card's
+    tensors itself), ``steps`` steps with every launch counter set to 0 just
+    before.  The steps after the first time the 'model' collectives (the
+    device synchronised around each).  Returns the rank's losses, step
+    times, peak over the steps (and with the params' gather after them),
+    launches and collectives; on rank 0 also each bucket of
+    ``ref_layout`` (the main path's) made from the params gathered after
+    the last step, a generator over the card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=TP_MODEL,
+        rank=rank, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
+    got = {}
+
+    def on_step(step, runtime, state, metrics):
+        if step == 0:                      # the first step warms up
+            runtime.tp.reset()
+            runtime.tp.timed = True
+        if step != steps - 1:
+            return
+        got.update(model_calls=dict(runtime.tp.calls),
+                   model_s=runtime.tp.seconds,
+                   local_elems=sum(b.numel() for b in state["pbuf"]),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        runtime.tp.timed = False
+        params = runtime.params_tree(state)      # a collective
+        if rank == 0:
+            got["pbuf"] = list(tree_buckets(ref_layout, params))
+        del params
+
+    say = (lambda s: print(f"  rank 0: {s}")) if rank == 0 else \
+        (lambda s: None)
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    res = train(cfg, scheduler="deft", steps=steps, batch=BATCH, seq=SEQ,
+                coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
+                seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK, data=1,
+                model=TP_MODEL, on_step=on_step, log=say)
+    launches = kernel_launches(counters)
+    got.update(
+        rank=rank, losses=res["losses"], step_s=res["step_s"],
+        collectives=res["collectives"], launches=launches,
+        want_launches=expected_launches(cfg, res["schedule"], res["layout"],
+                                        steps),
+        peak_with_gather=torch.cuda.max_memory_allocated(),
+        n_buckets=res["layout"].n_buckets,
+        stats={k: v for k, v in res["runtime"].stats().items()
+               if k in ("dp", "model")})
+    del res
+    return got
+
+
+def tp_child(port: int, steps: int, queue) -> None:
+    """``tp_path``'s rank 1, in a spawned process: its report on ``queue``."""
+    import torch.distributed as dist
+
+    out = tp_train(1, port, steps)
+    queue.put(out)
+    dist.destroy_process_group()
+
+
+def tp_path(torch, cfg, schedule, layout, report, against):
+    """The main path's configuration at data 1, model 2: two processes on
+    the one card, this one rank 0 and a spawned one rank 1, each holding
+    its shards of every leaf the port's ``spec_tree`` splits over 'model'
+    (gemma2's 8 heads over 4 kv heads: 4 over 2 a rank; d_ff 9216: 4608;
+    the 256000-row tied table: 128000), one period of the main path's
+    schedule through ``train(model=2)``.  Each rank launches the f32 flash
+    on its heads 16 times a step and the bucket update on buckets of its
+    shards as often as the main path does; the params gathered over
+    'model' after the period are held to ``against`` (the main path's
+    stored run) within PARAM_MAX_DIFF / PARAM_MAX_OVER and each step's
+    loss within 1e-4 relative (the row-parallel sums run in another order,
+    so not bitwise).  The main path's NCCL group is replaced by the gloo
+    group of the two ranks; prints each rank's peak, the median step, the
+    launches and the share of the steps spent in the 'model'
+    collectives."""
+    import multiprocessing
+    import socket
+
+    import torch.distributed as dist
+
+    name, want, _ = against
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    steps = schedule.period
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    child = ctx.Process(target=tp_child, args=(port, steps, queue))
+    t0 = time.perf_counter()
+    child.start()
+    try:
+        ranks = [tp_train(0, port, steps, layout)]
+        ranks.append(queue.get(timeout=TP_TIMEOUT_S))
+    finally:
+        child.join(timeout=TP_TIMEOUT_S)
+        if child.is_alive():
+            child.kill()
+            child.join()
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    check(child.exitcode == 0, f"tp_path rank 1 exited {child.exitcode}")
+    pbuf = ranks[0].pop("pbuf")
+    losses = ranks[0]["losses"]
+    check(all(r["losses"] == losses for r in ranks),
+          f"tp_path: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+    check(len(losses) == len(want["losses"]) and rel <= 1e-4,
+          f"tp_path losses {losses} vs {name}'s {want['losses']}: rel "
+          f"{rel:.3g}")
+    diff, over = 0.0, 0
+    for buf, w in zip(pbuf, want["params"]):
+        d = (buf - w.cuda()).abs()
+        diff = max(diff, d.max().item())
+        over += int((d > PARAM_TOL).sum().item())
+        del d
+    del pbuf
+    check(diff <= PARAM_MAX_DIFF and over <= PARAM_MAX_OVER,
+          f"tp_path params after the period vs {name}: max |diff| "
+          f"{diff:.3g}, {over} elements beyond {PARAM_TOL}")
+    from repro_torch.train.runtime import phase_collectives
+
+    wants = [phase_collectives(schedule.phases[i % schedule.period])
+             for i in range(steps)]
+    for r in ranks:
+        check(r["launches"] == r["want_launches"],
+              f"tp_path rank {r['rank']} launches {r['launches']}, "
+              f"expected {r['want_launches']}")
+        check(r["launches"]["flash_fwd"] > 0
+              and r["launches"]["bucket_update"] > 0,
+              f"tp_path rank {r['rank']} ran no flash or bucket update")
+        check(r["collectives"] == wants,
+              f"tp_path rank {r['rank']}: issued {r['collectives']}, the "
+              f"schedule says {wants}")
+        check(r["stats"] == {"dp": 1, "model": TP_MODEL},
+              f"tp_path rank {r['rank']} ran {r['stats']}")
+        timed = sum(r["step_s"][1:])
+        r["median_step_s"] = statistics.median(r["step_s"][1:])
+        r["model_share"] = r["model_s"] / timed
+    med = max(r["median_step_s"] for r in ranks)
+    report["tp_path"] = dict(
+        ranks=ranks, wall_s=wall, loss_rel_diff=rel, max_param_diff=diff,
+        n_params_over_tol=over, median_step_s=med,
+        tokens_per_s=BATCH * SEQ / med, against=name)
+    print(f"tp_path ({ARCH}, {cfg.n_layers} of 26 layers, data 1 x model "
+          f"{TP_MODEL}, gloo, two processes on one card): {steps} steps, "
+          f"median step {med:.3f} s, {BATCH * SEQ / med:.0f} tok/s "
+          f"[{report['card']}]; vs {name}: loss rel {rel:.3g}, params max "
+          f"diff {diff:.3g} ({over} over {PARAM_TOL}); {wall:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']}: peak {r['peak_bytes'] / 2**30:.2f} GiB, "
+              f"{r['local_elems']:,} params, median step "
+              f"{r['median_step_s']:.3f} s, flash {r['launches']['flash_fwd']}"
+              f" / bucket update {r['launches']['bucket_update']} launches, "
+              f"'model' collectives {r['model_calls']} "
+              f"{r['model_s']:.3f} s = {100 * r['model_share']:.1f}% of "
+              f"steps 1-{steps - 1}")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
 
 def run() -> int:
     # torch.compile (the flex_attention yardstick) caches inside the
@@ -4138,6 +4330,8 @@ def run() -> int:
     launches["smoke elastic halt"] = elastic_halt_phase(torch, report)
     launches["serve"] = serve_path(torch, report)
     launches["serve smoke"] = serve_smoke_path(torch, report)
+    launches[f"f32 model {TP_MODEL}"] = tp_path(
+        torch, cfg, schedule, layout, report, ("main_path", replicated, False))
     del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

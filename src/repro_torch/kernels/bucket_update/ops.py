@@ -31,6 +31,7 @@ syncs to the host.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -209,7 +210,8 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
                          shard_id: Optional[int] = None,
                          norm_psum: Optional[Callable] = None,
                          master_dtype: Optional[str] = None,
-                         quantize_impl: Optional[str] = None
+                         quantize_impl: Optional[str] = None,
+                         model_norm: Optional[Callable] = None
                          ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Any],
                                     Optional[Tuple[torch.Tensor, ...]]]:
     """One (delayed) optimizer update across all bucket buffers, in place.
@@ -232,6 +234,12 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
     norm of the spans is summed across ranks by ``norm_psum``, which grad
     clipping therefore requires.
 
+    **Over a 'model' axis** (``model_norm`` given): the buffers hold this
+    rank's shards of the leaves split over 'model' beside whole replicated
+    leaves, and the clip norm is ``model_norm`` of the scaled gradient
+    leaves in tree_flatten order (``sharding.tp.global_norm``: the split
+    leaves' squares summed across the model ranks).
+
     Returns (pbuf, opt, zeroed gbuf | None) — the same tensors, updated."""
     layout = segments.layout
     adam = spec.name == "adamw"
@@ -251,7 +259,15 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
             valid = min(max(layout.sizes[b] - shard_id * spans[b], 0), spans[b])
             if valid < spans[b]:
                 g[valid:].zero_()
-    if spec.grad_clip:
+    if spec.grad_clip and model_norm is not None:
+        leaves = [None] * layout.n_leaves
+        for b, g in enumerate(gbuf):
+            for i, off in zip(layout.leaves[b], layout.offsets[b]):
+                n = math.prod(layout.shapes[i])
+                leaves[i] = g[off:off + n] * grad_scale
+        clip = clip_factor(spec, model_norm(leaves))
+        del leaves
+    elif spec.grad_clip:
         if sharded:
             sq = [torch.sum(torch.square(g * grad_scale)) for g in gbuf]
             gn = torch.sqrt(norm_psum(torch.sum(torch.stack(sq))))

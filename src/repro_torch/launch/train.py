@@ -8,7 +8,10 @@ engine (params and moments 1/N per rank, DESIGN.md §8; by default the
 archs ``repro_torch.sharding.needs_fsdp`` names), ``--decoupled``, its
 param all-gathers streamed into the forward (DESIGN.md §12), and
 ``--pod``, a ``pod x data`` layout of the ranks whose syncs are
-hierarchical, and checkpoints in the JAX package's format (``--ckpt``,
+hierarchical, ``--data --model`` (or ``--production-mesh``), a mesh with
+a 'model' axis over which the dense decoders run tensor-parallel
+(``sharding/tp.py``; the replicated flat engine in f32 and the DDP
+baseline), and checkpoints in the JAX package's format (``--ckpt``,
 ``--ckpt-every``, ``--resume``; a SIGTERM or SIGUSR1 checkpoints and
 exits cleanly, DESIGN.md §10), the online control plane (``--adapt``,
 ``--adapt-drop-step``, ``--adapt-drop-scale``, ``--adapt-repartition``:
@@ -51,6 +54,9 @@ with the tokens; a MoE config's log lines carry the aux loss.
         --arch qwen3-4b --smoke --steps 28 --batch 4 --seq 32 --device cpu \
         --fsdp --coverage-rate 3.5 --elastic --elastic-drop-step 4 \
         --elastic-drop-shards 2,3 --elastic-return-step 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gemma2-2b --smoke --steps 6 --batch 4 --seq 64 --device cpu \
+        --data 2 --model 2
 """
 from __future__ import annotations
 
@@ -100,10 +106,12 @@ from repro_torch.elastic import (
     HealthMonitor,
     StragglerSlowdown,
 )
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models.model import init_params
 from repro_torch.obs import Tracer, format_event
 from repro_torch.optim.optimizers import adamw
 from repro_torch.sharding import needs_fsdp
+from repro_torch.sharding.tp import PATHS_ITEM, model_specs, shard_params
 from repro_torch.train.bucketing import (
     assign_buckets,
     build_bucket_layout,
@@ -112,6 +120,7 @@ from repro_torch.train.bucketing import (
     leaf_bucket_times,
 )
 from repro_torch.train.runtime import DeftRuntime, init_ddp_state, make_ddp_step
+from repro_torch.tree import tree_map
 
 
 def init_distributed(device: torch.device) -> None:
@@ -135,25 +144,36 @@ def init_distributed(device: torch.device) -> None:
 def pod_groups(pod: int):
     """(data group, pod group) of this rank in a ``pod x data`` layout of
     the world, rank ``p * data + d`` at pod ``p``, data position ``d`` (the
-    JAX mesh's device order).  Every rank builds every group, in the same
-    order, as ``dist.new_group`` requires; ``pod == 1`` is (None, None):
-    one DP axis over the world."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+    JAX mesh's device order): the groups of ``make_debug_mesh(data, 1,
+    pod)``.  ``pod == 1`` is (None, None): one DP axis over the world."""
+    world = dist.get_world_size()
     if pod < 1 or world % pod:
         raise ValueError(f"--pod {pod} does not divide the {world} ranks")
     if pod == 1:
         return None, None
-    data = world // pod
-    data_group = pod_group = None
-    for p in range(pod):
-        g = dist.new_group([p * data + d for d in range(data)])
-        if rank // data == p:
-            data_group = g
-    for d in range(data):
-        g = dist.new_group([p * data + d for p in range(pod)])
-        if rank % data == d:
-            pod_group = g
-    return data_group, pod_group
+    mesh = make_debug_mesh(data=world // pod, model=1, pod=pod)
+    return mesh.group("data"), mesh.group("pod")
+
+
+def train_mesh(*, pod: int = 1, data: Optional[int] = None, model: int = 1,
+               production_mesh: bool = False):
+    """The launcher's mesh over the world: ``make_production_mesh()``, or
+    ``(pod, data, model)`` with 'data' taking the ranks the other two
+    leave (``data`` None).  The default puts every rank on the data axes
+    at model 1; JAX's launcher defaults to ``data = n_dev // 2`` and a
+    model axis of the rest (ROADMAP §3)."""
+    world = dist.get_world_size()
+    if production_mesh:
+        if pod > 1 or data is not None or model != 1:
+            raise ValueError("--production-mesh sets the mesh: drop --pod, "
+                             "--data and --model")
+        return make_production_mesh()
+    if pod < 1 or model < 1 or world % (pod * model):
+        raise ValueError(f"--pod {pod} x --model {model} does not divide the "
+                         f"{world} ranks")
+    if data is None:
+        data = world // (pod * model)
+    return make_debug_mesh(data=data, model=model, pod=pod if pod > 1 else 0)
 
 
 def build_schedule(params, cfg, *, dp: int, seq_len: int,
@@ -320,7 +340,9 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
           quantize_impl: Optional[str] = None, wire_precision: str = "f32",
           master_dtype: str = "f32", compute_dtype: str = "f32",
           fsdp: Optional[bool] = None, decoupled: bool = False,
-          pod: int = 1, secondary_chain: Optional[Sequence[int]] = None,
+          pod: int = 1, data: Optional[int] = None, model: int = 1,
+          production_mesh: bool = False,
+          secondary_chain: Optional[Sequence[int]] = None,
           reroute: Optional[Callable] = None,
           ckpt: str = "", ckpt_every: int = 0, resume: bool = False,
           adapt: bool = False, adapt_config: Optional[AdaptConfig] = None,
@@ -351,7 +373,13 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     schedule can reuse a gather, and ``decoupled`` streams its param
     gathers into the forward.  ``pod`` lays the ranks out as ``pod x
     data`` (``pod_groups``): the sharded layout splits over 'data' and the
-    syncs are hierarchical.  ``secondary_chain`` routes the secondary
+    syncs are hierarchical.  ``model`` adds a 'model' axis (``data`` None:
+    the ranks the other axes leave; ``production_mesh``: JAX's production
+    mesh mapped onto the nodes, ``train_mesh``): the global batch splits
+    over pod x data, each model rank runs the dense decoder
+    tensor-parallel on its shards of the params, on the replicated flat
+    engine in f32 or the DDP baseline (the other engines, the precision
+    path, checkpoints, adapt and elastic refuse it, ROADMAP item 8.2).  ``secondary_chain`` routes the secondary
     link's collectives along that ring chain of the 'data' ranks;
     ``reroute(schedule, times)`` returns the (schedule, AG plan) the
     runtime runs instead of the planner's schedule and no AG plan.
@@ -404,10 +432,17 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     device = torch.device(device)
     init_distributed(device)
     rank, world = dist.get_rank(), dist.get_world_size()
-    data_group, pod_group = pod_groups(pod)
-    if batch % world:
-        raise ValueError(f"global batch {batch} does not split over {world} ranks")
-    per = batch // world
+    mesh = train_mesh(pod=pod, data=data, model=model,
+                      production_mesh=production_mesh)
+    n_dp = mesh.dp_size
+    if batch % n_dp:
+        raise ValueError(f"global batch {batch} does not split over {n_dp} "
+                         f"data-parallel ranks")
+    per = batch // n_dp
+    if mesh.size("model") > 1 and (ckpt or adapt or elastic):
+        raise NotImplementedError(
+            f"checkpoints, adapt and elastic at model {mesh.size('model')} "
+            f"are not ported ({PATHS_ITEM})")
     opt = adamw(lr)
     out: Dict[str, Any] = {"losses": [], "step_s": [], "collectives": []}
     tracer = Tracer() if trace else None
@@ -436,9 +471,15 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         if adapt:
             raise ValueError("the adaptive control plane replans DeFT "
                              "schedules: adapt needs --scheduler deft")
-        state = init_ddp_state(cfg, opt, seed=seed, device=device)
+        params = init_params(cfg, seed=seed, device=device)
+        if mesh.size("model") > 1:
+            params = tree_map(torch.clone, shard_params(
+                params, model_specs(params, mesh), mesh))
+        state = init_ddp_state(cfg, opt, params=params)
+        del params
         step_fn = make_ddp_step(cfg, opt, loss_chunk=loss_chunk,
-                                attn_impl=attn_impl, scan_impl=scan_impl)
+                                attn_impl=attn_impl, scan_impl=scan_impl,
+                                mesh=mesh)
         if resume and ckpt:
             last = latest_step(ckpt)
             if last is not None:
@@ -448,7 +489,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     elif scheduler == "deft":
         params_abs = init_params(cfg, device="meta")
         bucket_of, nb, times, plan = build_schedule(
-            params_abs, cfg, dp=world, seq_len=seq, per_device_batch=per,
+            params_abs, cfg, dp=n_dp, seq_len=seq, per_device_batch=per,
             partition_elems=partition_elems, coverage_rate=coverage_rate,
             wire_precision=wire_precision, master_dtype=master_dtype)
         schedule, ag_plan = plan.schedule, None
@@ -462,8 +503,13 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         if plan.precision is not None:
             log(f"precision: wire={plan.precision.describe()} "
                 f"master={plan.precision.master}")
-        layout = build_bucket_layout(params_abs, bucket_of, nb,
-                                     shard_count=world // pod if fsdp else 1)
+        # the planner's buckets over the global tree, laid out over this
+        # rank's shards of it (the same schedule on every model rank)
+        local_abs = params_abs if mesh.size("model") == 1 else shard_params(
+            params_abs, model_specs(params_abs, mesh), mesh)
+        layout = build_bucket_layout(
+            local_abs, bucket_of, nb,
+            shard_count=mesh.size("data") if fsdp else 1)
         if plan.precision is not None:
             layout = layout.with_precision(plan.precision)
         cdt = COMPUTE_DTYPES[compute_dtype]
@@ -472,7 +518,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             attn_impl=attn_impl, scan_impl=scan_impl, update_impl=update_impl,
             quantize_impl=quantize_impl, compute_dtype=cdt,
             master_dtype=master_dtype, fsdp=fsdp, decoupled=decoupled,
-            group=data_group, outer_group=pod_group,
+            mesh=mesh,
             secondary_chain=secondary_chain, ag_plan=ag_plan, tracer=tracer)
         state = None
         if resume and ckpt:
@@ -491,7 +537,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
         repartitioner = None
         if adapt_repartition:
             model = build_leaf_time_model(params_abs, cfg,
-                                          HardwareModel(dp_degree=world),
+                                          HardwareModel(dp_degree=n_dp),
                                           seq, per)
             if coverage_rate > 0:
                 model = model.with_coverage_rate(bucket_of, nb, coverage_rate)
@@ -549,7 +595,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
             # schedule solved for partition B never runs under layout A
             new_layout = build_bucket_layout(
                 params_abs, controller.bucket_of, controller.times.n,
-                shard_count=world // pod if fsdp else 1,
+                shard_count=mesh.size("data") if fsdp else 1,
             ).with_precision(policy)
         elif event.precision_changed:
             new_layout = runtime.layout.with_precision(policy)
@@ -650,7 +696,7 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
                 halted = True
                 last_step = step - 1
                 break
-            pos, n_pos = rank, world
+            pos, n_pos = mesh.dp_index, n_dp
             if coord is not None:
                 try:
                     state = coord.maybe_migrate(step, state)
@@ -779,6 +825,16 @@ def main() -> None:
                     help="outer 'pod' axis of a pod x data layout of the "
                          "ranks: syncs reduce-scatter over 'data', "
                          "all-reduce over 'pod', all-gather over 'data'")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="JAX's production mesh mapped onto the nodes: "
+                         "(ranks / g, g), g the GPUs of a node")
+    ap.add_argument("--data", type=int, default=0,
+                    help="mesh 'data' axis (0: the ranks --pod and --model "
+                         "leave)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="mesh 'model' axis: the dense decoders run "
+                         "tensor-parallel over it (replicated flat engine "
+                         "in f32, or --scheduler ddp)")
     ap.add_argument("--ckpt", default="", help="checkpoint dir (optional)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="auto-checkpoint cadence in steps (0 = only at "
@@ -848,7 +904,9 @@ def main() -> None:
                 wire_precision=args.wire_precision,
                 master_dtype=args.master_dtype,
                 compute_dtype=args.compute_dtype, fsdp=args.fsdp,
-                decoupled=args.decoupled, pod=args.pod, ckpt=args.ckpt,
+                decoupled=args.decoupled, pod=args.pod,
+                data=args.data or None, model=args.model,
+                production_mesh=args.production_mesh, ckpt=args.ckpt,
                 ckpt_every=args.ckpt_every, resume=args.resume,
                 adapt=args.adapt, adapt_drop_step=args.adapt_drop_step,
                 adapt_drop_scale=args.adapt_drop_scale,

@@ -28,6 +28,10 @@ decode: ``ckv`` and the rotated ``k_rope`` written at ``pos``, ``W_uk``
 absorbed into q, the scores from the cached latent and rope key at scale
 1/sqrt(qk_nope + qk_rope), and ``W_uv`` applied after the softmax, never
 expanding K or V; one ``kv_length`` for the batch, as JAX's takes.  Layout [B, S, H, D] throughout.
+With a ``ModelParallel`` (``sharding/tp.py``) the train path of the
+self-attention runs tensor-parallel over the 'model' axis
+(``_tp_self_attention``), as JAX's constraints over 'heads' / 'kv' have
+XLA run it.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.models.common import (
     matmul,
     rms_norm_per_head,
 )
+from repro_torch.sharding.tp import copy_in, gather, reduce_out
 
 
 def init_attention(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
@@ -74,6 +79,65 @@ def _project_qkv(p, x, cfg):
         q = rms_norm_per_head(q, p["q_norm"])
         k = rms_norm_per_head(k, p["k_norm"])
     return q, k, v
+
+
+def _tp_columns(xc, w, name: str, total: int, c0: int, c1: int, tp):
+    """Columns ``[c0, c1)`` of ``xc @ W`` for a projection W of ``total``
+    columns whose logical dim is ``name``: this rank's shard of W when it
+    splits over 'model' (all-gathered first where ``[c0, c1)`` is not
+    exactly that shard, as a split inside a head needs), else the
+    replicated W's columns, entered through ``copy_in`` so that its
+    gradient sums over 'model'."""
+    if not tp.split(name, total):
+        return matmul(xc, copy_in(w, tp)[..., c0:c1])
+    y = matmul(xc, w)
+    if (c0, c1) == tp.owned(name, total):
+        return y
+    return gather(y, tp, dim=-1)[..., c0:c1]
+
+
+def _tp_self_attention(p, x, *, cfg, window: int, causal: bool, pos: int,
+                       attn_impl: Optional[str], tp) -> torch.Tensor:
+    """Self-attention over the heads this rank owns, row-parallel out.
+
+    The rank owns the attention output columns of its rows of ``wo`` (its
+    shard where 'heads' splits, else its share of whole heads), so it
+    computes the q heads that cover them and the kv heads those read, a
+    local q head ``h`` reading local kv head ``h // (H / KV)`` where the
+    slices line up (each kv head's whole group on one rank) and an
+    explicit map otherwise.  Projections split inside a head are gathered
+    (``_tp_columns``); ``q_norm`` / ``k_norm`` meet this rank's heads only,
+    so they go in through ``copy_in``.  The product with ``wo`` is this
+    rank's partial sum, all-reduced over 'model'."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    group = h // kv
+    o0, o1 = tp.owned("heads", h * hd, hd)
+    h0, h1 = o0 // hd, -(-o1 // hd)
+    k0, k1 = h0 // group, (h1 - 1) // group + 1
+    xc = copy_in(x, tp)
+    q = _tp_columns(xc, p["wq"], "heads", h * hd, h0 * hd, h1 * hd, tp)
+    k = _tp_columns(xc, p["wk"], "kv", kv * hd, k0 * hd, k1 * hd, tp)
+    v = _tp_columns(xc, p["wv"], "kv", kv * hd, k0 * hd, k1 * hd, tp)
+    q = q.reshape(b, s, h1 - h0, hd)
+    k = k.reshape(b, s, k1 - k0, hd)
+    v = v.reshape(b, s, k1 - k0, hd)
+    if cfg.use_qk_norm:
+        q = rms_norm_per_head(q, copy_in(p["q_norm"], tp))
+        k = rms_norm_per_head(k, copy_in(p["k_norm"], tp))
+    qpos = pos + torch.arange(s, device=x.device)
+    q = apply_rope(q, qpos, cfg.rope_theta)
+    k = apply_rope(k, qpos, cfg.rope_theta)
+    reads = [(h0 + i) // group - k0 for i in range(h1 - h0)]
+    if (h1 - h0) % (k1 - k0) or reads != [
+            i // ((h1 - h0) // (k1 - k0)) for i in range(h1 - h0)]:
+        idx = torch.tensor(reads, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    att = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=cfg.attn_logit_softcap, impl=attn_impl)
+    att = att.reshape(b, s, -1)[..., o0 - h0 * hd:o1 - h0 * hd]
+    wo = p["wo"] if tp.split("heads", h * hd) else copy_in(p["wo"], tp)[o0:o1]
+    return reduce_out(matmul(att, wo), tp)
 
 
 def make_kv_cache(cfg, batch: int, max_len: int, window: int = 0, *,
@@ -121,9 +185,20 @@ def apply_self_attention(p: Dict, x: torch.Tensor, *, cfg, window: int = 0,
                          causal: bool = True, pos: int = 0,
                          cache: Optional[Dict] = None,
                          kv_length: Optional[torch.Tensor] = None,
-                         attn_impl: Optional[str] = None) -> torch.Tensor:
+                         attn_impl: Optional[str] = None,
+                         tp=None) -> torch.Tensor:
     """x [B, S, d] at absolute positions ``pos``.. -> [B, S, d]; ``cache``
-    (``make_kv_cache``) is written in place."""
+    (``make_kv_cache``) is written in place.  ``tp`` (a
+    ``ModelParallel``) runs it over this rank's heads
+    (``_tp_self_attention``), without a cache."""
+    if tp is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "a KV cache sharded over the 'model' axis (JAX's "
+                "cache_specs) is not ported: ROADMAP item 8.4")
+        return _tp_self_attention(p, x, cfg=cfg, window=window,
+                                  causal=causal, pos=pos,
+                                  attn_impl=attn_impl, tp=tp)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     qpos = pos + torch.arange(s, device=x.device)

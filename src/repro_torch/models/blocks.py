@@ -25,6 +25,11 @@ optional ``kv_length`` threads it into the mixers, which write it in
 place.  A cross-attention's K/V come from the memory when one is given
 (stored into the cache with ``fill_cross_cache``, at prefill) and from
 the cache otherwise (decode).
+
+Over the 'model' mesh axis (a ``ModelParallel``, ``sharding/tp.py``) the
+dense decoder blocks run tensor-parallel: attention over this rank's
+heads, the FFN over its ff columns, norms replicated.
+``check_model_parallel`` refuses the other kinds.
 """
 from __future__ import annotations
 
@@ -56,8 +61,34 @@ from repro_torch.models.recurrent import (
     make_rglru_state,
     make_rwkv_state,
 )
+from repro_torch.sharding.tp import FAMILIES_ITEM
+
 
 _KINDS = ("attn", "local_attn", "mla", "rglru", "rwkv", "cross_attn")
+# what runs tensor-parallel over the 'model' axis: the dense decoders
+_TP_KINDS = ("attn", "local_attn")
+_TP_REFUSED = {"mla": "MLA's heads", "rglru": "the RG-LRU's 'lru' width",
+               "rwkv": "RWKV-6's heads and ff",
+               "cross_attn": "cross-attention"}
+
+
+def check_model_parallel(cfg) -> None:
+    """Refuse a config with a block the 'model' axis does not split yet:
+    MoE, MLA, RG-LRU, RWKV-6, cross-attention and the encoder (each named
+    in ROADMAP item 8.1)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder and its cross-attention over the "
+            f"'model' axis are not ported ({FAMILIES_ITEM})")
+    for spec in cfg.layer_specs():
+        if spec.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE's experts over the 'model' axis (expert "
+                f"parallelism) are not ported ({FAMILIES_ITEM})")
+        if spec.kind not in _TP_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: {_TP_REFUSED.get(spec.kind, spec.kind)} over "
+                f"the 'model' axis is not ported ({FAMILIES_ITEM})")
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -132,12 +163,14 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
                 fill_cross_cache: bool = False,
                 capacity_factor: float = 1.25,
                 attn_impl: Optional[str] = None,
-                scan_impl: Optional[str] = None
+                scan_impl: Optional[str] = None, tp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (x [B, S, d], the MoE aux loss, an f32 0-d tensor);
     a ``cross_attn`` block attends to ``memory`` [B, M, d] or, without
     it, to the K/V its ``cache`` holds.  ``cache`` (``init_block_cache``)
-    is written in place."""
+    is written in place.  ``tp`` (a ``ModelParallel``) runs a dense
+    decoder block tensor-parallel over the 'model' axis
+    (``check_model_parallel`` says which configs have only those)."""
     _check_spec(spec)
     if spec.kind == "cross_attn" and memory is None and cache is None:
         raise ValueError("a cross_attn block needs the memory or a filled "
@@ -175,7 +208,8 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     else:
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                                   window=window, causal=causal, **attn_kw)
+                                   window=window, causal=causal, tp=tp,
+                                   **attn_kw)
     if cfg.post_block_norm:
         out = norm("post_mixer_norm", out)
     x = x + out
@@ -191,7 +225,7 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
         out, aux = apply_moe(p["ffn"], norm("ffn_norm", x), cfg=cfg,
                              capacity_factor=capacity_factor)
     else:
-        out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg)
+        out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg, tp=tp)
     if cfg.post_block_norm:
         out = norm("post_ffn_norm", out)
     return x + out, aux

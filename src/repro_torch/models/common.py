@@ -5,7 +5,9 @@ parameter dicts of torch tensors, computing in f32 in the same order as
 the JAX package.  Initializers draw from a ``torch.Generator`` (the
 numbers differ from ``jax.random``; parity tests carry JAX params across
 with ``repro_torch.convert``).  ``matmul`` is ``@`` with jnp's dtype
-promotion, which PyTorch's products lack.
+promotion, which PyTorch's products lack.  ``apply_ffn`` runs
+tensor-parallel over the 'model' axis when given a ``ModelParallel``
+(``sharding/tp.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.tp import copy_in, reduce_out, vocab_parallel_nll
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +149,13 @@ def init_ffn(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
     }
 
 
-def apply_ffn(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def apply_ffn(p, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """With ``tp`` (a ``ModelParallel``) and the ff dim split over 'model':
+    gate / up column-parallel on this rank's ff columns, down
+    row-parallel, its partial sums all-reduced."""
+    if tp is not None and tp.split("ff", cfg.d_ff):
+        x = copy_in(x, tp)
+        return reduce_out(apply_ffn(p, x, cfg), tp)
     if cfg.ffn_activation in ("silu", "gelu"):
         h = gated_act(cfg.ffn_activation, matmul(x, p["gate"]),
                       matmul(x, p["up"]))
@@ -154,13 +164,24 @@ def apply_ffn(p, x: torch.Tensor, cfg) -> torch.Tensor:
     return matmul(h, p["down"])
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy; logits [..., V], labels int [...]."""
-    logits = logits.float()
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """Per-token ``logsumexp - gold`` of f32 ``logits`` [..., V]; with
+    ``tp`` the logits are this rank's vocab slice (``vocab_parallel_nll``
+    over 'model')."""
+    if tp is not None:
+        return vocab_parallel_nll(logits, labels, tp)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       tp=None) -> torch.Tensor:
+    """Mean token cross-entropy; logits [..., V], labels int [...] (``tp``:
+    ``token_nll``'s)."""
+    nll = token_nll(logits.float(), labels, tp)
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)

@@ -23,6 +23,12 @@ the params'.  ``prefill`` (encoding an enc-dec's memory first, storing
 the cross-attention K/V) returns the last position's logits, the LM head
 applied to that position alone; ``decode_step`` feeds one token a row.
 Both run under ``torch.inference_mode()`` without remat.
+
+Over a 'model' mesh axis (``tp``, a ``sharding.tp.ModelParallel``) the
+dense decoders run tensor-parallel on this rank's shards of the params:
+the embedding over its vocab rows (``vocab_embed``), the blocks over its
+heads and ff columns, the LM head over its vocab slice and the cross
+entropy through ``vocab_parallel_nll``; every rank computes the same loss.
 """
 from __future__ import annotations
 
@@ -33,7 +39,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.models.blocks import apply_block, init_block, init_block_cache
+from repro_torch.models.blocks import (
+    apply_block,
+    check_model_parallel,
+    init_block,
+    init_block_cache,
+)
 from repro_torch.models.common import (
     apply_norm,
     cross_entropy_loss,
@@ -41,7 +52,9 @@ from repro_torch.models.common import (
     embed_init,
     init_norm,
     softcap,
+    token_nll,
 )
+from repro_torch.sharding.tp import copy_in, vocab_embed
 from repro_torch.tree import tree_dense, tree_leaves, tree_unflatten
 
 
@@ -166,7 +179,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             fill_cross_cache: bool = False, capacity_factor: float = 1.25,
             remat: bool = True, head: bool = True,
             attn_impl: Optional[str] = None,
-            scan_impl: Optional[str] = None
+            scan_impl: Optional[str] = None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux), aux the sum of the MoE blocks' load
     balance losses (0 without MoE); with ``head=False`` the final-norm
@@ -175,16 +188,24 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     the stub frontend's embeddings).  With a ``cache`` (``init_cache``)
     ``tokens`` sit at absolute positions ``pos``.. and every block writes
     its cache in place (``fill_cross_cache``: the cross-attention K/V of
-    ``memory`` too)."""
+    ``memory`` too).  ``tp`` (a ``ModelParallel``) runs the model
+    tensor-parallel over the 'model' axis on this rank's shards of the
+    params: the embedding over its vocab rows, the blocks over its heads
+    and ff columns, the logits of its vocab slice."""
     lay = stack_layout(cfg)
-    x = params["embed"]["table"][tokens]
+    if tp is not None:
+        check_model_parallel(cfg)
+    if _vocab_tp(cfg, tp) is not None:
+        x = vocab_embed(params["embed"]["table"], tokens, tp)
+    else:
+        x = params["embed"]["table"][tokens]
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block_kw = dict(cfg=cfg, pos=pos, kv_length=kv_length,
                     fill_cross_cache=fill_cross_cache,
                     capacity_factor=capacity_factor, attn_impl=attn_impl,
-                    scan_impl=scan_impl)
+                    scan_impl=scan_impl, tp=tp)
 
     def run(p, x, spec, c):
         fn = lambda p_, x_, m_: apply_block(p_, x_, spec=spec, memory=m_,
@@ -220,11 +241,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if not head:
         return x, aux
-    return head_logits(params, cfg, x), aux
+    return head_logits(params, cfg, x, tp=tp), aux
 
 
-def head_logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final-norm hidden states -> vocab logits (+ final softcap)."""
+def head_logits(params, cfg: ArchConfig, x: torch.Tensor, tp=None
+                ) -> torch.Tensor:
+    """Final-norm hidden states -> vocab logits (+ final softcap); with
+    ``tp`` and the vocab split over 'model', the logits of this rank's
+    vocab slice (the softcap is elementwise)."""
+    if _vocab_tp(cfg, tp) is not None:
+        x = copy_in(x, tp)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].T
     else:
@@ -234,21 +260,29 @@ def head_logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _vocab_tp(cfg: ArchConfig, tp):
+    """``tp`` where the vocab splits over 'model' (the embedding, the LM
+    head and the cross entropy run on this rank's vocab slice), else
+    None."""
+    if tp is not None and tp.split("vocab", cfg.vocab_size):
+        return tp
+    return None
+
+
 def chunked_ce(params, cfg: ArchConfig, x: torch.Tensor, targets: torch.Tensor,
-               mask: Optional[torch.Tensor], chunk: int) -> torch.Tensor:
+               mask: Optional[torch.Tensor], chunk: int, tp=None
+               ) -> torch.Tensor:
     """Sequence-chunked LM head + cross entropy: each chunk's logits are
     recomputed in the backward (checkpoint), so the live logits buffer is
-    [B, chunk, V] in both passes."""
+    [B, chunk, V] in both passes ([B, chunk, V / model] with ``tp``)."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
 
     def body(xc, yc, mc):
-        logits = head_logits(params, cfg, xc).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
-        return torch.sum((logz - gold) * mc)
+        logits = head_logits(params, cfg, xc, tp=tp).float()
+        return torch.sum(token_nll(logits, yc, _vocab_tp(cfg, tp)) * mc)
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
@@ -261,29 +295,32 @@ def chunked_ce(params, cfg: ArchConfig, x: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True, loss_chunk: int = 0,
-            attn_impl: Optional[str] = None, scan_impl: Optional[str] = None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            attn_impl: Optional[str] = None, scan_impl: Optional[str] = None,
+            tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy plus the MoE aux loss; ``loss_chunk > 0``
     takes the chunked LM-head path.  ``batch`` holds tokens, labels and,
     for a non-text modality, the stub frontend's ``memory`` (encoded first
-    in an encoder-decoder).  Returns (loss + aux, {"ce", "aux"})."""
+    in an encoder-decoder).  ``tp`` (a ``ModelParallel``) runs it
+    tensor-parallel over the 'model' axis on this rank's shards of the
+    params; the loss is the same on every model rank.  Returns (loss +
+    aux, {"ce", "aux"})."""
     memory = batch.get("memory")
     if cfg.is_encoder_decoder:
         memory = encode(params, cfg, memory, attn_impl=attn_impl)
     if loss_chunk:
         x, aux = forward(params, cfg, batch["tokens"], memory=memory,
                          remat=remat, head=False, attn_impl=attn_impl,
-                         scan_impl=scan_impl)
+                         scan_impl=scan_impl, tp=tp)
         mask = batch.get("mask")
         loss = chunked_ce(params, cfg, x[:, :-1], batch["labels"][:, 1:],
                           mask[:, 1:] if mask is not None else None,
-                          loss_chunk)
+                          loss_chunk, tp=tp)
     else:
         logits, aux = forward(params, cfg, batch["tokens"], memory=memory,
                               remat=remat, attn_impl=attn_impl,
-                              scan_impl=scan_impl)
+                              scan_impl=scan_impl, tp=tp)
         loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
-                                  batch.get("mask"))
+                                  batch.get("mask"), tp=_vocab_tp(cfg, tp))
     return loss + aux, {"ce": loss, "aux": aux}
 
 

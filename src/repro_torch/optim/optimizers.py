@@ -109,12 +109,15 @@ def apply_updates(
     *,
     grad_scale=1.0,
     lr_scale=1.0,
+    norm=global_norm,
 ) -> Tuple[Any, Dict[str, Any]]:
     """One optimizer step (pure: returns new params and state).
-    ``grad_scale`` multiplies the raw gradient first."""
+    ``grad_scale`` multiplies the raw gradient first; ``norm`` of the
+    scaled leaves is the clip's global norm (a model-parallel step's sums
+    its shards over 'model', ``sharding.tp.global_norm``)."""
     g = [x.float() * grad_scale for x in tree_leaves(grads)]
     if spec.grad_clip:
-        clip = clip_factor(spec, global_norm(g))
+        clip = clip_factor(spec, norm(g))
         g = [x * clip for x in g]
     step = state["step"] + 1
     lr = spec.lr * lr_scale

@@ -6,7 +6,7 @@ model's decode cache, bf16 by default as in JAX), ``prefill_serve_step``
 row against the cache).  The cache is written in place, the counterpart
 of JAX's donated cache, so each step returns only its logits.  JAX's
 ``cache_specs`` / ``cache_shardings`` shard the cache over the ``model``
-mesh axis, which the port does not have yet (ROADMAP item 8).
+mesh axis, which the port's serving does not take yet (ROADMAP item 8.4).
 """
 from __future__ import annotations
 

@@ -82,8 +82,17 @@ equal to it, as JAX's donated executable updates in place) instead of
 the bucket-update kernel.  It runs f32 wires at the params' own
 resident dtype (no ``compute_dtype``, no bf16sr master), as JAX's
 ``RuntimeConfig.validate`` requires; a tree state over sharded params
-(JAX's ``deft_rs_phase_step_fused``) waits for the port's sharding
-rules, ROADMAP item 8.
+(JAX's ``deft_rs_phase_step_fused``) is not ported, ROADMAP item 8.3.
+
+Over a mesh (``launch.mesh.Mesh``, ``mesh=``) the syncs run over its
+'data' and 'pod' groups and the joint sums over its ('pod', 'data')
+group; with a 'model' axis above 1 each rank holds its shards of the
+leaves ``sharding.tp.model_specs`` splits (JAX's ``spec_tree`` under
+``rules_deft_manual_dp``), its bucket layout is built over those shards
+with the planner's global bucket assignment, the forward runs
+tensor-parallel (``sharding/tp.py``), and the clip norm sums the split
+leaves over 'model'.  That runs the replicated flat engine in f32 only;
+every other engine and path refuses a model axis (ROADMAP item 8.2).
 
 A checkpoint holds JAX's tree form of the state (``state_to_tree``):
 layout-free param and moment trees, the ``cur``/``fut`` accumulators as
@@ -119,12 +128,23 @@ from repro_torch.kernels.quantize import (
     quantize_int8,
     stochastic_round_bf16,
 )
+from repro_torch.models.blocks import check_model_parallel
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.obs.trace import Tracer
 from repro_torch.optim.optimizers import (
     OptimizerSpec,
     apply_updates_,
     init_opt_state,
+)
+from repro_torch.sharding import needs_fsdp
+from repro_torch.sharding.tp import (
+    PATHS_ITEM,
+    ModelParallel,
+    gather_params,
+    global_norm,
+    model_specs,
+    shard_params,
+    split_leaves,
 )
 from repro_torch.train.bucketing import (
     BucketLayout,
@@ -163,14 +183,17 @@ class DataParallel:
     engine marks ``chained``, run along it (``train/chains.py``), each
     counted as ``chained`` besides its own count, each of its rounds as
     ``chain_rounds``, with the round's ``(source, destination)`` pairs
-    appended to ``p2p``."""
+    appended to ``p2p``.  ``joint`` is the group of the joint sums where
+    it is not the world (a mesh with a 'model' axis: the ('pod', 'data')
+    group of this rank's model position, ``Mesh.dp_group``)."""
 
     REPLICATED = ("primary", "secondary", "metrics")
     SHARDED = ("param_gather", "reduce_scatter", "all_gather", "norm",
                "metrics")
 
     def __init__(self, group=None, keys: Tuple[str, ...] = REPLICATED, *,
-                 outer=None, chain: Optional[Tuple[int, ...]] = None):
+                 outer=None, chain: Optional[Tuple[int, ...]] = None,
+                 joint: Any = _UNSET):
         if not dist.is_initialized():
             raise RuntimeError(
                 "the DeFT runtime syncs through torch.distributed: initialise "
@@ -182,12 +205,15 @@ class DataParallel:
         self.rank = dist.get_rank(group)
         self.n_outer = 1 if outer is None else dist.get_world_size(outer)
         self.n_dp = self.size * self.n_outer
-        if outer is not None and self.n_dp != dist.get_world_size():
+        # the group of a joint sum over every DP axis
+        if joint is _UNSET:
+            joint = group if outer is None else None
+        self.joint = joint
+        if outer is not None and self.n_dp != dist.get_world_size(joint):
             raise ValueError(
                 f"a {self.n_outer} x {self.size} pod x data layout does not "
-                f"cover the {dist.get_world_size()} ranks of the world")
-        # the group of a joint sum over every DP axis
-        self.joint = group if outer is None else None
+                f"cover the {dist.get_world_size(joint)} ranks of its joint "
+                f"group")
         self.chain = chain
         keys = tuple(keys) + (("outer",) if outer is not None else ()) \
             + (("chained", "chain_rounds") if chain is not None else ())
@@ -777,7 +803,11 @@ class DeftRuntime:
     None), as the JAX package's two engines do.
 
     ``group`` is the 'data' group (None: the world) and ``outer_group``
-    the 'pod' group of a ``pod x data`` layout (``launch.train.pod_groups``).
+    the 'pod' group of a ``pod x data`` layout (``launch.train.pod_groups``);
+    ``mesh`` (a ``launch.mesh.Mesh``) gives both, and with a 'model' axis
+    above 1 runs the model tensor-parallel on this rank's shards (the
+    layout built over them; ``state_from_params`` takes the global tree,
+    ``params_tree`` gathers it back).
     ``secondary_chain`` (a permutation of the 'data' ranks,
     ``launch.mesh.ring_chain``) routes the secondary link's collectives
     along that chain, and ``ag_plan`` (an ``AgStreamPlan``) the sharded
@@ -810,7 +840,23 @@ class DeftRuntime:
                  secondary_chain: Optional[Sequence[int]] = None,
                  ag_plan: Any = None,
                  tracer: Optional[Tracer] = None,
-                 flat_state: Optional[bool] = None):
+                 flat_state: Optional[bool] = None,
+                 mesh: Any = None):
+        joint = _UNSET
+        if mesh is not None:
+            if group is not None or outer_group is not None:
+                raise ValueError("DeftRuntime takes a mesh or its 'data' / "
+                                 "'pod' groups, not both")
+            group, outer_group = mesh.group("data"), mesh.group("pod")
+            joint = mesh.dp_group
+        self.mesh = mesh
+        self.tp = ModelParallel.of(mesh)
+        if self.tp is not None:
+            self._refuse_model_axis(
+                cfg, fsdp=fsdp, flat_state=flat_state,
+                compute_dtype=compute_dtype, master_dtype=master_dtype,
+                layout=layout, secondary_chain=secondary_chain,
+                decoupled=decoupled)
         self.flat_state = True if flat_state is None else bool(flat_state)
         sharded_flat = fsdp and self.flat_state
         if gather_skip and not sharded_flat:
@@ -851,7 +897,7 @@ class DeftRuntime:
         self.secondary_chain = chain
         self.dp = DataParallel(group, DataParallel.SHARDED if self.fsdp
                                else DataParallel.REPLICATED,
-                               outer=outer_group, chain=chain)
+                               outer=outer_group, chain=chain, joint=joint)
         if chain is not None and len(chain) != self.dp.size:
             raise ValueError(
                 f"secondary_chain covers {len(chain)} positions but the "
@@ -881,7 +927,14 @@ class DeftRuntime:
             self._leaf_dtype = compute_dtype or torch.float32
         else:
             self._leaf_dtype = compute_dtype or torch.bfloat16
+        # the param tree this rank holds: its shards at model > 1
         self._structure = init_params(cfg, device="meta")
+        self._specs = self._model_norm = None
+        if self.tp is not None:
+            self._specs = model_specs(self._structure, mesh)
+            self._structure = shard_params(self._structure, self._specs, mesh)
+            self._model_norm = functools.partial(
+                global_norm, split=split_leaves(self._specs), mp=self.tp)
         self._check_layout(layout)
         self.segments = (build_segments(layout, opt_spec) if self.flat_state
                          else None)
@@ -924,14 +977,14 @@ class DeftRuntime:
                            layout: BucketLayout) -> None:
         """What ``flat_state=False`` cannot run: JAX's
         ``RuntimeConfig.validate`` and precision checks, and sharded params
-        (JAX's tree-state RS engine, ROADMAP item 8)."""
+        (JAX's tree-state RS engine, ROADMAP item 8.3)."""
         if fsdp:
             raise ValueError(
                 "fsdp=True with flat_state=False is JAX's tree-state RS "
                 "engine (deft_rs_phase_step_fused: manual over 'pod', params "
                 "FSDP-sharded over 'data' by logical sharding rules), which "
-                "waits for the port's sharding rules, ROADMAP item 8: use the "
-                "sharded flat engine (flat_state=True)")
+                "is not ported, ROADMAP item 8.3: use the sharded flat engine "
+                "(flat_state=True)")
         if compute_dtype is not None:
             raise ValueError(
                 "compute_dtype (mixed precision) needs the flat engine: "
@@ -954,6 +1007,38 @@ class DeftRuntime:
                 "tree-state path has no per-bucket wire edges (DESIGN.md "
                 "§13) — drop flat_state=False")
 
+    @staticmethod
+    def _refuse_model_axis(cfg, *, fsdp, flat_state, compute_dtype,
+                           master_dtype, layout: BucketLayout,
+                           secondary_chain, decoupled) -> None:
+        """What a mesh with 'model' > 1 cannot run yet: the block kinds
+        ``check_model_parallel`` refuses (ROADMAP item 8.1), and every
+        engine and path but the replicated flat engine in f32 (item 8.2)."""
+        check_model_parallel(cfg)
+        lp = layout.precision
+        refused = [name for name, on in (
+            ("an FSDP arch's params split over 'data'", needs_fsdp(cfg.name)),
+            ("the sharded flat engine (fsdp)", fsdp),
+            ("the tree-state engine (flat_state=False)", flat_state is False),
+            ("a bf16 compute dtype",
+             compute_dtype not in (None, torch.float32)),
+            ("a bf16sr master", master_dtype == "bf16sr"
+             or layout.master_dtype == "bf16sr"),
+            ("non-f32 gradient wires", lp is not None and not lp.all_f32),
+            ("a secondary ring chain", secondary_chain is not None),
+            ("AG streaming (decoupled)", decoupled)) if on]
+        if refused:
+            raise NotImplementedError(
+                f"the 'model' axis runs the replicated flat engine in f32; "
+                f"{', '.join(refused)} over it is not ported ({PATHS_ITEM})")
+
+    def _single_model(self, what: str) -> None:
+        """Refuse ``what`` at model > 1 (ROADMAP item 8.2)."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{what} at model {self.tp.size} is not ported "
+                f"({PATHS_ITEM})")
+
     def _check_layout(self, layout: BucketLayout) -> None:
         """Refuse a layout this runtime cannot run: another parameter
         tree, a precision policy whose master is not the runtime's, or, on
@@ -961,8 +1046,11 @@ class DeftRuntime:
         size (a repack across shard counts changes the number of ranks)."""
         shapes = tuple(tuple(l.shape) for l in tree_leaves(self._structure))
         if shapes != layout.shapes:
-            raise ValueError("BucketLayout does not match this config's "
-                             "parameter tree")
+            raise ValueError(
+                "BucketLayout does not match this config's parameter tree"
+                + (" (at model > 1 it is built over this rank's shards, "
+                   "sharding.tp.shard_params)" if self.tp is not None
+                   else ""))
         if layout.master_dtype != self.master_dtype \
                 and layout.precision is not None:
             raise ValueError(
@@ -1092,6 +1180,7 @@ class DeftRuntime:
         """Where this runtime keeps its state: the global ranks of its
         'data' group (under a pod axis, this rank's pod's; each pod holds
         the whole state)."""
+        self._single_model("an elastic move (placement)")
         g = self.dp.group
         ranks = tuple(r if g is None else dist.get_global_rank(g, r)
                       for r in range(self.dp.size))
@@ -1134,10 +1223,13 @@ class DeftRuntime:
         allocates its moments at span length (1/N residency); ``cur``,
         ``fut`` and the gradient buffers are full length on every rank.
         The tree-state engine keeps a copy of ``params`` on the device, at
-        their own dtype, beside f32 moment trees."""
+        their own dtype, beside f32 moment trees.  At model > 1 ``params``
+        is the global tree, of which each rank keeps its shards."""
         if not self.flat_state:
             return self._tree_state(tree_map(
                 lambda p: p.detach().to(self.device, copy=True), params))
+        if self.tp is not None:
+            params = shard_params(params, self._specs, self.mesh)
         leaves = [p.to(self.device) for p in tree_leaves(params)]
         layout = self.layout
         pbuf = []
@@ -1208,15 +1300,20 @@ class DeftRuntime:
     def params_tree(self, state: TrainState):
         """Parameter tree of views into the param buffers.  On the sharded
         engine the spans are all-gathered into new full buffers first: a
-        collective, which every rank must call.  A tree state's params
-        are the tree itself."""
+        collective, which every rank must call.  At model > 1 the leaves
+        split over 'model' are all-gathered into the global tree (JAX's
+        arrays; a collective too).  A tree state's params are the tree
+        itself."""
         if not self.flat_state:
             return state["params"]
         pbuf = state["pbuf"]
         if self.fsdp:
             pbuf = [self.dp.all_gather(p) for p in pbuf]
-        return tree_unflatten(self._structure,
+        tree = tree_unflatten(self._structure,
                               unflatten_buckets(self.layout, pbuf))
+        if self.tp is not None:
+            tree = gather_params(tree, self._specs, self.tp)
+        return tree
 
     # ---- checkpoint form -----------------------------------------------
     @property
@@ -1256,7 +1353,8 @@ class DeftRuntime:
     def state_to_tree(self, state: TrainState) -> Optional[TrainState]:
         """The JAX package's checkpoint form of a train state, on the host
         of the :attr:`writer` (None on the other ranks): ``{params,
-        opt{step, m[, v]}, cur, fut[, pgather]}``.
+        opt{step, m[, v]}, cur, fut[, pgather]}``.  Refused at model > 1
+        (ROADMAP item 8.2).
         Params and moments are layout-free trees (at the master dtype and
         f32); ``cur``/``fut`` are ``(accum_devices, n)`` stacks of every DP
         rank's buffer, row ``r`` the joint ('pod', 'data') rank ``r``, and
@@ -1271,6 +1369,7 @@ class DeftRuntime:
         state, and only the writer's host holds the tree.  A tree state
         gives host copies of its own params and moments (JAX's tree form is
         the state itself)."""
+        self._single_model("a checkpoint save (state_to_tree)")
         layout, dp = self.layout, self.dp
         writer = dist.get_rank() == self.writer
         if not self.flat_state:
@@ -1333,6 +1432,7 @@ class DeftRuntime:
         cache cold.  ``gbuf`` is zero, as the engines leave the retired
         generation between steps.  A tree state takes the params at their
         saved dtype and the moments as trees."""
+        self._single_model("a checkpoint restore (tree_to_state)")
         layout, dp = self.layout, self.dp
         dev = lambda x, dt=None: x.to(device=self.device,
                                       dtype=dt or x.dtype, copy=True)
@@ -1394,6 +1494,7 @@ class DeftRuntime:
         tree-state engine, as JAX's is: its checkpoint form is its state,
         whose params keep the dtype they were drawn at, so a
         ``state_to_tree`` of a fresh state is the ``like``."""
+        self._single_model("a checkpoint restore (checkpoint_struct)")
         if not self.flat_state:
             raise ValueError(
                 "checkpoint_struct needs a flat-state runtime: a tree state "
@@ -1446,6 +1547,7 @@ class DeftRuntime:
         ``src_schedule``, the schedule ``state`` was stepped under to a
         cycle boundary, hands its accumulators over to this runtime's
         schedule first (:meth:`hand_over`), as the staged swap does."""
+        self._single_model("a repack (repack_state)")
         self._check_transition(transition)
         if src_schedule is not None:
             self.hand_over(state, src_schedule, transition)
@@ -1463,6 +1565,7 @@ class DeftRuntime:
         staged swap's install does it; so does ``repack_state`` given
         ``src_schedule``, and a reference that switches schedules by hand
         without a layout change calls it itself."""
+        self._single_model("a hot swap's hand-over")
         self._divisors = handover_divisors(src_schedule, self.schedule)
         self._hand_over_cur(state, src_schedule, self.schedule, transition)
 
@@ -1666,6 +1769,7 @@ class DeftRuntime:
         (:meth:`repack_state`) before dispatching phase 0 of the new
         schedule.  Either way the accumulators are handed over to the new
         schedule there (:meth:`_hand_over_cur`)."""
+        self._single_model("a hot swap (prepare_swap)")
         new_layout = transition = None
         if layout is not None and layout != self.layout:
             self._check_layout(layout)
@@ -1793,6 +1897,7 @@ class DeftRuntime:
         pinned, and shares this tracer when per-step tracing is on.  An
         illegal combination raises in the sibling's constructor, before
         any state exists.  No phase statistics are shared."""
+        self._single_model("a sibling runtime (spawn)")
         fsdp_r = self.fsdp if fsdp is None else fsdp
         dec_r = self.decoupled if decoupled is None else decoupled
         if decoupled is None and not fsdp_r:
@@ -1906,7 +2011,7 @@ class DeftRuntime:
                                   _grad_leaves(self.layout, params, gdst))
         loss, parts = loss_fn(
             tree, self.cfg, batch, loss_chunk=self.loss_chunk,
-            attn_impl=self.attn_impl, scan_impl=self.scan_impl)
+            attn_impl=self.attn_impl, scan_impl=self.scan_impl, tp=self.tp)
         if isinstance(params, ParamStream):
             params.complete()        # the untouched buckets, for the cache
         loss.backward()
@@ -1947,7 +2052,8 @@ class DeftRuntime:
                 state["opt"], grad_scale=1.0 / (n_dp * k),
                 zero_grads=zero_grads, impl=self.update_impl,
                 master_dtype=self.master_dtype,
-                quantize_impl=self.quantize_impl)
+                quantize_impl=self.quantize_impl,
+                model_norm=self._model_norm)
             if phase.update_source == "cur" and gen is not None:
                 new_cur, dead = gen, cur_synced
             elif phase.update_source == "cur":       # src zeroed in place
@@ -2182,6 +2288,7 @@ class DeftRuntime:
             "n_leaves": self.layout.n_leaves,
             "dp": self.dp.n_dp,
             "pod": self.dp.n_outer,
+            "model": 1 if self.tp is None else self.tp.size,
             "flat_state": self.flat_state,
             "sharded_state": self.fsdp,
             "update_impl": (
@@ -2230,14 +2337,33 @@ def init_ddp_state(cfg: ArchConfig, opt_spec: OptimizerSpec, *, seed: int = 0,
 def make_ddp_step(cfg: ArchConfig, opt_spec: OptimizerSpec, *, group=None,
                   loss_chunk: int = 0, attn_impl: Optional[str] = None,
                   scan_impl: Optional[str] = None,
-                  microbatch: int = 0) -> Callable:
+                  microbatch: int = 0, mesh: Any = None) -> Callable:
     """DDP baseline step ``(state, batch) -> (state, metrics)``: one
     all-reduce per gradient leaf, the per-leaf optimizer every step
     (``train/steps.py::ddp_train_step``; ``microbatch = M > 1`` runs the
-    batch as M sequential micro-batches)."""
+    batch as M sequential micro-batches).  Under a ``mesh`` the
+    all-reduces run over its ('pod', 'data') group, and at model > 1 the
+    state holds this rank's shards (``sharding.tp.shard_params``): the
+    step runs the model tensor-parallel and each gradient stays this
+    rank's shard, as JAX's ``_anchor_grad_shardings`` keeps it."""
     from repro_torch.train.steps import ddp_train_step
 
+    tp = ModelParallel.of(mesh)
+    if tp is not None:
+        check_model_parallel(cfg)
+        if needs_fsdp(cfg.name):
+            raise NotImplementedError(
+                f"{cfg.name}: an FSDP arch over the 'model' axis is not "
+                f"ported ({PATHS_ITEM})")
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("make_ddp_step takes a mesh or a group, not "
+                             "both")
+        group = mesh.dp_group
+    model = {} if tp is None else dict(tp=tp, norm=functools.partial(
+        global_norm, mp=tp, split=split_leaves(
+            model_specs(init_params(cfg, device="meta"), mesh))))
     return functools.partial(
         ddp_train_step, cfg=cfg, opt_spec=opt_spec, dp=DataParallel(group),
         loss_chunk=loss_chunk, attn_impl=attn_impl, scan_impl=scan_impl,
-        microbatch=microbatch)
+        microbatch=microbatch, **model)

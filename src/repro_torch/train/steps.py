@@ -28,7 +28,7 @@ are sharding plumbing, have no counterpart.  DeFT's updates run
 equal to it), as a donated JAX executable updates its buffers in place;
 the DDP baseline keeps the pure ``apply_updates``.  The FSDP variant
 ``deft_rs_phase_step`` (manual over 'pod', params sharded over 'data' by
-logical rules) waits for the port's sharding rules, ROADMAP item 8.
+logical rules) is not ported, ROADMAP item 8.3.
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ from repro_torch.optim.optimizers import (
     OptimizerSpec,
     apply_updates,
     apply_updates_,
+    global_norm,
     init_opt_state,
 )
 from repro_torch.train.runtime import DataParallel, init_fused_accumulators
@@ -98,7 +99,8 @@ def _loss_and_grads(params, cfg, batch, **kw):
 def ddp_train_step(state: TrainState, batch, *, cfg: ArchConfig,
                    opt_spec: OptimizerSpec, dp: DataParallel,
                    loss_chunk: int = 0, attn_impl: Optional[str] = None,
-                   scan_impl: Optional[str] = None, microbatch: int = 0
+                   scan_impl: Optional[str] = None, microbatch: int = 0,
+                   tp=None, norm=global_norm
                    ) -> Tuple[TrainState, Dict[str, Any]]:
     """The DDP baseline step: one all-reduce per gradient leaf, the
     per-leaf optimizer every step, the loss and parts on one stacked
@@ -106,8 +108,12 @@ def ddp_train_step(state: TrainState, batch, *, cfg: ArchConfig,
     sequential micro-batches (activation memory M-fold smaller for one f32
     gradient tree): their gradients sum in f32 from zero, then the loss is
     divided by M, each part averaged and the gradients divided by M, as
-    JAX's scan over the micro-batches does."""
-    kw = dict(loss_chunk=loss_chunk, attn_impl=attn_impl, scan_impl=scan_impl)
+    JAX's scan over the micro-batches does.  ``tp`` (a ``ModelParallel``)
+    runs the model tensor-parallel on this rank's shards, whose gradients
+    stay shards; ``norm`` is then the clip's model-aware global norm
+    (``make_ddp_step`` sets both from its mesh)."""
+    kw = dict(loss_chunk=loss_chunk, attn_impl=attn_impl, scan_impl=scan_impl,
+              tp=tp)
     if microbatch and microbatch > 1:
         m = microbatch
         n = next(iter(batch.values())).shape[0]
@@ -139,7 +145,8 @@ def ddp_train_step(state: TrainState, batch, *, cfg: ArchConfig,
     params = state["params"]
     new_params, opt = apply_updates(opt_spec, params,
                                     tree_unflatten(params, grads),
-                                    state["opt"], grad_scale=1.0 / dp.n_dp)
+                                    state["opt"], grad_scale=1.0 / dp.n_dp,
+                                    norm=norm)
     keys = sorted(parts)
     stacked = dp.metrics(torch.stack([loss] + [parts[k] for k in keys])) \
         / dp.n_dp
@@ -262,13 +269,13 @@ def deft_phase_step(state: TrainState, batch, *, cfg: ArchConfig,
 def deft_rs_phase_step(*args, **kwargs):
     """JAX's DeFT path for the FSDP archs (manual over 'pod', params and
     moments FSDP-sharded over 'data' by ``rules_deft_rs_manual_pod``):
-    not ported.  It needs the port's logical sharding rules, ROADMAP item
-    8; the sharded flat engine (``DeftRuntime(fsdp=True)``) is the port's
-    FSDP engine."""
+    not ported, ROADMAP item 8.3 (the port has the rules and specs, not
+    the FSDP placement over 'data' under them); the sharded flat engine
+    (``DeftRuntime(fsdp=True)``) is the port's FSDP engine."""
     raise NotImplementedError(
         "deft_rs_phase_step (DeFT over 'pod' with params FSDP-sharded over "
-        "'data' by logical sharding rules) needs the port's sharding rules, "
-        "ROADMAP item 8: use the sharded flat engine, "
+        "'data' by logical sharding rules) is not ported, ROADMAP item 8.3: "
+        "use the sharded flat engine, "
         "DeftRuntime(fsdp=True)")
 
 
@@ -301,7 +308,7 @@ def make_deft_step_fns(cfg: ArchConfig, opt_spec: OptimizerSpec,
     positions of one ``PhaseSpec`` sharing one callable; one collective a
     synced leaf, tree-shaped accumulators.  Kept as the semantic reference
     and the benchmark baseline of ``DeftRuntime``.  ``fsdp=True`` (JAX's
-    ``deft_rs_phase_step``) is refused, ROADMAP item 8."""
+    ``deft_rs_phase_step``) is refused, ROADMAP item 8.3."""
     if fsdp:
         deft_rs_phase_step()
     dp = DataParallel(group, outer=outer_group)

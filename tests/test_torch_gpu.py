@@ -96,6 +96,7 @@ from repro_torch.launch.train import (
     restore_runtime_state,
     train,
 )
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.serve import serve
 from repro_torch.models.model import (
     decode_step,
@@ -107,6 +108,14 @@ from repro_torch.models.model import (
 )
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.optim.optimizers import adamw, sgd_momentum
+from repro_torch.sharding.tp import (
+    ModelParallel,
+    copy_in,
+    gather,
+    reduce_out,
+    vocab_embed,
+    vocab_parallel_nll,
+)
 from repro_torch.train.bucketing import (
     build_bucket_layout,
     build_layout_transition,
@@ -994,3 +1003,72 @@ def test_baseline_engines_on_the_card_match_their_cpu_runs(engine):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=TOL)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_tp_functions_on_the_card_at_model_one():
+    """At model 1 ``copy_in`` / ``reduce_out`` / ``gather`` hand back their
+    input and its gradient, ``vocab_embed`` is the table's lookup, and
+    ``vocab_parallel_nll`` is ``logsumexp - gold`` within 1e-6 with its
+    gradient: no collective is issued."""
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    tp = ModelParallel(make_debug_mesh(
+        data=torch.distributed.get_world_size(), model=1))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 5, 8), generator=g).cuda().requires_grad_()
+    w = torch.randn((3, 5, 8), generator=g).cuda()
+    for fn in (lambda t: copy_in(t, tp), lambda t: reduce_out(t, tp),
+               lambda t: gather(t, tp, dim=-1)):
+        x.grad = None
+        y = fn(x)
+        (y * w).sum().backward()
+        assert torch.equal(y, x) and torch.equal(x.grad, w)
+    table = torch.randn((64, 8), generator=g).cuda()
+    tokens = torch.randint(0, 64, (2, 7), generator=g).cuda()
+    assert torch.equal(vocab_embed(table, tokens, tp), table[tokens])
+    logits = torch.randn((2, 7, 64), generator=g).cuda()
+    a = logits.clone().requires_grad_()
+    b = logits.clone().requires_grad_()
+    got = vocab_parallel_nll(a, tokens, tp)
+    want = torch.logsumexp(b, -1) - torch.gather(b, -1, tokens[..., None])[..., 0]
+    cot = torch.randn((2, 7), generator=g).cuda()
+    (got * cot).sum().backward()
+    (want * cot).sum().backward()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-6)
+    assert tp.calls == {}
+
+
+@pytest.mark.gpu
+def test_model_one_mesh_steps_are_bitwise_on_the_card():
+    """gemma2-2b-smoke over two periods of the flat engine on the card,
+    through a model-1 mesh and without one: every loss and param bitwise,
+    the f32 flash and the bucket update launched alike."""
+    _need_card()
+    init_distributed(torch.device("cuda"))
+    cfg = reduce_for_smoke(get_config("gemma2-2b"))
+    meta = init_params(cfg, device="meta")
+    bucket_of, nb, _, plan = build_schedule(
+        meta, cfg, dp=1, seq_len=80, per_device_batch=2,
+        partition_elems=120_000, coverage_rate=1.8)
+    sched = plan.schedule
+    layout = build_bucket_layout(meta, bucket_of, nb)
+    runs = []
+    for mesh in (None, make_debug_mesh(
+            data=torch.distributed.get_world_size(), model=1)):
+        rt = DeftRuntime(cfg, adamw(1e-3), sched, layout, device="cuda",
+                         mesh=mesh, loss_chunk=16)
+        state = rt.init_state(0)
+        flash_fwd_cuda.launches = bucket_update_cuda.launches = 0
+        losses = []
+        for i in range(2 * sched.period):
+            state, m = rt.step(i, state, make_batch(cfg, 0, i, 2, 80,
+                                                    device="cuda"))
+            losses.append(float(m["loss"]))
+        runs.append((losses, [b.cpu() for b in state["pbuf"]],
+                     flash_fwd_cuda.launches, bucket_update_cuda.launches))
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][2:] == runs[1][2:] and min(runs[0][2:]) > 0
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
