@@ -281,19 +281,30 @@
    holds serve_path's own scans bitwise: the prefill's [4, 1024, 4096]
    and a decode step's [4, 1, 4096], each from h0.  The cached attention's
    price for a later decode kernel is ``scripts/serve_attention_price.py``.
-11a. Drives the main path's configuration at data 1 x model 2
-   (``tp_path``): this process becomes rank 0 of a gloo group (its NCCL
-   group destroyed) and spawns rank 1, both on the one card; each holds
-   its shards of the leaves the port's ``spec_tree`` splits over 'model'
-   and trains one period of the main path's schedule through
-   ``train(data=1, model=2)``, tensor-parallel: the f32 flash on its
-   heads 16 times a step and the bucket update on buckets of its shards
-   as often as the main path, every launch counter zeroed just before.
-   The params gathered over 'model' after the period are held to the main
-   path's stored run within the limits of 3 and each loss within 1e-4
-   relative (another order of the row-parallel sums); each rank's peak,
-   the median step and the share of the steps in the 'model' all-reduces
-   are printed.
+11a. Drives the 'model' axis at data 1 x model 2 (``tp_path``): this
+   process becomes rank 0 of a gloo group (its NCCL group destroyed) and
+   spawns rank 1, both on the one card; each holds its shards of the
+   leaves the port's ``spec_tree`` splits over 'model' and trains its
+   cuts in turn through ``train(data=1, model=2)``, tensor-parallel, every
+   launch counter zeroed just before each.  First the main path's
+   configuration for one period of its schedule (the f32 flash on its
+   heads 16 times a step, the bucket update on buckets of its shards as
+   often as the main path), held to the main path's stored run.  Then the
+   recurrent and encoder-decoder families, each at full width: one
+   pattern period of recurrentgemma-9b (lru 2048 and 8 gate blocks a
+   rank, 8 query heads over the gathered kv head: the f32 flash at 8:1),
+   4 layers of rwkv6-1.6b (16 WKV heads a rank) and 2 + 2 of
+   seamless-m4t-large-v2 (8 heads of 64 a rank in the encoder, the
+   decoder and the cross-attention), one schedule period each, at most 4
+   steps, each held to a model-1 run of its cut made first in this
+   process.  Per cut: the losses equal across the ranks and within 1e-4
+   relative of the reference's (another order of the row-parallel sums),
+   the params gathered over 'model' after the steps within the limits of
+   3 (rwkv6: of 6), every launch as the layers and updates say with the
+   scan, the WKV, the flash and the bucket update launched where the cut
+   has them, the data collectives ``phase_collectives``, and the two
+   ranks' peaks together below 80 GB; each rank's peak, the median step
+   and the share of the steps in the 'model' collectives are printed.
 12. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
@@ -329,7 +340,7 @@ PARAM_TOL = 1e-5              # per-element agreement after an update
 PARAM_MAX_DIFF = 1e-4         # no param may differ more than this ...
 PARAM_MAX_OVER = 1000         # ... and at most this many beyond PARAM_TOL
 TP_MODEL = 2                  # tp_path: the 'model' axis, two ranks on the card
-TP_TIMEOUT_S = 180            # its gloo collectives' and its rank 1's limit
+TP_TIMEOUT_S = 180            # its gloo collectives' limit
 ARCH, N_LAYERS, SEQ, BATCH = "gemma2-2b", 8, 8192, 1
 COVERAGE_RATE, PARTITION_ELEMS, LOSS_CHUNK, LR = 1.8, 200_000, 1024, 1e-3
 # the precision path: int8 wires, bf16sr master, its steps and the window
@@ -401,6 +412,18 @@ FLASH_ED_SHAPES = {
     "encdec_encoder": (BATCH, ED_FRAMES, ED_FRAMES, 16, 16, 64, False),
     "encdec_cross": (BATCH, ED_SEQ, ED_FRAMES, 16, 16, 64, False),
 }
+# tp_path's family cuts at model 2, a rank's attention: recurrentgemma-9b's
+# 8 query heads over the gathered kv head (D 256, window 2048) and
+# seamless-m4t-large-v2's 8 heads of 64 (self, encoder, cross), each held
+# to the plain version with its gradients:
+# (B, Sq, Sk, H, KV, D, causal, window)
+FLASH_TP_SHAPES = {
+    "recurrentgemma_model2": (BATCH, SEQ, SEQ, 8, 1, 256, True, RG_WINDOW),
+    "encdec_self_model2": (BATCH, ED_SEQ, ED_SEQ, 8, 8, 64, True, 0),
+    "encdec_encoder_model2": (BATCH, ED_FRAMES, ED_FRAMES, 8, 8, 64, False,
+                              0),
+    "encdec_cross_model2": (BATCH, ED_SEQ, ED_FRAMES, 8, 8, 64, False, 0),
+}
 # the MLA path: deepseek-v2-236b cut to its dense layer 0 (MLA + the
 # 12288-wide SwiGLU) at full width, sequence 4096 (train_4k), batch 1, on
 # its default sharded engine at one shard, MLA_STEPS steps (three periods).
@@ -469,6 +492,21 @@ RWKV_TOL = 1e-4
 # 1% of any bucket's elements beyond 1e-4.
 RWKV_PARAM_MAX_DIFF = 1e-2
 RWKV_BUCKET_SHARE = 1e-2
+# ``tp_path``'s cuts at data 1 x model TP_MODEL, (arch, depth overrides, of
+# layers, seq): the main path's, then the recurrent and encoder-decoder
+# families at full width (one pattern period of recurrentgemma-9b, 4 of
+# rwkv6-1.6b's layers, 2 + 2 of seamless-m4t-large-v2's), each of those one
+# schedule period, at most TP_MAX_STEPS steps, held to a model-1 run of the
+# same cut made first in the same call
+TP_MAIN_CUT = (ARCH, dict(n_layers=N_LAYERS), 26, SEQ)
+TP_FAMILY_CUTS = (
+    (RG_ARCH, dict(n_layers=3), RG_OF_LAYERS, SEQ),
+    (RWKV_ARCH, dict(n_layers=4), RWKV_LAYERS, SEQ),
+    (ED_ARCH, dict(n_layers=2, n_encoder_layers=2), ED_LAYERS, ED_SEQ),
+)
+TP_MAX_STEPS = 4
+TP_CHILD_TIMEOUT_S = 900      # rank 1's limit over the four cuts
+CARD_BYTES = 80e9             # the two ranks' peaks together stay below it
 # limits against the plain run, from two runs on two cards that read loss
 # rel 1.6e-4 and 3,353,277 params (0.28%) beyond 1e-4 + |p| / 128 (one
 # bf16 ulp at the value) both times, and params max |diff| 2.69e-3 (PERF.md)
@@ -653,6 +691,48 @@ def flash_phase(torch, report):
         max_err = max(max_err, err)
         print(f"flash D={d} S={s} H={h}/{kvh} {kw}: ok (max err {err:.3g})")
 
+    def shape_inputs(b, sq, sk, h, kvh, d, dv):
+        return (torch.randn((b, sq, h, d), device="cuda", generator=gen),
+                torch.randn((b, sk, kvh, d), device="cuda", generator=gen),
+                torch.randn((b, sk, kvh, dv), device="cuda", generator=gen))
+
+    def held(q, k, v, kw, what, grads):
+        """The kernel's out and lse (and, with ``grads``, the autograd
+        gradients) against the plain version's, its split scratch bitwise:
+        the largest max |diff|."""
+        dq_k, dv_k = kernel_dims(q.shape[-1], v.shape[-1])
+        split = split_buffer(k.shape[0], k.shape[2], k.shape[1], dq_k,
+                             "cuda", dv_k)
+        out, lse = flash_fwd_cuda(q, k, v, split=split, **kw)
+        ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max((out - ref).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        check(torch.allclose(out, ref, rtol=FLASH_TOL, atol=FLASH_TOL)
+              and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
+              f"flash kernel disagrees with plain at {what}: max err "
+              f"{err:.3g}")
+        del out, lse, ref, ref_lse
+        split_bitwise(k, v, split, what)
+        del split
+        return max(err, grad_err(q, k, v, kw, what)) if grads else err
+
+    # tp_path's family cuts, a model rank's shapes: checked, not timed
+    tp_errs = {}
+    for layer, (b, sq, sk, h, kvh, d, causal, window) in \
+            FLASH_TP_SHAPES.items():
+        q, k, v = shape_inputs(b, sq, sk, h, kvh, d, d)
+        tp_errs[layer] = held(q, k, v, dict(causal=causal, window=window,
+                                            softcap=0.0),
+                              f"the {layer} shape", grads=True)
+        print(f"flash {layer} (B={b} Sq={sq} Sk={sk} H={h} KV={kvh} D={d} "
+              f"{'causal' if causal else 'non-causal'} window={window}): "
+              f"out, lse and gradients within {FLASH_TOL} of plain (max err "
+              f"{tp_errs[layer]:.3g})")
+        del q, k, v
+    max_err = max(max_err, *tp_errs.values())
+    torch.cuda.empty_cache()
+
     # the paths' shapes, each against its plain version, its bound and
     # compiled flex_attention; the encoder-decoder's D 64 shapes and MLA's
     # d_v != d_qk ones with their gradients too
@@ -667,26 +747,10 @@ def flash_phase(torch, report):
     cases += [(layer, b, sq, sk, h, kvh, d, d, causal, 0, 0.0) for layer,
               (b, sq, sk, h, kvh, d, causal) in FLASH_DECODE_SHAPES.items()]
     for layer, b, sq, sk, h, kvh, d, dv, causal, window, cap in cases:
-        q = torch.randn((b, sq, h, d), device="cuda", generator=gen)
-        k = torch.randn((b, sk, kvh, d), device="cuda", generator=gen)
-        v = torch.randn((b, sk, kvh, dv), device="cuda", generator=gen)
+        q, k, v = shape_inputs(b, sq, sk, h, kvh, d, dv)
         kw = dict(causal=causal, window=window, softcap=cap)
         dq_k, dv_k = kernel_dims(d, dv)
-        split = split_buffer(b, kvh, sk, dq_k, "cuda", dv_k)
-        out, lse = flash_fwd_cuda(q, k, v, split=split, **kw)
-        ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = max((out - ref).abs().max().item(),
-                  (lse - ref_lse).abs().max().item())
-        check(torch.allclose(out, ref, rtol=FLASH_TOL, atol=FLASH_TOL)
-              and torch.allclose(lse, ref_lse, rtol=FLASH_TOL, atol=FLASH_TOL),
-              f"flash kernel disagrees with plain at the {layer} shape: max "
-              f"err {err:.3g}")
-        del out, lse, ref, ref_lse
-        split_bitwise(k, v, split, f"the {layer} shape")
-        del split
-        if layer in graded:
-            err = max(err, grad_err(q, k, v, kw, f"the {layer} shape"))
+        err = held(q, k, v, kw, f"the {layer} shape", layer in graded)
         max_err = max(max_err, err)
         ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
@@ -751,6 +815,7 @@ def flash_phase(torch, report):
         for dims in ("256,256", "64,64", "192,128"))
     print("; ".join(ptxas + ptxas_d64 + ptxas_mla))
     report["flash"] = dict(cases=len(FLASH_CASES), max_abs_err=max_err,
+                           model2_max_abs_err=tp_errs,
                            ptxas_d256=ptxas, ptxas_d64=ptxas_d64,
                            ptxas_mla=ptxas_mla, **shapes)
     torch.cuda.empty_cache()
@@ -778,6 +843,7 @@ def flash_phase(torch, report):
            for layer in (*FLASH_ED_SHAPES, *FLASH_MLA_SHAPES,
                          *FLASH_DECODE_SHAPES)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
+        "model2_max_abs_err": tp_errs,
         "ptxas": ptxas, "ptxas_mla": ptxas_mla,
         "note": "a split pass writes K and V as TF32 hi + lo; S = Q.K^T and "
                 "P.V each run as three TF32 wgmmas (hi.hi + hi.lo + lo.hi); "
@@ -1509,6 +1575,15 @@ def rglru_phase(torch, report):
     compare(b, a, None, dh, None, f"the path's shape {shape}")
     print(f"rglru kernels: the path's shape {shape} bitwise equal to the "
           f"plain versions")
+    # tp_path's recurrentgemma cut at model 2: the second rank's W / 2
+    # 'lru' channels, sliced from these whole-width tensors and made
+    # contiguous (the wrappers refuse a strided view)
+    w2 = RG_WIDTH // TP_MODEL
+    rank_part = lambda x: x[..., RG_WIDTH - w2:].contiguous()
+    compare(rank_part(b), rank_part(a), None, rank_part(dh), None,
+            f"a model rank's slice [{BATCH}, {SEQ}, {w2}]")
+    print(f"rglru kernels: a model rank's slice [{BATCH}, {SEQ}, {w2}] of "
+          f"the path's tensors bitwise equal to the plain versions")
     h, _ = rglru_fwd_cuda(b, a)
     n = b.numel()
     runs = {
@@ -1642,6 +1717,20 @@ def rwkv6_phase(torch, report):
           f"plain pair: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
           + "; states and S_final bitwise")
     max_err = max(max_err, path_err)
+    # tp_path's rwkv6 cut at model 2: the second rank's H / 2 heads, sliced
+    # from these whole-width tensors and made contiguous (the wrappers
+    # refuse a strided view)
+    h2 = RWKV_HEADS // TP_MODEL
+    rank_part = lambda x: x[..., RWKV_HEADS - h2:, :].contiguous()
+    rank_err, rank_errs, rank_abs = compare(
+        *map(rank_part, (r, k, v, w, u)), None, rank_part(do), None,
+        f"a model rank's heads {(BATCH, SEQ, h2, RWKV_HEAD_SIZE)}")
+    print(f"rwkv6 kernels: a model rank's heads "
+          f"{(BATCH, SEQ, h2, RWKV_HEAD_SIZE)} within {RWKV_TOL} of the "
+          f"plain pair: " + ", ".join(f"{n} {e:.3g}"
+                                      for n, e in rank_errs.items())
+          + "; states and S_final bitwise")
+    max_err = max(max_err, rank_err)
     _, _, states = rwkv6_fwd_cuda(r, k, v, w, u, save_states=True)
     b, s, h, d = shape
     n = b * s * h * d
@@ -1688,12 +1777,15 @@ def rwkv6_phase(torch, report):
                          "contributions, elementwise reverse scan, "
                          "gradients at two CTAs an SM, du's sum"}
     fwd_outs = ("o", "S_final")
-    abs_by = {"rwkv6_fwd": max(path_abs[n] for n in fwd_outs),
-              "rwkv6_bwd": max(v for n, v in path_abs.items()
+    both_abs = {n: max(e, rank_abs[n]) for n, e in path_abs.items()}
+    abs_by = {"rwkv6_fwd": max(both_abs[n] for n in fwd_outs),
+              "rwkv6_bwd": max(v for n, v in both_abs.items()
                                if n not in fwd_outs)}
     entries = []
     report["rwkv6"] = {"cases": n_cases, "shape": list(shape),
                        "max_rel_err": max_err, "path_rel_err": errs,
+                       "model2_rel_err": rank_errs,
+                       "model2_max_abs_err": rank_abs,
                        "path_max_abs_err": path_abs, "tolerance": RWKV_TOL}
     for name, (kern, plain, nbytes, flops) in runs.items():
         ms = time_ms(torch, kern, 10)
@@ -3896,22 +3988,57 @@ def serve_smoke_path(torch, report):
     return total
 
 
-def tp_train(rank: int, port: int, steps: int, ref_layout=None) -> dict:
-    """One model rank of ``tp_path``: the main path's configuration through
-    ``train(data=1, model=TP_MODEL)`` over a gloo process group of the two
-    ranks (NCCL refuses two ranks on one device; gloo all-reduces the card's
-    tensors itself), ``steps`` steps with every launch counter set to 0 just
-    before.  The steps after the first time the 'model' collectives (the
-    device synchronised around each).  Returns the rank's losses, step
-    times, peak over the steps (and with the params' gather after them),
-    launches and collectives; on rank 0 also each bucket of
-    ``ref_layout`` (the main path's) made from the params gathered after
-    the last step, a generator over the card."""
+def tp_config(cut):
+    """A ``tp_path`` cut's config."""
+    from repro_torch.configs import get_config
+
+    arch, depth, _, _ = cut
+    return dataclasses.replace(get_config(arch), **depth)
+
+
+def tp_train_kw(seq: int) -> dict:
+    """``train``'s arguments for a ``tp_path`` cut (model 1 or 2)."""
+    return dict(scheduler="deft", batch=BATCH, seq=seq,
+                coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
+                seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK)
+
+
+def tp_params_vs(ref, params) -> dict:
+    """The params gathered over 'model' (``params``, the global tree) held
+    to ``ref``'s model-1 buckets on the host, one bucket of its layout at
+    a time on the card: the max |diff|, the elements beyond PARAM_TOL and,
+    per bucket, the share beyond 10 x PARAM_TOL (rwkv6's limit)."""
+    out = dict(max_param_diff=0.0, n_params_over_tol=0, bucket_share=[])
+    for buf, want in zip(tree_buckets(ref["layout"], params), ref["params"]):
+        d = (buf - want.cuda()).abs()
+        out["max_param_diff"] = max(out["max_param_diff"], d.max().item())
+        out["n_params_over_tol"] += int((d > PARAM_TOL).sum().item())
+        out["bucket_share"].append(
+            int((d > 10 * PARAM_TOL).sum().item()) / d.numel())
+        del d, buf
+    if ref["rwkv"]:
+        out["ok"] = (out["max_param_diff"] <= RWKV_PARAM_MAX_DIFF
+                     and max(out["bucket_share"]) <= RWKV_BUCKET_SHARE)
+    else:
+        out["ok"] = (out["max_param_diff"] <= PARAM_MAX_DIFF
+                     and out["n_params_over_tol"] <= PARAM_MAX_OVER)
+    return out
+
+
+def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
+    """One model rank of ``tp_path``: every cut in turn through
+    ``train(data=1, model=TP_MODEL)`` over one gloo group of the two ranks
+    (NCCL refuses two ranks on one device; gloo all-reduces the card's
+    tensors itself), ``steps[i]`` steps with every launch counter set to
+    0 just before.  The steps after the first time the 'model'
+    collectives (the device synchronised around each).  Returns per cut
+    the rank's losses, step times, peak over the steps, launches and
+    collectives; on rank 0 also the params gathered over 'model' after
+    the last step held to ``refs[i]`` (``tp_params_vs``)."""
     import datetime
 
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3919,159 +4046,238 @@ def tp_train(rank: int, port: int, steps: int, ref_layout=None) -> dict:
     dist.init_process_group(
         "gloo", init_method=f"tcp://localhost:{port}", world_size=TP_MODEL,
         rank=rank, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
-    got = {}
-
-    def on_step(step, runtime, state, metrics):
-        if step == 0:                      # the first step warms up
-            runtime.tp.reset()
-            runtime.tp.timed = True
-        if step != steps - 1:
-            return
-        got.update(model_calls=dict(runtime.tp.calls),
-                   model_s=runtime.tp.seconds,
-                   local_elems=sum(b.numel() for b in state["pbuf"]),
-                   peak_bytes=torch.cuda.max_memory_allocated())
-        runtime.tp.timed = False
-        params = runtime.params_tree(state)      # a collective
-        if rank == 0:
-            got["pbuf"] = list(tree_buckets(ref_layout, params))
-        del params
-
     say = (lambda s: print(f"  rank 0: {s}")) if rank == 0 else \
         (lambda s: None)
-    torch.cuda.reset_peak_memory_stats()
-    counters = zero_counters()
-    res = train(cfg, scheduler="deft", steps=steps, batch=BATCH, seq=SEQ,
-                coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
-                seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK, data=1,
-                model=TP_MODEL, on_step=on_step, log=say)
-    launches = kernel_launches(counters)
-    got.update(
-        rank=rank, losses=res["losses"], step_s=res["step_s"],
-        collectives=res["collectives"], launches=launches,
-        want_launches=expected_launches(cfg, res["schedule"], res["layout"],
-                                        steps),
-        peak_with_gather=torch.cuda.max_memory_allocated(),
-        n_buckets=res["layout"].n_buckets,
-        stats={k: v for k, v in res["runtime"].stats().items()
-               if k in ("dp", "model")})
-    del res
-    return got
+    out = []
+    for i, cut in enumerate(cuts):
+        cfg = tp_config(cut)
+        n = steps[i]
+        got = {}
+
+        def on_step(step, runtime, state, metrics):
+            if step == 0:                      # the first step warms up
+                runtime.tp.reset()
+                runtime.tp.timed = True
+            if step != n - 1:
+                return
+            got.update(model_calls=dict(runtime.tp.calls),
+                       model_s=runtime.tp.seconds,
+                       local_elems=sum(b.numel() for b in state["pbuf"]),
+                       peak_bytes=torch.cuda.max_memory_allocated())
+            runtime.tp.timed = False
+            params = runtime.params_tree(state)      # a collective
+            if rank == 0:
+                got["vs"] = tp_params_vs(refs[i], params)
+            del params
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counters = zero_counters()
+        res = train(cfg, steps=n, data=1, model=TP_MODEL, on_step=on_step,
+                    log=say, **tp_train_kw(cut[3]))
+        launches = kernel_launches(counters)
+        got.update(
+            rank=rank, losses=res["losses"], step_s=res["step_s"],
+            collectives=res["collectives"], launches=launches,
+            want_launches=expected_launches(cfg, res["schedule"],
+                                            res["layout"], n),
+            stats={k: v for k, v in res["runtime"].stats().items()
+                   if k in ("dp", "model")})
+        del res
+        out.append(got)
+    return out
 
 
-def tp_child(port: int, steps: int, queue) -> None:
-    """``tp_path``'s rank 1, in a spawned process: its report on ``queue``."""
+def tp_child(port: int, cuts, steps, queue) -> None:
+    """``tp_path``'s rank 1, in a spawned process: its reports on
+    ``queue``."""
     import torch.distributed as dist
 
-    out = tp_train(1, port, steps)
+    out = tp_train(1, port, cuts, steps)
     queue.put(out)
     dist.destroy_process_group()
 
 
-def tp_path(torch, cfg, schedule, layout, report, against):
-    """The main path's configuration at data 1, model 2: two processes on
-    the one card, this one rank 0 and a spawned one rank 1, each holding
-    its shards of every leaf the port's ``spec_tree`` splits over 'model'
-    (gemma2's 8 heads over 4 kv heads: 4 over 2 a rank; d_ff 9216: 4608;
-    the 256000-row tied table: 128000), one period of the main path's
-    schedule through ``train(model=2)``.  Each rank launches the f32 flash
-    on its heads 16 times a step and the bucket update on buckets of its
-    shards as often as the main path does; the params gathered over
-    'model' after the period are held to ``against`` (the main path's
-    stored run) within PARAM_MAX_DIFF / PARAM_MAX_OVER and each step's
-    loss within 1e-4 relative (the row-parallel sums run in another order,
-    so not bitwise).  The main path's NCCL group is replaced by the gloo
-    group of the two ranks; prints each rank's peak, the median step, the
-    launches and the share of the steps spent in the 'model'
-    collectives."""
+def tp_path(torch, schedule, layout, report, against):
+    """The 'model' axis at data 1 x model 2: two processes on the one
+    card, this one rank 0 and a spawned one rank 1, each holding its
+    shards of every leaf the port's ``spec_tree`` splits over 'model',
+    the cuts of TP_CUTS in turn through ``train(model=2)`` with every
+    launch counter zeroed just before each.  First the main path's
+    gemma2-2b cut for one period of its schedule (8 heads over 4 kv heads:
+    4 over 2 a rank; d_ff 9216: 4608; the 256000-row tied table: 128000),
+    held to ``against`` (the main path's stored run); then the recurrent
+    and encoder-decoder families at full width, each one schedule period
+    at most TP_MAX_STEPS steps: recurrentgemma-9b's pattern period (lru
+    2048 and 8 of the 16 gate blocks a rank, 8 query heads over the one kv
+    head gathered: the f32 flash at 8:1), 4 layers of rwkv6-1.6b (16 of
+    32 WKV heads, d_ff 3584, the vocab and the untied head split), 2 + 2
+    layers of seamless-m4t-large-v2 (8 heads of 64 in the encoder, the
+    decoder and the cross-attention, d_ff 4096; 256,206 vocab rows split
+    into 128,103), each held to a model-1 run of the cut made first in
+    this process (the same schedule, batches and seed).  The main path's
+    NCCL group is replaced by the gloo group of the two ranks.  Held per
+    cut: the ranks' losses equal, each within 1e-4 relative of the
+    reference's (the row-parallel sums run in another order, so not
+    bitwise), the params gathered after the steps within PARAM_MAX_DIFF /
+    PARAM_MAX_OVER of its buckets (rwkv6: RWKV_PARAM_MAX_DIFF and
+    RWKV_BUCKET_SHARE), each rank's launches as its layers and updates say
+    with the scan, the WKV, the flash and the bucket update above zero
+    where the cut has them, the data collectives ``phase_collectives``,
+    and the two ranks' peaks together below the card's 80 GB.  Prints each
+    rank's peak, the median step, tokens/s and the share of the steps in
+    the 'model' collectives.  Returns the launches of the main path's cut
+    and of the families', each summed over the ranks, by path name."""
     import multiprocessing
     import socket
 
     import torch.distributed as dist
+    from repro_torch.launch.train import build_schedule, train
+    from repro_torch.models.model import init_params
+    from repro_torch.train.runtime import phase_collectives
 
     name, want, _ = against
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuts = (TP_MAIN_CUT,) + TP_FAMILY_CUTS
+    refs = [dict(layout=layout, params=want["params"], losses=want["losses"],
+                 rwkv=False, name=name)]
+    schedules, steps = [schedule], [schedule.period]
+    for cut in TP_FAMILY_CUTS:
+        cfg = tp_config(cut)
+        sched = build_schedule(
+            init_params(cfg, device="meta"), cfg, dp=1, seq_len=cut[3],
+            per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+            coverage_rate=COVERAGE_RATE)[3].schedule
+        n = min(sched.period, TP_MAX_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = train(cfg, steps=n, log=lambda s: None, **tp_train_kw(cut[3]))
+        check(res["schedule"].phases == sched.phases,
+              f"tp_path {cut[0]}: another schedule than planned")
+        refs.append(dict(layout=res["layout"], losses=res["losses"],
+                         params=[b.cpu() for b in res["state"]["pbuf"]],
+                         rwkv=cut[0] == RWKV_ARCH, name="model 1",
+                         median_step_s=statistics.median(res["step_s"][1:]),
+                         peak_bytes=torch.cuda.max_memory_allocated()))
+        steps.append(n)
+        schedules.append(sched)
+        del res
     gc.collect()
     torch.cuda.empty_cache()
+    model1_s = time.perf_counter() - t0
     if dist.is_initialized():
         dist.destroy_process_group()
-    steps = schedule.period
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    child = ctx.Process(target=tp_child, args=(port, steps, queue))
-    t0 = time.perf_counter()
+    child = ctx.Process(target=tp_child, args=(port, cuts, steps, queue))
     child.start()
     try:
-        ranks = [tp_train(0, port, steps, layout)]
-        ranks.append(queue.get(timeout=TP_TIMEOUT_S))
+        ranks = [tp_train(0, port, cuts, steps, refs)]
+        ranks.append(queue.get(timeout=TP_CHILD_TIMEOUT_S))
     finally:
-        child.join(timeout=TP_TIMEOUT_S)
+        child.join(timeout=TP_CHILD_TIMEOUT_S)
         if child.is_alive():
             child.kill()
             child.join()
         dist.destroy_process_group()
     wall = time.perf_counter() - t0
     check(child.exitcode == 0, f"tp_path rank 1 exited {child.exitcode}")
-    pbuf = ranks[0].pop("pbuf")
-    losses = ranks[0]["losses"]
-    check(all(r["losses"] == losses for r in ranks),
-          f"tp_path: the ranks' losses differ: {[r['losses'] for r in ranks]}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
-    check(len(losses) == len(want["losses"]) and rel <= 1e-4,
-          f"tp_path losses {losses} vs {name}'s {want['losses']}: rel "
-          f"{rel:.3g}")
-    diff, over = 0.0, 0
-    for buf, w in zip(pbuf, want["params"]):
-        d = (buf - w.cuda()).abs()
-        diff = max(diff, d.max().item())
-        over += int((d > PARAM_TOL).sum().item())
-        del d
-    del pbuf
-    check(diff <= PARAM_MAX_DIFF and over <= PARAM_MAX_OVER,
-          f"tp_path params after the period vs {name}: max |diff| "
-          f"{diff:.3g}, {over} elements beyond {PARAM_TOL}")
-    from repro_torch.train.runtime import phase_collectives
-
-    wants = [phase_collectives(schedule.phases[i % schedule.period])
-             for i in range(steps)]
-    for r in ranks:
-        check(r["launches"] == r["want_launches"],
-              f"tp_path rank {r['rank']} launches {r['launches']}, "
-              f"expected {r['want_launches']}")
-        check(r["launches"]["flash_fwd"] > 0
-              and r["launches"]["bucket_update"] > 0,
-              f"tp_path rank {r['rank']} ran no flash or bucket update")
-        check(r["collectives"] == wants,
-              f"tp_path rank {r['rank']}: issued {r['collectives']}, the "
-              f"schedule says {wants}")
-        check(r["stats"] == {"dp": 1, "model": TP_MODEL},
-              f"tp_path rank {r['rank']} ran {r['stats']}")
-        timed = sum(r["step_s"][1:])
-        r["median_step_s"] = statistics.median(r["step_s"][1:])
-        r["model_share"] = r["model_s"] / timed
-    med = max(r["median_step_s"] for r in ranks)
-    report["tp_path"] = dict(
-        ranks=ranks, wall_s=wall, loss_rel_diff=rel, max_param_diff=diff,
-        n_params_over_tol=over, median_step_s=med,
-        tokens_per_s=BATCH * SEQ / med, against=name)
-    print(f"tp_path ({ARCH}, {cfg.n_layers} of 26 layers, data 1 x model "
-          f"{TP_MODEL}, gloo, two processes on one card): {steps} steps, "
-          f"median step {med:.3f} s, {BATCH * SEQ / med:.0f} tok/s "
-          f"[{report['card']}]; vs {name}: loss rel {rel:.3g}, params max "
-          f"diff {diff:.3g} ({over} over {PARAM_TOL}); {wall:.1f} s")
-    for r in ranks:
-        print(f"  rank {r['rank']}: peak {r['peak_bytes'] / 2**30:.2f} GiB, "
-              f"{r['local_elems']:,} params, median step "
-              f"{r['median_step_s']:.3f} s, flash {r['launches']['flash_fwd']}"
-              f" / bucket update {r['launches']['bucket_update']} launches, "
-              f"'model' collectives {r['model_calls']} "
-              f"{r['model_s']:.3f} s = {100 * r['model_share']:.1f}% of "
-              f"steps 1-{steps - 1}")
-    return {k: sum(r["launches"][k] for r in ranks)
-            for k in ranks[0]["launches"]}
+    totals = {f"f32 model {TP_MODEL}": {},
+              f"f32 model {TP_MODEL} families": {}}
+    rows = {}
+    for i, (cut, ref, n, sched) in enumerate(zip(cuts, refs, steps,
+                                                  schedules)):
+        arch, _, of_layers, seq = cut
+        cfg = tp_config(cut)
+        runs = [r[i] for r in ranks]
+        key = f"tp_path {arch}"
+        losses = runs[0]["losses"]
+        check(all(r["losses"] == losses for r in runs),
+              f"{key}: the ranks' losses differ: "
+              f"{[r['losses'] for r in runs]}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+        check(len(losses) == len(ref["losses"]) == n and rel <= 1e-4,
+              f"{key} losses {losses} vs {ref['name']}'s {ref['losses']}: "
+              f"rel {rel:.3g}")
+        vs = runs[0]["vs"]
+        check(vs["ok"], f"{key} params vs {ref['name']}: max |diff| "
+                        f"{vs['max_param_diff']:.3g}, "
+                        f"{vs['n_params_over_tol']} beyond {PARAM_TOL}, "
+                        f"bucket shares beyond {10 * PARAM_TOL} "
+                        f"{vs['bucket_share']}")
+        wants = [phase_collectives(sched.phases[t % sched.period])
+                 for t in range(n)]
+        need = {"bucket_update"} | {
+            ARCH: {"flash_fwd"}, RG_ARCH: {"rglru_fwd", "rglru_bwd",
+                                           "flash_fwd"},
+            RWKV_ARCH: {"rwkv6_fwd", "rwkv6_bwd"}, ED_ARCH: {"flash_fwd"},
+        }[arch]
+        total = totals[f"f32 model {TP_MODEL}" + ("" if i == 0
+                                                  else " families")]
+        for r in runs:
+            check(r["launches"] == r["want_launches"],
+                  f"{key} rank {r['rank']} launches {r['launches']}, "
+                  f"expected {r['want_launches']}")
+            check(all(r["launches"][k] > 0 for k in need),
+                  f"{key} rank {r['rank']} launched none of some of {need}")
+            check(r["collectives"] == wants,
+                  f"{key} rank {r['rank']}: issued {r['collectives']}, the "
+                  f"schedule says {wants}")
+            check(r["stats"] == {"dp": 1, "model": TP_MODEL},
+                  f"{key} rank {r['rank']} ran {r['stats']}")
+            r["median_step_s"] = statistics.median(r["step_s"][1:])
+            r["model_share"] = r["model_s"] / sum(r["step_s"][1:])
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        peaks = sum(r["peak_bytes"] for r in runs)
+        check(peaks < CARD_BYTES, f"{key}: the ranks' peaks add up to "
+                                  f"{peaks} bytes")
+        med = max(r["median_step_s"] for r in runs)
+        rows[arch] = dict(
+            config=dict(arch=arch, n_layers=cfg.n_layers,
+                        n_encoder_layers=cfg.n_encoder_layers,
+                        of_layers=of_layers, params=leaf_params(cfg),
+                        batch=BATCH, seq=seq),
+            against=ref["name"], steps=n, period=sched.period, losses=losses,
+            ref_losses=ref["losses"], loss_rel_diff=rel, median_step_s=med,
+            tokens_per_s=BATCH * seq / med, peaks_sum_bytes=peaks,
+            ranks=[{k: v for k, v in r.items() if k != "vs"} for r in runs],
+            **vs)
+        if "median_step_s" in ref:
+            rows[arch].update(model1_median_step_s=ref["median_step_s"],
+                              model1_peak_bytes=ref["peak_bytes"])
+        print(f"{key} ({cfg.n_layers}"
+              + (f" + {cfg.n_encoder_layers}" if cfg.n_encoder_layers else "")
+              + f" of {of_layers} layers, seq {seq}, data 1 x model "
+              f"{TP_MODEL}, gloo, two processes on one card): {n} steps, "
+              f"median step {med:.3f} s"
+              + (f" (model 1: {ref['median_step_s']:.3f} s)"
+                 if "median_step_s" in ref else "")
+              + f", {BATCH * seq / med:.0f} tok/s [{report['card']}]; vs "
+              f"{ref['name']}: loss rel {rel:.3g}, params max diff "
+              f"{vs['max_param_diff']:.3g} ({vs['n_params_over_tol']} over "
+              f"{PARAM_TOL}); peaks {peaks / 2**30:.2f} GiB together"
+              + (f" (model 1: {ref['peak_bytes'] / 2**30:.2f})"
+                 if "peak_bytes" in ref else ""))
+        for r in runs:
+            print(f"  rank {r['rank']}: peak {r['peak_bytes'] / 2**30:.2f} "
+                  f"GiB, {r['local_elems']:,} params, median step "
+                  f"{r['median_step_s']:.3f} s, launches "
+                  f"{ {k: v for k, v in r['launches'].items() if v} }, "
+                  f"'model' collectives {r['model_calls']} "
+                  f"{r['model_s']:.3f} s = {100 * r['model_share']:.1f}% of "
+                  f"steps 1-{n - 1}")
+    report["tp_path"] = dict(cuts=rows, wall_s=wall, model1_s=model1_s)
+    print(f"tp_path: {wall:.1f} s ({model1_s:.1f} s of it the families' "
+          f"model-1 runs)")
+    return totals
 
 
 def run() -> int:
@@ -4330,8 +4536,8 @@ def run() -> int:
     launches["smoke elastic halt"] = elastic_halt_phase(torch, report)
     launches["serve"] = serve_path(torch, report)
     launches["serve smoke"] = serve_smoke_path(torch, report)
-    launches[f"f32 model {TP_MODEL}"] = tp_path(
-        torch, cfg, schedule, layout, report, ("main_path", replicated, False))
+    launches.update(tp_path(torch, schedule, layout, report,
+                            ("main_path", replicated, False)))
     del replicated, sharded, streamed, sharded_prec
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}

@@ -9,11 +9,12 @@ archs ``repro_torch.sharding.needs_fsdp`` names), ``--decoupled``, its
 param all-gathers streamed into the forward (DESIGN.md §12), and
 ``--pod``, a ``pod x data`` layout of the ranks whose syncs are
 hierarchical, ``--data --model`` (or ``--production-mesh``), a mesh with
-a 'model' axis over which the dense decoders run tensor-parallel
-(``sharding/tp.py``; the replicated flat engine in f32 and the DDP
-baseline), and checkpoints in the JAX package's format (``--ckpt``,
-``--ckpt-every``, ``--resume``; a SIGTERM or SIGUSR1 checkpoints and
-exits cleanly, DESIGN.md §10), the online control plane (``--adapt``,
+a 'model' axis over which the dense decoders, the RG-LRU and RWKV-6
+families and the encoder-decoder run tensor-parallel (``sharding/tp.py``;
+the replicated flat engine in f32 and the DDP baseline), and checkpoints
+in the JAX package's format (``--ckpt``, ``--ckpt-every``, ``--resume``;
+a SIGTERM or SIGUSR1 checkpoints and exits cleanly, DESIGN.md §10), the
+online control plane (``--adapt``,
 ``--adapt-drop-step``, ``--adapt-drop-scale``, ``--adapt-repartition``:
 telemetry, drift detection, a Preserver-gated replan and a hot swap at a
 cycle boundary, DESIGN.md §7 and §9), the elastic control plane
@@ -376,13 +377,15 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     syncs are hierarchical.  ``model`` adds a 'model' axis (``data`` None:
     the ranks the other axes leave; ``production_mesh``: JAX's production
     mesh mapped onto the nodes, ``train_mesh``): the global batch splits
-    over pod x data, each model rank runs the dense decoder
-    tensor-parallel on its shards of the params, on the replicated flat
-    engine in f32 or the DDP baseline (the other engines, the precision
-    path, checkpoints, adapt and elastic refuse it, ROADMAP item 8.2).  ``secondary_chain`` routes the secondary
-    link's collectives along that ring chain of the 'data' ranks;
-    ``reroute(schedule, times)`` returns the (schedule, AG plan) the
-    runtime runs instead of the planner's schedule and no AG plan.
+    over pod x data, each model rank runs the model tensor-parallel on
+    its shards of the params (every family but MoE, MLA and the VLM's
+    gated cross block, ROADMAP item 8.1), on the replicated flat engine
+    in f32 or the DDP baseline (the other engines, the precision path,
+    checkpoints, adapt and elastic refuse it, ROADMAP item 8.2).
+    ``secondary_chain`` routes the secondary link's collectives along
+    that ring chain of the 'data' ranks; ``reroute(schedule, times)``
+    returns the (schedule, AG plan) the runtime runs instead of the
+    planner's schedule and no AG plan.
 
     ``ckpt`` is a checkpoint directory: the state is saved there every
     ``ckpt_every`` steps (0: only at the end) and at the end, and a
@@ -832,9 +835,10 @@ def main() -> None:
                     help="mesh 'data' axis (0: the ranks --pod and --model "
                          "leave)")
     ap.add_argument("--model", type=int, default=1,
-                    help="mesh 'model' axis: the dense decoders run "
+                    help="mesh 'model' axis: the model runs "
                          "tensor-parallel over it (replicated flat engine "
-                         "in f32, or --scheduler ddp)")
+                         "in f32, or --scheduler ddp; not MoE, MLA or the "
+                         "VLM)")
     ap.add_argument("--ckpt", default="", help="checkpoint dir (optional)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="auto-checkpoint cadence in steps (0 = only at "

@@ -29,9 +29,10 @@ absorbed into q, the scores from the cached latent and rope key at scale
 1/sqrt(qk_nope + qk_rope), and ``W_uv`` applied after the softmax, never
 expanding K or V; one ``kv_length`` for the batch, as JAX's takes.  Layout [B, S, H, D] throughout.
 With a ``ModelParallel`` (``sharding/tp.py``) the train path of the
-self-attention runs tensor-parallel over the 'model' axis
-(``_tp_self_attention``), as JAX's constraints over 'heads' / 'kv' have
-XLA run it.
+self-attention (``_tp_self_attention``) and the cross-attention run
+tensor-parallel over the 'model' axis, as JAX's constraints over 'heads'
+/ 'kv' have XLA run them: each rank attends with its q heads over the kv
+heads they read and multiplies by its rows of ``wo`` (``_tp_attend``).
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ from repro_torch.models.common import (
     dense_init,
     matmul,
     rms_norm_per_head,
+    tp_columns,
 )
-from repro_torch.sharding.tp import copy_in, gather, reduce_out
+from repro_torch.sharding.tp import copy_in, covering, owned_part, reduce_out
 
 
 def init_attention(generator, cfg, *, lead: Sequence[int] = (), device="cuda",
@@ -81,44 +83,58 @@ def _project_qkv(p, x, cfg):
     return q, k, v
 
 
-def _tp_columns(xc, w, name: str, total: int, c0: int, c1: int, tp):
-    """Columns ``[c0, c1)`` of ``xc @ W`` for a projection W of ``total``
-    columns whose logical dim is ``name``: this rank's shard of W when it
-    splits over 'model' (all-gathered first where ``[c0, c1)`` is not
-    exactly that shard, as a split inside a head needs), else the
-    replicated W's columns, entered through ``copy_in`` so that its
-    gradient sums over 'model'."""
-    if not tp.split(name, total):
-        return matmul(xc, copy_in(w, tp)[..., c0:c1])
-    y = matmul(xc, w)
-    if (c0, c1) == tp.owned(name, total):
-        return y
-    return gather(y, tp, dim=-1)[..., c0:c1]
+def _tp_heads(cfg, tp) -> Tuple[int, int, int, int, int, int]:
+    """``(o0, o1, h0, h1, k0, k1)``: the attention output columns
+    ``[o0, o1)`` this rank owns (its rows of ``wo``: its shard where
+    'heads' splits, else its share of whole heads; all of them without
+    ``tp``), the q heads ``[h0, h1)`` that cover them and the kv heads
+    ``[k0, k1)`` those read."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    o0, o1, h0, h1 = covering(tp, "heads",
+                              cfg.n_heads * cfg.resolved_head_dim,
+                              cfg.resolved_head_dim)
+    return o0, o1, h0, h1, h0 // group, (h1 - 1) // group + 1
+
+
+def _tp_attend(p, q, k, v, heads, *, cfg, causal: bool, window: int,
+               attn_impl: Optional[str], tp) -> torch.Tensor:
+    """The flash over this rank's q heads ``[h0, h1)`` [B, S, h1 - h0, D]
+    and kv heads ``[k0, k1)`` [B, Sk, k1 - k0, D] (``_tp_heads``): a local
+    q head ``h`` reads local kv head ``h // (H / KV)`` where the slices
+    line up (each kv head's whole group on one rank), an explicit map
+    otherwise.  Then this rank's output columns times its rows of ``wo``,
+    the partial sum all-reduced over 'model'."""
+    o0, o1, h0, h1, k0, k1 = heads
+    b, s = q.shape[:2]
+    hd = cfg.resolved_head_dim
+    group = cfg.n_heads // cfg.n_kv_heads
+    reads = [(h0 + i) // group - k0 for i in range(h1 - h0)]
+    if (h1 - h0) % (k1 - k0) or reads != [
+            i // ((h1 - h0) // (k1 - k0)) for i in range(h1 - h0)]:
+        idx = torch.tensor(reads, device=q.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    att = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=cfg.attn_logit_softcap, impl=attn_impl)
+    att = att.reshape(b, s, -1)[..., o0 - h0 * hd:o1 - h0 * hd]
+    wo = owned_part(p["wo"], "heads", cfg.n_heads * hd, o0, o1, tp)
+    return reduce_out(matmul(att, wo), tp)
 
 
 def _tp_self_attention(p, x, *, cfg, window: int, causal: bool, pos: int,
                        attn_impl: Optional[str], tp) -> torch.Tensor:
-    """Self-attention over the heads this rank owns, row-parallel out.
-
-    The rank owns the attention output columns of its rows of ``wo`` (its
-    shard where 'heads' splits, else its share of whole heads), so it
-    computes the q heads that cover them and the kv heads those read, a
-    local q head ``h`` reading local kv head ``h // (H / KV)`` where the
-    slices line up (each kv head's whole group on one rank) and an
-    explicit map otherwise.  Projections split inside a head are gathered
-    (``_tp_columns``); ``q_norm`` / ``k_norm`` meet this rank's heads only,
-    so they go in through ``copy_in``.  The product with ``wo`` is this
-    rank's partial sum, all-reduced over 'model'."""
+    """Self-attention over the heads this rank owns, row-parallel out
+    (``_tp_attend``).  Projections split inside a head are gathered
+    (``tp_columns``); ``q_norm`` / ``k_norm`` meet this rank's heads
+    only, so they go in through ``copy_in``."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    group = h // kv
-    o0, o1 = tp.owned("heads", h * hd, hd)
-    h0, h1 = o0 // hd, -(-o1 // hd)
-    k0, k1 = h0 // group, (h1 - 1) // group + 1
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    heads = _tp_heads(cfg, tp)
+    _, _, h0, h1, k0, k1 = heads
     xc = copy_in(x, tp)
-    q = _tp_columns(xc, p["wq"], "heads", h * hd, h0 * hd, h1 * hd, tp)
-    k = _tp_columns(xc, p["wk"], "kv", kv * hd, k0 * hd, k1 * hd, tp)
-    v = _tp_columns(xc, p["wv"], "kv", kv * hd, k0 * hd, k1 * hd, tp)
+    q = tp_columns(xc, p["wq"], "heads", cfg.n_heads * hd, h0 * hd, h1 * hd,
+                   tp)
+    k = tp_columns(xc, p["wk"], "kv", kv * hd, k0 * hd, k1 * hd, tp)
+    v = tp_columns(xc, p["wv"], "kv", kv * hd, k0 * hd, k1 * hd, tp)
     q = q.reshape(b, s, h1 - h0, hd)
     k = k.reshape(b, s, k1 - k0, hd)
     v = v.reshape(b, s, k1 - k0, hd)
@@ -128,16 +144,8 @@ def _tp_self_attention(p, x, *, cfg, window: int, causal: bool, pos: int,
     qpos = pos + torch.arange(s, device=x.device)
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
-    reads = [(h0 + i) // group - k0 for i in range(h1 - h0)]
-    if (h1 - h0) % (k1 - k0) or reads != [
-            i // ((h1 - h0) // (k1 - k0)) for i in range(h1 - h0)]:
-        idx = torch.tensor(reads, device=x.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    att = flash_attention(q, k, v, causal=causal, window=window,
-                          softcap=cfg.attn_logit_softcap, impl=attn_impl)
-    att = att.reshape(b, s, -1)[..., o0 - h0 * hd:o1 - h0 * hd]
-    wo = p["wo"] if tp.split("heads", h * hd) else copy_in(p["wo"], tp)[o0:o1]
-    return reduce_out(matmul(att, wo), tp)
+    return _tp_attend(p, q, k, v, heads, cfg=cfg, causal=causal,
+                      window=window, attn_impl=attn_impl, tp=tp)
 
 
 def make_kv_cache(cfg, batch: int, max_len: int, window: int = 0, *,
@@ -241,37 +249,51 @@ def init_cross_attention(generator, cfg, *, lead: Sequence[int] = (),
     return p
 
 
-def cross_kv(p: Dict, memory: torch.Tensor, cfg
+def cross_kv(p: Dict, memory: torch.Tensor, cfg, tp=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """memory [B, M, d] -> K, V [B, M, KV, D] (K per-head normed with
     ``use_qk_norm``), in the promoted dtype of the memory and the weights:
     f32 for the f32 stub memory (or an encoder's output over it) under
-    bf16 params, as JAX never casts the memory."""
+    bf16 params, as JAX never casts the memory.  With ``tp`` (a
+    ``ModelParallel``) the kv heads ``[k0, k1)`` this rank's q heads read
+    (``_tp_heads``), from its columns of ``wk`` / ``wv`` (gathered where a
+    head straddles ranks).  The memory goes in as it is: its gradient
+    here covers this rank's heads only, and ``model.encode`` sums it over
+    'model' once for every cross layer."""
     b, m, _ = memory.shape
-    hd = cfg.resolved_head_dim
-    k = matmul(memory, p["wk"]).reshape(b, m, cfg.n_kv_heads, hd)
-    v = matmul(memory, p["wv"]).reshape(b, m, cfg.n_kv_heads, hd)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    _, _, _, _, k0, k1 = _tp_heads(cfg, tp)
+    k = tp_columns(memory, p["wk"], "kv", kv * hd, k0 * hd, k1 * hd,
+                   tp).reshape(b, m, k1 - k0, hd)
+    v = tp_columns(memory, p["wv"], "kv", kv * hd, k0 * hd, k1 * hd,
+                   tp).reshape(b, m, k1 - k0, hd)
     if cfg.use_qk_norm:
-        k = rms_norm_per_head(k, p["k_norm"])
+        k = rms_norm_per_head(k, copy_in(p["k_norm"], tp))
     return k, v
 
 
 def apply_cross_attention(p: Dict, x: torch.Tensor,
                           kv: Tuple[torch.Tensor, torch.Tensor], *, cfg,
                           gated: bool = False,
-                          attn_impl: Optional[str] = None) -> torch.Tensor:
+                          attn_impl: Optional[str] = None,
+                          tp=None) -> torch.Tensor:
     """x [B, S, d] attends to ``kv`` (``cross_kv``) -> [B, S, d] in x's
     promoted dtype: a bf16 decoder's queries over f32 K/V attend in f32
-    and come back bf16 (``flash_attention``'s promotion), as in JAX."""
+    and come back bf16 (``flash_attention``'s promotion), as in JAX.
+    With ``tp`` (a ``ModelParallel``) over this rank's q heads and the kv
+    heads ``cross_kv(tp=tp)`` gave, row-parallel out (``_tp_attend``);
+    without it the same body over every head."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    if cfg.use_qk_norm:
-        q = rms_norm_per_head(q, p["q_norm"])
     k, v = kv
-    att = flash_attention(q, k, v, causal=False,
-                          softcap=cfg.attn_logit_softcap, impl=attn_impl)
-    out = matmul(att.reshape(b, s, -1), p["wo"])
+    heads = _tp_heads(cfg, tp)
+    _, _, h0, h1, _, _ = heads
+    q = tp_columns(copy_in(x, tp), p["wq"], "heads", cfg.n_heads * hd,
+                   h0 * hd, h1 * hd, tp).reshape(b, s, h1 - h0, hd)
+    if cfg.use_qk_norm:
+        q = rms_norm_per_head(q, copy_in(p["q_norm"], tp))
+    out = _tp_attend(p, q, k, v, heads, cfg=cfg, causal=False, window=0,
+                     attn_impl=attn_impl, tp=tp)
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out

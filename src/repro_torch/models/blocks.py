@@ -27,9 +27,11 @@ place.  A cross-attention's K/V come from the memory when one is given
 the cache otherwise (decode).
 
 Over the 'model' mesh axis (a ``ModelParallel``, ``sharding/tp.py``) the
-dense decoder blocks run tensor-parallel: attention over this rank's
-heads, the FFN over its ff columns, norms replicated.
-``check_model_parallel`` refuses the other kinds.
+blocks of the dense decoders, the recurrent families and an
+encoder-decoder run tensor-parallel: attention and cross-attention over
+this rank's heads, the RG-LRU over its 'lru' channels, RWKV-6's time-mix
+over its heads and channel-mix over its ff columns, the FFN over its ff
+columns, norms replicated.  ``check_model_parallel`` refuses the rest.
 """
 from __future__ import annotations
 
@@ -65,30 +67,27 @@ from repro_torch.sharding.tp import FAMILIES_ITEM
 
 
 _KINDS = ("attn", "local_attn", "mla", "rglru", "rwkv", "cross_attn")
-# what runs tensor-parallel over the 'model' axis: the dense decoders
-_TP_KINDS = ("attn", "local_attn")
-_TP_REFUSED = {"mla": "MLA's heads", "rglru": "the RG-LRU's 'lru' width",
-               "rwkv": "RWKV-6's heads and ff",
-               "cross_attn": "cross-attention"}
 
 
 def check_model_parallel(cfg) -> None:
     """Refuse a config with a block the 'model' axis does not split yet:
-    MoE, MLA, RG-LRU, RWKV-6, cross-attention and the encoder (each named
-    in ROADMAP item 8.1)."""
-    if cfg.is_encoder_decoder:
+    MoE's experts, MLA's heads and the VLM's gated cross-attention block
+    (what is left of ROADMAP item 8.1).  The dense decoders, the RG-LRU
+    and RWKV-6 families and an encoder-decoder (its encoder and
+    cross-attention) run over it."""
+    specs = cfg.layer_specs()
+    missing = [what for what, found in (
+        ("MoE's experts (expert parallelism)",
+         any(s.ffn == "moe" for s in specs)),
+        ("MLA's heads", any(s.kind == "mla" for s in specs)),
+        ("the VLM's gated cross-attention block",
+         not cfg.is_encoder_decoder
+         and any(s.kind == "cross_attn" for s in specs))) if found]
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder and its cross-attention over the "
-            f"'model' axis are not ported ({FAMILIES_ITEM})")
-    for spec in cfg.layer_specs():
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE's experts over the 'model' axis (expert "
-                f"parallelism) are not ported ({FAMILIES_ITEM})")
-        if spec.kind not in _TP_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: {_TP_REFUSED.get(spec.kind, spec.kind)} over "
-                f"the 'model' axis is not ported ({FAMILIES_ITEM})")
+            f"{cfg.name}: {' and '.join(missing)} over the 'model' axis "
+            f"{'is' if len(missing) == 1 else 'are'} not ported "
+            f"({FAMILIES_ITEM})")
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -168,9 +167,11 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     """x [B, S, d] -> (x [B, S, d], the MoE aux loss, an f32 0-d tensor);
     a ``cross_attn`` block attends to ``memory`` [B, M, d] or, without
     it, to the K/V its ``cache`` holds.  ``cache`` (``init_block_cache``)
-    is written in place.  ``tp`` (a ``ModelParallel``) runs a dense
-    decoder block tensor-parallel over the 'model' axis
-    (``check_model_parallel`` says which configs have only those)."""
+    is written in place.  ``tp`` (a ``ModelParallel``) runs the block
+    tensor-parallel over the 'model' axis (``check_model_parallel`` says
+    which configs have only such blocks); a cross-attention's ``memory``
+    is then the encoder's output as ``model.encode`` gives it with
+    ``tp``."""
     _check_spec(spec)
     if spec.kind == "cross_attn" and memory is None and cache is None:
         raise ValueError("a cross_attn block needs the memory or a filled "
@@ -183,7 +184,7 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
         """Cross-attention K/V: from the memory at train / prefill (stored
         with ``fill_cross_cache``), from the cache at decode."""
         if memory is not None:
-            k, v = cross_kv(mixer_p, memory, cfg)
+            k, v = cross_kv(mixer_p, memory, cfg, tp=tp)
             if cache is not None and fill_cross_cache:
                 cache["cross_k"].copy_(k)
                 cache["cross_v"].copy_(v)
@@ -195,10 +196,10 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     state = cache.get("state") if cache else None
     if spec.kind == "rglru":
         out = apply_rglru(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                          state=state, scan_impl=scan_impl)
+                          state=state, scan_impl=scan_impl, tp=tp)
     elif spec.kind == "rwkv":
         out = apply_rwkv_timemix(p["mixer"], norm("pre_norm", x), cfg=cfg,
-                                 state=state, scan_impl=scan_impl)
+                                 state=state, scan_impl=scan_impl, tp=tp)
     elif spec.kind == "mla":
         out = apply_mla(p["mixer"], norm("pre_norm", x), cfg=cfg, **attn_kw)
     elif spec.kind == "cross_attn" and not cfg.is_encoder_decoder:
@@ -216,11 +217,11 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     if spec.kind == "cross_attn" and cfg.is_encoder_decoder:
         x = x + apply_cross_attention(
             p["cross"], norm("cross_norm", x), cross(p["cross"]), cfg=cfg,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, tp=tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "rwkv":
-        out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x),
-                                    state=state)
+        out = apply_rwkv_channelmix(p["ffn"], norm("ffn_norm", x), cfg=cfg,
+                                    state=state, tp=tp)
     elif spec.ffn == "moe":
         out, aux = apply_moe(p["ffn"], norm("ffn_norm", x), cfg=cfg,
                              capacity_factor=capacity_factor)

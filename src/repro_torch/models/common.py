@@ -7,7 +7,8 @@ numbers differ from ``jax.random``; parity tests carry JAX params across
 with ``repro_torch.convert``).  ``matmul`` is ``@`` with jnp's dtype
 promotion, which PyTorch's products lack.  ``apply_ffn`` runs
 tensor-parallel over the 'model' axis when given a ``ModelParallel``
-(``sharding/tp.py``).
+(``sharding/tp.py``); ``tp_columns`` is a rank's columns of a projection
+whose output dim may split over 'model'.
 """
 from __future__ import annotations
 
@@ -17,7 +18,12 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.tp import copy_in, reduce_out, vocab_parallel_nll
+from repro_torch.sharding.tp import (
+    copy_in,
+    gather,
+    reduce_out,
+    vocab_parallel_nll,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +123,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w
     dt = torch.result_type(x, w)
     return x.to(dt) @ w.to(dt)
+
+
+def tp_columns(xc: torch.Tensor, w: torch.Tensor, name: str, total: int,
+               c0: int, c1: int, tp) -> torch.Tensor:
+    """Columns ``[c0, c1)`` of ``xc @ W`` for a projection W of ``total``
+    columns whose logical dim is ``name``: this rank's shard of W when it
+    splits over 'model' (all-gathered first where ``[c0, c1)`` is not
+    exactly that shard, as a split inside a head needs), else the
+    replicated W's columns, entered through ``copy_in`` so that its
+    gradient sums over 'model'; without ``tp`` W's columns."""
+    if tp is None or not tp.split(name, total):
+        return matmul(xc, copy_in(w, tp)[..., c0:c1])
+    y = matmul(xc, w)
+    if (c0, c1) == tp.owned(name, total):
+        return y
+    return gather(y, tp, dim=-1)[..., c0:c1]
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

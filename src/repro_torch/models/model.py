@@ -25,10 +25,13 @@ applied to that position alone; ``decode_step`` feeds one token a row.
 Both run under ``torch.inference_mode()`` without remat.
 
 Over a 'model' mesh axis (``tp``, a ``sharding.tp.ModelParallel``) the
-dense decoders run tensor-parallel on this rank's shards of the params:
-the embedding over its vocab rows (``vocab_embed``), the blocks over its
-heads and ff columns, the LM head over its vocab slice and the cross
-entropy through ``vocab_parallel_nll``; every rank computes the same loss.
+dense decoders, the RG-LRU and RWKV-6 families and an encoder-decoder run
+tensor-parallel on this rank's shards of the params: the embedding over
+its vocab rows (``vocab_embed``), the blocks over its heads, 'lru'
+channels and ff columns (the encoder's too), the LM head over its vocab
+slice and the cross entropy through ``vocab_parallel_nll``; every rank
+computes the same loss.  Where the vocab does not split (seamless's
+256,206 rows), the table and the head run whole on every rank.
 """
 from __future__ import annotations
 
@@ -159,17 +162,23 @@ def _period_views(stacked, n_periods: int):
 
 
 def encode(params, cfg: ArchConfig, modal_embeds: torch.Tensor, *,
-           attn_impl: Optional[str] = None) -> torch.Tensor:
+           attn_impl: Optional[str] = None, tp=None) -> torch.Tensor:
     """The bidirectional encoder over the stub frontend's embeddings
-    [B, M, d] -> its final-norm output [B, M, d] (no remat)."""
+    [B, M, d] -> its final-norm output [B, M, d] (no remat).  With ``tp``
+    (a ``ModelParallel``) its blocks run over this rank's heads and ff
+    columns, and the output, the memory of every cross layer, goes out
+    through ``copy_in``: each cross layer's K/V projection on this rank
+    reads only its own heads' columns, so the memory's gradient is summed
+    over 'model' here, once a step, not once a cross layer."""
     if not cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name} has no encoder")
     enc = params["encoder"]
     x = modal_embeds
     for p in _period_views(enc["stack"], cfg.n_encoder_layers):
         x, _ = apply_block(p, x, cfg=cfg, spec=_ENCODER_SPEC, causal=False,
-                           attn_impl=attn_impl)
-    return apply_norm(enc["final_norm"], x, cfg.norm)
+                           attn_impl=attn_impl, tp=tp)
+    x = apply_norm(enc["final_norm"], x, cfg.norm)
+    return x if tp is None else copy_in(x, tp)
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -190,8 +199,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     its cache in place (``fill_cross_cache``: the cross-attention K/V of
     ``memory`` too).  ``tp`` (a ``ModelParallel``) runs the model
     tensor-parallel over the 'model' axis on this rank's shards of the
-    params: the embedding over its vocab rows, the blocks over its heads
-    and ff columns, the logits of its vocab slice."""
+    params: the embedding over its vocab rows, the blocks over its heads,
+    'lru' channels and ff columns, the logits of its vocab slice (where
+    the vocab splits); an encoder-decoder's ``memory`` is then
+    ``encode(..., tp=tp)``'s."""
     lay = stack_layout(cfg)
     if tp is not None:
         check_model_parallel(cfg)
@@ -306,7 +317,9 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     aux, {"ce", "aux"})."""
     memory = batch.get("memory")
     if cfg.is_encoder_decoder:
-        memory = encode(params, cfg, memory, attn_impl=attn_impl)
+        if tp is not None:
+            check_model_parallel(cfg)
+        memory = encode(params, cfg, memory, attn_impl=attn_impl, tp=tp)
     if loss_chunk:
         x, aux = forward(params, cfg, batch["tokens"], memory=memory,
                          remat=remat, head=False, attn_impl=attn_impl,

@@ -25,6 +25,25 @@ it in place.
 
 The parameter names and shapes are the JAX package's; ``lead`` prepends
 the stacked per-period axis.
+
+Over the 'model' mesh axis (a ``ModelParallel``, ``sharding/tp.py``), where
+JAX's constraints over 'lru', 'heads' and 'ff' have XLA split them, the
+training paths run tensor-parallel, the input entering through
+``copy_in`` and the row-parallel output projection's partial sums
+all-reduced (``reduce_out``):
+
+* RG-LRU: this rank's 'lru' channels of ``wx`` / ``wgate``, the conv,
+  ``a_param`` and the scan on them; its gate blocks, or, where the 'lru'
+  split falls inside a block (the gates stay whole), the whole blocks
+  covering its channels over a gathered conv output.
+* RWKV-6 time-mix: this rank's heads of r / k / v / g, the decay, the
+  bonus ``u``, the WKV and the group norm; the ddlerp runs whole on every
+  rank, its leaves, ``w0``, the decay LoRA and the group norm's scale and
+  bias entering through ``copy_in`` (their gradients cover this rank's
+  heads only).  Channel-mix: ``wk``'s 'ff' columns, ``wv``'s rows.
+
+Without a model axis the same bodies run over every channel and head:
+the helpers then take the whole span and issue nothing.
 """
 from __future__ import annotations
 
@@ -36,7 +55,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.rwkv6 import rwkv6_mix
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, tp_columns
+from repro_torch.sharding.tp import (
+    copy_in,
+    covering,
+    gather,
+    owned_part,
+    reduce_out,
+)
 
 _C_RGLRU = 8.0  # the paper's fixed scalar c
 
@@ -122,17 +148,47 @@ def _block_diag_gate(y: torch.Tensor, w_gate: torch.Tensor,
     return torch.sigmoid(g.reshape(b, s, w).float())
 
 
+def _refuse_state(tp, state) -> None:
+    if tp is not None and state is not None:
+        raise NotImplementedError(
+            "a recurrent decode state sharded over the 'model' axis (JAX's "
+            "cache_specs) is not ported: ROADMAP item 8.4")
+
+
+def _rglru_gates(p: Dict, y: torch.Tensor, heads: int, width: int, tp
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence and input gates of this rank's channels ``y`` [B, S,
+    W / model]: over its gate blocks where they split like the channels,
+    else over the whole blocks covering its channels (the conv output
+    gathered over 'model', the whole gate leaves through ``copy_in``),
+    sliced to its channels (all of them, without ``tp``)."""
+    bh = width // heads
+    c0, c1, b0, b1 = covering(tp, "lru", width, bh)
+    if tp is not None and not tp.split("heads", heads):
+        y = gather(y, tp, dim=-1)[..., b0 * bh:b1 * bh]
+    return tuple(
+        _block_diag_gate(y, owned_part(p[name], "heads", heads, b0, b1, tp),
+                         b1 - b0)[..., c0 - b0 * bh:c1 - b0 * bh]
+        for name in ("w_rgate", "w_igate"))
+
+
 def apply_rglru(p: Dict, x: torch.Tensor, *, cfg,
                 state: Optional[Dict] = None,
-                scan_impl: Optional[str] = None) -> torch.Tensor:
+                scan_impl: Optional[str] = None, tp=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]; ``state`` (``make_rglru_state``) is read
-    and written in place."""
+    and written in place.  ``tp`` (a ``ModelParallel``) runs it over this
+    rank's 'lru' channels where 'lru' splits (else whole on every rank,
+    as XLA leaves it)."""
+    _refuse_state(tp, state)
+    if tp is not None and not tp.split("lru", cfg.resolved_lru_width):
+        tp = None
+    x = copy_in(x, tp)
     heads = cfg.n_heads
     gate = F.gelu((x @ p["wgate"]).float(), approximate="tanh")
     y, new_conv = _causal_conv1d(x @ p["wx"], p["conv_w"], p["conv_b"],
                                  state["conv"] if state else None)
-    r = _block_diag_gate(y, p["w_rgate"], heads)          # recurrence gate
-    i = _block_diag_gate(y, p["w_igate"], heads)          # input gate
+    # the recurrence and input gates
+    r, i = _rglru_gates(p, y, heads, cfg.resolved_lru_width, tp)
     a_param = p["a_param"].float()
     # jax.nn.softplus is logaddexp(x, 0) (F.softplus returns x above 20)
     softplus = torch.logaddexp(a_param, torch.zeros_like(a_param))
@@ -146,7 +202,7 @@ def apply_rglru(p: Dict, x: torch.Tensor, *, cfg,
     if state:
         state["h"].copy_(h_final)
         state["conv"].copy_(new_conv)
-    return (h * gate).to(x.dtype) @ p["wo"]
+    return reduce_out((h * gate).to(x.dtype) @ p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -223,34 +279,69 @@ def _ddlerp(p: Dict, x: torch.Tensor, prev: torch.Tensor):
     return [mixed[:, :, j] for j in range(5)]
 
 
-def apply_rwkv_timemix(p: Dict, x: torch.Tensor, *, cfg,
-                       state: Optional[Dict] = None,
-                       scan_impl: Optional[str] = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]; ``state`` (``make_rwkv_state``): its
-    ``s`` and ``shift_tm`` are read and written in place."""
-    b, s, d = x.shape
-    h = cfg.n_heads
-    hd = d // h
-    prev = _token_shift(x, state["shift_tm"] if state else None)
-    xr, xk, xv, xw, xg = _ddlerp(p, x, prev)
-    r = (xr @ p["wr"]).reshape(b, s, h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, h, hd)
-    g = F.silu(xg @ p["wg"])
-    w_log = p["w0"].float() + (
-        torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
-    w = torch.exp(-torch.exp(w_log)).reshape(b, s, h, hd)
-    o, s_final = rwkv6_mix(r, k, v, w, p["u"].float(),
+def _rwkv_wkv_and_norm(p: Dict, x: torch.Tensor, r, k, v, w, u, g, *,
+                       state: Optional[Dict], scan_impl: Optional[str]
+                       ) -> torch.Tensor:
+    """The WKV of r / k / v / w [B, S, H, D] with bonus ``u`` [H, D], the
+    per-head group norm (population variance, eps 64e-5) with ``p``'s
+    ``ln_scale`` / ``ln_bias`` over those heads' columns, gated by ``g``
+    -> [B, S, H * D] in x's dtype; ``state``'s ``s`` and ``shift_tm`` are
+    written in place."""
+    b, s, h, hd = r.shape
+    o, s_final = rwkv6_mix(r, k, v, w, u.float(),
                            state["s"] if state else None, impl=scan_impl)
     if state:
         state["s"].copy_(s_final)
         state["shift_tm"].copy_(x[:, -1, :])
-    # per-head group norm (population variance, eps 64e-5)
     mean = torch.mean(o, dim=-1, keepdim=True)
     var = torch.var(o, dim=-1, keepdim=True, unbiased=False)
     o = (o - mean) * torch.rsqrt(var + 64e-5)
-    o = o.reshape(b, s, d) * p["ln_scale"].float() + p["ln_bias"].float()
-    return (o.to(x.dtype) * g) @ p["wo"]
+    o = o.reshape(b, s, h * hd) * p["ln_scale"].float() + p["ln_bias"].float()
+    return o.to(x.dtype) * g
+
+
+# the time-mix's leaves ``spec_tree`` keeps whole on every model rank; each
+# meets this rank's heads only (through the ddlerp's five inputs, the decay
+# or the group norm), so its gradient sums over 'model'
+_RWKV_WHOLE = ("mu_base", "ddlerp_a", "ddlerp_b", "w0", "w_lora_a",
+               "w_lora_b", "ln_scale", "ln_bias")
+
+
+def apply_rwkv_timemix(p: Dict, x: torch.Tensor, *, cfg,
+                       state: Optional[Dict] = None,
+                       scan_impl: Optional[str] = None,
+                       tp=None) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]; ``state`` (``make_rwkv_state``): its
+    ``s`` and ``shift_tm`` are read and written in place.  ``tp`` (a
+    ``ModelParallel``) runs it over the heads this rank owns: the output
+    columns of its rows of ``wo`` (its shard where 'heads' splits, else
+    its share of whole heads) and the whole heads ``[h0, h1)`` covering
+    them."""
+    _refuse_state(tp, state)
+    b, s, d = x.shape
+    h = cfg.n_heads
+    hd = d // h
+    o0, o1, h0, h1 = covering(tp, "heads", d, hd)
+    c0, c1, n = h0 * hd, h1 * hd, h1 - h0
+    xc = copy_in(x, tp)
+    whole = {key: copy_in(p[key], tp) for key in _RWKV_WHOLE}
+    prev = _token_shift(xc, state["shift_tm"] if state else None)
+    xr, xk, xv, xw, xg = _ddlerp(whole, xc, prev)
+    cols = lambda xi, key, name: tp_columns(xi, p[key], name, d, c0, c1, tp)
+    r = cols(xr, "wr", "heads").reshape(b, s, n, hd)
+    k = cols(xk, "wk", "kv").reshape(b, s, n, hd)
+    v = cols(xv, "wv", "kv").reshape(b, s, n, hd)
+    g = F.silu(cols(xg, "wg", "heads"))
+    w_log = whole["w0"][c0:c1].float() + (
+        torch.tanh(xw @ whole["w_lora_a"])
+        @ whole["w_lora_b"][:, c0:c1]).float()
+    w = torch.exp(-torch.exp(w_log)).reshape(b, s, n, hd)
+    u = owned_part(p["u"], "heads", h, h0, h1, tp)
+    norm = {key: whole[key][c0:c1] for key in ("ln_scale", "ln_bias")}
+    o = _rwkv_wkv_and_norm(norm, x, r, k, v, w, u, g, state=state,
+                           scan_impl=scan_impl)[..., o0 - c0:o1 - c0]
+    wo = owned_part(p["wo"], "heads", d, o0, o1, tp)
+    return reduce_out(o @ wo, tp)
 
 
 def init_rwkv_channelmix(generator, cfg, *, lead: Sequence[int] = (),
@@ -264,13 +355,21 @@ def init_rwkv_channelmix(generator, cfg, *, lead: Sequence[int] = (),
     }
 
 
-def apply_rwkv_channelmix(p: Dict, x: torch.Tensor, *,
-                          state: Optional[Dict] = None) -> torch.Tensor:
+def apply_rwkv_channelmix(p: Dict, x: torch.Tensor, *, cfg=None,
+                          state: Optional[Dict] = None,
+                          tp=None) -> torch.Tensor:
     """Token-shifted squared-relu MLP: x [B, S, d] -> [B, S, d];
-    ``state``'s ``shift_cm`` is read and written in place."""
-    prev = _token_shift(x, state["shift_cm"] if state else None)
-    xk = x + (prev - x) * p["mu_k"][None, None]
+    ``state``'s ``shift_cm`` is read and written in place.  ``tp`` (a
+    ``ModelParallel``) with ``cfg``: where 'ff' splits, ``wk`` by this
+    rank's columns, ``wv`` by its rows, ``mu_k`` whole through
+    ``copy_in`` (else whole on every rank)."""
+    _refuse_state(tp, state)
+    if tp is not None and not tp.split("ff", cfg.d_ff):
+        tp = None
+    xc = copy_in(x, tp)
+    prev = _token_shift(xc, state["shift_cm"] if state else None)
+    xk = xc + (prev - xc) * copy_in(p["mu_k"], tp)[None, None]
     out = torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]
     if state:
         state["shift_cm"].copy_(x[:, -1, :])
-    return out
+    return reduce_out(out, tp)

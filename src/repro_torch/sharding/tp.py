@@ -20,12 +20,23 @@ runs between two autograd Functions:
   holds it.
 
 A leaf ``spec_tree`` keeps whole but that meets a split activation
-(qwen3's per-head ``q_norm`` / ``k_norm``) goes in through ``copy_in``,
-so its gradient is summed over 'model' as XLA sums it.  ``shard_params``
+(qwen3's per-head ``q_norm`` / ``k_norm``, RWKV-6's ddlerp and decay
+LoRA, its group-norm scale, a gate block the RG-LRU's 'lru' split falls
+inside) goes in through ``copy_in`` (``owned_part`` takes this rank's
+slice of it), so its gradient is summed over 'model' as XLA sums it.
+``covering`` gives the span a rank owns and the whole blocks (heads, gate
+blocks) that cover it.
+
+The families that run over 'model': the dense decoders (self-attention
+over 'heads' / 'kv', the FFN over 'ff', the vocab), the RG-LRU block over
+'lru' (its gates over their blocks), RWKV-6's time-mix over its heads and
+its channel-mix over 'ff', and an encoder-decoder's encoder and
+cross-attention.  MoE's experts, MLA's heads and the VLM's gated cross
+block are refused (``FAMILIES_ITEM``).  ``shard_params``
 / ``gather_params`` move a tree between JAX's global arrays and this
 rank's shards by ``spec_tree``.  At model 1 every Function is the
-identity and issues no collective; the model code then takes its
-single-rank path (``ModelParallel.of`` gives None).
+identity and issues no collective (``ModelParallel.of`` gives None, which
+each helper here takes as the whole span).
 """
 from __future__ import annotations
 
@@ -178,16 +189,46 @@ class _Gather(torch.autograd.Function):
         return ctx.mp.reduce_scatter(g, ctx.dim), None, None
 
 
-def copy_in(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
-    return x if mp.size == 1 else _CopyIn.apply(x, mp)
+# Without a model axis (``mp`` None, or model 1) each of these is the
+# identity and issues nothing, so one body of model code serves both.
+def copy_in(x: torch.Tensor, mp: Optional[ModelParallel]) -> torch.Tensor:
+    return x if mp is None or mp.size == 1 else _CopyIn.apply(x, mp)
 
 
-def reduce_out(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
-    return x if mp.size == 1 else _ReduceOut.apply(x, mp)
+def reduce_out(x: torch.Tensor, mp: Optional[ModelParallel]) -> torch.Tensor:
+    return x if mp is None or mp.size == 1 else _ReduceOut.apply(x, mp)
 
 
-def gather(x: torch.Tensor, mp: ModelParallel, dim: int = -1) -> torch.Tensor:
-    return x if mp.size == 1 else _Gather.apply(x, mp, dim % x.ndim)
+def gather(x: torch.Tensor, mp: Optional[ModelParallel],
+           dim: int = -1) -> torch.Tensor:
+    return (x if mp is None or mp.size == 1
+            else _Gather.apply(x, mp, dim % x.ndim))
+
+
+def covering(mp: Optional[ModelParallel], name: str, total: int, unit: int
+             ) -> Tuple[int, int, int, int]:
+    """``(c0, c1, u0, u1)``: the slice ``[c0, c1)`` this rank owns of a
+    dimension of ``total`` made of ``unit``-wide blocks (heads, gate
+    blocks; ``ModelParallel.owned``), and the blocks ``[u0, u1)`` that
+    cover it (a split inside a block needs the whole block); all of it
+    without ``mp``."""
+    c0, c1 = (0, total) if mp is None else mp.owned(name, total, unit)
+    return c0, c1, c0 // unit, -(-c1 // unit)
+
+
+def owned_part(w: torch.Tensor, name: str, total: int, c0: int, c1: int,
+               mp: Optional[ModelParallel], dim: int = 0) -> torch.Tensor:
+    """``[c0, c1)`` along ``dim`` of a leaf whose dim of logical ``name``
+    has ``total`` entries: this rank's shard where that dim splits over
+    'model' (``[c0, c1)`` must be the shard), else the whole leaf entered
+    through ``copy_in`` (this rank's gradient covers only its slice, so it
+    sums over 'model'), sliced; without ``mp`` the leaf's slice."""
+    if mp is not None and mp.split(name, total):
+        if (c0, c1) != mp.owned(name, total):
+            raise ValueError(f"[{c0}, {c1}) is not this rank's shard of "
+                             f"{name!r} ({mp.owned(name, total)})")
+        return w
+    return copy_in(w, mp).narrow(dim, c0, c1 - c0)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,

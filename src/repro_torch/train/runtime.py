@@ -453,28 +453,36 @@ def _fused_metrics(loss, parts, phase: PhaseSpec, n_dp: int,
 def phase_collectives(phase: PhaseSpec, layout: Optional[BucketLayout] = None,
                       *, n_data: int = 1, outer: bool = False,
                       chain: bool = False) -> Dict[str, int]:
-    """Collectives one phase issues, by construction: one primary sync per
-    primary-synced bucket, one secondary sync per secondary-synced bucket,
-    plus the single metrics all-reduce.  Over ``n_data`` 'data' ranks with
-    an ``outer`` 'pod' group, a secondary sync whose buffer (``layout``)
-    splits over the ranks adds one all-reduce over 'pod'; with a ``chain``
-    each secondary sync is chained, in ``2 (n_data - 1)`` rounds."""
-    n = len(phase.route_new)
-    synced = [
-        (phase.route_new[b] == "sync" and phase.rotate) or phase.sync_cur[b]
-        for b in range(n)
-    ]
-    primary = sum(1 for b in range(n) if synced[b] and not phase.secondary[b])
-    secondary = [b for b in range(n) if synced[b] and phase.secondary[b]]
-    out = {"primary": primary, "secondary": len(secondary), "metrics": 1}
+    """Collectives one phase issues, by construction: a primary or
+    secondary sync per scheduled generation of a bucket (the fresh one
+    when it rotates onto the wire, the older one when the phase syncs
+    ``cur``: a bucket with both takes two, where JAX's census counts one,
+    ROADMAP section 3), plus the single metrics all-reduce.  Over
+    ``n_data`` 'data' ranks with an ``outer`` 'pod' group, a secondary
+    sync whose buffer (``layout``) splits over the ranks adds one
+    all-reduce over 'pod'; with a ``chain`` each secondary sync is
+    chained, in ``2 (n_data - 1)`` rounds."""
+    syncs = _syncs_of_phase(phase)
+    primary = sum(k for b, k in enumerate(syncs) if not phase.secondary[b])
+    secondary = [(b, k) for b, k in enumerate(syncs) if phase.secondary[b]]
+    n_secondary = sum(k for _, k in secondary)
+    out = {"primary": primary, "secondary": n_secondary, "metrics": 1}
     if outer:
-        out["outer"] = sum(1 for b in secondary
+        out["outer"] = sum(k for b, k in secondary
                            if layout.buf_sizes[b] % n_data == 0
                            and layout.buf_sizes[b] >= n_data)
     if chain:
-        out["chained"] = len(secondary)
-        out["chain_rounds"] = 2 * (n_data - 1) * len(secondary)
+        out["chained"] = n_secondary
+        out["chain_rounds"] = 2 * (n_data - 1) * n_secondary
     return out
+
+
+def _syncs_of_phase(phase: PhaseSpec) -> List[int]:
+    """Per bucket, the generations ``_route_and_sync`` puts on the wire in
+    ``phase``: the fresh one when it rotates onto it, plus ``cur`` when
+    the phase syncs it (0, 1 or 2)."""
+    return [int(phase.rotate and phase.route_new[b] == "sync")
+            + int(phase.sync_cur[b]) for b in range(len(phase.route_new))]
 
 
 def phase_collectives_sharded(phase: PhaseSpec, layout: BucketLayout,
@@ -543,13 +551,13 @@ def wire_bytes_split_of_phase(phase: PhaseSpec, layout: BucketLayout
                               ) -> Tuple[int, int]:
     """Planned (primary, secondary) wire bytes of one phase's scheduled
     gradient syncs under ``layout``'s precision policy, split by
-    ``phase.secondary`` (JAX's ``_wire_bytes_split_of_phase``)."""
+    ``phase.secondary`` (JAX's ``_wire_bytes_split_of_phase``, with a
+    bucket that syncs two generations counted twice, as
+    ``phase_collectives`` counts it)."""
     split = [0, 0]
-    for b in range(len(phase.route_new)):
-        if (phase.route_new[b] == "sync" and phase.rotate) \
-                or phase.sync_cur[b]:
-            split[bool(phase.secondary[b])] += wire_bytes(
-                layout.wire(b), layout.buf_sizes[b])
+    for b, k in enumerate(_syncs_of_phase(phase)):
+        split[bool(phase.secondary[b])] += k * wire_bytes(
+            layout.wire(b), layout.buf_sizes[b])
     return split[0], split[1]
 
 

@@ -1072,3 +1072,86 @@ def test_model_one_mesh_steps_are_bitwise_on_the_card():
     assert runs[0][2:] == runs[1][2:] and min(runs[0][2:]) > 0
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The kernels at the per-rank shapes of the families at model 2
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_rglru_kernels_on_a_model_rank_slice_bitwise():
+    """recurrentgemma-9b at model 2: the scan on one rank's 2048 of the 4096
+    'lru' channels, taken as a (non-contiguous) slice of a whole-width
+    tensor, forward and backward through the kernels bitwise the plain
+    versions, each kernel launched once."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    mk = lambda: torch.randn((1, 8192, 4096), device="cuda", generator=g)
+    b, a = mk(), torch.sigmoid(mk()) * 0.85 + 0.1
+    dh = mk()[..., 2048:]
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (b, a)]
+        half = [x[..., 2048:] for x in xs]
+        assert not half[0].is_contiguous() and half[0].shape[-1] == 2048
+        rglru_fwd_cuda.launches = rglru_bwd_cuda.launches = 0
+        out, _ = rglru_scan(*half, impl=impl)
+        torch.sum(out * dh).backward()
+        assert rglru_fwd_cuda.launches == rglru_bwd_cuda.launches == \
+            (impl == "cuda")
+        grads.append([out.detach()] + [x.grad[..., 2048:] for x in xs])
+    torch.cuda.synchronize()
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_rwkv6_kernels_at_sixteen_heads_of_a_rank():
+    """rwkv6-1.6b at model 2: the WKV on one rank's 16 of the 32 heads of
+    64, r / k / v / w taken as head slices of whole-width tensors, forward
+    and backward through the kernels within 1e-4 of the plain pair (max
+    |diff| / max |plain|), each kernel launched once."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(32)
+    mk = lambda: torch.randn((1, 8192, 32, 64), device="cuda", generator=g)
+    r, k, v, do = mk(), mk(), mk(), mk()[:, :, 16:]
+    w = torch.sigmoid(mk()) * 0.9 + 0.05
+    u = torch.randn((32, 64), device="cuda", generator=g)
+    runs = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (r, k, v, w, u)]
+        heads = [x[:, :, 16:] for x in xs[:4]] + [xs[4][16:]]
+        assert not heads[0].is_contiguous() and heads[0].shape[2] == 16
+        rwkv6_fwd_cuda.launches = rwkv6_bwd_cuda.launches = 0
+        out, _ = rwkv6_mix(*heads, impl=impl)
+        torch.sum(out * do).backward()
+        assert rwkv6_fwd_cuda.launches == rwkv6_bwd_cuda.launches == \
+            (impl == "cuda")
+        runs.append([out.detach()] + [x.grad[:, :, 16:] for x in xs[:4]]
+                    + [xs[4].grad[16:]])
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert _rel(x, y) <= TOL
+
+
+@pytest.mark.gpu
+def test_flash_kernel_at_a_model_ranks_mqa_heads():
+    """recurrentgemma-9b's local attention at model 2: one rank's 8 query
+    heads over the one gathered kv head, D 256, window 2048, causal, at
+    seq 4096 (8:1, a GQA ratio no single-rank path launches): out, lse
+    and the autograd gradients within 1e-4 of the plain version."""
+    _need_card()
+    q, k, v = _qkv(33, 1, 4096, 8, 1, 256)
+    kw = dict(causal=True, window=2048, softcap=0.0)
+    out, lse = flash_fwd_cuda(q, k, v, **kw)
+    ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    w = torch.randn_like(q)
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.sum(flash_attention(*xs, impl=impl, **kw) * w).backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)

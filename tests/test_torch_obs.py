@@ -11,7 +11,11 @@ against the JAX package's (DESIGN.md §11, §13-§14).
   against its plan, and ``attribute_trace`` measures every phase.
 * ``wire_bytes_per_phase`` / ``wire_bytes_split_per_phase`` equal JAX's
   on f32, mixed-wire and all-secondary (chain-routed) layouts and
-  schedules.
+  schedules in which no bucket syncs two generations in one phase.  Where
+  one does, the port counts both generations, as its engine (and JAX's)
+  puts both on the wire, and JAX's plan counts one (ROADMAP section 3;
+  ``tests/test_torch_tp_families.py`` holds the port's plan to the
+  measured bytes there).
 * Without a tracer the runtime records the control plane only.
 * The launcher: ``--adapt --adapt-drop-step 4 --adapt-repartition --trace
   OUT.json`` prints the replan JAX's launcher prints under the same
@@ -119,6 +123,9 @@ def test_planned_wire_bytes_match_jax(group, tiny, single_mesh, case, pe):
     if case == "chained":
         sched = _all_secondary(sched)
         kw = dict(secondary_chain=(0,))
+    # the domain where the two plans agree: no bucket syncs twice a phase
+    assert not any(ph.rotate and ph.route_new[b] == "sync" and ph.sync_cur[b]
+                   for ph in sched.phases for b in range(nb))
     jrt = JRuntime(tiny.cfg, jax_adamw(T.LR), sched, jl, single_mesh)
     rt = DeftRuntime(tiny.tcfg, adamw(T.LR), sched, lay, device="cpu", **kw)
     assert rt.wire_bytes_per_phase == tuple(jrt.wire_bytes_per_phase)
