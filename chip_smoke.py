@@ -412,18 +412,6 @@ FLASH_ED_SHAPES = {
     "encdec_encoder": (BATCH, ED_FRAMES, ED_FRAMES, 16, 16, 64, False),
     "encdec_cross": (BATCH, ED_SEQ, ED_FRAMES, 16, 16, 64, False),
 }
-# tp_path's family cuts at model 2, a rank's attention: recurrentgemma-9b's
-# 8 query heads over the gathered kv head (D 256, window 2048) and
-# seamless-m4t-large-v2's 8 heads of 64 (self, encoder, cross), each held
-# to the plain version with its gradients:
-# (B, Sq, Sk, H, KV, D, causal, window)
-FLASH_TP_SHAPES = {
-    "recurrentgemma_model2": (BATCH, SEQ, SEQ, 8, 1, 256, True, RG_WINDOW),
-    "encdec_self_model2": (BATCH, ED_SEQ, ED_SEQ, 8, 8, 64, True, 0),
-    "encdec_encoder_model2": (BATCH, ED_FRAMES, ED_FRAMES, 8, 8, 64, False,
-                              0),
-    "encdec_cross_model2": (BATCH, ED_SEQ, ED_FRAMES, 8, 8, 64, False, 0),
-}
 # the MLA path: deepseek-v2-236b cut to its dense layer 0 (MLA + the
 # 12288-wide SwiGLU) at full width, sequence 4096 (train_4k), batch 1, on
 # its default sharded engine at one shard, MLA_STEPS steps (three periods).
@@ -445,6 +433,26 @@ MOE_WIDTH_TOL = 1e-4
 FLASH_MLA_SHAPES = {
     "mla": (BATCH, MLA_SEQ, 128, 192, 128),
     "mla_smoke": (MOE_BATCH, MOE_SEQ, 4, 48, 32),
+    # a rank's at model 2 (tp_path's MLA cut): 64 of the 128 heads
+    "mla_model2": (BATCH, MLA_SEQ, 64, 192, 128),
+}
+# tp_path's family and smoke cuts at model 2, a rank's attention:
+# recurrentgemma-9b's 8 query heads over the gathered kv head (D 256,
+# window 2048), seamless-m4t-large-v2's 8 heads of 64 (self, encoder,
+# cross), and at the MoE smoke batch and sequence deepseek-v2-236b-smoke's
+# 2 MLA heads at 48 / 32, llama4's and the VLM's 2 self-attention heads of
+# 32 and the VLM's gated cross-attention over its 16 stub tokens, each held
+# to the plain version with its gradients:
+# (B, Sq, Sk, H, KV, D, causal, window[, DV])
+FLASH_TP_SHAPES = {
+    "recurrentgemma_model2": (BATCH, SEQ, SEQ, 8, 1, 256, True, RG_WINDOW),
+    "encdec_self_model2": (BATCH, ED_SEQ, ED_SEQ, 8, 8, 64, True, 0),
+    "encdec_encoder_model2": (BATCH, ED_FRAMES, ED_FRAMES, 8, 8, 64, False,
+                              0),
+    "encdec_cross_model2": (BATCH, ED_SEQ, ED_FRAMES, 8, 8, 64, False, 0),
+    "mla_smoke_model2": (MOE_BATCH, MOE_SEQ, MOE_SEQ, 2, 2, 48, True, 0, 32),
+    "smoke_self_model2": (MOE_BATCH, MOE_SEQ, MOE_SEQ, 2, 2, 32, True, 0),
+    "vlm_cross_smoke_model2": (MOE_BATCH, MOE_SEQ, 16, 2, 2, 32, False, 0),
 }
 # serving: recurrentgemma-9b at full width and full depth (38 layers: 26
 # RG-LRU, 12 local attention), 4 requests of a 1024-token prompt, 64 tokens
@@ -493,19 +501,40 @@ RWKV_TOL = 1e-4
 RWKV_PARAM_MAX_DIFF = 1e-2
 RWKV_BUCKET_SHARE = 1e-2
 # ``tp_path``'s cuts at data 1 x model TP_MODEL, (arch, depth overrides, of
-# layers, seq): the main path's, then the recurrent and encoder-decoder
-# families at full width (one pattern period of recurrentgemma-9b, 4 of
-# rwkv6-1.6b's layers, 2 + 2 of seamless-m4t-large-v2's), each of those one
-# schedule period, at most TP_MAX_STEPS steps, held to a model-1 run of the
-# same cut made first in the same call
-TP_MAIN_CUT = (ARCH, dict(n_layers=N_LAYERS), 26, SEQ)
+# layers, seq, kind): the main path's, then the recurrent and
+# encoder-decoder families at full width (one pattern period of
+# recurrentgemma-9b, 4 of rwkv6-1.6b's layers, 2 + 2 of
+# seamless-m4t-large-v2's), each of those one schedule period, at most
+# TP_MAX_STEPS steps, held to a model-1 run of the same cut made first in
+# the same call; then the FSDP archs: deepseek-v2-236b's dense layer 0 at
+# full width on its sharded engine (``mla_path``'s cut, held to its stored
+# run), one of its MoE FFNs at published width (``moe_width_phase``'s
+# input, forward and backward, held to its model-1 result), and the three
+# FSDP archs' smoke configs at ``moe_smoke_path``'s batch and sequence
+# (the VLM at one pattern period of 5 layers, so that its gated cross block
+# is there), each held to a model-1 run made first.  ``kind``: "full" (the
+# config at full width), "smoke" (``reduce_for_smoke``) or "moe_width".
+TP_MAIN_CUT = (ARCH, dict(n_layers=N_LAYERS), 26, SEQ, "full")
 TP_FAMILY_CUTS = (
-    (RG_ARCH, dict(n_layers=3), RG_OF_LAYERS, SEQ),
-    (RWKV_ARCH, dict(n_layers=4), RWKV_LAYERS, SEQ),
-    (ED_ARCH, dict(n_layers=2, n_encoder_layers=2), ED_LAYERS, ED_SEQ),
+    (RG_ARCH, dict(n_layers=3), RG_OF_LAYERS, SEQ, "full"),
+    (RWKV_ARCH, dict(n_layers=4), RWKV_LAYERS, SEQ, "full"),
+    (ED_ARCH, dict(n_layers=2, n_encoder_layers=2), ED_LAYERS, ED_SEQ,
+     "full"),
+)
+VLM_ARCH = "llama-3.2-vision-90b"
+TP_MLA_CUT = (MLA_ARCH, dict(n_layers=MLA_LAYERS), MLA_OF_LAYERS, MLA_SEQ,
+              "full")
+TP_MOE_WIDTH_CUT = (MLA_ARCH, {}, MLA_OF_LAYERS, MOE_WIDTH_SEQ, "moe_width")
+TP_SMOKE_CUTS = (
+    (MLA_ARCH, {}, 2, MOE_SEQ, "smoke"),
+    ("llama4-maverick-400b-a17b", {}, 2, MOE_SEQ, "smoke"),
+    (VLM_ARCH, dict(n_layers=5), 5, MOE_SEQ, "smoke"),
 )
 TP_MAX_STEPS = 4
-TP_CHILD_TIMEOUT_S = 900      # rank 1's limit over the four cuts
+TP_CHILD_TIMEOUT_S = 900      # rank 1's limit over the cuts
+# the MoE FFN's expert gradients go from rank 1 to rank 0 over gloo in
+# slices of this many experts (252 MB at deepseek-v2-236b's widths)
+TP_MOE_CHUNK = 8
 CARD_BYTES = 80e9             # the two ranks' peaks together stay below it
 # limits against the plain run, from two runs on two cards that read loss
 # rel 1.6e-4 and 3,353,277 params (0.28%) beyond 1e-4 + |p| / 128 (one
@@ -601,8 +630,8 @@ def flex_call(torch, q, k, v, window: int, cap: float, causal: bool = True):
 def sdpa_call(torch, q, k, v, causal: bool):
     """One ``scaled_dot_product_attention`` call computing the same function
     (GQA, scale 1/sqrt(D), causal or not, no window or softcap): the
-    yardstick where compiled ``flex_attention`` cannot take the shape (MLA's
-    d_qk 192 needs more shared memory than its kernels have)."""
+    yardstick of every shape without a window or softcap, uncompiled, and
+    where compiled ``flex_attention`` cannot take the shape."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
@@ -717,18 +746,20 @@ def flash_phase(torch, report):
         del split
         return max(err, grad_err(q, k, v, kw, what)) if grads else err
 
-    # tp_path's family cuts, a model rank's shapes: checked, not timed
+    # tp_path's family and smoke cuts, a model rank's shapes: checked, not
+    # timed (MLA's at full width is timed with the paths' shapes below)
     tp_errs = {}
-    for layer, (b, sq, sk, h, kvh, d, causal, window) in \
-            FLASH_TP_SHAPES.items():
-        q, k, v = shape_inputs(b, sq, sk, h, kvh, d, d)
+    for layer, shape in FLASH_TP_SHAPES.items():
+        b, sq, sk, h, kvh, d, causal, window = shape[:8]
+        dv = shape[8] if len(shape) > 8 else d
+        q, k, v = shape_inputs(b, sq, sk, h, kvh, d, dv)
         tp_errs[layer] = held(q, k, v, dict(causal=causal, window=window,
                                             softcap=0.0),
                               f"the {layer} shape", grads=True)
         print(f"flash {layer} (B={b} Sq={sq} Sk={sk} H={h} KV={kvh} D={d} "
-              f"{'causal' if causal else 'non-causal'} window={window}): "
-              f"out, lse and gradients within {FLASH_TOL} of plain (max err "
-              f"{tp_errs[layer]:.3g})")
+              f"DV={dv} {'causal' if causal else 'non-causal'} "
+              f"window={window}): out, lse and gradients within {FLASH_TOL} "
+              f"of plain (max err {tp_errs[layer]:.3g})")
         del q, k, v
     max_err = max(max_err, *tp_errs.values())
     torch.cuda.empty_cache()
@@ -755,8 +786,10 @@ def flash_phase(torch, report):
         ms = time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10)
         plain_ms = time_ms(torch, lambda: flash_fwd_plain(q, k, v, **kw), 3)
         lib_name, lib_note = "flex_attention", None
-        if layer in FLASH_DECODE_SHAPES:
-            # no mask and no softcap: one sdpa call computes it, uncompiled
+        if not window and not cap:
+            # no window and no softcap: one sdpa call computes it,
+            # uncompiled (flex_attention's compile is kept for the shapes
+            # that need its mask or score_mod)
             lib_name = "scaled_dot_product_attention"
             lib = sdpa_call(torch, q, k, v, causal)
         else:
@@ -784,6 +817,12 @@ def flash_phase(torch, report):
         bound_ops = flops / TF32_FLOPS_PER_S * 1e3
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         shapes[layer] = sh = dict(
+            # MLA's grid order (flash_fwd.cu: query blocks first where a
+            # kv head would get fewer than 4 of the CTAs in flight, one an
+            # SM at its tiles: 132 on the H100)
+            grid=(None if layer not in FLASH_MLA_SHAPES
+                  else "query blocks first" if 4 * kvh > 132
+                  else "heads first"),
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(bound_ops, bound_bytes),
             bound_by="operations" if bound_ops >= bound_bytes else "bytes",
@@ -799,7 +838,9 @@ def flash_phase(torch, report):
                                       if (dq_k, dv_k) != (d, dv) else ""))
         lib_text = (f"{lib_name} {library_ms:.3f} ms (max diff to the kernel "
                     f"{lib_err:.3g})")
-        print(f"flash {layer} ({sh['shape']}): kernel {ms:.3f} ms, plain "
+        print(f"flash {layer} ({sh['shape']}"
+              + (f"; {sh['grid']}" if sh["grid"] else "") + f"): kernel "
+              f"{ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, {lib_text}, bound {sh['bound_ms']:.3f} "
               f"ms ({sh['bound_by']}, TF32), {sh['bound_ms'] / ms:.1%} of it; "
               f"split-TF32 work {sh['bound_split_tf32_ms']:.3f} ms "
@@ -850,9 +891,10 @@ def flash_phase(torch, report):
                 "bound: 2 (D + DV) flops a visible pair at 495 TFLOP/s TF32 "
                 "(the kernel's split-TF32 work, three times that, stands in "
                 "bound_split_tf32_ms)",
-        "library_note": "compiled flex_attention, softcap score_mod; "
-                        "scaled_dot_product_attention where flex cannot run "
-                        "the shape (see each shape's library_note)",
+        "library_note": "compiled flex_attention, softcap score_mod and "
+                        "window mask; scaled_dot_product_attention, "
+                        "uncompiled, at the shapes without a window or "
+                        "softcap (see each shape's library)",
     }
 
 
@@ -2100,6 +2142,9 @@ def main_path(torch, cfg, schedule, report, key, arch, of_layers, steps,
     gc.collect()                 # an earlier path's state is gone first
     torch.cuda.empty_cache()
     period = schedule.period
+    check(not decoupled or steps > period,
+          f"{key}: a streamed run records its order at the second cycle's "
+          f"first step, so it needs more than {period} steps")
     kw = dict(scheduler="deft", batch=BATCH, seq=seq,
               coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
               seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK, fsdp=fsdp)
@@ -2487,34 +2532,22 @@ def moe_width_phase(torch, report):
     SwiGLU on its kept tokens, the router, renormalisation, aux loss and
     shared experts, all in float64 with autograd.  out, aux and every
     gradient must be within MOE_WIDTH_TOL of it (max |diff| over the
-    reference's max |element|)."""
+    reference's max |element|).  Returns the first run's out, aux and
+    gradients on the host by name, what ``tp_path``'s model-2 cut of this
+    FFN is held to."""
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
-    from repro_torch.models.moe import apply_moe, init_moe
+    from repro_torch.models.moe import apply_moe
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(MLA_ARCH)
+    cfg, p, x, g = moe_width_inputs(torch)
     me = cfg.moe
     e, k, d, de = me.n_experts, me.experts_per_token, cfg.d_model, me.d_expert
     t = MOE_WIDTH_SEQ
     cap = math.ceil(t * k / e * 1.25)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    p = init_moe(gen, cfg, device="cuda")
-    # a direction shared by every token (0.1 of the noise's scale) skews
-    # the random router's load as a residual stream's mean does: about 20
-    # queues overflow, where iid inputs often fill none past capacity
-    x = torch.randn((1, t, d), device="cuda", generator=gen)
-    x += 0.1 * torch.randn((d,), device="cuda", generator=gen)
-    g = torch.randn((1, t, d), device="cuda", generator=gen)
-    names = ("x", "router", "experts/gate", "experts/up", "experts/down",
-             "shared/gate", "shared/up", "shared/down")
-    leaves = [x, p["router"], *(p["experts"][n] for n in ("gate", "up", "down")),
-              *(p["shared"][n] for n in ("gate", "up", "down"))]
-    for leaf in leaves:
-        leaf.requires_grad_(True)
+    names = MOE_WIDTH_NAMES
+    leaves = moe_width_leaves(p, x)
     n_params = sum(leaf.numel() for leaf in leaves[1:])
 
     def run():
@@ -2625,9 +2658,47 @@ def moe_width_phase(torch, report):
           f"(max |diff| / max |f64|): "
           f"{', '.join(f'{n} {v:.2g}' for n, v in errs.items())} "
           f"[{report['card']}]")
+    host = {"out": y.cpu(), "aux": aux.cpu(),
+            **{n: gr.cpu() for n, gr in zip(names, grads)}}
     del first, y, grads, p, leaves, x, g
     gc.collect()
     torch.cuda.empty_cache()
+    return host
+
+
+MOE_WIDTH_NAMES = ("x", "router", "experts/gate", "experts/up",
+                   "experts/down", "shared/gate", "shared/up", "shared/down")
+
+
+def moe_width_inputs(torch):
+    """``moe_width_phase``'s config, MoE params, input and output
+    cotangent, drawn from seed 0 on the card (every caller draws the same)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe
+
+    cfg = get_config(MLA_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    p = init_moe(gen, cfg, device="cuda")
+    # a direction shared by every token (0.1 of the noise's scale) skews
+    # the random router's load as a residual stream's mean does: about 20
+    # queues overflow, where iid inputs often fill none past capacity
+    x = torch.randn((1, MOE_WIDTH_SEQ, cfg.d_model), device="cuda",
+                    generator=gen)
+    x += 0.1 * torch.randn((cfg.d_model,), device="cuda", generator=gen)
+    g = torch.randn((1, MOE_WIDTH_SEQ, cfg.d_model), device="cuda",
+                    generator=gen)
+    return cfg, p, x, g
+
+
+def moe_width_leaves(p, x):
+    """The tensors ``moe_width_phase`` differentiates, in
+    MOE_WIDTH_NAMES's order, each made to require grad."""
+    leaves = [x, p["router"], *(p["experts"][n] for n in ("gate", "up", "down")),
+              *(p["shared"][n] for n in ("gate", "up", "down"))]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    return leaves
 
 
 def promotion_dtypes(torch, cfg, params, seq):
@@ -3989,18 +4060,25 @@ def serve_smoke_path(torch, report):
 
 
 def tp_config(cut):
-    """A ``tp_path`` cut's config."""
-    from repro_torch.configs import get_config
+    """A ``tp_path`` cut's config: the config at full width with the cut's
+    depth, or its smoke config (``reduce_for_smoke``)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
 
-    arch, depth, _, _ = cut
+    arch, depth, _, _, kind = cut
+    if kind == "smoke":
+        return reduce_for_smoke(get_config(arch), depth.get("n_layers", 2))
     return dataclasses.replace(get_config(arch), **depth)
 
 
-def tp_train_kw(seq: int) -> dict:
-    """``train``'s arguments for a ``tp_path`` cut (model 1 or 2)."""
-    return dict(scheduler="deft", batch=BATCH, seq=seq,
-                coverage_rate=COVERAGE_RATE, partition_elems=PARTITION_ELEMS,
-                seed=0, device="cuda", lr=LR, loss_chunk=LOSS_CHUNK)
+def tp_train_kw(cut) -> dict:
+    """``train``'s arguments for a ``tp_path`` cut (model 1 or 2): the
+    paths' at full width, ``moe_smoke_path``'s for a smoke config."""
+    seq, kind = cut[3], cut[4]
+    kw = dict(scheduler="deft", seq=seq, coverage_rate=COVERAGE_RATE,
+              partition_elems=PARTITION_ELEMS, seed=0, device="cuda", lr=LR)
+    if kind == "smoke":
+        return dict(kw, batch=MOE_BATCH)
+    return dict(kw, batch=BATCH, loss_chunk=LOSS_CHUNK)
 
 
 def tp_params_vs(ref, params) -> dict:
@@ -4025,21 +4103,144 @@ def tp_params_vs(ref, params) -> dict:
     return out
 
 
+# where a model rank's part of each MoE gradient sits in the whole tensor:
+# the dim split over 'model' (the experts' over 'experts', the shared
+# experts' over 'ff')
+TP_MOE_SPLIT = {"experts/gate": 0, "experts/up": 0, "experts/down": 0,
+                "shared/gate": 1, "shared/up": 1, "shared/down": 0}
+
+
+def tp_moe_width(rank: int, ref) -> dict:
+    """``tp_path``'s MoE FFN cut on model rank ``rank``: ``moe_width_phase``'s
+    params, input and cotangent (the same draw), this rank's 80 experts and
+    half the shared experts' ff columns (``shard_params``), the forward
+    and backward through ``apply_moe(tp=)`` twice (bitwise equal; the
+    second timed with CUDA events, its 'model' collectives with the device
+    synchronised around each).  Rank 1 then sends rank 0 its out and input
+    gradient (which must be rank 0's bit for bit) and its slices of the
+    expert and shared gradients, in slices of TP_MOE_CHUNK experts, as
+    host tensors over gloo; rank 0 holds out, aux and every gradient to
+    ``ref`` (``moe_width_phase``'s model-1 result on the host): each
+    tensor's max |diff| over its max |ref|.  Returns the rank's time,
+    peak and collectives, and on rank 0 those errors."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.sharding.tp import ModelParallel, model_specs, shard_params
+    from repro_torch.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_debug_mesh(data=1, model=TP_MODEL)
+    tp = ModelParallel(mesh)
+    cfg, full, x, g = moe_width_inputs(torch)
+    me = cfg.moe
+    check(tp.split("experts", me.n_experts)
+          and tp.split("ff", me.d_expert * me.n_shared_experts),
+          "tp_path moe_width: the experts or the shared ff do not split")
+    p = tree_map(lambda w: w.clone(), shard_params(
+        full, model_specs(full, mesh), mesh))
+    del full
+    torch.cuda.empty_cache()
+    leaves = moe_width_leaves(p, x)
+
+    def run():
+        y, aux = apply_moe(p, x, cfg=cfg, tp=tp)
+        grads = torch.autograd.grad(torch.sum(y * g) + aux, leaves)
+        return [y.detach(), aux.detach(), *grads]
+
+    first = run()
+    torch.cuda.synchronize()
+    tp.reset()
+    tp.timed = True
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    second = run()
+    end.record()
+    torch.cuda.synchronize()
+    tp.timed = False
+    ms = start.elapsed_time(end)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"tp_path moe_width rank {rank}: two runs on the card differ")
+    del second
+    got = dict(rank=rank, ms=ms, model_s=tp.seconds,
+               model_calls=dict(tp.calls),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               local_params=sum(w.numel() for w in leaves[1:]))
+    y, aux, *grads = first
+    mine = dict(zip(MOE_WIDTH_NAMES, grads), out=y)
+    if rank != 0:
+        for name in ("out", "x"):
+            dist.send(mine[name].cpu(), dst=0)
+        for name, dim in TP_MOE_SPLIT.items():
+            t = mine[name]
+            n = t.shape[dim]
+            step = TP_MOE_CHUNK if dim == 0 and "experts" in name else n
+            for c in range(0, n, step):
+                dist.send(t.narrow(dim, c, min(step, n - c)).contiguous()
+                          .cpu(), dst=0)
+        return got
+    for name in ("out", "x"):
+        other = torch.empty(mine[name].shape, dtype=mine[name].dtype)
+        dist.recv(other, src=1)
+        check(torch.equal(other.cuda(), mine[name]),
+              f"tp_path moe_width: the ranks' {name} differ")
+    errs = {}
+    for name in ("out", "x", "router"):
+        want = ref[name].cuda()
+        errs[name] = ((mine[name] - want).abs().max()
+                      / want.abs().max()).item()
+        del want
+    errs["aux"] = abs(aux.item() - ref["aux"].item()) / abs(ref["aux"].item())
+    for name, dim in TP_MOE_SPLIT.items():
+        t = mine[name]
+        n = t.shape[dim]
+        step = TP_MOE_CHUNK if dim == 0 and "experts" in name else n
+        dmax = smax = 0.0
+        for r in range(TP_MODEL):
+            for c in range(0, n, step):
+                w = min(step, n - c)
+                if r == 0:
+                    part = t.narrow(dim, c, w)
+                else:
+                    shape = list(t.shape)
+                    shape[dim] = w
+                    part = torch.empty(shape, dtype=t.dtype)
+                    dist.recv(part, src=r)
+                    part = part.cuda()
+                want = ref[name].narrow(dim, r * n + c, w).cuda()
+                dmax = max(dmax, (part - want).abs().max().item())
+                smax = max(smax, want.abs().max().item())
+                del part, want
+        errs[name] = dmax / smax
+    got["errs"] = errs
+    del first, y, grads, mine, leaves, p, x, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
 def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
-    """One model rank of ``tp_path``: every cut in turn through
-    ``train(data=1, model=TP_MODEL)`` over one gloo group of the two ranks
-    (NCCL refuses two ranks on one device; gloo all-reduces the card's
-    tensors itself), ``steps[i]`` steps with every launch counter set to
-    0 just before.  The steps after the first time the 'model'
-    collectives (the device synchronised around each).  Returns per cut
-    the rank's losses, step times, peak over the steps, launches and
-    collectives; on rank 0 also the params gathered over 'model' after
-    the last step held to ``refs[i]`` (``tp_params_vs``)."""
+    """One model rank of ``tp_path``: every cut in turn over one gloo group
+    of the two ranks (NCCL refuses two ranks on one device; gloo
+    all-reduces the card's tensors itself): a config through
+    ``train(data=1, model=TP_MODEL)``, ``steps[i]`` steps with every launch
+    counter set to 0 just before, or the MoE FFN (``tp_moe_width``).  The
+    steps after the first time the 'model' collectives (the device
+    synchronised around each).  Returns per cut the rank's losses, step
+    times, peak over the steps, launches, the data collectives and the
+    schedule's census of them (``sharded_collectives`` on the sharded
+    engine, ``phase_collectives`` on the replicated one); on rank 0 also
+    the params gathered over 'model' after the last step held to
+    ``refs[i]`` (``tp_params_vs``)."""
     import datetime
 
     import torch
     import torch.distributed as dist
     from repro_torch.launch.train import train
+    from repro_torch.train.runtime import phase_collectives
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4050,6 +4251,12 @@ def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
         (lambda s: None)
     out = []
     for i, cut in enumerate(cuts):
+        t0 = time.perf_counter()
+        if cut[4] == "moe_width":
+            got = tp_moe_width(rank, refs[i] if rank == 0 else None)
+            got["wall_s"] = time.perf_counter() - t0
+            out.append(got)
+            continue
         cfg = tp_config(cut)
         n = steps[i]
         got = {}
@@ -4075,16 +4282,22 @@ def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
         torch.cuda.reset_peak_memory_stats()
         counters = zero_counters()
         res = train(cfg, steps=n, data=1, model=TP_MODEL, on_step=on_step,
-                    log=say, **tp_train_kw(cut[3]))
+                    log=say, **tp_train_kw(cut))
         launches = kernel_launches(counters)
+        sched, rt = res["schedule"], res["runtime"]
         got.update(
             rank=rank, losses=res["losses"], step_s=res["step_s"],
-            collectives=res["collectives"], launches=launches,
-            want_launches=expected_launches(cfg, res["schedule"],
-                                            res["layout"], n),
-            stats={k: v for k, v in res["runtime"].stats().items()
-                   if k in ("dp", "model")})
-        del res
+            collectives=res["collectives"],
+            want_collectives=(
+                sharded_collectives(sched, res["layout"], n, False)
+                if rt.fsdp else [phase_collectives(
+                    sched.phases[t % sched.period]) for t in range(n)]),
+            launches=launches,
+            want_launches=expected_launches(cfg, sched, res["layout"], n),
+            stats={k: v for k, v in rt.stats().items()
+                   if k in ("dp", "model", "sharded_state")},
+            wall_s=time.perf_counter() - t0)
+        del res, rt
         out.append(got)
     return out
 
@@ -4099,72 +4312,98 @@ def tp_child(port: int, cuts, steps, queue) -> None:
     dist.destroy_process_group()
 
 
-def tp_path(torch, schedule, layout, report, against):
+def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
     """The 'model' axis at data 1 x model 2: two processes on the one
     card, this one rank 0 and a spawned one rank 1, each holding its
     shards of every leaf the port's ``spec_tree`` splits over 'model',
-    the cuts of TP_CUTS in turn through ``train(model=2)`` with every
-    launch counter zeroed just before each.  First the main path's
-    gemma2-2b cut for one period of its schedule (8 heads over 4 kv heads:
-    4 over 2 a rank; d_ff 9216: 4608; the 256000-row tied table: 128000),
-    held to ``against`` (the main path's stored run); then the recurrent
-    and encoder-decoder families at full width, each one schedule period
-    at most TP_MAX_STEPS steps: recurrentgemma-9b's pattern period (lru
-    2048 and 8 of the 16 gate blocks a rank, 8 query heads over the one kv
-    head gathered: the f32 flash at 8:1), 4 layers of rwkv6-1.6b (16 of
-    32 WKV heads, d_ff 3584, the vocab and the untied head split), 2 + 2
-    layers of seamless-m4t-large-v2 (8 heads of 64 in the encoder, the
-    decoder and the cross-attention, d_ff 4096; 256,206 vocab rows split
-    into 128,103), each held to a model-1 run of the cut made first in
+    the cuts in turn (``tp_train``) with every launch counter zeroed just
+    before each.  First the main path's gemma2-2b cut for one period of its
+    schedule (8 heads over 4 kv heads: 4 over 2 a rank; d_ff 9216: 4608;
+    the 256000-row tied table: 128000), held to ``against`` (the main
+    path's stored run); then the recurrent and encoder-decoder families at
+    full width, each one schedule period at most TP_MAX_STEPS steps:
+    recurrentgemma-9b's pattern period (lru 2048 and 8 of the 16 gate
+    blocks a rank, 8 query heads over the one kv head gathered: the f32
+    flash at 8:1), 4 layers of rwkv6-1.6b (16 of 32 WKV heads, d_ff 3584,
+    the vocab and the untied head split), 2 + 2 layers of
+    seamless-m4t-large-v2 (8 heads of 64 in the encoder, the decoder and
+    the cross-attention, d_ff 4096; 256,206 vocab rows split into
+    128,103); then the FSDP archs on their sharded engine: deepseek-v2-236b's
+    dense layer 0 (64 of the 128 MLA heads at 192 / 128, ``wdq`` and
+    ``wdkv`` whole, d_ff 6144, 51,200 of the 102,400 vocab rows) held to
+    ``mla`` (= (layout, stored run) of ``mla_path``), one of its MoE FFNs
+    at published width (80 of the 160 experts and 1536 of the shared
+    experts' 3072 ff columns a rank) held to ``moe_ref`` within
+    MOE_WIDTH_TOL, and the three FSDP archs' smoke configs.  The family
+    and smoke cuts are each held to a model-1 run of the cut made first in
     this process (the same schedule, batches and seed).  The main path's
     NCCL group is replaced by the gloo group of the two ranks.  Held per
-    cut: the ranks' losses equal, each within 1e-4 relative of the
+    trained cut: the ranks' losses equal, each within 1e-4 relative of the
     reference's (the row-parallel sums run in another order, so not
     bitwise), the params gathered after the steps within PARAM_MAX_DIFF /
     PARAM_MAX_OVER of its buckets (rwkv6: RWKV_PARAM_MAX_DIFF and
     RWKV_BUCKET_SHARE), each rank's launches as its layers and updates say
     with the scan, the WKV, the flash and the bucket update above zero
-    where the cut has them, the data collectives ``phase_collectives``,
-    and the two ranks' peaks together below the card's 80 GB.  Prints each
-    rank's peak, the median step, tokens/s and the share of the steps in
-    the 'model' collectives.  Returns the launches of the main path's cut
-    and of the families', each summed over the ranks, by path name."""
+    where the cut has them, the data collectives the schedule's census,
+    the engine the arch's default, and the two ranks' peaks together below
+    the card's 80 GB.  Prints each rank's peak, the median step, tokens/s
+    and the share of the steps in the 'model' collectives, and each cut's
+    wall seconds.  Returns the launches of the main path's cut, of the
+    families' and of the FSDP archs', each summed over the ranks, by path
+    name."""
     import multiprocessing
     import socket
 
     import torch.distributed as dist
     from repro_torch.launch.train import build_schedule, train
     from repro_torch.models.model import init_params
-    from repro_torch.train.runtime import phase_collectives
+    from repro_torch.sharding import needs_fsdp
 
     name, want, _ = against
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cuts = (TP_MAIN_CUT,) + TP_FAMILY_CUTS
+    mla_layout, mla_run = mla
+    cuts = ((TP_MAIN_CUT,) + TP_FAMILY_CUTS + (TP_MLA_CUT, TP_MOE_WIDTH_CUT)
+            + TP_SMOKE_CUTS)
     refs = [dict(layout=layout, params=want["params"], losses=want["losses"],
                  rwkv=False, name=name)]
     schedules, steps = [schedule], [schedule.period]
-    for cut in TP_FAMILY_CUTS:
+    for cut in cuts[1:]:
+        if cut[4] == "moe_width":
+            refs.append(moe_ref)
+            schedules.append(None)
+            steps.append(0)
+            continue
         cfg = tp_config(cut)
         sched = build_schedule(
             init_params(cfg, device="meta"), cfg, dp=1, seq_len=cut[3],
-            per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
+            per_device_batch=tp_train_kw(cut)["batch"],
+            partition_elems=PARTITION_ELEMS,
             coverage_rate=COVERAGE_RATE)[3].schedule
         n = min(sched.period, TP_MAX_STEPS)
+        steps.append(n)
+        schedules.append(sched)
+        if cut is TP_MLA_CUT:
+            check(n == sched.period == len(mla_run["losses"]),
+                  f"tp_path: mla_path's stored period "
+                  f"({len(mla_run['losses'])} steps) is not this schedule's "
+                  f"({sched.period}, at most {TP_MAX_STEPS})")
+            refs.append(dict(layout=mla_layout, params=mla_run["params"],
+                             losses=mla_run["losses"], rwkv=False,
+                             name="mla_path"))
+            continue
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res = train(cfg, steps=n, log=lambda s: None, **tp_train_kw(cut[3]))
+        res = train(cfg, steps=n, log=lambda s: None, **tp_train_kw(cut))
         check(res["schedule"].phases == sched.phases,
-              f"tp_path {cut[0]}: another schedule than planned")
+              f"tp_path {cfg.name}: another schedule than planned")
         refs.append(dict(layout=res["layout"], losses=res["losses"],
                          params=[b.cpu() for b in res["state"]["pbuf"]],
                          rwkv=cut[0] == RWKV_ARCH, name="model 1",
                          median_step_s=statistics.median(res["step_s"][1:]),
                          peak_bytes=torch.cuda.max_memory_allocated()))
-        steps.append(n)
-        schedules.append(sched)
         del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -4189,15 +4428,44 @@ def tp_path(torch, schedule, layout, report, against):
         dist.destroy_process_group()
     wall = time.perf_counter() - t0
     check(child.exitcode == 0, f"tp_path rank 1 exited {child.exitcode}")
-    totals = {f"f32 model {TP_MODEL}": {},
-              f"f32 model {TP_MODEL} families": {}}
+    keys = [f"f32 model {TP_MODEL}", f"f32 model {TP_MODEL} families",
+            f"f32 model {TP_MODEL} fsdp archs"]
+    totals = {k: {} for k in keys}
     rows = {}
     for i, (cut, ref, n, sched) in enumerate(zip(cuts, refs, steps,
                                                   schedules)):
-        arch, _, of_layers, seq = cut
-        cfg = tp_config(cut)
+        arch, _, of_layers, seq, kind = cut
         runs = [r[i] for r in ranks]
-        key = f"tp_path {arch}"
+        if kind == "moe_width":
+            errs = runs[0]["errs"]
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= MOE_WIDTH_TOL,
+                  f"tp_path moe_width at model {TP_MODEL} against "
+                  f"moe_width_phase's model-1 result: {worst} off by "
+                  f"{errs[worst]:.3g} of its scale (limit {MOE_WIDTH_TOL})")
+            peaks = sum(r["peak_bytes"] for r in runs)
+            check(peaks < CARD_BYTES, f"tp_path moe_width: the ranks' peaks "
+                                      f"add up to {peaks} bytes")
+            rows["moe_width"] = dict(
+                seq=seq, rel_err=errs, peaks_sum_bytes=peaks,
+                ranks=[{k: v for k, v in r.items() if k != "errs"}
+                       for r in runs])
+            print(f"tp_path moe_width ({arch} MoE FFN at published width, "
+                  f"[1, {seq}, 5120], data 1 x model {TP_MODEL}: 80 experts "
+                  f"and half the shared ff a rank): forward + backward "
+                  + " / ".join(f"{r['ms']:.3f}" for r in runs)
+                  + f" ms by rank [{report['card']}]; against the model-1 "
+                  f"result (max |diff| / max |ref|): "
+                  f"{', '.join(f'{k} {v:.2g}' for k, v in errs.items())}")
+            for r in runs:
+                print(f"  rank {r['rank']}: peak "
+                      f"{r['peak_bytes'] / 2**30:.2f} GiB, "
+                      f"{r['local_params']:,} params, 'model' collectives "
+                      f"{r['model_calls']} {r['model_s']:.3f} s, wall "
+                      f"{r['wall_s']:.1f} s")
+            continue
+        cfg = tp_config(cut)
+        key = f"tp_path {cfg.name}"
         losses = runs[0]["losses"]
         check(all(r["losses"] == losses for r in runs),
               f"{key}: the ranks' losses differ: "
@@ -4212,25 +4480,24 @@ def tp_path(torch, schedule, layout, report, against):
                         f"{vs['n_params_over_tol']} beyond {PARAM_TOL}, "
                         f"bucket shares beyond {10 * PARAM_TOL} "
                         f"{vs['bucket_share']}")
-        wants = [phase_collectives(sched.phases[t % sched.period])
-                 for t in range(n)]
         need = {"bucket_update"} | {
             ARCH: {"flash_fwd"}, RG_ARCH: {"rglru_fwd", "rglru_bwd",
                                            "flash_fwd"},
             RWKV_ARCH: {"rwkv6_fwd", "rwkv6_bwd"}, ED_ARCH: {"flash_fwd"},
-        }[arch]
-        total = totals[f"f32 model {TP_MODEL}" + ("" if i == 0
-                                                  else " families")]
+        }.get(arch, {"flash_fwd"})
+        total = totals[keys[0 if i == 0 else 1 if cut in TP_FAMILY_CUTS
+                            else 2]]
         for r in runs:
             check(r["launches"] == r["want_launches"],
                   f"{key} rank {r['rank']} launches {r['launches']}, "
                   f"expected {r['want_launches']}")
             check(all(r["launches"][k] > 0 for k in need),
                   f"{key} rank {r['rank']} launched none of some of {need}")
-            check(r["collectives"] == wants,
+            check(r["collectives"] == r["want_collectives"],
                   f"{key} rank {r['rank']}: issued {r['collectives']}, the "
-                  f"schedule says {wants}")
-            check(r["stats"] == {"dp": 1, "model": TP_MODEL},
+                  f"schedule says {r['want_collectives']}")
+            check(r["stats"] == {"dp": 1, "model": TP_MODEL,
+                                 "sharded_state": needs_fsdp(cfg.name)},
                   f"{key} rank {r['rank']} ran {r['stats']}")
             r["median_step_s"] = statistics.median(r["step_s"][1:])
             r["model_share"] = r["model_s"] / sum(r["step_s"][1:])
@@ -4240,27 +4507,30 @@ def tp_path(torch, schedule, layout, report, against):
         check(peaks < CARD_BYTES, f"{key}: the ranks' peaks add up to "
                                   f"{peaks} bytes")
         med = max(r["median_step_s"] for r in runs)
-        rows[arch] = dict(
+        batch = tp_train_kw(cut)["batch"]
+        engine = "sharded" if needs_fsdp(cfg.name) else "replicated"
+        rows[cfg.name] = dict(
             config=dict(arch=arch, n_layers=cfg.n_layers,
                         n_encoder_layers=cfg.n_encoder_layers,
                         of_layers=of_layers, params=leaf_params(cfg),
-                        batch=BATCH, seq=seq),
+                        batch=batch, seq=seq, kind=kind),
             against=ref["name"], steps=n, period=sched.period, losses=losses,
             ref_losses=ref["losses"], loss_rel_diff=rel, median_step_s=med,
-            tokens_per_s=BATCH * seq / med, peaks_sum_bytes=peaks,
+            tokens_per_s=batch * seq / med, peaks_sum_bytes=peaks,
             ranks=[{k: v for k, v in r.items() if k != "vs"} for r in runs],
             **vs)
         if "median_step_s" in ref:
-            rows[arch].update(model1_median_step_s=ref["median_step_s"],
-                              model1_peak_bytes=ref["peak_bytes"])
+            rows[cfg.name].update(model1_median_step_s=ref["median_step_s"],
+                                  model1_peak_bytes=ref["peak_bytes"])
         print(f"{key} ({cfg.n_layers}"
               + (f" + {cfg.n_encoder_layers}" if cfg.n_encoder_layers else "")
-              + f" of {of_layers} layers, seq {seq}, data 1 x model "
-              f"{TP_MODEL}, gloo, two processes on one card): {n} steps, "
+              + f" of {of_layers} layers, batch {batch}, seq {seq}, data 1 x "
+              f"model {TP_MODEL}, {engine} engine, gloo, two processes on "
+              f"one card): {n} steps, "
               f"median step {med:.3f} s"
               + (f" (model 1: {ref['median_step_s']:.3f} s)"
                  if "median_step_s" in ref else "")
-              + f", {BATCH * seq / med:.0f} tok/s [{report['card']}]; vs "
+              + f", {batch * seq / med:.0f} tok/s [{report['card']}]; vs "
               f"{ref['name']}: loss rel {rel:.3g}, params max diff "
               f"{vs['max_param_diff']:.3g} ({vs['n_params_over_tol']} over "
               f"{PARAM_TOL}); peaks {peaks / 2**30:.2f} GiB together"
@@ -4273,10 +4543,10 @@ def tp_path(torch, schedule, layout, report, against):
                   f"{ {k: v for k, v in r['launches'].items() if v} }, "
                   f"'model' collectives {r['model_calls']} "
                   f"{r['model_s']:.3f} s = {100 * r['model_share']:.1f}% of "
-                  f"steps 1-{n - 1}")
+                  f"steps 1-{n - 1}, wall {r['wall_s']:.1f} s")
     report["tp_path"] = dict(cuts=rows, wall_s=wall, model1_s=model1_s)
-    print(f"tp_path: {wall:.1f} s ({model1_s:.1f} s of it the families' "
-          f"model-1 runs)")
+    print(f"tp_path: {wall:.1f} s ({model1_s:.1f} s of it the model-1 "
+          f"runs)")
     return totals
 
 
@@ -4422,123 +4692,166 @@ def run() -> int:
           f"{MLA_LAYERS} of {MLA_OF_LAYERS} layers: "
           f"{leaf_params(mla_cfg):,} params as leaves (formula "
           f"{mla_cfg.total_params():,})")
-    mla_schedule = build_schedule(
-        init_params(mla_cfg, device="meta"), mla_cfg, dp=1, seq_len=MLA_SEQ,
-        per_device_batch=BATCH, partition_elems=PARTITION_ELEMS,
-        coverage_rate=COVERAGE_RATE)[3].schedule
+    mla_meta = init_params(mla_cfg, device="meta")
+    mla_bucket_of, mla_nb, _, mla_plan = build_schedule(
+        mla_meta, mla_cfg, dp=1, seq_len=MLA_SEQ, per_device_batch=BATCH,
+        partition_elems=PARTITION_ELEMS, coverage_rate=COVERAGE_RATE)
+    mla_schedule = mla_plan.schedule
+    mla_layout = build_bucket_layout(mla_meta, mla_bucket_of, mla_nb)
+    del mla_meta
     check(any(ph.update_k > 1 or ph.rotate for ph in mla_schedule.phases)
           and MLA_STEPS >= 2 * mla_schedule.period,
           f"{MLA_ARCH}: degenerate schedule or {MLA_STEPS} steps short of two "
           f"periods ({mla_schedule.period})")
 
-    entries = [flash_phase(torch, report), bucket_phase(torch, layout, report)]
-    sharded_update_phase(torch, meta, bucket_of, nb, report)
-    entries += quantize_phase(torch, layout, report)
-    entries += flash_bf16_phase(torch, report)
-    entries += rglru_phase(torch, report)
-    entries += rwkv6_phase(torch, report)
-    rwkv_grad_phase(torch, rw_cfg, report)
-    replicated, sharded, streamed, sharded_prec = {}, {}, {}, {}
+    walls = report["walls"] = {}
+
+    def timed(key, fn, *args, **kw):
+        """``fn(*args, **kw)``, its wall seconds printed and kept in
+        ``report["walls"]`` and in its own entry (``wall_s``), so that a
+        later path can be budgeted from them."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[key] = time.perf_counter() - t
+        if isinstance(report.get(key), dict):
+            report[key]["wall_s"] = walls[key]
+        print(f"{key}: {walls[key]:.1f} s wall")
+        return out
+
+    entries = [timed("flash", flash_phase, torch, report),
+               timed("bucket_update", bucket_phase, torch, layout, report)]
+    timed("sharded_update", sharded_update_phase, torch, meta, bucket_of, nb,
+          report)
+    entries += timed("quantize", quantize_phase, torch, layout, report)
+    entries += timed("flash_bf16", flash_bf16_phase, torch, report)
+    entries += timed("rglru", rglru_phase, torch, report)
+    entries += timed("rwkv6", rwkv6_phase, torch, report)
+    timed("rwkv_grads", rwkv_grad_phase, torch, rw_cfg, report)
+    replicated, sharded, streamed, sharded_prec, mla_store = {}, {}, {}, {}, {}
     steps = 2 * schedule.period + 2
+    period = schedule.period
+
     launches = {
-        "f32": main_path(torch, cfg, schedule, report, "main_path", ARCH, 26,
-                         steps, store=replicated),
-        "f32 sharded": main_path(
-            torch, cfg, schedule, report, "sharded_path", ARCH, 26, steps,
-            fsdp=True, store=sharded,
+        "f32": timed("main_path", main_path, torch, cfg, schedule, report,
+                     "main_path", ARCH, 26, steps, store=replicated),
+        "f32 sharded": timed(
+            "sharded_path", main_path, torch, cfg, schedule, report,
+            "sharded_path", ARCH, 26, steps, fsdp=True, store=sharded,
             against=("main_path", replicated, False)),
-        "f32 sharded streamed": main_path(
-            torch, cfg, schedule, report, "decoupled_path", ARCH, 26, steps,
-            fsdp=True, decoupled=True, store=streamed,
+        # bitwise the sharded run: one period and the next cycle's first
+        # step, where the streamed order is recorded
+        "f32 sharded streamed": timed(
+            "decoupled_path", main_path, torch, cfg, schedule, report,
+            "decoupled_path", ARCH, 26, period + 1, fsdp=True,
+            decoupled=True, store=streamed,
             against=("sharded_path", sharded, True)),
-        "f32 chain": main_path(
-            torch, cfg, schedule, report, "chain_path", ARCH, 26, steps,
-            chain=True, against=("main_path", replicated, True)),
-        "f32 sharded streamed chain": main_path(
-            torch, cfg, schedule, report, "chain_path_sharded", ARCH, 26,
-            steps, fsdp=True, decoupled=True, chain=True,
+        # bitwise their unrouted runs (and the 4-rank gloo tests hold the
+        # chains bitwise on the CPU): one period, and the streamed one the
+        # next cycle's first step too
+        "f32 chain": timed(
+            "chain_path", main_path, torch, cfg, schedule, report,
+            "chain_path", ARCH, 26, period, chain=True,
+            against=("main_path", replicated, True)),
+        "f32 sharded streamed chain": timed(
+            "chain_path_sharded", main_path, torch, cfg, schedule, report,
+            "chain_path_sharded", ARCH, 26, period + 1, fsdp=True,
+            decoupled=True, chain=True,
             against=("decoupled_path", streamed, True)),
-        f"{WIRE}+{MASTER}": precision_path(
-            torch, cfg, report, "precision_path", COVERAGE_RATE,
-            delayed=False),
-        f"{WIRE}+{MASTER} delayed": precision_path(
-            torch, cfg, report, "precision_path_delayed",
-            DELAYED_COVERAGE_RATE, delayed=True),
-        f"{WIRE}+{MASTER} sharded": precision_path(
-            torch, cfg, report, "sharded_precision_path",
-            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True,
-            store=sharded_prec),
-        f"{WIRE}+{MASTER} sharded streamed": precision_path(
-            torch, cfg, report, "decoupled_precision_path",
-            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True, decoupled=True,
+        f"{WIRE}+{MASTER}": timed(
+            "precision_path", precision_path, torch, cfg, report,
+            "precision_path", COVERAGE_RATE, delayed=False),
+        f"{WIRE}+{MASTER} delayed": timed(
+            "precision_path_delayed", precision_path, torch, cfg, report,
+            "precision_path_delayed", DELAYED_COVERAGE_RATE, delayed=True),
+        f"{WIRE}+{MASTER} sharded": timed(
+            "sharded_precision_path", precision_path, torch, cfg, report,
+            "sharded_precision_path", DELAYED_COVERAGE_RATE, delayed=True,
+            fsdp=True, store=sharded_prec),
+        f"{WIRE}+{MASTER} sharded streamed": timed(
+            "decoupled_precision_path", precision_path, torch, cfg, report,
+            "decoupled_precision_path", DELAYED_COVERAGE_RATE, delayed=True,
+            fsdp=True, decoupled=True,
             against=("sharded_precision_path", sharded_prec, True)),
-        f"{RG_ARCH} f32": main_path(torch, rg_cfg, rg_schedule, report,
-                                    "recurrent_path", RG_ARCH, RG_OF_LAYERS,
-                                    RG_STEPS),
-        f"{RWKV_ARCH} f32": main_path(torch, rw_cfg, rw_schedule, report,
-                                      "rwkv_path", RWKV_ARCH, RWKV_LAYERS,
-                                      RWKV_STEPS,
-                                      bucket_share=RWKV_BUCKET_SHARE),
-        f"{ED_ARCH} f32": main_path(torch, ed_cfg, ed_schedule, report,
-                                    "encdec_path", ED_ARCH, ED_LAYERS,
-                                    2 * ed_schedule.period + 2, seq=ED_SEQ),
+        f"{RG_ARCH} f32": timed(
+            "recurrent_path", main_path, torch, rg_cfg, rg_schedule, report,
+            "recurrent_path", RG_ARCH, RG_OF_LAYERS, RG_STEPS),
+        f"{RWKV_ARCH} f32": timed(
+            "rwkv_path", main_path, torch, rw_cfg, rw_schedule, report,
+            "rwkv_path", RWKV_ARCH, RWKV_LAYERS, RWKV_STEPS,
+            bucket_share=RWKV_BUCKET_SHARE),
+        f"{ED_ARCH} f32": timed(
+            "encdec_path", main_path, torch, ed_cfg, ed_schedule, report,
+            "encdec_path", ED_ARCH, ED_LAYERS, 2 * ed_schedule.period + 2,
+            seq=ED_SEQ),
         # the arch's default engine; its schedule updates at every position
-        # but the last, so no position reuses a gather within the cycle
-        f"{MLA_ARCH} f32 sharded": main_path(
-            torch, mla_cfg, mla_schedule, report, "mla_path", MLA_ARCH,
-            MLA_OF_LAYERS, MLA_STEPS, fsdp=True, seq=MLA_SEQ,
-            need_reuse=False),
+        # but the last, so no position reuses a gather within the cycle;
+        # its first period is what tp_path's model-2 cut is held to
+        f"{MLA_ARCH} f32 sharded": timed(
+            "mla_path", main_path, torch, mla_cfg, mla_schedule, report,
+            "mla_path", MLA_ARCH, MLA_OF_LAYERS, MLA_STEPS, fsdp=True,
+            seq=MLA_SEQ, need_reuse=False, store=mla_store),
         # the same two configs on the delayed precision path (int8 wires,
         # bf16sr master, bf16 compute), each on its default engine
-        f"{ED_ARCH} {WIRE}+{MASTER}": precision_path(
-            torch, ed_cfg, report, "encdec_precision_path",
-            DELAYED_COVERAGE_RATE, delayed=True, seq=ED_SEQ,
-            compute_dtype="bf16", f32_key="encdec_path"),
-        f"{MLA_ARCH} {WIRE}+{MASTER} sharded": precision_path(
-            torch, mla_cfg, report, "mla_precision_path",
-            DELAYED_COVERAGE_RATE, delayed=True, fsdp=True, seq=MLA_SEQ,
-            need_reuse=False, f32_key="mla_path"),
+        f"{ED_ARCH} {WIRE}+{MASTER}": timed(
+            "encdec_precision_path", precision_path, torch, ed_cfg, report,
+            "encdec_precision_path", DELAYED_COVERAGE_RATE, delayed=True,
+            seq=ED_SEQ, compute_dtype="bf16", f32_key="encdec_path"),
+        f"{MLA_ARCH} {WIRE}+{MASTER} sharded": timed(
+            "mla_precision_path", precision_path, torch, mla_cfg, report,
+            "mla_precision_path", DELAYED_COVERAGE_RATE, delayed=True,
+            fsdp=True, seq=MLA_SEQ, need_reuse=False, f32_key="mla_path"),
     }
-    for engine, n in baselines_path(torch, cfg, schedule, bucket_of, layout,
-                                    report,
-                                    ("main_path", replicated, False)).items():
+    for engine, n in timed(
+            "baselines_path", baselines_path, torch, cfg, schedule,
+            bucket_of, layout, report,
+            ("main_path", replicated, False)).items():
         launches[f"f32 {engine.replace('_', '-')}"] = n
     for key in ("mla_path", "mla_precision_path"):
         check(report[key]["peak_bytes"] < 80e9,
               f"{key} peak {report[key]['peak_bytes']} bytes")
-    launches["moe smoke"] = moe_smoke_path(torch, report)
-    moe_width_phase(torch, report)
-    checkpoint_path(torch, cfg, report, "checkpoint_path",
-                    ("main_path", replicated, True),
-                    coverage_rate=COVERAGE_RATE)
-    checkpoint_path(torch, cfg, report, "checkpoint_precision_path",
-                    ("sharded_precision_path", sharded_prec, True),
-                    coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
-                    master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
-    checkpoint_files_phase(torch, report)
-    launches["f32 adapt"] = adapt_path(
-        torch, cfg, report, "adapt_path", "main_path",
-        coverage_rate=COVERAGE_RATE)
-    launches[f"{WIRE}+{MASTER} sharded adapt"] = adapt_path(
-        torch, cfg, report, "adapt_precision_path", "sharded_precision_path",
+    launches["moe smoke"] = timed("moe_smoke_path", moe_smoke_path, torch,
+                                  report)
+    timed("checkpoint_path", checkpoint_path, torch, cfg, report,
+          "checkpoint_path", ("main_path", replicated, True),
+          coverage_rate=COVERAGE_RATE)
+    timed("checkpoint_precision_path", checkpoint_path, torch, cfg, report,
+          "checkpoint_precision_path",
+          ("sharded_precision_path", sharded_prec, True),
+          coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
+          master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
+    timed("checkpoint_files", checkpoint_files_phase, torch, report)
+    launches["f32 adapt"] = timed(
+        "adapt_path", adapt_path, torch, cfg, report, "adapt_path",
+        "main_path", coverage_rate=COVERAGE_RATE)
+    launches[f"{WIRE}+{MASTER} sharded adapt"] = timed(
+        "adapt_precision_path", adapt_path, torch, cfg, report,
+        "adapt_precision_path", "sharded_precision_path",
         coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
         master_dtype=MASTER, fsdp=True, compute_dtype="bf16")
-    launches["f32 sharded elastic fallback"] = elastic_fallback_path(
-        torch, cfg, report, "elastic_fallback_path",
+    launches["f32 sharded elastic fallback"] = timed(
+        "elastic_fallback_path", elastic_fallback_path, torch, cfg, report,
+        "elastic_fallback_path",
         (("main_path", replicated, False), ("sharded_path", sharded, True)),
         "sharded_path", coverage_rate=COVERAGE_RATE)
-    launches[f"{WIRE}+{MASTER} sharded elastic fallback"] = \
-        elastic_fallback_path(
-            torch, cfg, report, "elastic_fallback_precision_path",
-            (("sharded_precision_path", sharded_prec, True),),
-            "sharded_precision_path", coverage_rate=DELAYED_COVERAGE_RATE,
-            wire_precision=WIRE, master_dtype=MASTER, compute_dtype="bf16")
-    launches["smoke elastic halt"] = elastic_halt_phase(torch, report)
-    launches["serve"] = serve_path(torch, report)
-    launches["serve smoke"] = serve_smoke_path(torch, report)
-    launches.update(tp_path(torch, schedule, layout, report,
-                            ("main_path", replicated, False)))
-    del replicated, sharded, streamed, sharded_prec
+    launches[f"{WIRE}+{MASTER} sharded elastic fallback"] = timed(
+        "elastic_fallback_precision_path", elastic_fallback_path, torch, cfg,
+        report, "elastic_fallback_precision_path",
+        (("sharded_precision_path", sharded_prec, True),),
+        "sharded_precision_path", coverage_rate=DELAYED_COVERAGE_RATE,
+        wire_precision=WIRE, master_dtype=MASTER, compute_dtype="bf16")
+    launches["smoke elastic halt"] = timed("elastic_halt", elastic_halt_phase,
+                                           torch, report)
+    launches["serve"] = timed("serve_path", serve_path, torch, report)
+    launches["serve smoke"] = timed("serve_smoke_path", serve_smoke_path,
+                                    torch, report)
+    # its model-1 result, on the host, is what tp_path's model-2 cut of the
+    # same FFN is held to
+    moe_ref = timed("moe_width", moe_width_phase, torch, report)
+    launches.update(timed(
+        "tp_path", tp_path, torch, schedule, layout, report,
+        ("main_path", replicated, False), (mla_layout, mla_store), moe_ref))
+    del moe_ref
+    del replicated, sharded, streamed, sharded_prec, mla_store
     for e in entries:
         by_path = {path: n[e["name"]] for path, n in launches.items()}
         e["launches"] = next((n for n in by_path.values() if n), 0)

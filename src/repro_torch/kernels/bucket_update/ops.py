@@ -31,7 +31,6 @@ syncs to the host.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -236,9 +235,10 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
 
     **Over a 'model' axis** (``model_norm`` given): the buffers hold this
     rank's shards of the leaves split over 'model' beside whole replicated
-    leaves, and the clip norm is ``model_norm`` of the scaled gradient
-    leaves in tree_flatten order (``sharding.tp.global_norm``: the split
-    leaves' squares summed across the model ranks).
+    leaves, and the clip norm is ``model_norm`` of the buffers or spans
+    (``sharding.tp.SpanNorm``: the split stretches' squares summed across
+    the model ranks, after ``norm_psum``'s sum over the spans where
+    sharded).
 
     Returns (pbuf, opt, zeroed gbuf | None) — the same tensors, updated."""
     layout = segments.layout
@@ -260,13 +260,8 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
             if valid < spans[b]:
                 g[valid:].zero_()
     if spec.grad_clip and model_norm is not None:
-        leaves = [None] * layout.n_leaves
-        for b, g in enumerate(gbuf):
-            for i, off in zip(layout.leaves[b], layout.offsets[b]):
-                n = math.prod(layout.shapes[i])
-                leaves[i] = g[off:off + n] * grad_scale
-        clip = clip_factor(spec, model_norm(leaves))
-        del leaves
+        clip = clip_factor(spec, model_norm(
+            gbuf, grad_scale=grad_scale, shard_id=shard_id, psum=norm_psum))
     elif spec.grad_clip:
         if sharded:
             sq = [torch.sum(torch.square(g * grad_scale)) for g in gbuf]

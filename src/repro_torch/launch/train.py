@@ -9,9 +9,9 @@ archs ``repro_torch.sharding.needs_fsdp`` names), ``--decoupled``, its
 param all-gathers streamed into the forward (DESIGN.md §12), and
 ``--pod``, a ``pod x data`` layout of the ranks whose syncs are
 hierarchical, ``--data --model`` (or ``--production-mesh``), a mesh with
-a 'model' axis over which the dense decoders, the RG-LRU and RWKV-6
-families and the encoder-decoder run tensor-parallel (``sharding/tp.py``;
-the replicated flat engine in f32 and the DDP baseline), and checkpoints
+a 'model' axis over which every config runs tensor-parallel
+(``sharding/tp.py``; both flat engines in f32, an FSDP arch on its
+sharded default, and the DDP baseline), and checkpoints
 in the JAX package's format (``--ckpt``, ``--ckpt-every``, ``--resume``;
 a SIGTERM or SIGUSR1 checkpoints and exits cleanly, DESIGN.md §10), the
 online control plane (``--adapt``,
@@ -378,10 +378,12 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     the ranks the other axes leave; ``production_mesh``: JAX's production
     mesh mapped onto the nodes, ``train_mesh``): the global batch splits
     over pod x data, each model rank runs the model tensor-parallel on
-    its shards of the params (every family but MoE, MLA and the VLM's
-    gated cross block, ROADMAP item 8.1), on the replicated flat engine
-    in f32 or the DDP baseline (the other engines, the precision path,
-    checkpoints, adapt and elastic refuse it, ROADMAP item 8.2).
+    its shards of the params (every config: MoE over its experts, MLA
+    and the VLM's gated cross block over their heads too), on either flat
+    engine in f32 (an FSDP arch on its sharded default, split over 'data'
+    within each model rank) or the DDP baseline (the tree-state engine,
+    the precision path, AG streaming, chains, checkpoints, adapt and
+    elastic refuse it, ROADMAP item 8.2).
     ``secondary_chain`` routes the secondary link's collectives along
     that ring chain of the 'data' ranks; ``reroute(schedule, times)``
     returns the (schedule, AG plan) the runtime runs instead of the
@@ -836,9 +838,8 @@ def main() -> None:
                          "leave)")
     ap.add_argument("--model", type=int, default=1,
                     help="mesh 'model' axis: the model runs "
-                         "tensor-parallel over it (replicated flat engine "
-                         "in f32, or --scheduler ddp; not MoE, MLA or the "
-                         "VLM)")
+                         "tensor-parallel over it (either flat engine in "
+                         "f32, or --scheduler ddp)")
     ap.add_argument("--ckpt", default="", help="checkpoint dir (optional)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="auto-checkpoint cadence in steps (0 = only at "

@@ -29,10 +29,12 @@ absorbed into q, the scores from the cached latent and rope key at scale
 1/sqrt(qk_nope + qk_rope), and ``W_uv`` applied after the softmax, never
 expanding K or V; one ``kv_length`` for the batch, as JAX's takes.  Layout [B, S, H, D] throughout.
 With a ``ModelParallel`` (``sharding/tp.py``) the train path of the
-self-attention (``_tp_self_attention``) and the cross-attention run
-tensor-parallel over the 'model' axis, as JAX's constraints over 'heads'
-/ 'kv' have XLA run them: each rank attends with its q heads over the kv
-heads they read and multiplies by its rows of ``wo`` (``_tp_attend``).
+self-attention (``_tp_self_attention``), the cross-attention (the VLM's
+gated one too) and MLA (``_mla_expanded``) run tensor-parallel over the
+'model' axis, as JAX's constraints over 'heads' / 'kv' have XLA run
+them: each rank attends with its q heads over the kv heads they read and
+multiplies by its rows of ``wo`` (``_tp_attend``); MLA's latents are
+computed whole on every rank and expanded into this rank's heads only.
 """
 from __future__ import annotations
 
@@ -330,6 +332,12 @@ def _mla_q(p, x, cfg, pos):
     cq = rms_norm_per_head(x @ p["wdq"], p["q_norm"])
     q = (cq @ p["wuq"]).reshape(b, s, cfg.n_heads,
                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return _mla_q_heads(q, cfg, pos)
+
+
+def _mla_q_heads(q, cfg, pos):
+    """Split q [B, S, h, d_qk] into (q_nope, q_rope), RoPE on q_rope."""
+    m = cfg.mla
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, pos, cfg.rope_theta)
 
@@ -343,6 +351,43 @@ def _mla_latent(p, x, cfg, pos):
     k_rope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :], pos,
                         cfg.rope_theta)[:, :, 0, :]
     return ckv, k_rope
+
+
+def _mla_expanded(p, x, cfg, qpos, attn_impl, tp):
+    """MLA's train path over the heads this rank owns (all of them
+    without ``tp``): the latents ``cq``, ``ckv`` and ``k_rope`` computed
+    whole, then entered through one ``copy_in`` of the three side by side
+    (each rank's gradient of them covers its heads only; summed over
+    'model', the whole ``wdq``, ``q_norm``, ``wdkv`` and ``kv_norm`` get
+    whole gradients), expanded into this rank's heads by its columns of
+    ``wuq`` / ``wuk`` / ``wuv`` (gathered where a split falls inside a
+    head, ``tp_columns``), the flash at d_qk over d_v, and this rank's
+    rows of ``wo``, row-parallel (its partial sum all-reduced)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, dv = cfg.n_heads, m.v_head_dim
+    dqk, nope = m.qk_nope_head_dim + m.qk_rope_head_dim, m.qk_nope_head_dim
+    cq = rms_norm_per_head(x @ p["wdq"], p["q_norm"])
+    ckv, k_rope = _mla_latent(p, x, cfg, qpos)
+    if tp is not None:
+        cq, ckv, k_rope = copy_in(torch.cat([cq, ckv, k_rope], dim=-1),
+                                  tp).split([m.q_lora_rank, m.kv_lora_rank,
+                                             m.qk_rope_head_dim], dim=-1)
+    o0, o1, h0, h1 = covering(tp, "heads", h * dv, dv)
+    n = h1 - h0
+    q = tp_columns(cq, p["wuq"], "heads", h * dqk, h0 * dqk, h1 * dqk, tp)
+    q_nope, q_rope = _mla_q_heads(q.reshape(b, s, n, dqk), cfg, qpos)
+    k_nope = tp_columns(ckv, p["wuk"], "heads", h * nope, h0 * nope,
+                        h1 * nope, tp).reshape(b, s, n, nope)
+    vv = tp_columns(ckv, p["wuv"], "heads", h * dv, h0 * dv, h1 * dv,
+                    tp).reshape(b, s, n, dv)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, n, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    att = flash_attention(q_full, k_full, vv, causal=True, impl=attn_impl)
+    att = att.reshape(b, s, -1)[..., o0 - h0 * dv:o1 - h0 * dv]
+    wo = owned_part(p["wo"], "heads", h * dv, o0, o1, tp)
+    return reduce_out(att @ wo, tp)
 
 
 def make_mla_cache(cfg, batch: int, max_len: int, *,
@@ -362,24 +407,23 @@ def make_mla_cache(cfg, batch: int, max_len: int, *,
 def apply_mla(p: Dict, x: torch.Tensor, *, cfg, pos: int = 0,
               cache: Optional[Dict] = None,
               kv_length: Optional[torch.Tensor] = None,
-              attn_impl: Optional[str] = None) -> torch.Tensor:
+              attn_impl: Optional[str] = None, tp=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d], causal.  Without a cache, K/V expanded from
-    the latent; with one (``make_mla_cache``, written in place), the
-    absorbed matmuls against it."""
+    the latent (``_mla_expanded``; ``tp``, a ``ModelParallel``, runs it
+    over this rank's heads); with one (``make_mla_cache``, written in
+    place), the absorbed matmuls against it."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
     qpos = pos + torch.arange(s, device=x.device)
+    if cache is None:
+        return _mla_expanded(p, x, cfg, qpos, attn_impl, tp)
+    if tp is not None:
+        raise NotImplementedError(
+            "MLA's absorbed decode over the 'model' axis (a latent cache "
+            "beside split heads) is not ported: ROADMAP item 8.4")
     q_nope, q_rope = _mla_q(p, x, cfg, qpos)
     ckv, k_rope = _mla_latent(p, x, cfg, qpos)
-    if cache is None:
-        k_nope = (ckv @ p["wuk"]).reshape(b, s, h, m.qk_nope_head_dim)
-        vv = (ckv @ p["wuv"]).reshape(b, s, h, m.v_head_dim)
-        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            b, s, h, m.qk_rope_head_dim)], dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
-        att = flash_attention(q_full, k_full, vv, causal=True, impl=attn_impl)
-        return att.reshape(b, s, -1) @ p["wo"]
 
     # absorbed decode path
     if kv_length is not None and kv_length.numel() > 1:

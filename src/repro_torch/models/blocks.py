@@ -26,12 +26,13 @@ place.  A cross-attention's K/V come from the memory when one is given
 (stored into the cache with ``fill_cross_cache``, at prefill) and from
 the cache otherwise (decode).
 
-Over the 'model' mesh axis (a ``ModelParallel``, ``sharding/tp.py``) the
-blocks of the dense decoders, the recurrent families and an
-encoder-decoder run tensor-parallel: attention and cross-attention over
-this rank's heads, the RG-LRU over its 'lru' channels, RWKV-6's time-mix
-over its heads and channel-mix over its ff columns, the FFN over its ff
-columns, norms replicated.  ``check_model_parallel`` refuses the rest.
+Over the 'model' mesh axis (a ``ModelParallel``, ``sharding/tp.py``)
+every block kind runs tensor-parallel on its train path: attention,
+cross-attention (the VLM's gated block too) and MLA over this rank's
+heads, the RG-LRU over its 'lru' channels, RWKV-6's time-mix over its
+heads and channel-mix over its ff columns, the FFN over its ff columns,
+MoE over its experts (the shared experts over their ff columns), norms
+replicated.
 """
 from __future__ import annotations
 
@@ -63,31 +64,9 @@ from repro_torch.models.recurrent import (
     make_rglru_state,
     make_rwkv_state,
 )
-from repro_torch.sharding.tp import FAMILIES_ITEM
 
 
 _KINDS = ("attn", "local_attn", "mla", "rglru", "rwkv", "cross_attn")
-
-
-def check_model_parallel(cfg) -> None:
-    """Refuse a config with a block the 'model' axis does not split yet:
-    MoE's experts, MLA's heads and the VLM's gated cross-attention block
-    (what is left of ROADMAP item 8.1).  The dense decoders, the RG-LRU
-    and RWKV-6 families and an encoder-decoder (its encoder and
-    cross-attention) run over it."""
-    specs = cfg.layer_specs()
-    missing = [what for what, found in (
-        ("MoE's experts (expert parallelism)",
-         any(s.ffn == "moe" for s in specs)),
-        ("MLA's heads", any(s.kind == "mla" for s in specs)),
-        ("the VLM's gated cross-attention block",
-         not cfg.is_encoder_decoder
-         and any(s.kind == "cross_attn" for s in specs))) if found]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {' and '.join(missing)} over the 'model' axis "
-            f"{'is' if len(missing) == 1 else 'are'} not ported "
-            f"({FAMILIES_ITEM})")
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -168,10 +147,9 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
     a ``cross_attn`` block attends to ``memory`` [B, M, d] or, without
     it, to the K/V its ``cache`` holds.  ``cache`` (``init_block_cache``)
     is written in place.  ``tp`` (a ``ModelParallel``) runs the block
-    tensor-parallel over the 'model' axis (``check_model_parallel`` says
-    which configs have only such blocks); a cross-attention's ``memory``
-    is then the encoder's output as ``model.encode`` gives it with
-    ``tp``."""
+    tensor-parallel over the 'model' axis, without a cache; an
+    encoder-decoder's cross-attention ``memory`` is then the encoder's
+    output as ``model.encode`` gives it with ``tp``."""
     _check_spec(spec)
     if spec.kind == "cross_attn" and memory is None and cache is None:
         raise ValueError("a cross_attn block needs the memory or a filled "
@@ -201,11 +179,12 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
         out = apply_rwkv_timemix(p["mixer"], norm("pre_norm", x), cfg=cfg,
                                  state=state, scan_impl=scan_impl, tp=tp)
     elif spec.kind == "mla":
-        out = apply_mla(p["mixer"], norm("pre_norm", x), cfg=cfg, **attn_kw)
+        out = apply_mla(p["mixer"], norm("pre_norm", x), cfg=cfg, tp=tp,
+                        **attn_kw)
     elif spec.kind == "cross_attn" and not cfg.is_encoder_decoder:
         out = apply_cross_attention(
             p["mixer"], norm("pre_norm", x), cross(p["mixer"]), cfg=cfg,
-            gated=True, attn_impl=attn_impl)
+            gated=True, attn_impl=attn_impl, tp=tp)
     else:
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         out = apply_self_attention(p["mixer"], norm("pre_norm", x), cfg=cfg,
@@ -224,7 +203,7 @@ def apply_block(p: Dict, x: torch.Tensor, *, cfg, spec: LayerSpec,
                                     state=state, tp=tp)
     elif spec.ffn == "moe":
         out, aux = apply_moe(p["ffn"], norm("ffn_norm", x), cfg=cfg,
-                             capacity_factor=capacity_factor)
+                             capacity_factor=capacity_factor, tp=tp)
     else:
         out = apply_ffn(p["ffn"], norm("ffn_norm", x), cfg, tp=tp)
     if cfg.post_block_norm:

@@ -24,14 +24,17 @@ the cross-attention K/V) returns the last position's logits, the LM head
 applied to that position alone; ``decode_step`` feeds one token a row.
 Both run under ``torch.inference_mode()`` without remat.
 
-Over a 'model' mesh axis (``tp``, a ``sharding.tp.ModelParallel``) the
-dense decoders, the RG-LRU and RWKV-6 families and an encoder-decoder run
-tensor-parallel on this rank's shards of the params: the embedding over
-its vocab rows (``vocab_embed``), the blocks over its heads, 'lru'
-channels and ff columns (the encoder's too), the LM head over its vocab
-slice and the cross entropy through ``vocab_parallel_nll``; every rank
-computes the same loss.  Where the vocab does not split (seamless's
-256,206 rows), the table and the head run whole on every rank.
+Over a 'model' mesh axis (``tp``, a ``sharding.tp.ModelParallel``) every
+config runs tensor-parallel on this rank's shards of the params: the
+embedding over its vocab rows (``vocab_embed``), the blocks over its
+heads, 'lru' channels, ff columns and experts (the encoder's too), the LM
+head over its vocab slice and the cross entropy through
+``vocab_parallel_nll``; every rank computes the same loss, the MoE aux
+loss in it once (each rank computes the whole routing, so the aux and its
+gradient are the same on every rank and are never summed over 'model').
+Where the vocab does not divide by the model size, the table and the
+head run whole on every rank: seamless's 256,206 rows split at model 2
+(2 x 128,103) and stay whole at 4, 8 and 16.
 """
 from __future__ import annotations
 
@@ -42,12 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.models.blocks import (
-    apply_block,
-    check_model_parallel,
-    init_block,
-    init_block_cache,
-)
+from repro_torch.models.blocks import apply_block, init_block, init_block_cache
 from repro_torch.models.common import (
     apply_norm,
     cross_entropy_loss,
@@ -204,8 +202,6 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     the vocab splits); an encoder-decoder's ``memory`` is then
     ``encode(..., tp=tp)``'s."""
     lay = stack_layout(cfg)
-    if tp is not None:
-        check_model_parallel(cfg)
     if _vocab_tp(cfg, tp) is not None:
         x = vocab_embed(params["embed"]["table"], tokens, tp)
     else:
@@ -317,8 +313,6 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     aux, {"ce", "aux"})."""
     memory = batch.get("memory")
     if cfg.is_encoder_decoder:
-        if tp is not None:
-            check_model_parallel(cfg)
         memory = encode(params, cfg, memory, attn_impl=attn_impl, tp=tp)
     if loss_chunk:
         x, aux = forward(params, cfg, batch["tokens"], memory=memory,

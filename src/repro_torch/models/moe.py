@@ -20,6 +20,22 @@ order: the dispatch's backward adds a token's k slot gradients in choice
 order, and the combine adds a token's k weighted expert rows in choice
 order.  No float sum depends on the order of atomics, so two runs on the
 card give the same bits.
+
+Over the 'model' axis (``tp``, a ``sharding.tp.ModelParallel``) it runs
+expert parallelism in tensor-parallel form, as JAX's constraints over
+'experts' have XLA run it.  Every rank holds the whole token set (the
+residual stream is replicated over 'model'), so the router, the softmax,
+the top-k, the aux loss, the capacity and ``route`` run whole and alike on
+every rank, and the drop set is JAX's.  Each rank dispatches to, runs and
+combines only its experts' slots ``[e0 * cap, e1 * cap)``
+(``sharding.tp.expert_span``; where 'experts' does not divide by the model
+size, its share of whole experts from the whole leaves, entered through
+``copy_in``), the shared experts over their ff columns, and one
+``reduce_out`` sums the routed and shared partial outputs.  The tokens
+enter the dispatch and the shared experts, and the routing weights the
+combine, through ``copy_in``: each rank's gradient of them covers its
+experts only, while the router and the aux get one whole gradient on
+every rank.
 """
 from __future__ import annotations
 
@@ -30,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, gated_act
+from repro_torch.sharding.tp import copy_in, expert_span, owned_part, reduce_out
 
 
 def _normal(generator, shape, std, device, dtype):
@@ -91,7 +108,8 @@ class _RowGather(torch.autograd.Function):
     def backward(ctx, grad):
         (inv,) = ctx.saved_tensors
         n, m = inv.shape
-        parts = _rows(grad.contiguous(), inv.reshape(-1)).reshape(n, m, -1)
+        parts = _rows(grad.contiguous(), inv.reshape(-1)).reshape(
+            n, m, grad.shape[-1])
         acc = parts[:, 0]
         for j in range(1, m):
             acc = acc + parts[:, j]
@@ -140,10 +158,18 @@ def _inverse(slot: torch.Tensor, n_slots: int) -> torch.Tensor:
     return inv[:-1, None]
 
 
+def _local(idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Indices into ``[lo, hi)`` made local to it; the others (and the
+    dropped sentinel) become ``hi - lo``, which reads a row of zeros."""
+    inside = (idx >= lo) & (idx < hi)
+    return torch.where(inside, idx - lo, torch.full_like(idx, hi - lo))
+
+
 def apply_moe(p: Dict, x: torch.Tensor, *, cfg,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, d] -> (output [B, S, d], aux load-balance loss, f32 0-d)."""
+    """x [B, S, d] -> (output [B, S, d], aux load-balance loss, f32 0-d);
+    ``tp`` (a ``ModelParallel``) runs this rank's experts only."""
     me = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -162,29 +188,45 @@ def apply_moe(p: Dict, x: torch.Tensor, *, cfg,
 
     cap = int(max(1, math.ceil(t * k / e * capacity_factor)))
     slot_token, choice_slot = route(top_e, e, cap)
+    # this rank's experts and their slots [s0, s1)
+    e0, e1 = expert_span(tp, e)
+    s0, s1 = e0 * cap, e1 * cap
+    mine = _local(choice_slot, s0, s1)                        # [T, k]
+    xc = copy_in(xt, tp)
     # dispatch: each slot reads its token (empty: zeros); a token's
-    # gradient sums its k slots' in choice order
-    xe = _RowGather.apply(xt, slot_token, choice_slot).reshape(e, cap, d)
+    # gradient sums its k slot gradients in choice order
+    xe = _RowGather.apply(xc, slot_token[s0:s1], mine).reshape(
+        e1 - e0, cap, d)
 
-    ex = p["experts"]
+    ex = {name: owned_part(w, "experts", e, e0, e1, tp)
+          for name, w in p["experts"].items()}
     gate = torch.bmm(xe, ex["gate"])
     up = torch.bmm(xe, ex["up"])
     act = (gated_act(cfg.ffn_activation, gate, up)
            if cfg.ffn_activation in ("silu", "gelu")
            else F.gelu(up, approximate="tanh"))
-    ye = torch.bmm(act, ex["down"]).reshape(e * cap, d)       # [E*C, d]
+    ye = torch.bmm(act, ex["down"]).reshape(s1 - s0, d)      # [E*C, d]
 
-    # combine: each choice reads its slot's output (dropped: zeros), the k
-    # weighted rows summed in choice order in f32
-    got = _RowGather.apply(ye, choice_slot.reshape(-1),
-                           _inverse(choice_slot, e * cap)).reshape(t, k, d)
-    y = got[:, 0] * top_p[:, :1]
+    # combine: each choice reads its slot's output (another rank's or
+    # dropped: zeros), the k weighted rows summed in choice order in f32
+    got = _RowGather.apply(ye, mine.reshape(-1),
+                           _inverse(choice_slot, e * cap)[s0:s1]
+                           ).reshape(t, k, d)
+    w = copy_in(top_p, tp)
+    y = got[:, 0] * w[:, :1]
     for j in range(1, k):
-        y = y + got[:, j] * top_p[:, j:j + 1]
+        y = y + got[:, j] * w[:, j:j + 1]
     y = y.float().to(x.dtype)
 
     if me.n_shared_experts:
         sh = p["shared"]
-        y = y + gated_act(cfg.ffn_activation, xt @ sh["gate"],
-                          xt @ sh["up"]) @ sh["down"]
-    return y.reshape(b, s, d), aux
+        ds = (me.d_expert or cfg.d_ff) * me.n_shared_experts
+        if tp is None or tp.split("ff", ds):       # this rank's ff columns
+            y = y + gated_act(cfg.ffn_activation, xc @ sh["gate"],
+                              xc @ sh["up"]) @ sh["down"]
+        else:          # whole on every rank: its own gradient, after the sum
+            y = reduce_out(y, tp) + gated_act(
+                cfg.ffn_activation, xt @ sh["gate"], xt @ sh["up"]
+            ) @ sh["down"]
+            return y.reshape(b, s, d), aux
+    return reduce_out(y, tp).reshape(b, s, d), aux

@@ -22,26 +22,33 @@ runs between two autograd Functions:
 A leaf ``spec_tree`` keeps whole but that meets a split activation
 (qwen3's per-head ``q_norm`` / ``k_norm``, RWKV-6's ddlerp and decay
 LoRA, its group-norm scale, a gate block the RG-LRU's 'lru' split falls
-inside) goes in through ``copy_in`` (``owned_part`` takes this rank's
+inside, the expert leaves where 'experts' does not divide by the model
+size) goes in through ``copy_in`` (``owned_part`` takes this rank's
 slice of it), so its gradient is summed over 'model' as XLA sums it.
 ``covering`` gives the span a rank owns and the whole blocks (heads, gate
 blocks) that cover it.
 
-The families that run over 'model': the dense decoders (self-attention
-over 'heads' / 'kv', the FFN over 'ff', the vocab), the RG-LRU block over
+Every family runs over 'model': the dense decoders (self-attention over
+'heads' / 'kv', the FFN over 'ff', the vocab), the RG-LRU block over
 'lru' (its gates over their blocks), RWKV-6's time-mix over its heads and
-its channel-mix over 'ff', and an encoder-decoder's encoder and
-cross-attention.  MoE's experts, MLA's heads and the VLM's gated cross
-block are refused (``FAMILIES_ITEM``).  ``shard_params``
-/ ``gather_params`` move a tree between JAX's global arrays and this
-rank's shards by ``spec_tree``.  At model 1 every Function is the
-identity and issues no collective (``ModelParallel.of`` gives None, which
-each helper here takes as the whole span).
+its channel-mix over 'ff', an encoder-decoder's encoder and
+cross-attention, the VLM's gated cross block, MLA over its heads (the
+latents whole on every rank) and MoE over its experts (``expert_span``:
+routing whole on every rank, each rank running its experts' slots, the
+shared experts over 'ff').  ``shard_params`` / ``gather_params`` move a
+tree between JAX's global arrays and this rank's shards by ``spec_tree``.
+``SpanNorm`` is the clip norm of the flat engines over their gradient
+buffers (or this rank's spans of them): the split leaves' squares summed
+over 'model', the whole leaves' counted once, JAX's ``global_norm`` of the
+global tree.  At model 1 every Function is the identity and issues no
+collective (``ModelParallel.of`` gives None, which each helper here takes
+as the whole span).
 """
 from __future__ import annotations
 
+import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -55,8 +62,7 @@ from repro_torch.sharding import (
 from repro_torch.sharding.specs import spec_tree
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-# the ROADMAP entries that every model-axis refusal names
-FAMILIES_ITEM = "ROADMAP item 8.1"
+# the ROADMAP entry that every model-axis refusal of an engine or path names
 PATHS_ITEM = "ROADMAP item 8.2"
 
 
@@ -216,6 +222,14 @@ def covering(mp: Optional[ModelParallel], name: str, total: int, unit: int
     return c0, c1, c0 // unit, -(-c1 // unit)
 
 
+def expert_span(mp: Optional[ModelParallel], n_experts: int
+                ) -> Tuple[int, int]:
+    """The experts ``[e0, e1)`` this rank runs: its shard where 'experts'
+    splits over 'model', else its share of whole experts (a rank may get
+    none); all of them without ``mp``."""
+    return (0, n_experts) if mp is None else mp.owned("experts", n_experts)
+
+
 def owned_part(w: torch.Tensor, name: str, total: int, c0: int, c1: int,
                mp: Optional[ModelParallel], dim: int = 0) -> torch.Tensor:
     """``[c0, c1)`` along ``dim`` of a leaf whose dim of logical ``name``
@@ -343,7 +357,7 @@ def global_norm(tensors, *, split, mp: ModelParallel) -> torch.Tensor:
     """The global norm of gradient leaves (tree_flatten order) of which
     ``split`` marks this rank's shards: their squares summed over
     'model', the replicated leaves' counted once, as JAX's ``global_norm``
-    of the global tree."""
+    of the global tree (the DDP baseline's, over its gradient tree)."""
     sq = [torch.sum(torch.square(x.float())) for x in tensors]
     zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
     part = [q for q, s in zip(sq, split) if s]
@@ -352,6 +366,58 @@ def global_norm(tensors, *, split, mp: ModelParallel) -> torch.Tensor:
     mp.all_reduce(part)
     rest = torch.sum(torch.stack(rest)) if rest else zero
     return torch.sqrt(part[0] + rest)
+
+
+class SpanNorm:
+    """The clip norm of a flat engine's gradient buffers at model > 1.
+
+    ``runs[b]`` lists bucket ``b``'s stretches ``(start, end, split)`` of
+    leaves that ``split`` marks alike (adjacent leaves merged, the
+    padding left out), from the layout's offsets.  A call takes the
+    buffers, or this rank's spans of them (``shard_id``: span ``b`` starts
+    at ``shard_id * len(gbuf[b])``), and sums the squares of the scaled
+    elements that fall in split stretches and in whole ones, as two
+    numbers: no leaf is copied, and no mask is built.  ``psum`` (the
+    sharded engine's 'data' sum) adds the pair over the spans, then the
+    split part is summed over 'model' (one all-reduce of one element), so
+    that ``sqrt(split + whole)`` is JAX's ``global_norm`` of the global
+    tree."""
+
+    def __init__(self, layout, split: Sequence[bool], mp: ModelParallel):
+        self.mp = mp
+        runs = []
+        for b in range(layout.n_buckets):
+            out: List[List] = []
+            for i, off in zip(layout.leaves[b], layout.offsets[b]):
+                end = off + math.prod(layout.shapes[i])
+                if out and out[-1][2] == split[i] and out[-1][1] == off:
+                    out[-1][1] = end
+                else:
+                    out.append([off, end, bool(split[i])])
+            runs.append(tuple(tuple(r) for r in out))
+        self.runs = tuple(runs)
+
+    def __call__(self, gbuf: Sequence[torch.Tensor], *, grad_scale=1.0,
+                 shard_id: Optional[int] = None,
+                 psum: Optional[Callable] = None) -> torch.Tensor:
+        dev = gbuf[0].device
+        acc = [torch.zeros((), dtype=torch.float32, device=dev)
+               for _ in range(2)]
+        for b, g in enumerate(gbuf):
+            lo = 0 if shard_id is None else shard_id * g.numel()
+            hi = lo + g.numel()
+            for a, e, s in self.runs[b]:
+                a, e = max(a, lo), min(e, hi)
+                if a < e:
+                    part = g[a - lo:e - lo] * grad_scale
+                    acc[s] = acc[s] + torch.sum(torch.square(part))
+                    del part
+        pair = torch.stack([acc[1], acc[0]])          # (split, whole)
+        if psum is not None:
+            psum(pair)
+        split = pair[:1].clone()
+        self.mp.all_reduce(split)
+        return torch.sqrt(split[0] + pair[1])
 
 
 def split_leaves(specs) -> Tuple[bool, ...]:

@@ -89,10 +89,16 @@ Over a mesh (``launch.mesh.Mesh``, ``mesh=``) the syncs run over its
 group; with a 'model' axis above 1 each rank holds its shards of the
 leaves ``sharding.tp.model_specs`` splits (JAX's ``spec_tree`` under
 ``rules_deft_manual_dp``), its bucket layout is built over those shards
-with the planner's global bucket assignment, the forward runs
-tensor-parallel (``sharding/tp.py``), and the clip norm sums the split
-leaves over 'model'.  That runs the replicated flat engine in f32 only;
-every other engine and path refuses a model axis (ROADMAP item 8.2).
+with the planner's global bucket assignment (every model rank's the
+same, as the split leaves' shards are equal), the forward runs
+tensor-parallel (``sharding/tp.py``), and the clip norm is
+``sharding.tp.SpanNorm`` over the buffers or spans.  The sharded engine's
+spans are 1/N of this rank's buckets over its 'data' line (the mesh's
+'data' group holds the model coordinate fixed, so its reduce-scatters
+and param gathers never cross model ranks).  Both flat engines run there
+in f32, on every config; the tree-state engine, the precision path, AG
+streaming, chains and the control surface refuse a model axis (ROADMAP
+item 8.2).
 
 A checkpoint holds JAX's tree form of the state (``state_to_tree``):
 layout-free param and moment trees, the ``cur``/``fut`` accumulators as
@@ -128,7 +134,6 @@ from repro_torch.kernels.quantize import (
     quantize_int8,
     stochastic_round_bf16,
 )
-from repro_torch.models.blocks import check_model_parallel
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.obs.trace import Tracer
 from repro_torch.optim.optimizers import (
@@ -136,10 +141,10 @@ from repro_torch.optim.optimizers import (
     apply_updates_,
     init_opt_state,
 )
-from repro_torch.sharding import needs_fsdp
 from repro_torch.sharding.tp import (
     PATHS_ITEM,
     ModelParallel,
+    SpanNorm,
     gather_params,
     global_norm,
     model_specs,
@@ -294,9 +299,9 @@ class DataParallel:
         return (out, work) if async_op else out
 
     def norm(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the 'data' ranks of a squared-norm scalar (in
-        place): the pod replicas hold the same spans."""
-        dist.all_reduce(x.reshape(1), group=self.group)
+        """The sum over the 'data' ranks of squared-norm scalars (in
+        place, one collective): the pod replicas hold the same spans."""
+        dist.all_reduce(x.reshape(-1), group=self.group)
         self.counts["norm"] += 1
         return x
 
@@ -861,7 +866,7 @@ class DeftRuntime:
         self.tp = ModelParallel.of(mesh)
         if self.tp is not None:
             self._refuse_model_axis(
-                cfg, fsdp=fsdp, flat_state=flat_state,
+                flat_state=flat_state,
                 compute_dtype=compute_dtype, master_dtype=master_dtype,
                 layout=layout, secondary_chain=secondary_chain,
                 decoupled=decoupled)
@@ -941,9 +946,10 @@ class DeftRuntime:
         if self.tp is not None:
             self._specs = model_specs(self._structure, mesh)
             self._structure = shard_params(self._structure, self._specs, mesh)
-            self._model_norm = functools.partial(
-                global_norm, split=split_leaves(self._specs), mp=self.tp)
         self._check_layout(layout)
+        if self.tp is not None:
+            self._model_norm = SpanNorm(layout, split_leaves(self._specs),
+                                        self.tp)
         self.segments = (build_segments(layout, opt_spec) if self.flat_state
                          else None)
         self.gather_skip = bool(
@@ -1016,17 +1022,13 @@ class DeftRuntime:
                 "§13) — drop flat_state=False")
 
     @staticmethod
-    def _refuse_model_axis(cfg, *, fsdp, flat_state, compute_dtype,
-                           master_dtype, layout: BucketLayout,
-                           secondary_chain, decoupled) -> None:
-        """What a mesh with 'model' > 1 cannot run yet: the block kinds
-        ``check_model_parallel`` refuses (ROADMAP item 8.1), and every
-        engine and path but the replicated flat engine in f32 (item 8.2)."""
-        check_model_parallel(cfg)
+    def _refuse_model_axis(*, flat_state, compute_dtype, master_dtype,
+                           layout: BucketLayout, secondary_chain,
+                           decoupled) -> None:
+        """What a mesh with 'model' > 1 cannot run yet (ROADMAP item 8.2):
+        every engine and path but the two flat engines in f32."""
         lp = layout.precision
         refused = [name for name, on in (
-            ("an FSDP arch's params split over 'data'", needs_fsdp(cfg.name)),
-            ("the sharded flat engine (fsdp)", fsdp),
             ("the tree-state engine (flat_state=False)", flat_state is False),
             ("a bf16 compute dtype",
              compute_dtype not in (None, torch.float32)),
@@ -1037,7 +1039,7 @@ class DeftRuntime:
             ("AG streaming (decoupled)", decoupled)) if on]
         if refused:
             raise NotImplementedError(
-                f"the 'model' axis runs the replicated flat engine in f32; "
+                f"the 'model' axis runs the flat engines in f32; "
                 f"{', '.join(refused)} over it is not ported ({PATHS_ITEM})")
 
     def _single_model(self, what: str) -> None:
@@ -2237,7 +2239,8 @@ class DeftRuntime:
                 impl=self.update_impl, shard_id=rank,
                 norm_psum=dp.norm if self.opt_spec.grad_clip else None,
                 master_dtype=self.master_dtype,
-                quantize_impl=self.quantize_impl)
+                quantize_impl=self.quantize_impl,
+                model_norm=self._model_norm)
             del src_sh
             if consumed_cur and gen is not None:
                 new_cur, dead = gen, cur
@@ -2357,12 +2360,6 @@ def make_ddp_step(cfg: ArchConfig, opt_spec: OptimizerSpec, *, group=None,
     from repro_torch.train.steps import ddp_train_step
 
     tp = ModelParallel.of(mesh)
-    if tp is not None:
-        check_model_parallel(cfg)
-        if needs_fsdp(cfg.name):
-            raise NotImplementedError(
-                f"{cfg.name}: an FSDP arch over the 'model' axis is not "
-                f"ported ({PATHS_ITEM})")
     if mesh is not None:
         if group is not None:
             raise ValueError("make_ddp_step takes a mesh or a group, not "

@@ -11,8 +11,9 @@
   vocab-parallel cross entropy behind gemma2's final softcap through
   ``chunked_ce`` within 1e-6 of the unsplit ``chunked_ce`` and of JAX's,
   its gradients within 1e-6, and a float64 gradcheck of it; the
-  refusals at model 2 naming ROADMAP items 8.1 (MLA, MoE, the VLM's gated
-  cross block) and 8.2.
+  refusals at model 2 naming ROADMAP item 8.2, and the three FSDP archs
+  (MLA, MoE, the VLM's gated cross block) constructed at model 2 on both
+  flat engines and on DDP.
 * (c) One spawn of 4 gloo ranks runs the replicated flat ``DeftRuntime``
   over a mesh for two periods, then one DDP step from the same params, at
   qwen3-tiny (data 2, model 2), qwen3-tiny (data 1, model 4), where the
@@ -51,6 +52,7 @@ from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduce_for_smoke as t_reduce
 from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.data.pipeline import make_batch
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import build_schedule, init_distributed, train
@@ -96,11 +98,12 @@ CE_TOL = 1e-6
 # lie beyond, none beyond a tenth of one step of lr.
 STEP_TOL = 1e-4
 MAX_OVER_SHARE = 1e-5
-# the configs whose blocks the 'model' axis does not split yet (item 8.1),
-# with their smoke overrides: the VLM's smoke depth of 3 holds no gated
-# cross block, its 5 layers (one pattern period) hold one
-FAMILIES_REFUSED = {"deepseek-v2-236b": {}, "llama4-maverick-400b-a17b": {},
-                    "llama-3.2-vision-90b": {"n_layers": 5}}
+# the FSDP archs, whose blocks (MLA, MoE, the VLM's gated cross block) the
+# 'model' axis refused until ROADMAP item 8.1 was done, with their smoke
+# overrides: the VLM's smoke depth of 3 holds no gated cross block, its 5
+# layers (one pattern period) hold one
+FSDP_FAMILIES = {"deepseek-v2-236b": {}, "llama4-maverick-400b-a17b": {},
+                 "llama-3.2-vision-90b": {"n_layers": 5}}
 # (name, data, model, loss chunk)
 MESHES = (("qwen3-tiny", 2, 2, 0), ("qwen3-tiny", 1, 4, 0),
           ("gemma2-2b-smoke", 2, 2, 16))
@@ -385,6 +388,9 @@ def _refusals(mesh):
                                      coverage_rate=1.8)
     lay = build_bucket_layout(shard_params(meta, model_specs(meta, mesh),
                                            mesh), bo, nb)
+    shard_lay = build_bucket_layout(shard_params(
+        meta, model_specs(meta, mesh), mesh), bo, nb,
+        shard_count=mesh.size("data"))
 
     def refused(key, fn):
         try:
@@ -394,16 +400,33 @@ def _refusals(mesh):
         else:
             got[key] = None
 
-    mk = lambda c=cfg, **kw: DeftRuntime(c, adamw(LR), plan.schedule, lay,
-                                        device="cpu", mesh=mesh, **kw)
-    refused("fsdp", lambda: mk(fsdp=True))
+    mk = lambda c=cfg, layout=lay, **kw: DeftRuntime(
+        c, adamw(LR), plan.schedule, layout, device="cpu", mesh=mesh, **kw)
     refused("tree", lambda: mk(flat_state=False))
     refused("bf16", lambda: mk(compute_dtype=torch.bfloat16))
     refused("bf16sr", lambda: mk(master_dtype="bf16sr"))
+    refused("wires", lambda: DeftRuntime(
+        cfg, adamw(LR), plan.schedule,
+        lay.with_precision(PrecisionPolicy.uniform(nb, "bf16")),
+        device="cpu", mesh=mesh))
     refused("chain", lambda: mk(secondary_chain=(0,)))
-    for arch, kw in FAMILIES_REFUSED.items():
-        refused(arch, lambda a=arch, kw=kw: mk(dataclasses.replace(
-            t_reduce(t_get_config(a)), **kw)))
+    refused("decoupled", lambda: mk(fsdp=True, decoupled=True,
+                                    layout=shard_lay))
+    for arch, kw in FSDP_FAMILIES.items():
+        fcfg = dataclasses.replace(t_reduce(t_get_config(arch)), **kw)
+        fmeta = init_params(fcfg, device="meta")
+        fbo, fnb, _, fplan = build_schedule(
+            fmeta, fcfg, dp=1, seq_len=32, per_device_batch=2,
+            partition_elems=120_000, coverage_rate=1.8)
+        flay = build_bucket_layout(shard_params(
+            fmeta, model_specs(fmeta, mesh), mesh), fbo, fnb,
+            shard_count=mesh.size("data"))
+        for fsdp in (True, False):
+            refused(f"{arch} fsdp={fsdp}", lambda: DeftRuntime(
+                fcfg, adamw(LR), fplan.schedule, flay, device="cpu",
+                mesh=mesh, fsdp=fsdp))
+        refused(f"{arch} ddp", lambda: make_ddp_step(fcfg, adamw(LR),
+                                                      mesh=mesh))
     rt = mk()
     state = rt.init_state(0)
     refused("state_to_tree", lambda: rt.state_to_tree(state))
@@ -448,19 +471,23 @@ def test_vocab_parallel_ce_matches_chunked_ce(functions):
 
 
 def test_model_axis_refusals(functions):
-    """The engines and paths of ROADMAP item 8.2, and the families left of
-    item 8.1: MLA's heads (deepseek-v2-236b), MoE's experts
-    (llama4-maverick-400b-a17b) and the VLM's gated cross block
-    (llama-3.2-vision-90b).  recurrentgemma-9b, rwkv6-1.6b and
-    seamless-m4t-large-v2, refused here until their blocks ran over
-    'model', are held to JAX in ``tests/test_torch_tp_families.py``."""
+    """The engines and paths of ROADMAP item 8.2 refuse model 2, each
+    naming the item: the tree-state engine, a bf16 compute dtype, a bf16sr
+    master, non-f32 wires, a chain, AG streaming, a checkpoint save, a
+    swap and a spawn.  The three FSDP archs, refused here until MLA's
+    heads, MoE's experts and the VLM's gated cross block ran over 'model'
+    (item 8.1), construct at model 2 on both flat engines and on DDP; they
+    are held to JAX in ``tests/test_torch_tp_fsdp.py``, as
+    recurrentgemma-9b, rwkv6-1.6b and seamless-m4t-large-v2 are in
+    ``tests/test_torch_tp_families.py``."""
     runs, _ = functions
     got = runs[0]["refusals"]
-    for key in ("fsdp", "tree", "bf16", "bf16sr", "chain", "state_to_tree",
-                "prepare_swap", "spawn"):
+    for key in ("tree", "bf16", "bf16sr", "wires", "chain", "decoupled",
+                "state_to_tree", "prepare_swap", "spawn"):
         assert got[key] is not None and "ROADMAP item 8.2" in got[key], key
-    for arch in FAMILIES_REFUSED:
-        assert got[arch] is not None and "ROADMAP item 8.1" in got[arch], arch
+    for arch in FSDP_FAMILIES:
+        for engine in ("fsdp=True", "fsdp=False", "ddp"):
+            assert got[f"{arch} {engine}"] is None, (arch, engine)
 
 
 # ---------------------------------------------------------------------------
