@@ -305,6 +305,19 @@
    has them, the data collectives ``phase_collectives``, and the two
    ranks' peaks together below 80 GB; each rank's peak, the median step
    and the share of the steps in the 'model' collectives are printed.
+   Last the precision cuts (``TP_PREC_CUTS``): gemma2-2b at full width, 4
+   of its 26 layers, on the delayed precision path (int8 wires, a bf16sr
+   master hashed at each element's place in the global bucket, bf16
+   compute, CR 7.2), one period, on the replicated engine and on the
+   sharded one with its gathers streamed and every sync and gather routed
+   along the chain (0,), each held to a model-1 run of the cut at the
+   precision limits (PREC_*); every leaf kept whole is hashed stretch by
+   stretch on both ranks after every step and must match (one gloo
+   all-gather), and each rank must launch the quantize, dequantize,
+   stochastic-rounding, bucket-update and bf16 flash kernels.  The
+   quantize phase (2.) holds the rounding with the rank's hash table and
+   the quantize on supplied scales at a rank's bucket of that cut, and
+   the bf16 flash phase its attention at 4 heads over 2.
 12. Prints the kernels line, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.  Any failure, or no
    card, exits non-zero before that line.  The full report goes to
@@ -316,6 +329,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -430,6 +444,12 @@ MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 64, 6
 # of that scale or more; f32 sums over d_model 5120 stay near 1e-6.
 MOE_WIDTH_SEQ = 4096
 MOE_WIDTH_TOL = 1e-4
+# the bf16 flash at the main path's shapes, timed in turns with compiled
+# flex_attention: gemma2-2b's global and local (window 4096) layers, 8
+# heads over 4 of 256, softcap 50, and a model-2 rank's 4 over 2 (tp_path's
+# precision cuts): (name, window, heads, kv heads)
+FLASH_BF16_PATH = (("global", 0, 8, 4), ("local", 4096, 8, 4),
+                   ("global_model2", 0, 4, 2), ("local_model2", 4096, 4, 2))
 FLASH_MLA_SHAPES = {
     "mla": (BATCH, MLA_SEQ, 128, 192, 128),
     "mla_smoke": (MOE_BATCH, MOE_SEQ, 4, 48, 32),
@@ -529,6 +549,18 @@ TP_SMOKE_CUTS = (
     (MLA_ARCH, {}, 2, MOE_SEQ, "smoke"),
     ("llama4-maverick-400b-a17b", {}, 2, MOE_SEQ, "smoke"),
     (VLM_ARCH, dict(n_layers=5), 5, MOE_SEQ, "smoke"),
+)
+# then the main path's config on the delayed precision path at model
+# TP_MODEL (int8 wires, a bf16sr master, bf16 compute, CR
+# DELAYED_COVERAGE_RATE, as ``precision_path`` runs it), 4 of its 26 layers:
+# on the replicated engine, and on the sharded one with its param gathers
+# streamed (``decoupled``) and every sync and gather routed along the
+# one-rank chain (0,) (``route_all_secondary``); each held to a model-1
+# run of the cut at the precision limits (PREC_*), every leaf kept whole
+# bitwise equal across the two ranks after every step
+TP_PREC_CUTS = (
+    (ARCH, dict(n_layers=4), 26, SEQ, "precision"),
+    (ARCH, dict(n_layers=4), 26, SEQ, "precision_streamed"),
 )
 TP_MAX_STEPS = 4
 TP_CHILD_TIMEOUT_S = 900      # rank 1's limit over the cuts
@@ -1246,6 +1278,8 @@ def quantize_phase(torch, layout, report):
           f"plain versions")
     torch.cuda.empty_cache()
 
+    rank_sr = tp_rank_rounding(torch, gen)
+
     rows = n // 128
     q, s = quantize_int8_cuda(x, n_valid)
     out32 = torch.empty_like(x)
@@ -1298,10 +1332,131 @@ def quantize_phase(torch, layout, report):
             "library_ms": library_ms, "library_note": LIB_NOTE[name],
             "shape": f"one flat bucket of {n} elements (the main path's "
                      f"largest, the tied embedding)",
+            **{f"model2_{k}": v for k, v in rank_sr.get(name, {}).items()},
         })
+    report["quantize"]["model2"] = rank_sr
     del x, q, s, out32, out16
     torch.cuda.empty_cache()
     return entries
+
+
+class TpRank:
+    """Model rank ``rank`` of tp_path's (data 1, model TP_MODEL) mesh as
+    ``sharding.tp``'s placement reads a mesh (``shape``, ``size``,
+    ``index``), without a process group."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+        self.shape = {"data": 1, "model": TP_MODEL}
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.rank if axis == "model" else 0
+
+
+def tp_rank_rounding(torch, gen) -> dict:
+    """The quantize kernels at a model-2 rank's bucket of tp_path's
+    precision cuts (gemma2-2b, 4 layers, model rank 0): the largest bucket
+    holding a leaf split along a later dim (its shard strided in the global
+    bucket).  The stochastic rounding with the rank's ``HashIndex`` (each
+    element hashed at its place in the global bucket,
+    ``sharding.tp.hash_segments``) and the int8 quantize on supplied scales
+    (every row's own absmax raised by a quarter, as agreed scales exceed a
+    row's own) each held bitwise to the plain version with the same
+    input, and timed (10 and 3 runs).  Returns per kernel its ms, plain
+    ms, bytes bound and the bucket's size."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quantize import (
+        HashIndex,
+        int8_scales,
+        quantize_int8_cuda,
+        quantize_int8_plain,
+        stochastic_round_bf16_cuda,
+        stochastic_round_bf16_plain,
+    )
+    from repro_torch.launch.train import build_schedule
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.tp import (
+        hash_segments,
+        model_specs,
+        shard_params,
+    )
+    from repro_torch.train.bucketing import build_bucket_layout
+
+    cut = TP_PREC_CUTS[0]
+    cfg = tp_config(cut)
+    kw = tp_train_kw(cut)
+    meta = init_params(cfg, device="meta")
+    bucket_of, nb, _, _ = build_schedule(
+        meta, cfg, dp=1, seq_len=cut[3], per_device_batch=kw["batch"],
+        partition_elems=PARTITION_ELEMS, coverage_rate=kw["coverage_rate"],
+        wire_precision=WIRE, master_dtype=MASTER)
+    mesh = TpRank(0)
+    specs = model_specs(meta, mesh)
+    local = build_bucket_layout(shard_params(meta, specs, mesh), bucket_of,
+                                nb)
+    table = hash_segments(local, build_bucket_layout(meta, bucket_of, nb),
+                          specs, mesh)
+    # a bucket whose table has a leaf of more than one run
+    ends = lambda b: [r[0] for r in table[b][1:]] + [local.sizes[b]]
+    strided = [b for b in range(nb)
+               if any(e - r[0] > r[1] for r, e in zip(table[b], ends(b)))]
+    check(bool(strided), "tp_path's precision cut has no strided shard")
+    b = max(strided, key=lambda j: local.buf_sizes[j])
+    n, n_valid = local.buf_sizes[b], local.sizes[b]
+    index = HashIndex(torch.tensor(table[b], dtype=torch.int64,
+                                   device="cuda"))
+    x = torch.randn(n, device="cuda", generator=gen) * 1e-2
+    x[n_valid:] = 0.0
+    seed = torch.tensor(777, dtype=torch.int64, device="cuda")
+    a = stochastic_round_bf16_cuda(x, seed, index=index)
+    c = stochastic_round_bf16_plain(x, seed, index=index)
+    torch.cuda.synchronize()
+    check(torch.equal(a.view(torch.int16), c.view(torch.int16)),
+          f"stochastic_round_bf16 with a hash index not bitwise at the "
+          f"model-2 bucket {b} ({n} elements)")
+    own = stochastic_round_bf16_cuda(x, seed)
+    check(not torch.equal(a.view(torch.int16), own.view(torch.int16)),
+          "the hash index moved no rounding")
+    del a, c, own
+    rows = n // 128
+    scale = int8_scales(x.view(-1, 128).abs().amax(1) * 1.25)
+    q, sq = quantize_int8_cuda(x, None, scale)
+    q2, sq2 = quantize_int8_plain(x, None, scale)
+    torch.cuda.synchronize()
+    check(sq is scale and torch.equal(q, q2) and torch.equal(sq2, scale),
+          f"quantize_int8 on supplied scales not bitwise at the model-2 "
+          f"bucket {b}")
+    del q, q2, sq, sq2
+    out16 = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    runs = {"stochastic_round_bf16": (
+                lambda: stochastic_round_bf16_cuda(x, seed, out=out16,
+                                                   index=index),
+                lambda: stochastic_round_bf16_plain(x, seed, index=index),
+                6.0 * n),
+            "quantize_int8": (lambda: quantize_int8_cuda(x, None, scale),
+                              lambda: quantize_int8_plain(x, None, scale),
+                              4.0 * n + n + 4.0 * rows)}
+    out = {}
+    for name, (kern, plain, nbytes) in runs.items():
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 3)
+        torch.cuda.empty_cache()
+        out[name] = dict(ms=ms, plain_ms=plain_ms,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         elements=n, segments=len(table[b]))
+        print(f"{name} at a model-2 rank's bucket {b} ({n:,} elements, "
+              + ("hashed at the global bucket's places, "
+                 f"{len(table[b])} segments" if name.startswith("stoch")
+                 else "on supplied scales")
+              + f"): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{out[name]['bound_ms']:.3f} ms (bytes), bitwise the plain "
+              f"version")
+    del x, out16, scale, index
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1378,10 +1533,15 @@ def flash_bf16_phase(torch, report):
               f"H={h}/{kvh} {kw}: ok (out {o_err:.3g}, "
               f"lse {l_err:.3g}, grads {g_rel:.3g} of max |g|)")
 
-    b, s, h, kvh, d = BATCH, SEQ, 8, 4, 256
-    q, k, v = qkv(b, s, h, kvh, d)
+    b, s, d = BATCH, SEQ, 256
     shapes = {}
-    for layer, window in (("global", 0), ("local", 4096)):
+    heads = None
+    for layer, window, h, kvh in FLASH_BF16_PATH:
+        if heads != (h, kvh):
+            heads = (h, kvh)
+            q = k = v = None
+            torch.cuda.empty_cache()
+            q, k, v = qkv(b, s, h, kvh, d)
         kw = dict(causal=True, window=window, softcap=50.0)
         out, lse = flash_fwd_cuda(q, k, v, **kw)
         ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
@@ -1427,7 +1587,7 @@ def flash_bf16_phase(torch, report):
               f"bound {bound:.3f} ms ({shapes[layer]['bound_by']}, bf16 "
               f"tensor-core peak): {flops / ms / 1e9:.1f} TFLOP/s of the "
               f"bound's 4*D flops a pair, {bound / ms:.1%} of the bound")
-        check(ms <= library_ms,
+        check(layer.endswith("model2") or ms <= library_ms,
               f"flash bf16 {layer}: kernel {ms:.3f} ms slower than "
               f"flex_attention {library_ms:.3f} ms")
     # MLA: each head its own K and V, causal, at the (192, 128)
@@ -1513,6 +1673,7 @@ def flash_bf16_phase(torch, report):
                                 ptxas_mla=ptxas_mla)
     torch.cuda.empty_cache()
     g, loc = shapes["global"], shapes["local"]
+    g2, loc2 = shapes["global_model2"], shapes["local_model2"]
     mla, smoke = shapes["mla"], shapes["mla_smoke"]
     source = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu"
     mla_row = {
@@ -1551,6 +1712,11 @@ def flash_bf16_phase(torch, report):
         "local_bound_ms": loc["bound_ms"],
         "local_library_ms": loc["library_ms"],
         "local_bound_share": loc["bound_share"],
+        # a model-2 rank's shapes (tp_path's precision cuts): 4 heads over 2
+        **{f"{name}_{key}": row[key] for name, row in (
+            ("model2", g2), ("local_model2", loc2))
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "bound_share", "max_abs_err")},
         "lse_err": worst["lse"], "grad_err_of_max": worst["grad_rel"],
         "library_note": "compiled flex_attention on bf16, softcap score_mod",
     }, mla_row]
@@ -4078,7 +4244,14 @@ def tp_train_kw(cut) -> dict:
               partition_elems=PARTITION_ELEMS, seed=0, device="cuda", lr=LR)
     if kind == "smoke":
         return dict(kw, batch=MOE_BATCH)
-    return dict(kw, batch=BATCH, loss_chunk=LOSS_CHUNK)
+    kw.update(batch=BATCH, loss_chunk=LOSS_CHUNK)
+    if kind.startswith("precision"):
+        kw.update(coverage_rate=DELAYED_COVERAGE_RATE, wire_precision=WIRE,
+                  master_dtype=MASTER, compute_dtype="bf16")
+    if kind == "precision_streamed":
+        kw.update(fsdp=True, decoupled=True, secondary_chain=(0,),
+                  reroute=route_all_secondary)
+    return kw
 
 
 def tp_params_vs(ref, params) -> dict:
@@ -4100,6 +4273,47 @@ def tp_params_vs(ref, params) -> dict:
     else:
         out["ok"] = (out["max_param_diff"] <= PARAM_MAX_DIFF
                      and out["n_params_over_tol"] <= PARAM_MAX_OVER)
+    return out
+
+
+def tp_prec_params_vs(ref, params) -> dict:
+    """A precision cut's params gathered over 'model' held to ``ref``'s
+    model-1 buckets at the precision limits: each bucket's max |diff| at
+    most PREC_PARAM_MAX_DIFF, and the elements beyond one bf16 ulp (1e-4 +
+    |p| / 128) at most PREC_PARAM_MAX_OVER of all and PREC_BUCKET_MAX_OVER
+    of any bucket's."""
+    out = dict(max_param_diff=0.0, n_params_over_ulp=0, n_params=0,
+               bucket_share=[])
+    for buf, want in zip(tree_buckets(ref["layout"], params), ref["params"]):
+        w = want.cuda().float()
+        d = (buf.float() - w).abs()
+        out["max_param_diff"] = max(out["max_param_diff"], d.max().item())
+        over = int((d > 1e-4 + w.abs() / 128).sum().item())
+        out["n_params_over_ulp"] += over
+        out["n_params"] += d.numel()
+        out["bucket_share"].append(over / d.numel())
+        del d, w, buf
+    out["ok"] = (out["max_param_diff"] <= PREC_PARAM_MAX_DIFF
+                 and out["n_params_over_ulp"]
+                 <= PREC_PARAM_MAX_OVER * out["n_params"]
+                 and max(out["bucket_share"]) <= PREC_BUCKET_MAX_OVER)
+    return out
+
+
+def whole_digests(runtime, state) -> list:
+    """A hash of each stretch of this rank's param buffers (or spans) that
+    holds leaves kept whole over 'model' (``SpanNorm.runs``)."""
+    import torch
+
+    out = []
+    for b, buf in enumerate(state["pbuf"]):
+        lo = runtime.dp.rank * buf.numel() if runtime.fsdp else 0
+        for a, e, split in runtime._model_norm.runs[b]:
+            a, e = max(a, lo), min(e, lo + buf.numel())
+            if not split and a < e:
+                out.append(hashlib.sha1(buf[a - lo:e - lo].cpu()
+                                        .view(torch.uint8).numpy()
+                                        .tobytes()).hexdigest())
     return out
 
 
@@ -4260,8 +4474,19 @@ def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
         cfg = tp_config(cut)
         n = steps[i]
         got = {}
+        prec = cut[4].startswith("precision")
 
         def on_step(step, runtime, state, metrics):
+            if prec:        # every whole leaf alike on both ranks
+                mine = whole_digests(runtime, state)
+                both = [None] * TP_MODEL
+                dist.all_gather_object(both, mine, group=runtime.tp.group)
+                got.setdefault("whole_equal", []).append(
+                    all(d == mine for d in both))
+                got["whole_stretches"] = len(mine)
+                got["shared_rows"] = sum(
+                    0 if r is None else r.numel()
+                    for r in runtime._shared_rows[False])
             if step == 0:                      # the first step warms up
                 runtime.tp.reset()
                 runtime.tp.timed = True
@@ -4274,7 +4499,8 @@ def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
             runtime.tp.timed = False
             params = runtime.params_tree(state)      # a collective
             if rank == 0:
-                got["vs"] = tp_params_vs(refs[i], params)
+                got["vs"] = (tp_prec_params_vs if prec else tp_params_vs)(
+                    refs[i], params)
             del params
 
         gc.collect()
@@ -4289,13 +4515,19 @@ def tp_train(rank: int, port: int, cuts, steps, refs=None) -> list:
             rank=rank, losses=res["losses"], step_s=res["step_s"],
             collectives=res["collectives"],
             want_collectives=(
-                sharded_collectives(sched, res["layout"], n, False)
+                [rt.collectives_per_phase()[t % sched.period]
+                 for t in range(n)] if prec
+                else sharded_collectives(sched, res["layout"], n, False)
                 if rt.fsdp else [phase_collectives(
                     sched.phases[t % sched.period]) for t in range(n)]),
             launches=launches,
-            want_launches=expected_launches(cfg, sched, res["layout"], n),
+            want_launches=None if prec else expected_launches(
+                cfg, sched, res["layout"], n),
             stats={k: v for k, v in rt.stats().items()
-                   if k in ("dp", "model", "sharded_state")},
+                   if k in ("dp", "model", "sharded_state")
+                   or prec and k in ("decoupled", "secondary_chain",
+                                     "compute_dtype", "master_dtype",
+                                     "wire_precision")},
             wall_s=time.perf_counter() - t0)
         del res, rt
         out.append(got)
@@ -4365,7 +4597,7 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
     t0 = time.perf_counter()
     mla_layout, mla_run = mla
     cuts = ((TP_MAIN_CUT,) + TP_FAMILY_CUTS + (TP_MLA_CUT, TP_MOE_WIDTH_CUT)
-            + TP_SMOKE_CUTS)
+            + TP_SMOKE_CUTS + TP_PREC_CUTS)
     refs = [dict(layout=layout, params=want["params"], losses=want["losses"],
                  rwkv=False, name=name)]
     schedules, steps = [schedule], [schedule.period]
@@ -4376,11 +4608,14 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
             steps.append(0)
             continue
         cfg = tp_config(cut)
+        kw = tp_train_kw(cut)
+        prec = cut[4].startswith("precision")
         sched = build_schedule(
             init_params(cfg, device="meta"), cfg, dp=1, seq_len=cut[3],
-            per_device_batch=tp_train_kw(cut)["batch"],
-            partition_elems=PARTITION_ELEMS,
-            coverage_rate=COVERAGE_RATE)[3].schedule
+            per_device_batch=kw["batch"], partition_elems=PARTITION_ELEMS,
+            coverage_rate=kw["coverage_rate"],
+            wire_precision=kw.get("wire_precision", "f32"),
+            master_dtype=kw.get("master_dtype", "f32"))[3].schedule
         n = min(sched.period, TP_MAX_STEPS)
         steps.append(n)
         schedules.append(sched)
@@ -4396,14 +4631,17 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res = train(cfg, steps=n, log=lambda s: None, **tp_train_kw(cut))
-        check(res["schedule"].phases == sched.phases,
-              f"tp_path {cfg.name}: another schedule than planned")
+        res = train(cfg, steps=n, log=lambda s: None, **kw)
+        if kw.get("reroute") is None:
+            check(res["schedule"].phases == sched.phases,
+                  f"tp_path {cfg.name}: another schedule than planned")
+        schedules[-1] = res["schedule"]          # the rerouted one too
         refs.append(dict(layout=res["layout"], losses=res["losses"],
                          params=[b.cpu() for b in res["state"]["pbuf"]],
                          rwkv=cut[0] == RWKV_ARCH, name="model 1",
                          median_step_s=statistics.median(res["step_s"][1:]),
-                         peak_bytes=torch.cuda.max_memory_allocated()))
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         prec=prec))
         del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -4429,7 +4667,8 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
     wall = time.perf_counter() - t0
     check(child.exitcode == 0, f"tp_path rank 1 exited {child.exitcode}")
     keys = [f"f32 model {TP_MODEL}", f"f32 model {TP_MODEL} families",
-            f"f32 model {TP_MODEL} fsdp archs"]
+            f"f32 model {TP_MODEL} fsdp archs",
+            f"{WIRE}+{MASTER} model {TP_MODEL}"]
     totals = {k: {} for k in keys}
     rows = {}
     for i, (cut, ref, n, sched) in enumerate(zip(cuts, refs, steps,
@@ -4465,30 +4704,34 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
                       f"{r['wall_s']:.1f} s")
             continue
         cfg = tp_config(cut)
-        key = f"tp_path {cfg.name}"
+        prec = kind.startswith("precision")
+        name = f"{cfg.name} {kind}" if prec else cfg.name
+        key = f"tp_path {name}"
         losses = runs[0]["losses"]
         check(all(r["losses"] == losses for r in runs),
               f"{key}: the ranks' losses differ: "
               f"{[r['losses'] for r in runs]}")
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
-        check(len(losses) == len(ref["losses"]) == n and rel <= 1e-4,
+        check(len(losses) == len(ref["losses"]) == n
+              and rel <= (PREC_LOSS_RTOL if prec else 1e-4),
               f"{key} losses {losses} vs {ref['name']}'s {ref['losses']}: "
               f"rel {rel:.3g}")
         vs = runs[0]["vs"]
-        check(vs["ok"], f"{key} params vs {ref['name']}: max |diff| "
-                        f"{vs['max_param_diff']:.3g}, "
-                        f"{vs['n_params_over_tol']} beyond {PARAM_TOL}, "
-                        f"bucket shares beyond {10 * PARAM_TOL} "
-                        f"{vs['bucket_share']}")
+        check(vs["ok"], f"{key} params vs {ref['name']}: {vs}")
         need = {"bucket_update"} | {
             ARCH: {"flash_fwd"}, RG_ARCH: {"rglru_fwd", "rglru_bwd",
                                            "flash_fwd"},
             RWKV_ARCH: {"rwkv6_fwd", "rwkv6_bwd"}, ED_ARCH: {"flash_fwd"},
         }.get(arch, {"flash_fwd"})
+        if prec:
+            need = {"bucket_update", "quantize_int8", "dequantize_int8",
+                    "stochastic_round_bf16", "flash_fwd_sm90"}
         total = totals[keys[0 if i == 0 else 1 if cut in TP_FAMILY_CUTS
-                            else 2]]
+                            else 3 if prec else 2]]
+        sharded = kind == "precision_streamed" or needs_fsdp(cfg.name)
         for r in runs:
-            check(r["launches"] == r["want_launches"],
+            check(r["want_launches"] is None
+                  or r["launches"] == r["want_launches"],
                   f"{key} rank {r['rank']} launches {r['launches']}, "
                   f"expected {r['want_launches']}")
             check(all(r["launches"][k] > 0 for k in need),
@@ -4496,9 +4739,15 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
             check(r["collectives"] == r["want_collectives"],
                   f"{key} rank {r['rank']}: issued {r['collectives']}, the "
                   f"schedule says {r['want_collectives']}")
-            check(r["stats"] == {"dp": 1, "model": TP_MODEL,
-                                 "sharded_state": needs_fsdp(cfg.name)},
+            check({k: r["stats"][k] for k in ("dp", "model",
+                                             "sharded_state")}
+                  == {"dp": 1, "model": TP_MODEL, "sharded_state": sharded},
                   f"{key} rank {r['rank']} ran {r['stats']}")
+            if prec:
+                check(len(r["whole_equal"]) == n and all(r["whole_equal"])
+                      and r["whole_stretches"] > 0,
+                      f"{key} rank {r['rank']}: whole leaves differ across "
+                      f"the model ranks after steps {r['whole_equal']}")
             r["median_step_s"] = statistics.median(r["step_s"][1:])
             r["model_share"] = r["model_s"] / sum(r["step_s"][1:])
             for k, v in r["launches"].items():
@@ -4508,8 +4757,12 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
                                   f"{peaks} bytes")
         med = max(r["median_step_s"] for r in runs)
         batch = tp_train_kw(cut)["batch"]
-        engine = "sharded" if needs_fsdp(cfg.name) else "replicated"
-        rows[cfg.name] = dict(
+        engine = ("sharded streamed (chain (0,))" if kind ==
+                  "precision_streamed" else "sharded" if sharded
+                  else "replicated")
+        if prec:
+            engine += f", {WIRE} wires, {MASTER} master, bf16 compute"
+        rows[name] = dict(
             config=dict(arch=arch, n_layers=cfg.n_layers,
                         n_encoder_layers=cfg.n_encoder_layers,
                         of_layers=of_layers, params=leaf_params(cfg),
@@ -4520,8 +4773,8 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
             ranks=[{k: v for k, v in r.items() if k != "vs"} for r in runs],
             **vs)
         if "median_step_s" in ref:
-            rows[cfg.name].update(model1_median_step_s=ref["median_step_s"],
-                                  model1_peak_bytes=ref["peak_bytes"])
+            rows[name].update(model1_median_step_s=ref["median_step_s"],
+                              model1_peak_bytes=ref["peak_bytes"])
         print(f"{key} ({cfg.n_layers}"
               + (f" + {cfg.n_encoder_layers}" if cfg.n_encoder_layers else "")
               + f" of {of_layers} layers, batch {batch}, seq {seq}, data 1 x "
@@ -4532,8 +4785,11 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
                  if "median_step_s" in ref else "")
               + f", {batch * seq / med:.0f} tok/s [{report['card']}]; vs "
               f"{ref['name']}: loss rel {rel:.3g}, params max diff "
-              f"{vs['max_param_diff']:.3g} ({vs['n_params_over_tol']} over "
-              f"{PARAM_TOL}); peaks {peaks / 2**30:.2f} GiB together"
+              f"{vs['max_param_diff']:.3g} ("
+              + (f"{vs['n_params_over_ulp']} of {vs['n_params']} beyond one "
+                 f"bf16 ulp" if prec else
+                 f"{vs['n_params_over_tol']} over {PARAM_TOL}")
+              + f"); peaks {peaks / 2**30:.2f} GiB together"
               + (f" (model 1: {ref['peak_bytes'] / 2**30:.2f})"
                  if "peak_bytes" in ref else ""))
         for r in runs:
@@ -4543,7 +4799,11 @@ def tp_path(torch, schedule, layout, report, against, mla, moe_ref):
                   f"{ {k: v for k, v in r['launches'].items() if v} }, "
                   f"'model' collectives {r['model_calls']} "
                   f"{r['model_s']:.3f} s = {100 * r['model_share']:.1f}% of "
-                  f"steps 1-{n - 1}, wall {r['wall_s']:.1f} s")
+                  f"steps 1-{n - 1}, wall {r['wall_s']:.1f} s"
+                  + (f", {r['whole_stretches']} whole stretches bitwise "
+                     f"across the ranks after every step, "
+                     f"{r['shared_rows']} int8 rows shared by a whole and a "
+                     f"split leaf" if prec else ""))
     report["tp_path"] = dict(cuts=rows, wall_s=wall, model1_s=model1_s)
     print(f"tp_path: {wall:.1f} s ({model1_s:.1f} s of it the model-1 "
           f"runs)")

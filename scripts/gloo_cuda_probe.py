@@ -5,12 +5,15 @@ card, where NCCL refuses two ranks on one device).
 
     python3 scripts/gloo_cuda_probe.py [--iters 5]
 
-Two processes on card 0 join a gloo group and try, on CUDA f32 tensors,
-``all_reduce`` (SUM and MAX), ``all_gather_into_tensor`` and
+Two processes on card 0 join a gloo group and try, on CUDA f32 and bf16
+tensors, ``all_reduce`` (SUM and MAX), ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor``, each checked against the sum, max or
-concatenation of both ranks' inputs.  Then they time an all-reduce of
+concatenation of both ranks' inputs (bf16: the sum rounded once to bf16,
+as 1 + (1 + 2**-8) must give 2.0, the rounding of the model axis's bf16
+partial sums).  Then they time an all-reduce of
 one residual-stream activation of ``tp_path`` ([1, 8192, 2304] f32, 75.5
-MB) straight on the card's tensor and staged through pinned host buffers
+MB; and in bf16, the precision cuts') straight on the card's tensor and
+staged through pinned host buffers
 (device -> host, gloo on the host tensor, host -> device), the device
 synchronised around each, median of ``--iters``.  Prints one JSON line a
 rank-0 result and the card's name and power limit.
@@ -43,39 +46,52 @@ def _rank(rank: int, port: int, iters: int, queue) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=2, rank=rank)
     dev = torch.device("cuda", 0)
-    mine = lambda r: torch.arange(8, dtype=torch.float32, device=dev) \
-        * (r + 1) + r
-    both = [mine(r) for r in range(2)]
     res = {}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        mine = lambda r, dtype=dtype: (torch.arange(
+            8, dtype=torch.float32, device=dev) * (r + 1) + r).to(dtype)
+        both = [mine(r) for r in range(2)]
 
-    def all_reduce(op, want):
-        x = mine(rank).clone()
-        dist.all_reduce(x, op=op)
+        def all_reduce(op, want, mine=mine):
+            x = mine(rank).clone()
+            dist.all_reduce(x, op=op)
+            torch.cuda.synchronize()
+            return x.dtype == want.dtype and torch.equal(x, want)
+
+        _try(f"all_reduce_sum_cuda{tag}",
+             lambda: all_reduce(dist.ReduceOp.SUM, both[0] + both[1]), res)
+        _try(f"all_reduce_max_cuda{tag}",
+             lambda: all_reduce(dist.ReduceOp.MAX,
+                                torch.maximum(both[0], both[1])), res)
+
+        def all_gather(mine=mine, both=both, dtype=dtype):
+            out = torch.empty(16, dtype=dtype, device=dev)
+            dist.all_gather_into_tensor(out, mine(rank))
+            torch.cuda.synchronize()
+            return torch.equal(out, torch.cat(both))
+
+        def reduce_scatter(mine=mine, both=both, dtype=dtype):
+            out = torch.empty(4, dtype=dtype, device=dev)
+            dist.reduce_scatter_tensor(out, mine(rank))
+            torch.cuda.synchronize()
+            return torch.equal(out,
+                               (both[0] + both[1])[4 * rank:4 * rank + 4])
+
+        _try(f"all_gather_into_tensor_cuda{tag}", all_gather, res)
+        _try(f"reduce_scatter_tensor_cuda{tag}", reduce_scatter, res)
+
+    def bf16_rounding():
+        # 1 + (1 + 2**-8): exact 2 + 2**-8 rounds to 2.0 in bf16 (half to
+        # even), which a sum in bf16 and a sum in f32 rounded once both give
+        x = torch.tensor([1.0 + rank * 2 ** -8], device=dev).bfloat16()
+        dist.all_reduce(x)
         torch.cuda.synchronize()
-        return torch.equal(x, want)
+        return x.dtype == torch.bfloat16 and x.item() == 2.0
 
-    _try("all_reduce_sum_cuda",
-         lambda: all_reduce(dist.ReduceOp.SUM, both[0] + both[1]), res)
-    _try("all_reduce_max_cuda",
-         lambda: all_reduce(dist.ReduceOp.MAX,
-                            torch.maximum(both[0], both[1])), res)
-
-    def all_gather():
-        out = torch.empty(16, dtype=torch.float32, device=dev)
-        dist.all_gather_into_tensor(out, mine(rank))
-        torch.cuda.synchronize()
-        return torch.equal(out, torch.cat(both))
-
-    def reduce_scatter():
-        out = torch.empty(4, dtype=torch.float32, device=dev)
-        dist.reduce_scatter_tensor(out, mine(rank))
-        torch.cuda.synchronize()
-        return torch.equal(out, (both[0] + both[1])[4 * rank:4 * rank + 4])
-
-    _try("all_gather_into_tensor_cuda", all_gather, res)
-    _try("reduce_scatter_tensor_cuda", reduce_scatter, res)
+    _try("all_reduce_sum_cuda_bf16_rounds_once", bf16_rounding, res)
 
     x = torch.randn(SHAPE, device=dev)
+    xb = x.bfloat16()
     host = torch.empty(SHAPE, dtype=torch.float32, pin_memory=True)
 
     def timed(fn):
@@ -96,6 +112,8 @@ def _rank(rank: int, port: int, iters: int, queue) -> None:
 
     if res["all_reduce_sum_cuda"] == "ok":
         res["all_reduce_cuda_ms"] = timed(lambda: dist.all_reduce(x))
+    if res["all_reduce_sum_cuda_bf16"] == "ok":
+        res["all_reduce_cuda_bf16_ms"] = timed(lambda: dist.all_reduce(xb))
     res["all_reduce_staged_ms"] = timed(staged)
     res["bytes"] = x.numel() * 4
     if rank == 0:

@@ -37,7 +37,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.bucket_update.segments import BucketSegments
-from repro_torch.kernels.quantize import stochastic_round_bf16, wire_seed
+from repro_torch.kernels.quantize import (
+    HashIndex,
+    stochastic_round_bf16,
+    wire_seed,
+)
 from repro_torch.optim.optimizers import OptimizerSpec, clip_factor
 
 SCALARS_GRAD_SCALE = 0
@@ -210,7 +214,8 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
                          norm_psum: Optional[Callable] = None,
                          master_dtype: Optional[str] = None,
                          quantize_impl: Optional[str] = None,
-                         model_norm: Optional[Callable] = None
+                         model_norm: Optional[Callable] = None,
+                         sr_index: Optional[Sequence[HashIndex]] = None
                          ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Any],
                                     Optional[Tuple[torch.Tensor, ...]]]:
     """One (delayed) optimizer update across all bucket buffers, in place.
@@ -238,7 +243,10 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
     leaves, and the clip norm is ``model_norm`` of the buffers or spans
     (``sharding.tp.SpanNorm``: the split stretches' squares summed across
     the model ranks, after ``norm_psum``'s sum over the spans where
-    sharded).
+    sharded).  ``sr_index`` (per bucket a ``kernels.quantize.HashIndex``)
+    gives the positions the bf16sr rounding's hash reads: there, each
+    element's place in JAX's global bucket (or its span), so that a whole
+    leaf rounds alike on every model rank and a split leaf as JAX's does.
 
     Returns (pbuf, opt, zeroed gbuf | None) — the same tensors, updated."""
     layout = segments.layout
@@ -289,7 +297,8 @@ def apply_bucket_updates(spec: OptimizerSpec, segments: BucketSegments,
         if not bf16sr:
             continue
         stochastic_round_bf16(p, wire_seed(step_new, b), impl=quantize_impl,
-                              out=pbuf[b])
+                              out=pbuf[b],
+                              index=None if sr_index is None else sr_index[b])
         del p   # free this bucket's f32 copy before the next one's
     opt["step"] = step_new
     return tuple(pbuf), opt, (tuple(gbuf) if zero_grads else None)

@@ -14,6 +14,12 @@ Port of ``repro/kernels/quantize/{ops,ref}.py``:
 * ``quantize_dequantize_int8`` — the int8 gradient-wire edge: the local
   contribution projected onto the blockwise int8 grid, written back into
   the same buffer (the q / scale scratch is transient).
+* ``int8_scales`` — the grid's scales of given row maxima, for a caller
+  that agrees the maxima of shared rows across ranks and then supplies
+  the scales to ``quantize_int8`` (``scale=``).
+* ``HashIndex`` — the positions the stochastic-rounding hash reads for a
+  buffer whose elements sit elsewhere in the bucket JAX hashes (a model
+  rank's shards, ``sharding.tp.hash_segments``).
 * ``cast_compute`` — the single compute/wire dtype cast (a bare ``.to``).
 * ``wire_seed`` — the per-(step, bucket) stochastic-rounding seed.
 
@@ -30,6 +36,7 @@ A NaN quotient in the int8 grid converts to 0, as XLA's convert does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -91,13 +98,50 @@ def hash_u32(idx: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class HashIndex:
+    """The positions the stochastic-rounding hash reads for the elements of
+    a flat buffer, where they are not the buffer's own: element ``g`` sits
+    at ``e = base + g`` of a bucket laid out in ``segments``, an int64
+    ``[n, 4]`` table of ``(start, inner, position, stride)`` rows sorted by
+    ``start`` (the first at 0).  In the row with the last ``start <= e``,
+    with ``j = e - start``, the hash reads ``position + (j // inner) *
+    stride + j % inner``, reduced modulo ``modulus`` when it is not 0.
+
+    A model rank's bucket holds its shards of the split leaves: each leaf
+    is a row, its shard ``inner``-element runs ``stride`` apart in the
+    global bucket, so every element hashes at its place in JAX's global
+    bucket (``sharding.tp.hash_segments``); a sharded engine's span gives
+    its first element's place as ``base`` and JAX's span length as
+    ``modulus``.  Each ``j`` and ``inner`` is below 2**31."""
+
+    segments: torch.Tensor
+    base: int = 0
+    modulus: int = 0
+
+    def positions(self, n: int, device) -> torch.Tensor:
+        """The hash's position of each of ``n`` elements (int64)."""
+        seg = self.segments.to(device)
+        e = torch.arange(n, dtype=torch.int64, device=device) + self.base
+        s = torch.searchsorted(seg[:, 0].contiguous(), e, right=True) - 1
+        j = e - seg[s, 0]
+        pos = seg[s, 2] + torch.div(j, seg[s, 1], rounding_mode="floor") \
+            * seg[s, 3] + torch.remainder(j, seg[s, 1])
+        return pos % self.modulus if self.modulus else pos
+
+
 def stochastic_round_bf16_plain(x: torch.Tensor, seed,
-                                n_valid: Optional[int] = None) -> torch.Tensor:
-    """f32[padded] -> bf16[padded], seeded stochastic rounding, zero tail."""
+                                n_valid: Optional[int] = None,
+                                index: Optional[HashIndex] = None
+                                ) -> torch.Tensor:
+    """f32[padded] -> bf16[padded], seeded stochastic rounding, zero tail;
+    the hash reads each element's ``index`` position where given."""
     _rows(x)
     n_valid = _n_valid(x, n_valid)
     idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
-    r = hash_u32(idx, _u32_seed(seed, x.device)) & 0xFFFF
+    at = idx if index is None else index.positions(x.numel(), x.device)
+    r = hash_u32(at & _M32, _u32_seed(seed, x.device)) & 0xFFFF
+    del at
     bits = x.float().view(torch.int32).to(torch.int64) & _M32
     rounded = (bits + r) & 0xFFFF0000
     del r
@@ -107,20 +151,40 @@ def stochastic_round_bf16_plain(x: torch.Tensor, seed,
     return top.to(torch.int16).view(torch.bfloat16)
 
 
-def quantize_int8_plain(x: torch.Tensor, n_valid: Optional[int] = None
+def int8_scales(absmax: torch.Tensor) -> torch.Tensor:
+    """The int8 grid's per-row scales of f32 row maxima ``absmax``:
+    ``absmax / 127``, or 1 where ``absmax > 0`` is false (an all-zero
+    row, or a NaN in the row), as the quantize kernels derive them."""
+    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=absmax.device)
+    return torch.where(absmax > 0.0, absmax * inv, 1.0)
+
+
+def quantize_int8_plain(x: torch.Tensor, n_valid: Optional[int] = None,
+                        scale: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32[padded] -> (int8[padded], f32[rows] per-row scales)."""
+    """f32[padded] -> (int8[padded], f32[rows] per-row scales); with
+    ``scale`` (f32[rows]) the rows are quantized on those scales instead
+    of their own, which come back as given."""
     rows = _rows(x)
     n_valid = _n_valid(x, n_valid)
     idx = torch.arange(x.numel(), device=x.device).reshape(rows, LANES)
     x2 = torch.where(idx < n_valid, x.float().reshape(rows, LANES), 0.0)
     del idx
-    absmax = torch.amax(torch.abs(x2), dim=1, keepdim=True)
-    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
-    scale = torch.where(absmax > 0.0, absmax * inv, 1.0)
-    q = torch.clamp(torch.round(x2 / scale), -127.0, 127.0)
+    if scale is None:
+        s = int8_scales(torch.amax(torch.abs(x2), dim=1, keepdim=True))
+        scale = s[:, 0]
+    else:
+        _check_scale(scale, rows)
+        s = scale[:, None]
+    q = torch.clamp(torch.round(x2 / s), -127.0, 127.0)
     q = torch.nan_to_num(q, nan=0.0).to(torch.int8)
-    return q.reshape(x.shape), scale[:, 0]
+    return q.reshape(x.shape), scale
+
+
+def _check_scale(scale: torch.Tensor, rows: int) -> None:
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (rows,):
+        raise ValueError(f"a supplied int8 scale must be f32[{rows}], not "
+                         f"{scale.dtype}{list(scale.shape)}")
 
 
 def dequantize_int8_plain(q: torch.Tensor, scale: torch.Tensor,
@@ -161,10 +225,12 @@ _ARGS_TAIL = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
 
 def stochastic_round_bf16_cuda(x: torch.Tensor, seed,
                                n_valid: Optional[int] = None, *,
-                               out: Optional[torch.Tensor] = None
+                               out: Optional[torch.Tensor] = None,
+                               index: Optional[HashIndex] = None
                                ) -> torch.Tensor:
     """Launch the Hopper stochastic-rounding kernel; writes ``out`` (a new
-    bf16 buffer when None)."""
+    bf16 buffer when None); the hash reads each element's ``index``
+    position where given (its table on the card)."""
     n = x.numel()
     _rows(x)
     _check(x, torch.float32, n, "stochastic_round_bf16_cuda: x")
@@ -172,30 +238,51 @@ def stochastic_round_bf16_cuda(x: torch.Tensor, seed,
         out = torch.empty((n,), dtype=torch.bfloat16, device=x.device)
     _check(out, torch.bfloat16, n, "stochastic_round_bf16_cuda: out")
     seed_t = _u32_seed(seed, x.device).reshape(1)
+    seg, n_seg, base, modulus = None, 0, 0, 0
+    if index is not None:
+        seg = index.segments
+        if not (seg.is_cuda and seg.dtype == torch.int64 and seg.dim() == 2
+                and seg.shape[1] == 4 and seg.is_contiguous()):
+            raise ValueError("stochastic_round_bf16_cuda: index.segments "
+                             "must be a contiguous int64 [n, 4] CUDA tensor")
+        n_seg, base, modulus = seg.shape[0], index.base, index.modulus
     if n:
-        _launch("sr_bf16", [ctypes.c_void_p] * 3 + _ARGS_TAIL,
-                x.data_ptr(), out.data_ptr(), seed_t.data_ptr(), n,
-                _n_valid(x, n_valid), _grid_cap(x), x.device.index,
+        _launch("sr_bf16", [ctypes.c_void_p] * 4
+                + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+                + _ARGS_TAIL,
+                x.data_ptr(), out.data_ptr(), seed_t.data_ptr(),
+                None if seg is None else seg.data_ptr(), n_seg, base,
+                modulus, n, _n_valid(x, n_valid), _grid_cap(x),
+                x.device.index,
                 torch.cuda.current_stream(x.device).cuda_stream)
         stochastic_round_bf16_cuda.launches += 1
     return out
 
 
-def quantize_int8_cuda(x: torch.Tensor, n_valid: Optional[int] = None
+def quantize_int8_cuda(x: torch.Tensor, n_valid: Optional[int] = None,
+                       scale: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper int8 quantize kernel: (int8[padded], f32[rows])."""
+    """Launch the Hopper int8 quantize kernel: (int8[padded], f32[rows]);
+    with ``scale`` it quantizes on those per-row scales (returned as
+    given) and reduces no row."""
     n = x.numel()
     rows = _rows(x)
     _check(x, torch.float32, n, "quantize_int8_cuda: x")
     q = torch.empty((n,), dtype=torch.int8, device=x.device)
-    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if scale is None:
+        out, given = torch.empty((rows,), dtype=torch.float32,
+                                 device=x.device), None
+    else:
+        _check(scale, torch.float32, rows, "quantize_int8_cuda: scale")
+        out = given = scale
     if n:
-        _launch("quantize_int8", [ctypes.c_void_p] * 3 + _ARGS_TAIL,
-                x.data_ptr(), q.data_ptr(), scale.data_ptr(), n,
+        _launch("quantize_int8", [ctypes.c_void_p] * 4 + _ARGS_TAIL,
+                x.data_ptr(), None if given is None else given.data_ptr(),
+                q.data_ptr(), out.data_ptr(), n,
                 _n_valid(x, n_valid), _grid_cap(x), x.device.index,
                 torch.cuda.current_stream(x.device).cuda_stream)
         quantize_int8_cuda.launches += 1
-    return q, scale
+    return q, out
 
 
 def dequantize_int8_cuda(q: torch.Tensor, scale: torch.Tensor,
@@ -229,22 +316,29 @@ dequantize_int8_cuda.launches = 0
 # ---------------------------------------------------------------------------
 def stochastic_round_bf16(x: torch.Tensor, seed, n_valid: Optional[int] = None,
                           *, impl: Optional[str] = None,
-                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          out: Optional[torch.Tensor] = None,
+                          index: Optional[HashIndex] = None) -> torch.Tensor:
     """f32[padded] -> bf16[padded], unbiased seeded rounding, zero tail
-    (written into ``out`` when given)."""
+    (written into ``out`` when given); ``index`` gives the positions the
+    hash reads where they are not the buffer's own (``HashIndex``)."""
     if _resolve(impl, x) == "cuda":
-        return stochastic_round_bf16_cuda(x, seed, n_valid, out=out)
-    y = stochastic_round_bf16_plain(x, seed, n_valid)
+        return stochastic_round_bf16_cuda(x, seed, n_valid, out=out,
+                                          index=index)
+    y = stochastic_round_bf16_plain(x, seed, n_valid, index)
     return y if out is None else out.copy_(y)
 
 
 def quantize_int8(x: torch.Tensor, n_valid: Optional[int] = None, *,
-                  impl: Optional[str] = None
+                  impl: Optional[str] = None,
+                  scale: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32[padded] -> (int8[padded], f32[rows] blockwise scales)."""
+    """f32[padded] -> (int8[padded], f32[rows] blockwise scales).
+    ``scale`` (f32[rows]) supplies the scales, so that ranks which agreed
+    them beforehand quantize shared rows alike; without it each row's
+    scale is its own absmax / 127, bitwise JAX's ``ref.py``."""
     if _resolve(impl, x) == "cuda":
-        return quantize_int8_cuda(x, n_valid)
-    return quantize_int8_plain(x, n_valid)
+        return quantize_int8_cuda(x, n_valid, scale)
+    return quantize_int8_plain(x, n_valid, scale)
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,

@@ -10,8 +10,9 @@ param all-gathers streamed into the forward (DESIGN.md §12), and
 ``--pod``, a ``pod x data`` layout of the ranks whose syncs are
 hierarchical, ``--data --model`` (or ``--production-mesh``), a mesh with
 a 'model' axis over which every config runs tensor-parallel
-(``sharding/tp.py``; both flat engines in f32, an FSDP arch on its
-sharded default, and the DDP baseline), and checkpoints
+(``sharding/tp.py``; both flat engines, with the precision flags,
+``--decoupled`` and chains, an FSDP arch on its sharded default, and the
+DDP baseline), and checkpoints
 in the JAX package's format (``--ckpt``, ``--ckpt-every``, ``--resume``;
 a SIGTERM or SIGUSR1 checkpoints and exits cleanly, DESIGN.md §10), the
 online control plane (``--adapt``,
@@ -58,6 +59,10 @@ with the tokens; a MoE config's log lines carry the aux loss.
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch gemma2-2b --smoke --steps 6 --batch 4 --seq 64 --device cpu \
         --data 2 --model 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gemma2-2b --smoke --steps 6 --batch 4 --seq 64 --device cpu \
+        --data 2 --model 2 --fsdp --decoupled --wire-precision int8 \
+        --master-dtype bf16sr --compute-dtype bf16
 """
 from __future__ import annotations
 
@@ -153,7 +158,8 @@ def pod_groups(pod: int):
     if pod == 1:
         return None, None
     mesh = make_debug_mesh(data=world // pod, model=1, pod=pod)
-    return mesh.group("data"), mesh.group("pod")
+    # at data 1 the pod line is the world, which the mesh gives as None
+    return mesh.group("data"), mesh.group("pod") or dist.group.WORLD
 
 
 def train_mesh(*, pod: int = 1, data: Optional[int] = None, model: int = 1,
@@ -380,10 +386,11 @@ def train(cfg, *, scheduler: str = "deft", steps: int = 40, batch: int = 8,
     over pod x data, each model rank runs the model tensor-parallel on
     its shards of the params (every config: MoE over its experts, MLA
     and the VLM's gated cross block over their heads too), on either flat
-    engine in f32 (an FSDP arch on its sharded default, split over 'data'
-    within each model rank) or the DDP baseline (the tree-state engine,
-    the precision path, AG streaming, chains, checkpoints, adapt and
-    elastic refuse it, ROADMAP item 8.2).
+    engine (an FSDP arch on its sharded default, split over 'data' within
+    each model rank), with ``wire_precision``, ``master_dtype``,
+    ``compute_dtype``, ``decoupled`` and ``secondary_chain`` as at model 1,
+    or the DDP baseline (checkpoints, adapt and elastic refuse it, ROADMAP
+    item 8.2).
     ``secondary_chain`` routes the secondary link's collectives along
     that ring chain of the 'data' ranks; ``reroute(schedule, times)``
     returns the (schedule, AG plan) the runtime runs instead of the

@@ -130,11 +130,11 @@ class ModelParallel:
             torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
 
-    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
-                   ) -> torch.Tensor:
-        """In place over 'model'; ``x`` must be contiguous."""
-        self._run("all_reduce", lambda: dist.all_reduce(x, op=op,
-                                                        group=self.group))
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM,
+                   kind: str = "all_reduce") -> torch.Tensor:
+        """In place over 'model', counted under ``kind``; ``x`` must be
+        contiguous."""
+        self._run(kind, lambda: dist.all_reduce(x, op=op, group=self.group))
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -418,6 +418,57 @@ class SpanNorm:
         split = pair[:1].clone()
         self.mp.all_reduce(split)
         return torch.sqrt(split[0] + pair[1])
+
+
+def shared_rows(runs, lanes: int = 128) -> Tuple[Tuple[int, ...], ...]:
+    """Per bucket, the ``lanes``-wide rows of its buffer that hold
+    elements of a split leaf and of a whole one, from ``SpanNorm.runs``:
+    the rows whose int8 scale, a row's own absmax, would differ between
+    the model ranks and move the whole leaf's rounding with it."""
+    out = []
+    for bucket in runs:
+        # a row inside a stretch holds only that stretch's kind, so only
+        # a stretch's first and last rows can be shared
+        has = (set(), set())
+        for a, e, split in bucket:
+            has[split].update((a // lanes, (e - 1) // lanes))
+        out.append(tuple(sorted(has[0] & has[1])))
+    return tuple(out)
+
+
+def hash_segments(layout, global_layout, specs, mesh
+                  ) -> Tuple[Tuple[Tuple[int, int, int, int], ...], ...]:
+    """Per bucket of ``layout`` (built over this rank's shards), where its
+    leaves sit in ``global_layout`` (the same buckets over the global
+    tree): one ``(start, inner, position, stride)`` row a leaf, sorted by
+    ``start``, the table of ``kernels.quantize.HashIndex``.  A leaf split
+    along dim ``d`` into ``count`` chunks of which this rank holds chunk
+    ``k`` is ``prod(shape[:d])`` runs of ``inner`` elements, ``stride``
+    apart in the global leaf, from ``k * inner``; a whole leaf is one run.
+    The stochastic-rounding hash then reads each element at its place in
+    JAX's global bucket, so a split leaf's bits are the one-device run's
+    and a whole leaf's are the same on every model rank."""
+    spec_of = tree_leaves(specs)
+    out = []
+    for b in range(layout.n_buckets):
+        rows = []
+        for i, lo, go in zip(layout.leaves[b], layout.offsets[b],
+                             global_layout.offsets[b]):
+            shape = global_layout.shapes[i]
+            n = math.prod(layout.shapes[i])
+            chunks = _chunk(spec_of[i], mesh) if n else []
+            if len(chunks) > 1:
+                raise ValueError(f"leaf {i} is split along {len(chunks)} "
+                                 f"dims; the hash table maps one")
+            if not chunks:
+                rows.append((lo, max(n, 1), go, 0))
+                continue
+            d, k, _ = chunks[0]
+            inner = n // math.prod(shape[:d])
+            rows.append((lo, inner, go + k * inner,
+                         math.prod(shape[d:])))
+        out.append(tuple(rows))
+    return tuple(out)
 
 
 def split_leaves(specs) -> Tuple[bool, ...]:

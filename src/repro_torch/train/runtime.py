@@ -94,11 +94,18 @@ same, as the split leaves' shards are equal), the forward runs
 tensor-parallel (``sharding/tp.py``), and the clip norm is
 ``sharding.tp.SpanNorm`` over the buffers or spans.  The sharded engine's
 spans are 1/N of this rank's buckets over its 'data' line (the mesh's
-'data' group holds the model coordinate fixed, so its reduce-scatters
-and param gathers never cross model ranks).  Both flat engines run there
-in f32, on every config; the tree-state engine, the precision path, AG
-streaming, chains and the control surface refuse a model axis (ROADMAP
-item 8.2).
+'data' group holds the model coordinate fixed, so its reduce-scatters,
+param gathers and ring chains never cross model ranks).  Both flat
+engines run there on every config, with the precision path (bf16
+compute, int8 / bf16 wires, a bf16sr master), AG streaming and ring
+chains.  Every leaf kept whole stays bitwise equal across the model
+ranks: the stochastic-rounding hash reads every element at its place in
+JAX's global bucket (``sharding.tp.hash_segments``), so a whole leaf
+rounds alike on every rank and a split one as JAX's does, and an int8
+wire or param gather agrees the scale of each 128-lane row that a whole
+leaf shares with a split one over 'model' (one MAX all-reduce of the row
+maxima, ``_int8_agreement``) before it quantizes.  The tree-state engine
+and the control surface refuse a model axis (ROADMAP item 8.2).
 
 A checkpoint holds JAX's tree form of the state (``state_to_tree``):
 layout-free param and moment trees, the ``cur``/``fut`` accumulators as
@@ -128,12 +135,14 @@ from repro_torch.kernels.bucket_update import (
     init_flat_opt_state,
 )
 from repro_torch.kernels.quantize import (
+    HashIndex,
     cast_compute,
     dequantize_int8,
-    quantize_dequantize_int8,
+    int8_scales,
     quantize_int8,
     stochastic_round_bf16,
 )
+from repro_torch.kernels.quantize.ops import LANES
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.obs.trace import Tracer
 from repro_torch.optim.optimizers import (
@@ -147,13 +156,16 @@ from repro_torch.sharding.tp import (
     SpanNorm,
     gather_params,
     global_norm,
+    hash_segments,
     model_specs,
     shard_params,
+    shared_rows,
     split_leaves,
 )
 from repro_torch.train.bucketing import (
     BucketLayout,
     LayoutTransition,
+    build_bucket_layout,
     build_layout_transition,
     flatten_bucket,
     flatten_buckets,
@@ -578,8 +590,23 @@ class _PendingSwap:
     transition: Optional[LayoutTransition] = None
 
 
+Agree = Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], None]]
+
+
+def _quantize(x: torch.Tensor, impl: Optional[str], agree: Agree
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` on the blockwise int8 grid: (values, per-row scales), the
+    rows that ``agree`` names re-quantized on scales agreed across the
+    model ranks (``DeftRuntime._int8_agreement``)."""
+    q, s = quantize_int8(x, impl=impl)
+    if agree is not None:
+        agree(x, q, s)
+    return q, s
+
+
 def _wire_sync(x: torch.Tensor, wire: str, collective,
-               impl: Optional[str] = None) -> torch.Tensor:
+               impl: Optional[str] = None, agree: Agree = None
+               ) -> torch.Tensor:
     """Run a gradient-sum ``collective`` at a bucket's wire precision, the
     result landing in ``x`` (the buffer identity the generation
     bookkeeping relies on).
@@ -589,32 +616,39 @@ def _wire_sync(x: torch.Tensor, wire: str, collective,
     * ``int8`` projects the local contribution onto the blockwise int8
       grid in place and sums in f32: an int8 ring sum would overflow at
       the first hop, so this is the JAX package's value-exact emulation of
-      the quantized wire (DESIGN.md §13).
+      the quantized wire (DESIGN.md §13).  At model > 1 ``agree`` gives
+      the rows a whole leaf shares with a split one the scales of every
+      model rank's maxima, so the whole leaf stays bitwise equal across
+      the model ranks.
     """
     if wire == "bf16":
         return x.copy_(collective(x.to(torch.bfloat16)))
     if wire == "int8":
-        quantize_dequantize_int8(x, impl=impl, out=x)
+        q, s = _quantize(x, impl, agree)
+        dequantize_int8(q, s, impl=impl, out=x)
     return collective(x)
 
 
 def _wire_reduce_scatter(x: torch.Tensor, wire: str, reduce_scatter,
-                         impl: Optional[str] = None) -> torch.Tensor:
+                         impl: Optional[str] = None, agree: Agree = None
+                         ) -> torch.Tensor:
     """The shard-local half of a sharded sync at a bucket's wire
     precision: this rank's span of the ranks' sum of ``x``, as a new f32
     tensor.  An int8 wire projects ``x`` onto the grid in place first, as
-    ``_wire_sync`` does; the engine reads ``x`` after that only as the
-    target of the trailing all-gather, or not at all when the update
-    consumes the bucket."""
+    ``_wire_sync`` does (``agree`` too); the engine reads ``x`` after that
+    only as the target of the trailing all-gather, or not at all when the
+    update consumes the bucket."""
     if wire == "bf16":
         return reduce_scatter(x.to(torch.bfloat16)).float()
     if wire == "int8":
-        quantize_dequantize_int8(x, impl=impl, out=x)
+        q, s = _quantize(x, impl, agree)
+        dequantize_int8(q, s, impl=impl, out=x)
     return reduce_scatter(x)
 
 
 def _wire_gather_start(span: torch.Tensor, wire: str, start,
-                       out: torch.Tensor, impl: Optional[str] = None
+                       out: torch.Tensor, impl: Optional[str] = None,
+                       agree: Agree = None
                        ) -> Callable[[], torch.Tensor]:
     """Issue one param all-gather at a bucket's wire precision and return
     the function that waits for it and decodes it into ``out``, a full
@@ -622,7 +656,8 @@ def _wire_gather_start(span: torch.Tensor, wire: str, start,
     downstream).  ``start(x, out=None)`` issues the all-gather of ``x``
     and returns (its result buffer, a work to wait on or None).
 
-    * ``int8`` quantizes the f32 span and issues the gathers of the int8
+    * ``int8`` quantizes the f32 span (the rows ``agree`` names on scales
+      agreed across the model ranks) and issues the gathers of the int8
       values and the per-row f32 scales; the finish dequantizes the whole
       buffer.
     * ``bf16`` gathers a bf16 copy of the span and casts it to ``out``.
@@ -630,7 +665,7 @@ def _wire_gather_start(span: torch.Tensor, wire: str, start,
       cast is elementwise, so the gathered values are the same and a bf16
       forward moves half the bytes)."""
     if wire == "int8":
-        q, s = quantize_int8(span.float(), impl=impl)
+        q, s = _quantize(span.float(), impl, agree)
         (qg, wq), (sg, ws) = start(q), start(s)
 
         def finish(q=q, s=s) -> torch.Tensor:   # sources live till landed
@@ -861,15 +896,16 @@ class DeftRuntime:
                 raise ValueError("DeftRuntime takes a mesh or its 'data' / "
                                  "'pod' groups, not both")
             group, outer_group = mesh.group("data"), mesh.group("pod")
+            if outer_group is None and mesh.size("pod") > 1:
+                outer_group = dist.group.WORLD     # the pod line is the world
             joint = mesh.dp_group
         self.mesh = mesh
         self.tp = ModelParallel.of(mesh)
-        if self.tp is not None:
-            self._refuse_model_axis(
-                flat_state=flat_state,
-                compute_dtype=compute_dtype, master_dtype=master_dtype,
-                layout=layout, secondary_chain=secondary_chain,
-                decoupled=decoupled)
+        if self.tp is not None and flat_state is False:
+            raise NotImplementedError(
+                f"the tree-state engine (flat_state=False) at model "
+                f"{self.tp.size} is not ported ({PATHS_ITEM}): use a flat "
+                f"engine")
         self.flat_state = True if flat_state is None else bool(flat_state)
         sharded_flat = fsdp and self.flat_state
         if gather_skip and not sharded_flat:
@@ -947,9 +983,30 @@ class DeftRuntime:
             self._specs = model_specs(self._structure, mesh)
             self._structure = shard_params(self._structure, self._specs, mesh)
         self._check_layout(layout)
+        # per bucket, the 128-lane rows that hold elements of a split leaf
+        # and of a whole one, whose int8 scales the model ranks agree
+        # before they quantize (``_int8_agreement``): of the whole buffer
+        # and of this rank's span of it, indexed from the span's first row
+        # (None: no such row)
+        self._shared_rows: Dict[bool, List[Optional[torch.Tensor]]] = {
+            False: [None] * layout.n_buckets, True: [None] * layout.n_buckets}
+        # per bucket, where the stochastic-rounding hash reads its elements
+        # (None: at their own index): at model > 1 their places in JAX's
+        # global bucket, for the whole buffer and this rank's span of it
+        self._hash: Dict[bool, Optional[List[HashIndex]]] = {
+            False: None, True: None}
         if self.tp is not None:
+            self._hash = self._hash_indices(cfg, layout)
             self._model_norm = SpanNorm(layout, split_leaves(self._specs),
                                         self.tp)
+            rows_of = lambda r: None if not r else torch.tensor(
+                r, dtype=torch.int64, device=self.device)
+            for b, rows in enumerate(shared_rows(self._model_norm.runs)):
+                n = layout.shard_sizes[b] // LANES
+                r0 = self.dp.rank * n
+                self._shared_rows[False][b] = rows_of(rows)
+                self._shared_rows[True][b] = rows_of(
+                    [r - r0 for r in rows if r0 <= r < r0 + n])
         self.segments = (build_segments(layout, opt_spec) if self.flat_state
                          else None)
         self.gather_skip = bool(
@@ -1020,27 +1077,6 @@ class DeftRuntime:
                 "a non-f32 PrecisionPolicy needs the flat engines: the "
                 "tree-state path has no per-bucket wire edges (DESIGN.md "
                 "§13) — drop flat_state=False")
-
-    @staticmethod
-    def _refuse_model_axis(*, flat_state, compute_dtype, master_dtype,
-                           layout: BucketLayout, secondary_chain,
-                           decoupled) -> None:
-        """What a mesh with 'model' > 1 cannot run yet (ROADMAP item 8.2):
-        every engine and path but the two flat engines in f32."""
-        lp = layout.precision
-        refused = [name for name, on in (
-            ("the tree-state engine (flat_state=False)", flat_state is False),
-            ("a bf16 compute dtype",
-             compute_dtype not in (None, torch.float32)),
-            ("a bf16sr master", master_dtype == "bf16sr"
-             or layout.master_dtype == "bf16sr"),
-            ("non-f32 gradient wires", lp is not None and not lp.all_f32),
-            ("a secondary ring chain", secondary_chain is not None),
-            ("AG streaming (decoupled)", decoupled)) if on]
-        if refused:
-            raise NotImplementedError(
-                f"the 'model' axis runs the flat engines in f32; "
-                f"{', '.join(refused)} over it is not ported ({PATHS_ITEM})")
 
     def _single_model(self, what: str) -> None:
         """Refuse ``what`` at model > 1 (ROADMAP item 8.2)."""
@@ -1228,7 +1264,8 @@ class DeftRuntime:
         """Train state whose param buffers hold ``params`` (a tree),
         promoted into the f32 master; a bf16sr master is then rounded
         down bucket by bucket by the stochastic-rounding kernel, with seed
-        b + 1 as JAX's ``_round_master``, over the whole buffer.  The
+        b + 1 as JAX's ``_round_master``, over the whole buffer (at model
+        > 1 each element hashed at its place in JAX's global bucket).  The
         sharded engine keeps this rank's span of each rounded buffer and
         allocates its moments at span length (1/N residency); ``cur``,
         ``fut`` and the gradient buffers are full length on every rank.
@@ -1246,8 +1283,10 @@ class DeftRuntime:
         for b in range(layout.n_buckets):
             buf = flatten_bucket(layout, leaves, b)
             if self.master_dtype == "bf16sr":
-                buf = stochastic_round_bf16(buf, b + 1,
-                                            impl=self.quantize_impl)
+                buf = stochastic_round_bf16(
+                    buf, b + 1, impl=self.quantize_impl,
+                    index=None if self._hash[False] is None
+                    else self._hash[False][b])
             if self.fsdp:
                 span = layout.shard_sizes[b]
                 buf = buf[self.dp.rank * span:(self.dp.rank + 1) * span].clone()
@@ -1992,6 +2031,52 @@ class DeftRuntime:
         if self._reuse_of_step[off]:
             tr.instant("gather-skip", "gather-skip", t=t0, step=i, phase=off)
 
+    def _hash_indices(self, cfg: ArchConfig, layout: BucketLayout
+                      ) -> Dict[bool, Optional[List[HashIndex]]]:
+        """The stochastic-rounding hash's positions at model > 1: every
+        element at its place in the global bucket that JAX's run lays out
+        (the same buckets over the global tree, padded for the same
+        shards), for a whole bucket and, on the sharded engine, for this
+        rank's span of it (from its first element's place, modulo JAX's
+        span length, as JAX's engine hashes its own spans)."""
+        glob = build_bucket_layout(init_params(cfg, device="meta"),
+                                   layout.bucket_of_leaf, layout.n_buckets,
+                                   shard_count=layout.shards)
+        tables = [torch.tensor(t, dtype=torch.int64, device=self.device)
+                  for t in hash_segments(layout, glob, self._specs,
+                                         self.mesh)]
+        spans = [HashIndex(t, base=self.dp.rank * layout.shard_sizes[b],
+                           modulus=glob.shard_sizes[b])
+                 for b, t in enumerate(tables)] if self.fsdp else None
+        return {False: [HashIndex(t) for t in tables], True: spans}
+
+    def _int8_agreement(self, b: int, span: bool = False) -> Agree:
+        """At model > 1, where bucket ``b`` (or with ``span`` this rank's
+        span of it on the sharded engine) holds rows that a whole leaf
+        shares with a split one: the function that gives those rows of a
+        quantized ``(q, s)`` of the buffer ``x`` the scales of every model
+        rank's row maxima (one MAX all-reduce over 'model' of one f32 a
+        row) and re-quantizes them on those (``quantize_int8(scale=)``).
+        A split leaf's values differ between the model ranks, so a row's
+        own maximum would; the whole leaf's elements of the row would then
+        round differently on each, and the replicas of the leaf part.
+        Every other row keeps its own scale.  None where no such row falls
+        in the buffer."""
+        rows = self._shared_rows[span][b]
+        if rows is None:
+            return None
+        tp, impl = self.tp, self.quantize_impl
+
+        def agree(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
+            xm = x.view(-1, LANES).index_select(0, rows)
+            top = torch.amax(torch.abs(xm), dim=1)
+            tp.all_reduce(top, dist.ReduceOp.MAX, kind="int8_scales")
+            sm = int8_scales(top)
+            qm, _ = quantize_int8(xm.reshape(-1), impl=impl, scale=sm)
+            q.view(-1, LANES).index_copy_(0, rows, qm.view(-1, LANES))
+            s.index_copy_(0, rows, sm)
+        return agree
+
     def _count_wire(self, phase: PhaseSpec, b: int, x: torch.Tensor) -> None:
         """Add one sync of bucket ``b``'s buffer ``x`` to this step's
         bytes on its link."""
@@ -2046,7 +2131,8 @@ class DeftRuntime:
         def sync(x: torch.Tensor, b: int) -> torch.Tensor:
             self._count_wire(phase, b, x)
             coll = self.dp.secondary if phase.secondary[b] else self.dp.primary
-            return _wire_sync(x, layout.wire(b), coll, self.quantize_impl)
+            return _wire_sync(x, layout.wire(b), coll, self.quantize_impl,
+                              self._int8_agreement(b))
 
         g_flat = list(state["gbuf"])
         cur_synced_in = list(state["cur"])
@@ -2063,7 +2149,7 @@ class DeftRuntime:
                 zero_grads=zero_grads, impl=self.update_impl,
                 master_dtype=self.master_dtype,
                 quantize_impl=self.quantize_impl,
-                model_norm=self._model_norm)
+                model_norm=self._model_norm, sr_index=self._hash[False])
             if phase.update_source == "cur" and gen is not None:
                 new_cur, dead = gen, cur_synced
             elif phase.update_source == "cur":       # src zeroed in place
@@ -2168,8 +2254,10 @@ class DeftRuntime:
                 if self.decoupled and not ag_links[b]:
                     return dp.all_gather(x, o, "param_gather", async_op=True)
                 return dp.all_gather(x, o, "param_gather", ag_links[b]), None
-            return _wire_gather_start(state["pbuf"][b], layout.wire(b),
-                                      gather, out, self.quantize_impl)
+            return _wire_gather_start(
+                state["pbuf"][b], layout.wire(b), gather, out,
+                self.quantize_impl,
+                self._int8_agreement(b, span=True))
 
         if self.decoupled:
             params = ParamStream(
@@ -2193,7 +2281,7 @@ class DeftRuntime:
             return _wire_reduce_scatter(
                 x, layout.wire(b),
                 lambda v: dp.reduce_scatter(v, on_chain[b]),
-                self.quantize_impl)
+                self.quantize_impl, self._int8_agreement(b))
 
         consumed_new = phase.do_update and phase.update_source == "new"
         consumed_cur = phase.do_update and phase.update_source == "cur"
@@ -2240,7 +2328,7 @@ class DeftRuntime:
                 norm_psum=dp.norm if self.opt_spec.grad_clip else None,
                 master_dtype=self.master_dtype,
                 quantize_impl=self.quantize_impl,
-                model_norm=self._model_norm)
+                model_norm=self._model_norm, sr_index=self._hash[True])
             del src_sh
             if consumed_cur and gen is not None:
                 new_cur, dead = gen, cur

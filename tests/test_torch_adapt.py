@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro.adapt import AdaptConfig as JAdaptConfig
 from repro.adapt import AdaptiveController as JController

@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.launch.mesh import link_chains as jax_link_chains
 from repro.launch.mesh import ring_chain as jax_ring_chain
 from repro.train.chains import chain_perm as jax_chain_perm

@@ -50,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro.checkpoint import checkpoint as jckpt
 from repro.core.preserver import WalkParams as JWalk

@@ -37,6 +37,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.preserver import WalkParams
 from repro_torch.core.profiler import HardwareModel

@@ -47,6 +47,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro_torch.checkpoint import restore, save, schedule_digest
 from repro_torch.checkpoint.checkpoint import load_arrays

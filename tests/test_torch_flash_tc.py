@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.kernels.flash_attention.flash import flash_global, flash_local
 from repro_torch.kernels.flash_attention import flash_fwd_plain
 from repro_torch.kernels.flash_attention.ops import bf16_reads_unpadded

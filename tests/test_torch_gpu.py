@@ -8,7 +8,8 @@ with only PyTorch and the CUDA toolkit:
 
 Tolerances: flash attention 1e-4 absolute and relative on out, lse and
 the autograd gradients (f32 inputs: split-TF32 products, about 2^-22
-relative, summed in another order than the plain version's matmuls), its
+relative, summed in another order than the plain version's matmuls; the
+bf16 kernel also at a model-2 rank's gemma2 shape), its
 f32 split pass bitwise (rounding and data movement only); on bf16 inputs lse keeps 1e-4, out (bf16)
 rtol 2**-7 (one bf16 rounding step) and the gradients rtol 1.6e-2 with
 atol max|g| / 128 (the plain backward reads the kernel's rounded output);
@@ -16,7 +17,9 @@ the bf16 kernel at MLA's 192 / 128 and at 48 / 32 zero-padded to 64 / 32
 under the same bf16 limits, and a bf16 q over f32 K/V launching the f32
 kernel (jnp's promotion); the bucket update (on whole buffers, and on the four spans of a sharded
 layout reassembled against the full-buffer apply), the three quantize
-kernels and the two RG-LRU scan kernels bitwise (each rounds every operation separately, as the plain
+kernels (the int8 quantize also on supplied scales, the rounding also
+hashed at a ``HashIndex``'s positions) and the two RG-LRU scan kernels
+bitwise (each rounds every operation separately, as the plain
 version's elementwise kernels do, and the hash is integer arithmetic); the
 RWKV-6 WKV forward and backward max |diff| / max |plain| <= 1e-4 on o and
 every gradient (f32 on both sides, another summation order inside the small
@@ -45,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro_torch.kernels.bucket_update import (
     apply_bucket_updates,
     bucket_update_cuda,
@@ -64,8 +68,10 @@ from repro_torch.kernels.flash_attention.ops import (
     split_buffer,
 )
 from repro_torch.kernels.quantize import (
+    HashIndex,
     dequantize_int8_cuda,
     dequantize_int8_plain,
+    int8_scales,
     quantize_int8_cuda,
     quantize_int8_plain,
     stochastic_round_bf16_cuda,
@@ -560,6 +566,68 @@ def test_quantize_kernels_bitwise(padded, n_valid):
         b = stochastic_round_bf16_plain(x, seed, n_valid)
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padded,n_valid", [(128, 128), (1280, 1000),
+                                            (4096, 4096), (4096, 1)])
+def test_quantize_on_supplied_scales_and_hashed_positions_bitwise(
+        padded, n_valid):
+    """The int8 quantize on supplied scales (each row's own raised by a
+    quarter, and the kernel's own scales, which give its own grid), and the
+    stochastic rounding hashed at a ``HashIndex``'s positions (a whole run,
+    a leaf of 3 runs of 40 strided 96 apart, from a base, modulo 1000),
+    bitwise their plain versions."""
+    _need_card()
+    x = _hostile(padded, n_valid, padded + n_valid + 1)
+    q0, s0 = quantize_int8_cuda(x, n_valid)
+    rows = padded // 128
+    xs = torch.where(torch.arange(padded, device="cuda") < n_valid, x, 0.0)
+    for scale in (s0.clone(), int8_scales(
+            xs.view(rows, 128).abs().amax(1) * 1.25)):
+        q, s = quantize_int8_cuda(x, n_valid, scale)
+        q2, s2 = quantize_int8_plain(x, n_valid, scale)
+        torch.cuda.synchronize()
+        assert s is scale and torch.equal(q, q2) and torch.equal(s2, scale)
+    q, _ = quantize_int8_cuda(x, n_valid, s0.clone())
+    assert torch.equal(q, q0)
+    table = torch.tensor([[0, 50, 7, 0], [50, 40, 3000, 96],
+                          [170, 10 ** 6, 90, 0]], dtype=torch.int64,
+                         device="cuda")
+    for index in (HashIndex(table), HashIndex(table, base=30, modulus=1000)):
+        for seed in (0, 2**32 - 1):
+            a = stochastic_round_bf16_cuda(x, seed, n_valid, index=index)
+            b = stochastic_round_bf16_plain(x, seed, n_valid, index)
+            torch.cuda.synchronize()
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 4096], ids=["global", "local"])
+def test_flash_kernel_bf16_at_a_model_two_rank_shape(window):
+    """gemma2-2b's attention on one of two model ranks (tp_path's precision
+    cuts): [1, 8192], 4 heads over 2 of 256, softcap 50, under the bf16
+    limits, with the gradients."""
+    _need_card()
+    q, k, v = (x.bfloat16() for x in _qkv(9, 1, 8192, 4, 2, 256))
+    kw = dict(causal=True, window=window, softcap=50.0)
+    out, lse = flash_fwd_cuda(q, k, v, **kw)
+    ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_OUT_RTOL,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    del out, lse, ref, ref_lse
+    w = torch.randn(q.shape, device="cuda")
+    grads = []
+    for impl in ("cuda", "plain"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.sum(flash_attention(*xs, impl=impl, **kw).float() * w).backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=BF16_GRAD_RTOL,
+            atol=b.float().abs().max().item() / 128)
 
 
 @pytest.mark.gpu

@@ -9,6 +9,8 @@ from pathlib import Path
 
 import pytest
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.kernels.bucket_update import bucket_update_pallas, bucket_update_ref
 from repro.kernels.bucket_update import pack_scalars as jax_pack_scalars
 from repro.kernels.flash_attention.flash import (

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.kernels.flash_attention import attention_reference
 from repro.kernels.flash_attention.flash import flash_global

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.data.pipeline import make_batch
 from repro.models.model import init_params as jax_init_params

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config as t_get_config

@@ -38,6 +38,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro.core.precision import PrecisionPolicy as JPolicy
 from repro.obs import Tracer as JTracer

@@ -17,6 +17,7 @@ from pathlib import Path
 import jax
 import pytest
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import ARCH_NAMES, SHAPES, config_for_shape, get_config
 from repro.configs import reduce_for_smoke
 from repro.core.deft import Planner as JPlanner

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.kernels.bucket_update import apply_bucket_updates as jax_apply
 from repro.kernels.bucket_update import build_segments as jax_segments
@@ -55,6 +56,7 @@ from repro_torch.kernels.quantize import (
     cast_compute,
     dequantize_int8,
     dequantize_int8_cuda,
+    int8_scales,
     quantize_dequantize_int8,
     quantize_int8,
     quantize_int8_cuda,
@@ -100,10 +102,35 @@ def _assert_bf16_equal(got, want):
 SIZES = [(128, 128), (1280, 1000), (4096, 4096), (4096, 1), (1280, 0)]
 
 
-@pytest.mark.parametrize("padded,n_valid", SIZES)
-def test_int8_quantize_dequantize_bitwise_vs_jax(padded, n_valid):
+@pytest.mark.parametrize(
+    "padded,n_valid,supplied",
+    [(p, n, False) for p, n in SIZES] + [(p, n, True) for p, n in SIZES],
+    ids=[f"{p}-{n}" for p, n in SIZES]
+    + [f"{p}-{n}-supplied_scale" for p, n in SIZES])
+def test_int8_quantize_dequantize_bitwise_vs_jax(padded, n_valid, supplied):
+    """Bitwise JAX's ref and Pallas interpret.  ``supplied``: the scales
+    given to ``quantize_int8`` (``scale=``, as ranks that agreed them pass
+    them): JAX's own scales give JAX's grid bitwise, and scales of larger
+    row maxima the rows rounded on those (numpy's ``rint`` of the
+    quotient, clipped, the tail zero)."""
     x = _hostile(padded, n_valid, seed=padded + n_valid)
     tq, ts = quantize_int8(torch.from_numpy(x), n_valid)
+    if supplied:
+        own = ts.clone()
+        tq, ts = quantize_int8(torch.from_numpy(x), n_valid, scale=own)
+        assert ts is own
+        rows = padded // 128
+        big = int8_scales(torch.from_numpy(
+            np.abs(_hostile(padded, padded, seed=7, scale=9.0))
+            .reshape(rows, 128).max(axis=1)))
+        gq, gs = quantize_int8(torch.from_numpy(x), n_valid, scale=big)
+        xs = np.where(np.arange(padded) < n_valid, x, 0.0).reshape(rows, 128)
+        with np.errstate(invalid="ignore"):
+            want = np.clip(np.rint(xs / big.numpy()[:, None]), -127, 127)
+        want = np.nan_to_num(want, nan=0.0).astype(np.int8).reshape(-1)
+        assert gs is big and np.array_equal(gq.numpy(), want)
+        with pytest.raises(ValueError):
+            quantize_int8(torch.from_numpy(x), n_valid, scale=big[1:])
     td = dequantize_int8(tq, ts, n_valid)
     assert tq.dtype == torch.int8 and ts.shape == (padded // 128,)
     for impl in JAX_IMPLS:

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.kernels.rglru import rglru_scan as jax_rglru_scan
 from repro.kernels.rglru import rglru_scan_pallas, rglru_scan_reference
 from repro_torch.kernels.rglru import (

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.data.pipeline import make_batch
 from repro.launch.train import build_schedule as jax_build_schedule

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.kernels.rwkv6 import rwkv6_mix as jax_rwkv6_mix
 from repro.kernels.rwkv6 import rwkv6_pallas, rwkv6_reference
 from repro.kernels.rwkv6.ops import _chunked_jnp

@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.kernels.flash_attention.ref import attention_reference as jax_ref
 from repro.models import attention as jattn

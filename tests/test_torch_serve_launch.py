@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.serve.steps import (
     decode_serve_step,

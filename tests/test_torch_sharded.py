@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro.configs import get_config, reduce_for_smoke
 from repro.core.precision import PrecisionPolicy as JaxPrecisionPolicy
 from repro.data.pipeline import make_batch

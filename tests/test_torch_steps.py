@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro.optim.optimizers import adamw as jax_adamw
 from repro.optim.optimizers import apply_updates as jax_apply_updates

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro_torch.core.bucket import BucketTimes
 from repro_torch.core.deft import feedback_solve

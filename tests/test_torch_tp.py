@@ -11,9 +11,10 @@
   vocab-parallel cross entropy behind gemma2's final softcap through
   ``chunked_ce`` within 1e-6 of the unsplit ``chunked_ce`` and of JAX's,
   its gradients within 1e-6, and a float64 gradcheck of it; the
-  refusals at model 2 naming ROADMAP item 8.2, and the three FSDP archs
-  (MLA, MoE, the VLM's gated cross block) constructed at model 2 on both
-  flat engines and on DDP.
+  refusals at model 2 naming ROADMAP item 8.2 (the tree-state engine and
+  the control surface), and the precision path, streaming, chains and the
+  three FSDP archs (MLA, MoE, the VLM's gated cross block) constructed at
+  model 2 on both flat engines and on DDP.
 * (c) One spawn of 4 gloo ranks runs the replicated flat ``DeftRuntime``
   over a mesh for two periods, then one DDP step from the same params, at
   qwen3-tiny (data 2, model 2), qwen3-tiny (data 1, model 4), where the
@@ -47,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs import get_config as t_get_config
@@ -471,20 +473,23 @@ def test_vocab_parallel_ce_matches_chunked_ce(functions):
 
 
 def test_model_axis_refusals(functions):
-    """The engines and paths of ROADMAP item 8.2 refuse model 2, each
-    naming the item: the tree-state engine, a bf16 compute dtype, a bf16sr
-    master, non-f32 wires, a chain, AG streaming, a checkpoint save, a
-    swap and a spawn.  The three FSDP archs, refused here until MLA's
-    heads, MoE's experts and the VLM's gated cross block ran over 'model'
-    (item 8.1), construct at model 2 on both flat engines and on DDP; they
-    are held to JAX in ``tests/test_torch_tp_fsdp.py``, as
-    recurrentgemma-9b, rwkv6-1.6b and seamless-m4t-large-v2 are in
-    ``tests/test_torch_tp_families.py``."""
+    """The engines and paths of ROADMAP item 8.2 still refuse model 2, each
+    naming the item: the tree-state engine, a checkpoint save, a swap and a
+    spawn.  A bf16 compute dtype, a bf16sr master, non-f32 wires, a chain
+    and AG streaming, refused here until the precision path, streaming and
+    chains ran over 'model', now construct at model 2; they are held to JAX
+    and to model 1 in ``tests/test_torch_tp_precision.py``.  The three
+    FSDP archs, refused here until MLA's heads, MoE's experts and the VLM's
+    gated cross block ran over 'model' (item 8.1), construct at model 2 on
+    both flat engines and on DDP; they are held to JAX in
+    ``tests/test_torch_tp_fsdp.py``, as recurrentgemma-9b, rwkv6-1.6b and
+    seamless-m4t-large-v2 are in ``tests/test_torch_tp_families.py``."""
     runs, _ = functions
     got = runs[0]["refusals"]
-    for key in ("tree", "bf16", "bf16sr", "wires", "chain", "decoupled",
-                "state_to_tree", "prepare_swap", "spawn"):
+    for key in ("tree", "state_to_tree", "prepare_swap", "spawn"):
         assert got[key] is not None and "ROADMAP item 8.2" in got[key], key
+    for key in ("bf16", "bf16sr", "wires", "chain", "decoupled"):
+        assert got[key] is None, (key, got[key])
     for arch in FSDP_FAMILIES:
         for engine in ("fsdp=True", "fsdp=False", "ddp"):
             assert got[f"{arch} {engine}"] is None, (arch, engine)

@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduce_for_smoke as t_reduce
 from repro_torch.convert import params_from_numpy, params_to_numpy

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one CPU thread a test process)
 import _torch_tiny as T
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.precision import PrecisionPolicy
